@@ -1,0 +1,563 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port `leod_tpu_torch` on one NVIDIA card.
+
+    python3 chip_smoke.py          # from the repository root, one card
+
+1. Build: every CUDA source under leod_tpu_torch/csrc/ is compiled with
+   nvcc for sm_90a, one nvcc per source, all started together.
+2. Kernel phase: each kernel's wrapper against its plain PyTorch version
+   on the card, on the same inputs, at the RVT-B Gen1 shapes the serving
+   path gives it (B = 8 slots): the partition-attention block pair and
+   the whole stage at all four stage shapes, from warm non-zero (h, c),
+   and the NMS keep mask at K = 1000. Timed with CUDA events (median of
+   20 runs after warm-up).
+3. Slice phase: a seeded RVT-B Gen1 `Detector` behind `ServingEngine`
+   answers requests from client threads, one of which forces an LRU
+   eviction. Every kernel's launch count must rise by what the path
+   implies per step. One step through the plain versions is held
+   against the kernel step, and the step is timed at B = 1 and B = 8.
+
+Tolerances, fixed before any run: the kernels compute in bf16 with fp32
+accumulation and round at other points than the plain bf16 version
+(which rounds every op's output), so an output may differ by a few bf16
+ulps of the largest value: |kernel - plain| <= 2^-5 * max|plain| per
+tensor. The slice compounds that through four stages, the FPN and the
+head, and the box decode's exp turns absolute into relative error:
+2^-4 * max|plain| per tensor. The NMS keep mask must match exactly.
+All comparisons are in bf16 or in fp32 elementwise arithmetic; TF32 is
+switched off for the fp32 products of the plain ConvLSTM update.
+
+4. Profile: torch.profiler over a few serve steps at B = 1 and B = 8:
+   the device-busy time per step, its idle share against the
+   unprofiled step time, and the kernels by device time.
+
+Prints the kernels' JSON line, the card's name and power limit, and the
+result JSON as the last line. Any failure exits non-zero; so does a
+machine without a CUDA device, or a directory without the package.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import threading
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+B = 8                       # serving slots
+PEAK_BF16 = 989e12          # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_FP32 = 67e12           # H100 SXM fp32 FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bytes/s
+KERNEL_TOL = 2.0 ** -5
+SLICE_TOL = 2.0 ** -4
+REPS = 20
+PROFILE_STEPS = 10
+PORT_KERNELS = ("block_attention_kernel", "block_mlp_kernel",
+                "lstm_update_kernel", "nms_mask_kernel")
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
+    """Median device time of fn() in ms, one CUDA-event pair per run."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
+    """Median host time of fn() + synchronize, in ms."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def bound(flops: float, nbytes: float, peak_ops: float):
+    t_ops, t_bytes = flops / peak_ops, nbytes / PEAK_BYTES
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def compare(got, want, rel_tol: float):
+    """(max |got - want|, tolerance, ok) for one tensor."""
+    got, want = got.float(), want.float()
+    if not bool(got.isfinite().all()):
+        return float("inf"), 0.0, False
+    err = float((got - want).abs().max())
+    tol = rel_tol * float(want.abs().max())
+    return err, tol, err <= tol
+
+
+# ---------------------------------------------------------------------------
+# Work counts of the kernels (for the bound), from the modules' shapes
+# ---------------------------------------------------------------------------
+
+def _block_work(blk, n_tok: int):
+    """(bf16 tensor-core FLOPs, weight bytes) of one PartitionAttention
+    block over n_tok tokens: qkv, q k^T and p v, proj, the two MLP
+    layers."""
+    c = blk.dim
+    t = blk.partition_size[0] * blk.partition_size[1]
+    flops = 2 * n_tok * c * 3 * c + 2 * 2 * n_tok * t * c + 2 * n_tok * c * c
+    flops += 2 * n_tok * c * blk.mlp.proj_in.out_features
+    flops += 2 * n_tok * blk.mlp.proj_out.in_features * c
+    wbytes = sum(p.numel() * p.element_size() for p in blk.parameters())
+    return flops, wbytes
+
+
+def pair_work(pair, x):
+    n_tok = x.shape[0] * x.shape[1] * x.shape[2]
+    flops = wbytes = 0
+    for blk in pair:
+        f, w = _block_work(blk, n_tok)
+        flops += f
+        wbytes += w
+    return flops, wbytes + 2 * x.numel() * x.element_size()
+
+
+def stage_work(pairs, gates, x, c_state):
+    flops = wbytes = 0
+    for pair in pairs:
+        f, w = pair_work(pair, x)
+        flops += f
+        wbytes += w - 2 * x.numel() * x.element_size()
+    n_tok = x.shape[0] * x.shape[1] * x.shape[2]
+    c = x.shape[-1]
+    flops += 2 * n_tok * 2 * c * 4 * c
+    wbytes += sum(p.numel() * p.element_size() for p in gates.parameters())
+    # x, h in and h' out in x's dtype; c in and c' out in c's dtype
+    io = 3 * x.numel() * x.element_size() + 2 * c_state.numel() * \
+        c_state.element_size()
+    return flops, wbytes + io
+
+
+# ---------------------------------------------------------------------------
+# Phases
+# ---------------------------------------------------------------------------
+
+def phase_build():
+    from leod_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    paths = _build.build_all()
+    dt = time.perf_counter() - t0
+    for p in paths:
+        with open(p + ".log") as f:
+            report = [ln.strip() for ln in f if "ptxas info" in ln
+                      and ("Used" in ln or "spill" in ln
+                           or "Compiling entry" in ln)]
+        emit({"build": os.path.relpath(p, REPO), "ptxas": report})
+    emit({"build_seconds": round(dt, 3)})
+
+
+def perturb_layerscale(det, seed: int) -> None:
+    """LayerScale at its init (1e-5) would make every attention block
+    nearly the identity; seeded values in [0.1, 0.5] make the blocks'
+    branches count in every comparison."""
+    import torch
+    from leod_tpu_torch.models.layers import PartitionAttention
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in det.modules():
+            if isinstance(m, PartitionAttention) and m.ls1 is not None:
+                for p in (m.ls1, m.ls2):
+                    p.copy_(torch.rand(p.shape, generator=g) * 0.4 + 0.1)
+
+
+def phase_kernels(det):
+    import torch
+    from leod_tpu_torch.ops import maxvit_cuda as mc
+    from leod_tpu_torch.ops import nms_cuda
+    from leod_tpu_torch.ops.nms import nms_mask as nms_plain
+
+    bb = det.cfg.backbone
+    ps = bb.partition_size
+    kw = dict(dim_head=bb.dim_head, act=bb.mlp_act, gated=bb.mlp_gated,
+              eps=bb.norm_eps)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    h_in, w_in = bb.in_res_hw
+    rows = {"fused_block_pair": [], "fused_stage": []}
+    for k, (dim, stride) in enumerate(zip(bb.stage_dims, bb.stage_strides)):
+        stage = getattr(det.backbone, f"stage{k + 1}")
+        shape = (B, h_in // stride, w_in // stride, dim)
+        x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+        hs = (torch.randn(shape, device="cuda", generator=g) * 0.5
+              ).to(torch.bfloat16)
+        cs = (torch.randn(shape, device="cuda", generator=g) * 0.5
+              ).to(torch.bfloat16)
+        pairs = stage.pairs()
+        wb, gb = pairs[0]
+
+        def pair_k():
+            return mc.fused_block_pair(x, wb, gb, ps, True, **kw)
+
+        def pair_p():
+            return mc.fused_block_pair_plain(x, wb, gb, ps)
+
+        err, tol, ok = compare(pair_k(), pair_p(), KERNEL_TOL)
+        torch.cuda.synchronize()
+        flops, nbytes = pair_work(pairs[0], x)
+        bms, by = bound(flops, nbytes, PEAK_BF16)
+        rows["fused_block_pair"].append(dict(
+            shape=list(shape), max_abs_err=err, tol=tol, ok=ok,
+            ms=cuda_ms(pair_k), plain_ms=cuda_ms(pair_p), flops=flops,
+            bytes=nbytes, bound_ms=bms, bound_by=by))
+
+        def stage_k():
+            return mc.fused_stage(x, hs, cs, pairs, stage.lstm.gates, ps,
+                                  True, **kw)
+
+        def stage_p():
+            return mc.fused_stage_plain(x, hs, cs, pairs, stage.lstm.gates,
+                                        ps)
+
+        (hk, ck), (hp, cp) = stage_k(), stage_p()
+        torch.cuda.synchronize()
+        e1, t1, ok1 = compare(hk, hp, KERNEL_TOL)
+        e2, t2, ok2 = compare(ck, cp, KERNEL_TOL)
+        err, tol = (e1, t1) if e1 / max(t1, 1e-30) >= e2 / max(t2, 1e-30) \
+            else (e2, t2)
+        flops, nbytes = stage_work(pairs, stage.lstm.gates, x, cs)
+        bms, by = bound(flops, nbytes, PEAK_BF16)
+        rows["fused_stage"].append(dict(
+            shape=list(shape), max_abs_err=err, tol=tol, ok=ok1 and ok2,
+            ms=cuda_ms(stage_k), plain_ms=cuda_ms(stage_p), flops=flops,
+            bytes=nbytes, bound_ms=bms, bound_by=by))
+
+    # K3: B images of K = 1000 score-sorted boxes, two classes
+    kk = det.cfg.postprocess.pre_nms_topk
+    gc = torch.Generator().manual_seed(2)
+    ctr = torch.rand(B, kk, 2, generator=gc) * torch.tensor([w_in, h_in])
+    wh = torch.rand(B, kk, 2, generator=gc) * 70 + 6
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1).cuda()
+    valid = (torch.rand(B, kk, generator=gc) > 0.05).cuda()
+    ids = torch.randint(0, 2, (B, kk), generator=gc).float().cuda()
+    thr = det.cfg.postprocess.nms_threshold
+
+    def nms_k():
+        return nms_cuda.nms_mask(boxes, thr, valid, ids)
+
+    def nms_p():
+        return nms_plain(boxes, thr, valid, ids)
+
+    keep_k, keep_p = nms_k(), nms_p()
+    torch.cuda.synchronize()
+    mismatches = int((keep_k != keep_p).sum())
+    # per image: K (K-1) / 2 IoU tests of ~13 fp32 operations each
+    ops = B * kk * (kk - 1) / 2 * 13
+    nbytes = B * kk * (16 + 1 + 4 + 1)
+    bms, by = bound(ops, nbytes, PEAK_FP32)
+    nms_row = dict(shape=[B, kk, 4], max_abs_err=float(mismatches), tol=0.0,
+                   ok=mismatches == 0, kept=int(keep_p.sum()),
+                   ms=cuda_ms(nms_k), plain_ms=cuda_ms(nms_p), flops=ops,
+                   bytes=nbytes, bound_ms=bms, bound_by=by)
+    return rows, nms_row
+
+
+def _summary(name, replaces, source, shape_rows, launches, peak_ops):
+    """One kernel's entry: times, work and bound summed over the shapes
+    one serve step gives it; the worst error relative to its tolerance."""
+    worst = max(shape_rows, key=lambda r: r["max_abs_err"] / max(r["tol"],
+                                                                 1e-30))
+    tot = {k: sum(r[k] for r in shape_rows)
+           for k in ("ms", "plain_ms", "flops", "bytes")}
+    bms, by = bound(tot["flops"], tot["bytes"], peak_ops)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": worst["max_abs_err"], "tol": worst["tol"],
+            "ms": tot["ms"], "kernel_ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": bms,
+            "bound_by": by, "flops": tot["flops"], "bytes": tot["bytes"],
+            "library_ms": None, "ok": all(r["ok"] for r in shape_rows),
+            "per_shape": shape_rows}
+
+
+def frames(rng, n, shape):
+    """Sparse uint8 event-count frames (Poisson, mean 0.3 per bin)."""
+    import numpy as np
+    return [np.minimum(rng.poisson(0.3, shape), 255).astype(np.uint8)
+            for _ in range(n)]
+
+
+def phase_slice(det, cfg):
+    import numpy as np
+    import torch
+    from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
+    from leod_tpu_torch.serve import (ServingEngine, make_serve_step,
+                                      serve_input_shape)
+
+    wrappers = maxvit_cuda.WRAPPERS + nms_cuda.WRAPPERS
+    n_pairs = sum(cfg.model.backbone.num_blocks)
+    n_stages = len(cfg.model.backbone.num_blocks)
+    per_step = {"fused_block_pair": n_pairs, "fused_stage": n_stages,
+                "nms_mask": 1}
+    shape = serve_input_shape(cfg, B)[1:]
+    step = make_serve_step(det, conf_threshold=0.0)
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    ones = torch.ones(B, dtype=torch.bool, device=dev)
+    # warm up (cuDNN picks its algorithms) before counting
+    step(det.init_states(B), torch.from_numpy(np.stack(
+        frames(rng, B, shape))).to(dev), ones, ones)
+    torch.cuda.synchronize()
+    engine = ServingEngine(step, det.init_states(B), shape, device="cuda")
+    answers, errors = [], []
+
+    def client(sid, n, seed):
+        try:
+            for fr in frames(np.random.default_rng(seed), n, shape):
+                answers.append((sid, engine.detect(sid, fr, timeout=300)))
+        except Exception as e:  # reported below, fails the run
+            errors.append(f"{sid}: {e!r}")
+
+    def run_clients(specs):
+        ts = [threading.Thread(target=client, args=s) for s in specs]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in ts):
+            fail("a client thread did not finish")
+
+    for w in wrappers:
+        w.launches = 0
+    run_clients([(f"s{i}", 4, i) for i in range(3)])     # 3 streams x 4
+    run_clients([(f"s{i}", 1, i) for i in range(3, 8)])  # 8 resident
+    run_clients([("s8", 1, 8)])                          # evicts the LRU one
+    launches = {w.__name__: w.launches for w in wrappers}
+    stats = engine.stats()
+    engine.close()
+    if errors:
+        fail(f"requests failed: {errors}")
+    steps = stats["steps"]
+    for name, per in per_step.items():
+        if launches[name] != per * steps or launches[name] == 0:
+            fail(f"{name} launched {launches[name]} times in {steps} steps; "
+                 f"the path implies {per} a step")
+    if len(answers) != 3 * 4 + 5 + 1 or stats["streams"] != B:
+        fail(f"{len(answers)} answers, {stats['streams']} resident streams")
+    for sid, a in answers:
+        if a.ndim != 2 or a.shape[1] != 7 or not np.isfinite(a).all() \
+                or a.shape[0] > cfg.model.postprocess.max_dets:
+            fail(f"answer for {sid}: shape {a.shape}, finite "
+                 f"{np.isfinite(a).all()}")
+
+    # one step through the plain versions against the kernel step, from
+    # warm states, with some rows reset and some idle
+    states = det.init_states(B)
+    for fr in (frames(rng, B, shape), frames(rng, B, shape)):
+        ev = torch.from_numpy(np.stack(fr)).to(dev)
+        states, _, _ = step(states, ev, ones, ones)
+    ev = torch.from_numpy(np.stack(frames(rng, B, shape))).to(dev)
+    reset = torch.tensor([i % 4 == 0 for i in range(B)], device=dev)
+    active = torch.tensor([i % 3 != 2 for i in range(B)], device=dev)
+    from leod_tpu_torch.models.backbone import reset_states
+    st0 = reset_states(states, reset)
+    out = {}
+    for plain in (False, True):
+        feats, new = det.forward_backbone(ev, st0, plain=plain)
+        preds, _ = det.forward_detect(feats)
+        out[plain] = (new, preds)
+    torch.cuda.synchronize()
+    worst = 0.0
+    pairs = [(f"h{k + 1}", a[0], b[0]) for k, (a, b)
+             in enumerate(zip(out[False][0], out[True][0]))]
+    pairs += [(f"c{k + 1}", a[1], b[1]) for k, (a, b)
+              in enumerate(zip(out[False][0], out[True][0]))]
+    pk, pp = out[False][1], out[True][1]
+    pairs += [("pred_xy", pk[..., :2], pp[..., :2]),
+              ("pred_wh", pk[..., 2:4], pp[..., 2:4]),
+              ("pred_scores", pk[..., 4:], pp[..., 4:])]
+    parity = {}
+    for name, a, b in pairs:
+        err, tol, ok = compare(a, b, SLICE_TOL)
+        parity[name] = [err, tol]
+        if not ok:
+            fail(f"slice parity {name}: |kernel - plain| {err} > {tol}")
+        worst = max(worst, err / tol if tol else 0.0)
+    k_step = step(st0, ev, reset, active)
+    plain_step = make_serve_step(det, conf_threshold=0.0, plain=True)
+    p_step = plain_step(st0, ev, reset, active)
+    for (hk, ck), (hp, cp) in zip(k_step[0], p_step[0]):
+        for a, b in ((hk, hp), (ck, cp)):
+            err, tol, ok = compare(a, b, SLICE_TOL)
+            if not ok:
+                fail(f"serve-step state parity: {err} > {tol}")
+    idle = ~active
+    for (h0, c0), (hk, ck) in zip(st0, k_step[0]):
+        if not (torch.equal(hk[idle], h0[idle].to(hk.dtype))
+                and torch.equal(ck[idle], c0[idle].to(ck.dtype))):
+            fail("an idle row's state changed in the step")
+    if bool(k_step[2][idle].any()):
+        fail("an idle row returned valid detections")
+
+    timing = {}
+    for bsz in (1, B):
+        st = det.init_states(bsz)
+        evb = torch.from_numpy(np.stack(frames(rng, bsz, shape))).to(dev)
+        flags = torch.ones(bsz, dtype=torch.bool, device=dev)
+        timing[f"step_ms_b{bsz}"] = host_ms(
+            lambda: step(st, evb, flags, flags))
+    evb = torch.from_numpy(np.stack(frames(rng, B, shape))).to(dev)
+    flags = torch.ones(B, dtype=torch.bool, device=dev)
+    st = det.init_states(B)
+    timing[f"plain_step_ms_b{B}"] = host_ms(
+        lambda: plain_step(st, evb, flags, flags), reps=10)
+    return launches, steps, stats, parity, timing
+
+
+def _busy_us(spans) -> float:
+    """Length of the union of [start, end) intervals, in their unit."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        s = max(s, end)
+        if e > s:
+            busy += e - s
+        end = max(end, e)
+    return busy
+
+
+def phase_profile(det, cfg, timing):
+    """Where a serve step's time goes: torch.profiler over PROFILE_STEPS
+    steps at B = 1 and B. The device-busy time per step is the union of
+    the device events' intervals; the idle share is measured against the
+    unprofiled step time of the slice phase."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from leod_tpu_torch.serve import make_serve_step, serve_input_shape
+
+    step = make_serve_step(det, conf_threshold=0.0)
+    shape = serve_input_shape(cfg, 1)[1:]
+    rng = np.random.default_rng(5)
+    out = {}
+    for bsz in (1, B):
+        st = det.init_states(bsz)
+        ev = torch.from_numpy(np.stack(frames(rng, bsz, shape))).cuda()
+        flags = torch.ones(bsz, dtype=torch.bool, device="cuda")
+        for _ in range(3):
+            step(st, ev, flags, flags)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_STEPS):
+                step(st, ev, flags, flags)
+            torch.cuda.synchronize()
+        dev_events = [e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA]
+        by_name = {}
+        for e in dev_events:
+            tot = by_name.setdefault(e.name, [0.0, 0])
+            tot[0] += e.time_range.elapsed_us()
+            tot[1] += 1
+        busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
+                            for e in dev_events]) / 1e3 / PROFILE_STEPS
+        port_ms = sum(v[0] for n, v in by_name.items()
+                      if any(k in n for k in PORT_KERNELS)) / 1e3
+        step_ms = timing[f"step_ms_b{bsz}"]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        out[f"b{bsz}"] = {
+            "step_ms": step_ms,
+            "device_busy_ms_per_step": busy_ms if dev_events else None,
+            "idle_share": 1 - busy_ms / step_ms if dev_events else None,
+            "port_kernels_ms_per_step": port_ms / PROFILE_STEPS,
+            "device_events_per_step": len(dev_events) / PROFILE_STEPS,
+            "top": [{"name": n[:90], "ms_per_step": v[0] / 1e3 / PROFILE_STEPS,
+                     "per_step": v[1] / PROFILE_STEPS} for n, v in top]}
+    return out
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script drives the port on an NVIDIA card")
+    if not os.path.isdir(os.path.join(REPO, "leod_tpu_torch", "csrc")):
+        fail("leod_tpu_torch/ is not beside this script; run it from the "
+             "repository root")
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from leod_tpu_torch.config import experiment_preset
+    from leod_tpu_torch.models.detector import Detector
+
+    phase_build()
+    cfg = experiment_preset("gen1", "base")
+    det = Detector(cfg.model, device="cuda", seed=0)
+    perturb_layerscale(det, seed=0)
+    rows, nms_row = phase_kernels(det)
+    emit({"kernel_phase": {**rows, "nms_mask": [nms_row]}})
+    launches, steps, stats, parity, timing = phase_slice(det, cfg)
+    emit({"slice": {"config": "RVT-B gen1 (experiment_preset('gen1', "
+                              "'base'))", "slots": B, "steps": steps,
+                    "launches": launches, "parity": parity, **timing,
+                    "engine_stats": stats,
+                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}})
+    emit({"profile": phase_profile(det, cfg, timing)})
+
+    kernels = [
+        _summary("fused_block_pair", "leod_tpu/ops/maxvit_pallas.py:254",
+                 "leod_tpu_torch/csrc/maxvit.cu", rows["fused_block_pair"],
+                 launches["fused_block_pair"], PEAK_BF16),
+        _summary("fused_stage", "leod_tpu/ops/maxvit_pallas.py:206",
+                 "leod_tpu_torch/csrc/maxvit.cu", rows["fused_stage"],
+                 launches["fused_stage"], PEAK_BF16),
+        _summary("nms_mask", "leod_tpu/ops/nms_pallas.py:65",
+                 "leod_tpu_torch/csrc/nms.cu", [nms_row],
+                 launches["nms_mask"], PEAK_FP32),
+    ]
+    emit({"kernels": kernels})
+    bad = [k["name"] for k in kernels if not k["ok"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions: {bad}")
+    leaked = [m for m in sys.modules
+              if m == "jax" or m.startswith("jax.") or m == "leod_tpu"
+              or m.startswith("leod_tpu.")]
+    if leaked:
+        fail(f"imported JAX or the JAX package: {leaked[:5]}")
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,253 @@
+"""Ports of the Pallas kernels `fused_block_pair` and `fused_stage`
+(`leod_tpu/ops/maxvit_pallas.py:254,206`) to hand-written CUDA for
+Hopper (`csrc/maxvit.cu`).
+
+Each wrapper dispatches on where its tensor lies: on the CPU it runs the
+plain PyTorch version (the token-layout path of the modules,
+`leod_tpu/models/backbone.py:89-107`); on a CUDA tensor it launches the
+kernels or raises. Each wrapper counts the calls in which it launched
+kernels in `.launches`.
+
+On the card, a block is two launches: `block_attention` (LN1 +
+per-head attention, one CTA per window and head) and `block_mlp`
+(projection, LayerScale, residual, LN2, MLP, LayerScale, residual, per
+token; with a third, `mlp_combine`, where few tokens make it split the
+hidden dim). `fused_stage` runs its pairs so and then launches the ConvLSTM
+update `lstm_update`. The kernels take bf16 activations and weights and
+accumulate in fp32.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from ..models.layers import (PartitionAttention, _SplitGateConv,
+                             grid_partition, grid_reverse, window_partition,
+                             window_reverse)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGS = {
+    "leod_block_attention": [_P] * 6 + [_I] * 7 + [_F, _P],
+    "leod_block_mlp": [_P] * 15 + [_I] * 5 + [_F, _I, _P],
+    "leod_block_mlp_splits": [_I] * 4,
+    "leod_lstm_update": [_P] * 7 + [_I] * 3 + [_P],
+}
+_ACTS = {"gelu": 0, "silu": 1, "relu": 2}
+DIM_HEAD = 32          # the kernels' head width
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load("maxvit", _SIGS)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _require_cuda(fn: str, x: torch.Tensor, *weights) -> None:
+    """The kernels take contiguous bf16 CUDA tensors, 32-byte aligned for
+    the tensor-core tile loads; anything else raises."""
+    if not x.is_cuda:
+        raise ValueError(f"{fn}: tensor on {x.device}; the kernel runs on "
+                         "CUDA and the plain version on the CPU")
+    for t in (x,) + weights:
+        if t is None:
+            continue
+        if t.device != x.device or t.dtype != torch.bfloat16:
+            raise ValueError(f"{fn}: the CUDA kernel takes bf16 tensors on "
+                             f"{x.device}, got {t.dtype} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 32:
+            raise ValueError(f"{fn}: tensors must be contiguous and "
+                             "32-byte aligned")
+
+
+def _check_block(blk: PartitionAttention, skip_first_norm: bool,
+                 dim_head: int, act: str, gated: bool) -> None:
+    if (blk.skip_first_norm != skip_first_norm
+            or blk.attn.dim_head != dim_head or blk.mlp.act != act
+            or blk.mlp.gated != gated):
+        raise ValueError("block module config disagrees with the call's "
+                         "skip_first_norm/dim_head/act/gated")
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def fused_block_pair_plain(x: torch.Tensor, window_block: PartitionAttention,
+                           grid_block: PartitionAttention,
+                           partition_size: Tuple[int, int]) -> torch.Tensor:
+    """Window block then grid block in token layout (backbone.py:100-106)."""
+    ph, pw = partition_size
+    _, h, w, _ = x.shape
+    t = window_block(window_partition(x, ph, pw))
+    y = window_reverse(t, ph, pw, h, w)
+    t = grid_block(grid_partition(y, ph, pw))
+    return grid_reverse(t, ph, pw, h, w)
+
+
+def lstm_update_plain(x: torch.Tensor, h_prev: torch.Tensor,
+                      c_prev: torch.Tensor, gates: _SplitGateConv
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ConvLSTM update (maxvit_pallas.py:163-182): the gate mix
+    x Kx + h Kh + b kept in fp32, gates [f, i, o, g]; h' in x's dtype,
+    c' in c's dtype."""
+    d = gates.dim
+    k = gates.weight[:, :, 0, 0].float()
+    mix = (F.linear(x.float(), k[:, :d])
+           + F.linear(h_prev.to(x.dtype).float(), k[:, d:])
+           + gates.bias.float())
+    f, i, o = torch.sigmoid(mix[..., :3 * d]).chunk(3, dim=-1)
+    c = f * c_prev.float() + i * torch.tanh(mix[..., 3 * d:])
+    return (o * torch.tanh(c)).to(x.dtype), c.to(c_prev.dtype)
+
+
+def fused_stage_plain(x: torch.Tensor, h_prev: torch.Tensor,
+                      c_prev: torch.Tensor,
+                      block_params: Sequence[Tuple[PartitionAttention,
+                                                   PartitionAttention]],
+                      lstm_params: _SplitGateConv,
+                      partition_size: Tuple[int, int]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All block pairs of a stage, then the ConvLSTM update."""
+    for wb, gb in block_params:
+        x = fused_block_pair_plain(x, wb, gb, partition_size)
+    return lstm_update_plain(x, h_prev, c_prev, lstm_params)
+
+
+# ---------------------------------------------------------------------------
+# Kernel launches
+# ---------------------------------------------------------------------------
+
+def _block_cuda(x: torch.Tensor, blk: PartitionAttention, grid_kind: bool,
+                act: str, gated: bool, eps: float) -> torch.Tensor:
+    b, h, w, c = x.shape
+    ph, pw = blk.partition_size
+    norm1 = None if blk.skip_first_norm else blk.norm1
+    attn, mlp = blk.attn, blk.mlp
+    ws = [attn.qkv.weight, attn.qkv.bias, attn.proj.weight, attn.proj.bias,
+          blk.ls1, blk.norm2.weight, blk.norm2.bias, mlp.proj_in.weight,
+          mlp.proj_in.bias, mlp.proj_out.weight, mlp.proj_out.bias, blk.ls2]
+    if norm1 is not None:
+        ws += [norm1.weight, norm1.bias]
+    _require_cuda("fused_block_pair", x, *ws)
+    lib, stream = _lib(), _stream(x)
+    ln_w, ln_b = (None, None) if norm1 is None else (norm1.weight,
+                                                     norm1.bias)
+    o = torch.empty_like(x)
+    _build.check("leod_block_attention", lib.leod_block_attention(
+        x.data_ptr(), o.data_ptr(), _ptr(ln_w), _ptr(ln_b),
+        attn.qkv.weight.data_ptr(), _ptr(attn.qkv.bias), b, h, w, c, ph, pw,
+        int(grid_kind), eps, stream))
+    out = torch.empty_like(x)
+    rows, inner = b * h * w, mlp.proj_out.in_features
+    # too few row tiles to fill the card: CTAs split the hidden dim and
+    # write fp32 partial sums, which a second kernel adds up
+    splits = lib.leod_block_mlp_splits(rows, inner, int(gated),
+                                       _num_sms(x.device))
+    part = y_ws = None
+    if splits > 1:
+        part = torch.empty((splits, rows, c), dtype=torch.float32,
+                           device=x.device)
+        y_ws = torch.empty_like(x)
+    _build.check("leod_block_mlp", lib.leod_block_mlp(
+        x.data_ptr(), o.data_ptr(), out.data_ptr(),
+        attn.proj.weight.data_ptr(), _ptr(attn.proj.bias), _ptr(blk.ls1),
+        blk.norm2.weight.data_ptr(), blk.norm2.bias.data_ptr(),
+        mlp.proj_in.weight.data_ptr(), _ptr(mlp.proj_in.bias),
+        mlp.proj_out.weight.data_ptr(), _ptr(mlp.proj_out.bias),
+        _ptr(blk.ls2), _ptr(part), _ptr(y_ws), rows, c, inner, int(gated),
+        _ACTS[act], eps, splits, stream))
+    return out
+
+
+def _lstm_cuda(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
+               gates: _SplitGateConv) -> Tuple[torch.Tensor, torch.Tensor]:
+    h_prev = h_prev.to(x.dtype).contiguous()
+    w = gates.weight.view(gates.weight.shape[0], -1)         # [4C, 2C]
+    _require_cuda("fused_stage", x, h_prev, w, gates.bias)
+    if c_prev.dtype not in (torch.bfloat16, torch.float32) or \
+            not c_prev.is_contiguous() or c_prev.device != x.device:
+        raise ValueError("fused_stage: c_prev must be a contiguous bf16 or "
+                         "fp32 tensor on x's device")
+    if c_prev.shape != x.shape or h_prev.shape != x.shape:
+        raise ValueError("fused_stage: x, h_prev and c_prev must share a "
+                         "shape")
+    b, h, w_, c = x.shape
+    h_out = torch.empty_like(x)
+    c_out = torch.empty_like(c_prev)
+    _build.check("leod_lstm_update", _lib().leod_lstm_update(
+        x.data_ptr(), h_prev.data_ptr(), c_prev.data_ptr(), w.data_ptr(),
+        gates.bias.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+        b * h * w_, c, int(c_prev.dtype == torch.float32), _stream(x)))
+    return h_out, c_out
+
+
+# ---------------------------------------------------------------------------
+# Wrappers (the ports of the Pallas functions, same signatures)
+# ---------------------------------------------------------------------------
+
+def fused_block_pair(x: torch.Tensor, window_params: PartitionAttention,
+                     grid_params: PartitionAttention,
+                     partition_size: Tuple[int, int], skip_first_norm: bool,
+                     dim_head: int = 32, act: str = "gelu",
+                     gated: bool = False, eps: float = 1e-5) -> torch.Tensor:
+    """Window block then grid block on an NHWC map x [B, H, W, C].
+    `*_params` are the port's PartitionAttention modules."""
+    _check_block(window_params, skip_first_norm, dim_head, act, gated)
+    _check_block(grid_params, False, dim_head, act, gated)
+    if tuple(partition_size) != window_params.partition_size:
+        raise ValueError("partition_size disagrees with the block modules")
+    if x.device.type == "cpu":
+        return fused_block_pair_plain(x, window_params, grid_params,
+                                      partition_size)
+    if dim_head != DIM_HEAD or act not in _ACTS:
+        raise ValueError(f"the CUDA block takes dim_head {DIM_HEAD} and "
+                         f"act in {sorted(_ACTS)}")
+    x = _block_cuda(x, window_params, False, act, gated, eps)
+    x = _block_cuda(x, grid_params, True, act, gated, eps)
+    fused_block_pair.launches += 1
+    return x
+
+
+fused_block_pair.launches = 0
+
+
+def fused_stage(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
+                block_params: Sequence[Tuple[PartitionAttention,
+                                             PartitionAttention]],
+                lstm_params: _SplitGateConv,
+                partition_size: Tuple[int, int], skip_first_norm: bool,
+                dim_head: int = 32, act: str = "gelu", gated: bool = False,
+                eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All block pairs of a stage, then the ConvLSTM update. Returns
+    (h', c'); h' is the stage feature, in x's dtype, and c' keeps
+    c_prev's dtype. No depthwise-conv LSTM."""
+    for i, (wp, gp) in enumerate(block_params):
+        x = fused_block_pair(x, wp, gp, partition_size,
+                             skip_first_norm and i == 0, dim_head, act,
+                             gated, eps)
+    if x.device.type == "cpu":
+        return lstm_update_plain(x, h_prev, c_prev, lstm_params)
+    out = _lstm_cuda(x, h_prev, c_prev, lstm_params)
+    fused_stage.launches += 1
+    return out
+
+
+fused_stage.launches = 0
+
+WRAPPERS = (fused_block_pair, fused_stage)

@@ -1,0 +1,69 @@
+"""Port of the Pallas kernel `nms_mask_pallas`
+(`leod_tpu/ops/nms_pallas.py:65`) to hand-written CUDA for Hopper
+(`csrc/nms.cu`): a suppression-mask build spread over 32-row tiles of
+every image, then one sweep CTA per image, in one call per batch.
+
+For a CPU tensor the wrapper runs the plain version (`ops/nms.py`
+`nms_mask`); for a CUDA tensor it launches the kernel or raises. It
+counts its launches in `nms_mask.launches`.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+from .nms import nms_mask as nms_mask_plain
+
+_P = ctypes.c_void_p
+_SIGS = {"leod_nms_mask": [_P, _P, _P, ctypes.c_float, ctypes.c_int,
+                           ctypes.c_int, _P, _P, _P]}
+MAX_K = 1024
+
+
+def nms_mask(boxes_xyxy: torch.Tensor, iou_threshold: float,
+             valid: torch.Tensor,
+             class_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Greedy NMS keep mask: boxes [B, K, 4] (or [K, 4]) sorted by score
+    descending, valid [B, K] bool, class_ids [B, K] or None ->
+    keep [B, K] bool."""
+    if boxes_xyxy.device.type == "cpu":
+        return nms_mask_plain(boxes_xyxy, iou_threshold, valid, class_ids)
+    if not boxes_xyxy.is_cuda:
+        raise ValueError(f"nms_mask: tensor on {boxes_xyxy.device}")
+    squeeze = boxes_xyxy.dim() == 2
+    if squeeze:
+        boxes_xyxy, valid = boxes_xyxy[None], valid[None]
+        class_ids = None if class_ids is None else class_ids[None]
+    bsz, k, _ = boxes_xyxy.shape
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"nms_mask: the CUDA kernel takes 1..{MAX_K} "
+                         f"boxes an image, got {k}")
+    boxes = boxes_xyxy.float().contiguous()
+    valid_u8 = valid.to(torch.uint8).contiguous()
+    ids = None if class_ids is None else class_ids.float().contiguous()
+    for t in (valid_u8, ids):
+        if t is not None and (t.device != boxes.device
+                              or t.shape != (bsz, k)):
+            raise ValueError("nms_mask: valid/class_ids must be [B, K] on "
+                             "the boxes' device")
+    keep = torch.empty((bsz, k), dtype=torch.uint8, device=boxes.device)
+    # the kernels' scratch: the suppression bitmask, ceil(K/32) words a row
+    mask = torch.empty((bsz, k, (k + 31) // 32), dtype=torch.int32,
+                       device=boxes.device)
+    lib = _build.load("nms", _SIGS)
+    _build.check("leod_nms_mask", lib.leod_nms_mask(
+        boxes.data_ptr(), valid_u8.data_ptr(),
+        None if ids is None else ids.data_ptr(), float(iou_threshold), bsz,
+        k, mask.data_ptr(), keep.data_ptr(),
+        torch.cuda.current_stream(boxes.device).cuda_stream))
+    nms_mask.launches += 1
+    keep = keep.bool()
+    return keep[0] if squeeze else keep
+
+
+nms_mask.launches = 0
+
+WRAPPERS = (nms_mask,)

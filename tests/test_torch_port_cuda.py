@@ -1,0 +1,146 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card, at small shapes that reach the kernels' edge cases: windows of T
+tokens that are no multiple of 16, 1, 2, 4 and 16 heads, the MLP with
+and without its hidden dim split over CTAs, the GLU MLP and SiLU, an
+fp32 and a bf16 cell state, NMS with and without class ids at
+K = 1, 37, 1000 and 1024, and inputs the kernels refuse.
+
+These tests need an NVIDIA Hopper card and `nvcc`; without a card they
+skip. They import no JAX. Run them on the card with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_port_cuda.py
+
+(`--noconftest`: the suite's conftest sets up JAX, which the port does
+not need.)
+
+Tolerances: the kernels compute in bf16 with fp32 accumulation and round
+at other points than the plain bf16 version, so an output may differ by
+a few bf16 ulps of its largest value: 2^-5 * max|plain| per tensor, as
+`chip_smoke.py` holds them. The NMS keep mask must match exactly.
+"""
+import pytest
+import torch
+
+from leod_tpu_torch.models.layers import PartitionAttention, _SplitGateConv
+from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
+from leod_tpu_torch.ops.nms import nms_mask as nms_plain
+
+pytestmark = pytest.mark.gpu
+
+REL_TOL = 2.0 ** -5
+H, W = 16, 20
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    # the plain ConvLSTM update multiplies in fp32: no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want):
+    got, want = got.float(), want.float()
+    assert bool(got.isfinite().all())
+    err = float((got - want).abs().max())
+    assert err <= REL_TOL * float(want.abs().max()), err
+
+
+def _randomized(module, seed, dev):
+    """The module in bf16 on `dev`, every parameter drawn at O(1) scale
+    (LayerScale in [0.1, 0.5]) so that no branch is scaled away."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith(("ls1", "ls2")):
+                p.copy_(torch.rand(p.shape, generator=g) * 0.4 + 0.1)
+            elif name.endswith("weight") and p.dim() == 1:      # LayerNorm
+                p.copy_(1.0 + 0.2 * torch.randn(p.shape, generator=g))
+            else:
+                fan_in = p[0].numel() if p.dim() > 1 else 16
+                p.copy_(torch.randn(p.shape, generator=g) / fan_in ** 0.5)
+    return module.requires_grad_(False).to(dev, torch.bfloat16)
+
+
+def _pair(dim, ps, gated, act, dev, seed=0, first=True):
+    """A (window, grid) block pair; the window block skips its first
+    LayerNorm only in a stage's first pair."""
+    return [_randomized(PartitionAttention(
+        dim, ps, kind, skip_first_norm=first and kind == "window",
+        mlp_gated=gated, mlp_act=act), seed + i, dev)
+        for i, kind in enumerate(("window", "grid"))]
+
+
+@pytest.mark.parametrize("dim,ps,gated,act", [
+    (32, (4, 5), False, "gelu"), (64, (4, 5), True, "gelu"),
+    (128, (8, 10), False, "gelu"), (64, (2, 4), False, "silu"),
+    (512, (8, 10), False, "gelu")])
+def test_block_pair_kernel_matches_plain(cuda, dim, ps, gated, act):
+    wb, gb = _pair(dim, ps, gated, act, cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, H, W, dim, device=cuda, generator=g).to(torch.bfloat16)
+    before = maxvit_cuda.fused_block_pair.launches
+    got = maxvit_cuda.fused_block_pair(x, wb, gb, ps, True, act=act,
+                                       gated=gated)
+    torch.cuda.synchronize()
+    assert maxvit_cuda.fused_block_pair.launches == before + 1
+    _close(got, maxvit_cuda.fused_block_pair_plain(x, wb, gb, ps))
+
+
+@pytest.mark.parametrize("c_dtype", [torch.float32, torch.bfloat16])
+def test_stage_kernel_matches_plain(cuda, c_dtype):
+    dim, ps = 64, (4, 5)
+    pairs = [_pair(dim, ps, False, "gelu", cuda, seed=2 * i, first=i == 0)
+             for i in range(2)]
+    gates = _randomized(_SplitGateConv(dim), 7, cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x, h, c = (torch.randn(2, H, W, dim, device=cuda, generator=g)
+               for _ in range(3))
+    x, h, c = x.to(torch.bfloat16), (h * 0.5).to(torch.bfloat16), \
+        (c * 0.5).to(c_dtype)
+    before = maxvit_cuda.fused_stage.launches
+    hk, ck = maxvit_cuda.fused_stage(x, h, c, pairs, gates, ps, True)
+    torch.cuda.synchronize()
+    assert maxvit_cuda.fused_stage.launches == before + 1
+    assert hk.dtype == torch.bfloat16 and ck.dtype == c_dtype
+    hp, cp = maxvit_cuda.fused_stage_plain(x, h, c, pairs, gates, ps)
+    _close(hk, hp)
+    _close(ck, cp)
+
+
+@pytest.mark.parametrize("k", [1, 37, 1000, 1024])
+@pytest.mark.parametrize("with_ids", [False, True])
+def test_nms_kernel_matches_plain(cuda, k, with_ids):
+    g = torch.Generator().manual_seed(k)
+    b = 3
+    ctr = torch.rand(b, k, 2, generator=g) * torch.tensor([320.0, 256.0])
+    wh = torch.rand(b, k, 2, generator=g) * 70 + 6
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1).to(cuda)
+    valid = (torch.rand(b, k, generator=g) > 0.05).to(cuda)
+    ids = (torch.randint(0, 2, (b, k), generator=g).float().to(cuda)
+           if with_ids else None)
+    before = nms_cuda.nms_mask.launches
+    got = nms_cuda.nms_mask(boxes, 0.45, valid, ids)
+    torch.cuda.synchronize()
+    assert nms_cuda.nms_mask.launches == before + 1
+    assert torch.equal(got, nms_plain(boxes, 0.45, valid, ids))
+    assert torch.equal(nms_cuda.nms_mask(boxes[0], 0.45, valid[0],
+                                         None if ids is None else ids[0]),
+                       got[0])
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    wb, gb = _pair(32, (4, 5), False, "gelu", cuda)
+    x = torch.zeros(1, H, W, 32, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        maxvit_cuda.fused_block_pair(x, wb, gb, (4, 5), True)
+    xt = torch.zeros(1, W, H, 32, device=cuda,
+                     dtype=torch.bfloat16).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        maxvit_cuda.fused_block_pair(xt, wb, gb, (4, 5), True)
+    boxes = torch.zeros(1, 1025, 4, device=cuda)
+    valid = torch.ones(1, 1025, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="1..1024"):
+        nms_cuda.nms_mask(boxes, 0.45, valid)
