@@ -9,8 +9,9 @@
    on the card, on the same inputs, at the RVT-B Gen1 shapes the serving
    path gives it (B = 8 slots): the partition-attention block pair and
    the whole stage at all four stage shapes, from warm non-zero (h, c),
-   and the NMS keep mask at K = 1000. Timed with CUDA events (median of
-   20 runs after warm-up).
+   the per-token half of a block (`block_mlp`) alone at the same four
+   shapes, and the NMS keep mask at K = 1000. Timed with CUDA events
+   (median of 20 runs after warm-up).
 3. Slice phase: a seeded RVT-B Gen1 `Detector` behind `ServingEngine`
    answers requests from client threads, one of which forces an LRU
    eviction. Every kernel's launch count must rise by what the path
@@ -29,7 +30,9 @@ switched off for the fp32 products of the plain ConvLSTM update.
 
 4. Profile: torch.profiler over a few serve steps at B = 1 and B = 8:
    the device-busy time per step, its idle share against the
-   unprofiled step time, and the kernels by device time.
+   unprofiled step time, and the kernels by device time. Every
+   `__global__` kernel in leod_tpu_torch/csrc/ must show up in the
+   profiled steps.
 
 Prints the kernels' JSON line, the card's name and power limit, and the
 result JSON as the last line. Any failure exits non-zero; so does a
@@ -39,6 +42,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -54,8 +58,18 @@ KERNEL_TOL = 2.0 ** -5
 SLICE_TOL = 2.0 ** -4
 REPS = 20
 PROFILE_STEPS = 10
-PORT_KERNELS = ("block_attention_kernel", "block_mlp_kernel",
-                "lstm_update_kernel", "nms_mask_kernel")
+
+
+def port_kernels():
+    """Names of the `__global__` kernels in leod_tpu_torch/csrc/*.cu."""
+    import glob
+    names = set()
+    for path in glob.glob(os.path.join(REPO, "leod_tpu_torch", "csrc",
+                                       "*.cu")):
+        with open(path) as f:
+            names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                                    r"\([^)]*\)\s*)?(\w+)", f.read()))
+    return tuple(sorted(names))
 
 
 def fail(msg: str) -> None:
@@ -133,6 +147,21 @@ def _block_work(blk, n_tok: int):
     return flops, wbytes
 
 
+def mlp_work(blk, n_tok: int):
+    """(bf16 tensor-core FLOPs, bytes) of the per-token half over n_tok
+    tokens: the projection and both MLP layers; its weights and vectors,
+    x and o read and the output written once, in bf16."""
+    c = blk.dim
+    flops = 2 * n_tok * c * c + 2 * n_tok * c * blk.mlp.proj_in.out_features
+    flops += 2 * n_tok * blk.mlp.proj_out.in_features * c
+    mods = [blk.attn.proj, blk.norm2, blk.mlp]
+    wbytes = sum(p.numel() * p.element_size() for m in mods
+                 for p in m.parameters())
+    wbytes += sum(p.numel() * p.element_size() for p in (blk.ls1, blk.ls2)
+                  if p is not None)
+    return flops, wbytes + 3 * n_tok * c * 2
+
+
 def pair_work(pair, x):
     n_tok = x.shape[0] * x.shape[1] * x.shape[2]
     flops = wbytes = 0
@@ -203,7 +232,7 @@ def phase_kernels(det):
               eps=bb.norm_eps)
     g = torch.Generator(device="cuda").manual_seed(1)
     h_in, w_in = bb.in_res_hw
-    rows = {"fused_block_pair": [], "fused_stage": []}
+    rows = {"fused_block_pair": [], "fused_stage": [], "block_mlp": []}
     for k, (dim, stride) in enumerate(zip(bb.stage_dims, bb.stage_strides)):
         stage = getattr(det.backbone, f"stage{k + 1}")
         shape = (B, h_in // stride, w_in // stride, dim)
@@ -228,6 +257,25 @@ def phase_kernels(det):
         rows["fused_block_pair"].append(dict(
             shape=list(shape), max_abs_err=err, tol=tol, ok=ok,
             ms=cuda_ms(pair_k), plain_ms=cuda_ms(pair_p), flops=flops,
+            bytes=nbytes, bound_ms=bms, bound_by=by))
+
+        # the per-token half alone: x and an attention output o as rows
+        xr = x.reshape(-1, dim)
+        o = torch.randn(xr.shape, device="cuda", generator=g).to(torch.bfloat16)
+
+        def mlp_k():
+            return mc.block_mlp(xr, o, wb, kw["act"], kw["gated"], kw["eps"])
+
+        def mlp_p():
+            return mc.block_mlp_plain(xr, o, wb)
+
+        err, tol, ok = compare(mlp_k(), mlp_p(), KERNEL_TOL)
+        torch.cuda.synchronize()
+        flops, nbytes = mlp_work(wb, xr.shape[0])
+        bms, by = bound(flops, nbytes, PEAK_BF16)
+        rows["block_mlp"].append(dict(
+            shape=list(xr.shape), max_abs_err=err, tol=tol, ok=ok,
+            ms=cuda_ms(mlp_k), plain_ms=cuda_ms(mlp_p), flops=flops,
             bytes=nbytes, bound_ms=bms, bound_by=by))
 
         def stage_k():
@@ -317,7 +365,7 @@ def phase_slice(det, cfg):
     n_pairs = sum(cfg.model.backbone.num_blocks)
     n_stages = len(cfg.model.backbone.num_blocks)
     per_step = {"fused_block_pair": n_pairs, "fused_stage": n_stages,
-                "nms_mask": 1}
+                "block_mlp": 2 * n_pairs, "nms_mask": 1}
     shape = serve_input_shape(cfg, B)[1:]
     step = make_serve_step(det, conf_threshold=0.0)
     rng = np.random.default_rng(0)
@@ -458,6 +506,9 @@ def phase_profile(det, cfg, timing):
     step = make_serve_step(det, conf_threshold=0.0)
     shape = serve_input_shape(cfg, 1)[1:]
     rng = np.random.default_rng(5)
+    kernels = port_kernels()
+    if not kernels:
+        fail("found no __global__ kernel in leod_tpu_torch/csrc/")
     out = {}
     for bsz in (1, B):
         st = det.init_states(bsz)
@@ -480,8 +531,17 @@ def phase_profile(det, cfg, timing):
             tot[1] += 1
         busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
                             for e in dev_events]) / 1e3 / PROFILE_STEPS
-        port_ms = sum(v[0] for n, v in by_name.items()
-                      if any(k in n for k in PORT_KERNELS)) / 1e3
+        # a kernel's profiler name is its signature, e.g.
+        # "void (anonymous namespace)::block_mlp_kernel<512>(...)"
+        per_kernel = {k: sum(v[0] for n, v in by_name.items()
+                             if re.search(rf"\b{k}\b", n))
+                      for k in kernels}
+        missing = [k for k in kernels if not any(
+            re.search(rf"\b{k}\b", n) for n in by_name)]
+        if missing:
+            fail(f"port kernels absent from the profiled B = {bsz} steps: "
+                 f"{missing}")
+        port_ms = sum(per_kernel.values()) / 1e3
         step_ms = timing[f"step_ms_b{bsz}"]
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
         out[f"b{bsz}"] = {
@@ -489,6 +549,8 @@ def phase_profile(det, cfg, timing):
             "device_busy_ms_per_step": busy_ms if dev_events else None,
             "idle_share": 1 - busy_ms / step_ms if dev_events else None,
             "port_kernels_ms_per_step": port_ms / PROFILE_STEPS,
+            "port_kernel_ms_per_step": {
+                k: v / 1e3 / PROFILE_STEPS for k, v in per_kernel.items()},
             "device_events_per_step": len(dev_events) / PROFILE_STEPS,
             "top": [{"name": n[:90], "ms_per_step": v[0] / 1e3 / PROFILE_STEPS,
                      "per_step": v[1] / PROFILE_STEPS} for n, v in top]}
@@ -518,6 +580,9 @@ def main() -> int:
     perturb_layerscale(det, seed=0)
     rows, nms_row = phase_kernels(det)
     emit({"kernel_phase": {**rows, "nms_mask": [nms_row]}})
+    if not all(r["ok"] for r in rows["block_mlp"]):
+        fail(f"block_mlp disagrees with its plain version: "
+             f"{[(r['shape'], r['max_abs_err'], r['tol']) for r in rows['block_mlp']]}")
     launches, steps, stats, parity, timing = phase_slice(det, cfg)
     emit({"slice": {"config": "RVT-B gen1 (experiment_preset('gen1', "
                               "'base'))", "slots": B, "steps": steps,

@@ -13,16 +13,16 @@
 //       channels of the pre-projection output back to NHWC positions.
 //       One CTA per (window, head) rather than per window keeps stage 4
 //       (one window per image) at 16 CTAs per image instead of 1.
-//   block_mlp_kernel  per-token, 32 rows of B*H*W per CTA: the output
-//       projection, LayerScale, residual, LayerNorm 2, the MLP with the
-//       hidden dim 4C walked in chunks (the [32, C] fp32 accumulator
-//       stays in registers, NF fragments a warp, templated on C so that
-//       the narrow stages keep registers free for occupancy), LayerScale,
-//       residual. Where B*H*W gives too few row tiles to fill the card
-//       (stages 3-4, or any stage at small B), gridDim.y CTAs split the
-//       hidden chunks of a row tile, each redoing the projection and
-//       LN2, and write fp32 partial sums; mlp_combine_kernel adds them
-//       and applies the bias, LayerScale and residual.
+//   block_mlp_kernel  per-token, 64 rows of B*H*W per CTA (wgmma's M):
+//       the output projection, LayerScale, residual, LayerNorm 2, and the
+//       MLP with the hidden dim walked in 64-wide chunks whose activations
+//       stay in shared memory, on wgmma with every weight tile streamed
+//       by TMA through a ring of shared-memory stages (section below).
+//       Where B*H*W gives too few row tiles to fill the card (stages 3-4,
+//       or any stage at small B), gridDim.y CTAs split the hidden chunks
+//       of a row tile, each redoing the projection and LN2, and write
+//       fp32 partial sums; mlp_combine_kernel adds them and applies the
+//       bias, LayerScale and residual.
 //   lstm_update_kernel  a tiled GEMM over rows B*H*W with K = 2C read
 //       from the two pointers x and h (no concat); one CTA owns channels
 //       j..j+15 of all four gates, so the gate epilogue writes h' and c'
@@ -31,17 +31,20 @@
 // Bound on the H100: at the RVT-B Gen1 shapes the blocks do about
 // 2*T*C*(3C + 2T) + 2*C*C + 16*C*C flops per token against 4*C bytes of
 // activations in and out, i.e. hundreds of flops per byte, so they are
-// bound by tensor-core operations (989 TFLOP/s bf16). This first version
-// uses warp-level WMMA (mma.sync, bf16 in, fp32 accumulate) with the
-// weight tiles read straight from L2, not TMA + wgmma, and is far from
-// that bound; making it fast is later work. Rounding points follow the
-// Pallas kernel: fp32 accumulate, bias added in fp32, one rounding to the
-// working dtype after each dense layer, LayerNorm and softmax in fp32.
+// bound by tensor-core operations (989 TFLOP/s bf16). The attention and
+// LSTM kernels are first versions on warp-level WMMA (mma.sync) with the
+// weight fragments read straight from L2, far from that bound; the MLP
+// kernel feeds wgmma from TMA. Rounding points follow the Pallas kernel:
+// fp32 accumulate, bias added in fp32, one rounding to the working dtype
+// after each dense layer and LayerScale, LayerNorm and softmax in fp32.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -53,12 +56,7 @@ constexpr int QKV_H = 3 * DH;      // one head's packed q|k|v columns
 constexpr int LD_QKV = QKV_H + 4;  // fp32 row stride of the q|k|v tile
 constexpr int ATTN_THREADS = 256;
 
-constexpr int MLP_BM = 32;         // token rows per CTA
-constexpr int MLP_WARPS = 8;
-constexpr int MLP_MAXF = 8;        // accumulator tiles per warp (C <= 512)
 constexpr int MLP_MIN_CHUNKS = 4;  // hidden chunks per split at least
-constexpr int LD_HF = 64 + 4;      // fp32 hidden-chunk row stride
-constexpr int LD_HB = 64 + 8;      // bf16 hidden-chunk row stride
 
 constexpr int LSTM_BM = 32;
 constexpr int LSTM_BN = 16;        // channels per CTA (x 4 gates)
@@ -300,182 +298,568 @@ __global__ void __launch_bounds__(ATTN_THREADS) block_attention_kernel(
 // ---------------------------------------------------------------------------
 // Per-token half of a block: proj, LayerScale, residual, LN2, MLP
 // ---------------------------------------------------------------------------
+//
+// One CTA owns 64 token rows (wgmma's M) and runs three chained products
+// on them, all with A and B in shared memory:
+//   GEMM0  o [64, C] x proj^T          -> y = x + ls1 (proj + b), stored
+//   GEMM1  z [64, C] x proj_in^T chunk -> act(. + b), bf16, into an H tile
+//   GEMM2  H [64, 64] x proj_out^T     -> the [64, C] fp32 accumulator
+// with z = LN2(y) written over the o rows. The hidden activations never
+// reach device memory (flash attention's P.V pattern). Consumer
+// warpgroups (one, or two at C = 512, each owning C / NWG output
+// columns) issue wgmma.mma_async; one producer warp streams every weight
+// tile through a ring of NS stages per warpgroup with TMA (128- or
+// 64-byte swizzle, matching the wgmma descriptors), full/empty mbarriers.
 
-__host__ __device__ inline size_t mlp_smem(int C, size_t off[5]) {
-  const size_t sz[5] = {
-      static_cast<size_t>(MLP_BM) * (C + 8) * 2,   // A: attention rows, then LN2
-      static_cast<size_t>(MLP_BM) * (C + 8) * 2,   // Y: block input + attention
-      static_cast<size_t>(MLP_BM) * (C + 4) * 4,   // F: fp32 [BM][C] staging
-      static_cast<size_t>(MLP_BM) * LD_HF * 4,     // Hf: fp32 hidden chunk
-      static_cast<size_t>(MLP_BM) * LD_HB * 2};    // Hb: bf16 hidden chunk
-  size_t s = 0;
-  for (int i = 0; i < 5; ++i) {
-    off[i] = s;
-    s = align128(s + sz[i]);
+constexpr int MLP_BM = 64;         // token rows per CTA (wgmma's M)
+constexpr int MLP_HBUF = 8192;     // bytes of one H tile (64 x 64 bf16)
+
+template <int C>
+struct MlpShape {
+  static constexpr int NWG = C > 256 ? 2 : 1;   // consumer warpgroups
+  static constexpr int NW = C / NWG;            // output columns of each
+  static constexpr int KB = C >= 64 ? 64 : 32;  // K-block of a C-deep operand
+  static constexpr int NKB = C / KB;
+  static constexpr int SW = KB * 2;             // its swizzle (= row) bytes
+  static constexpr int NS = C > 256 ? 2 : 4;    // ring stages per warpgroup
+  static constexpr int STAGE = NW * 128;        // bytes of one stage
+  static constexpr int THREADS = NWG * 128 + 32;
+  static constexpr int MINB = C >= 256 ? 1 : (C == 128 ? 2 : 3);
+  static constexpr int RING = 128 * C;          // offset of the ring (after A)
+  static constexpr int HOFF = RING + NWG * NS * STAGE;
+  static constexpr int BOFF = HOFF + 2 * MLP_HBUF;
+  static constexpr int SMEM = BOFF + 2 * NWG * NS * 8 + 1024;  // + alignment
+};
+
+struct MlpArgs {
+  const bf16 *x, *o, *proj_b, *ls1, *ln_w, *ln_b, *in_b, *out_b, *ls2;
+  bf16* out;
+  bf16* y;        // y rows: `out` itself, or scratch when splits > 1
+  float* part;    // [splits, R, C] partial MLP sums when splits > 1
+  int R, inner, gated, act;
+  float eps;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of byte `b` of row `r` in a K-block whose rows are `sw`
+// bytes, swizzled as TMA's SWIZZLE_<sw>B writes it (16-byte chunks XORed
+// with the row's position in its 1024- or 512-byte atom).
+__device__ __forceinline__ uint32_t swz(int r, int b, int sw) {
+  const uint32_t o = static_cast<uint32_t>(r * sw + b);
+  return o ^ (((o >> 7) & static_cast<uint32_t>(sw / 16 - 1)) << 4);
+}
+
+// wgmma descriptor of a K-major tile in that layout: rows of `sw` bytes,
+// 8-row groups `8 * sw` bytes apart (SBO), LBO unused when swizzled.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, int sw) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(sw / 2) << 32) |
+         (static_cast<uint64_t>(sw == 128 ? 1 : 2) << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// Waits for the phase of parity `parity` to complete. A wait of more
+// than about 10 s (2^34 cycles) can only be a fault of the kernel: it
+// traps, so that the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (!done && clock64() - start > (1ll << 34)) __trap();
   }
-  return s;
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1) : "memory");
+}
+
+// generic-proxy writes to shared memory, made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// all consumer threads (named barrier 1; the producer warp is not in it)
+__device__ __forceinline__ void consumer_sync(int threads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads above wgmma_wait0
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64, N] (+)= A[64, 16] B[N, 16]^T, A and B K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
+                                         int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<8>(float* d, uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float* d, uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<256>(float* d, uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// Producer: one thread walks the CTA's weight tiles in the consumers'
+// order, for each warpgroup its own ring stage: the projection's K-blocks,
+// then per hidden chunk j the proj_in rows (GEMM1) and the proj_out
+// columns (GEMM2).
+template <int C>
+__device__ void mlp_produce(const CUtensorMap* m_proj, const CUtensorMap* m_in,
+                            const CUtensorMap* m_out, unsigned char* ring,
+                            uint64_t* full, uint64_t* empty, int inner,
+                            int gated, int j0, int j1) {
+  using S = MlpShape<C>;
+  const int hc = gated ? 32 : 64;       // hidden units per chunk
+  const int hr = hc / S::NWG;           // of them, per warpgroup
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = 0; t < S::NKB + 2 * (j1 - j0); ++t) {
+    for (int w = 0; w < S::NWG; ++w) {
+      const int slot = w * S::NS + stage;
+      unsigned char* dst = ring + slot * S::STAGE;
+      mbar_wait(&empty[slot], phase ^ 1);
+      if (t < S::NKB) {
+        mbar_expect_tx(&full[slot], S::NW * S::KB * 2);
+        tma_load_2d(dst, m_proj, &full[slot], t * S::KB, w * S::NW);
+        continue;
+      }
+      const int j = j0 + (t - S::NKB) / 2;
+      if ((t - S::NKB) % 2 == 0) {
+        mbar_expect_tx(&full[slot], hr * C * 2 * (gated ? 2 : 1));
+        for (int kb = 0; kb < S::NKB; ++kb) {
+          tma_load_2d(dst + kb * hr * S::SW, m_in, &full[slot], kb * S::KB,
+                      j * hc + w * hr);
+          if (gated)
+            tma_load_2d(dst + (S::NKB + kb) * hr * S::SW, m_in, &full[slot],
+                        kb * S::KB, inner + j * hc + w * hr);
+        }
+      } else {
+        mbar_expect_tx(&full[slot], S::NW * hc * 2);
+        tma_load_2d(dst, m_out, &full[slot], j * hc, w * S::NW);
+      }
+    }
+    if (++stage == S::NS) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
 }
 
 // gridDim.y > 1 splits the hidden chunks: split s writes its partial
-// MLP sums to part[s] and split 0 the block input + attention to y_ws;
-// mlp_combine_kernel finishes. NF >= ceil(2 * C / 16 / MLP_WARPS).
-template <int NF>
-__global__ void __launch_bounds__(MLP_WARPS * 32) block_mlp_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ o,
-    bf16* __restrict__ out, const bf16* __restrict__ proj_w,
-    const bf16* __restrict__ proj_b, const bf16* __restrict__ ls1,
-    const bf16* __restrict__ ln_w, const bf16* __restrict__ ln_b,
-    const bf16* __restrict__ in_w, const bf16* __restrict__ in_b,
-    const bf16* __restrict__ out_w, const bf16* __restrict__ out_b,
-    const bf16* __restrict__ ls2, float* __restrict__ part,
-    bf16* __restrict__ y_ws, int R, int C, int inner, int gated, int act,
-    float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  size_t off[5];
-  mlp_smem(C, off);
-  bf16* A = reinterpret_cast<bf16*>(smem + off[0]);
-  bf16* Y = reinterpret_cast<bf16*>(smem + off[1]);
-  float* F = reinterpret_cast<float*>(smem + off[2]);
-  float* Hf = reinterpret_cast<float*>(smem + off[3]);
-  bf16* Hb = reinterpret_cast<bf16*>(smem + off[4]);
+// MLP sums to part[s], and every split the rows y to the scratch p.y;
+// mlp_combine_kernel finishes.
+template <int C>
+__global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
+    block_mlp_kernel(const __grid_constant__ CUtensorMap m_proj,
+                     const __grid_constant__ CUtensorMap m_in,
+                     const __grid_constant__ CUtensorMap m_out,
+                     const MlpArgs p) {
+  using S = MlpShape<C>;
+  constexpr int HN = 64 / S::NWG;   // GEMM1 columns per warpgroup
+  constexpr int HG = HN / 2;        // gated: of each half
+  constexpr int NCT = S::NWG * 128; // consumer threads
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = smem + S::RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BOFF);
+  uint64_t* empty = full + S::NWG * S::NS;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x;
   const int row0 = blockIdx.x * MLP_BM;
-  const int lda = C + 8, ldf = C + 4, nt = C / 16;
-
-  // 1. attention output rows, 16 bytes a thread (zero past R)
-  const int vec = C / 8;
-  for (int i = threadIdx.x; i < MLP_BM * vec; i += blockDim.x) {
-    const int r = i / vec, v = i % vec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < R)
-      val = reinterpret_cast<const uint4*>(o + static_cast<size_t>(row0 + r) * C)[v];
-    *reinterpret_cast<uint4*>(A + r * lda + v * 8) = val;
-  }
-  __syncthreads();
-
-  // 2. output projection, fp32 accumulate
-  for (int tile = warp; tile < 2 * nt; tile += MLP_WARPS) {
-    const int mi = tile / nt, ni = tile % nt;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int k0 = 0; k0 < C; k0 += 16) {
-      FragA a;
-      FragBt bw;
-      wmma::load_matrix_sync(a, A + mi * 16 * lda + k0, lda);
-      wmma::load_matrix_sync(bw, proj_w + static_cast<size_t>(ni * 16) * C + k0, C);
-      wmma::mma_sync(acc, a, bw, acc);
-    }
-    wmma::store_matrix_sync(F + mi * 16 * ldf + ni * 16, acc, ldf,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // 3. y = x + ls1 * (proj + b), each step rounded as in the plain path
-  for (int i = threadIdx.x; i < MLP_BM * C; i += blockDim.x) {
-    const int r = i / C, c = i % C;
-    float y = 0.f;
-    if (row0 + r < R) {
-      float p = round_bf16(F[r * ldf + c] + opt(proj_b, c));
-      if (ls1) p = round_bf16(p * f32(ls1[c]));
-      y = f32(x[static_cast<size_t>(row0 + r) * C + c]) + p;
-    }
-    Y[r * lda + c] = __float2bfloat16(y);
-  }
-  __syncthreads();
-
-  // 4. LayerNorm 2 into A
-  for (int r = warp; r < MLP_BM; r += MLP_WARPS)
-    layernorm_row(Y + r * lda, A + r * lda, ln_w, ln_b, C, eps, lane);
-  __syncthreads();
-
-  // 5. MLP over this split's hidden chunks: 8 warps compute one 32 x 64
-  // chunk of act(z W_in + b) (gated: 32 columns of each half), then add
-  // its product with W_out into the [32, C] accumulators in registers
-  const int hc = gated ? 32 : 64;
-  const int nchunks = inner / hc;
+  const int hc = p.gated ? 32 : 64;
+  const int nchunks = p.inner / hc;
   const int splits = gridDim.y, split = blockIdx.y;
   const int j0 = split * nchunks / splits;
   const int j1 = (split + 1) * nchunks / splits;
-  const int ot = 2 * nt;
-  FragC acc[NF];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[f], 0.f);
 
-  for (int j = j0; j < j1; ++j) {
-    {
-      const int mi = warp / 4, q = warp % 4;
-      const int col = gated ? (q / 2) * inner + j * 32 + (q % 2) * 16
-                            : j * 64 + q * 16;
-      FragC h;
-      wmma::fill_fragment(h, 0.f);
-      for (int k0 = 0; k0 < C; k0 += 16) {
-        FragA a;
-        FragBt bw;
-        wmma::load_matrix_sync(a, A + mi * 16 * lda + k0, lda);
-        wmma::load_matrix_sync(bw, in_w + static_cast<size_t>(col) * C + k0, C);
-        wmma::mma_sync(h, a, bw, h);
-      }
-      wmma::store_matrix_sync(Hf + mi * 16 * LD_HF + q * 16, h, LD_HF,
-                              wmma::mem_row_major);
+  if (tid == 0) {
+    for (int i = 0; i < S::NWG * S::NS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 128);
     }
-    __syncthreads();
-    if (gated) {
-      for (int i = threadIdx.x; i < MLP_BM * 32; i += blockDim.x) {
-        const int r = i / 32, c = i % 32;
-        const float a = Hf[r * LD_HF + c] + opt(in_b, j * 32 + c);
-        const float g = Hf[r * LD_HF + 32 + c] + opt(in_b, inner + j * 32 + c);
-        Hb[r * LD_HB + c] = __float2bfloat16(a * activate(g, act));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= NCT) {
+    if (tid == NCT)
+      mlp_produce<C>(&m_proj, &m_in, &m_out, ring, full, empty, p.inner,
+                     p.gated, j0, j1);
+    return;
+  }
+
+  const int w = tid / 128, t = tid % 128;
+  const int wr = (t / 32) * 16 + (t % 32) / 4;  // the thread's rows wr, wr + 8
+  const int q2 = (t % 4) * 2;                   // its column pair in each 8
+  int stage = 0;
+  uint32_t phase = 0;
+  auto advance = [&]() {
+    if (++stage == S::NS) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+
+  // 1. attention output rows into A, swizzled (zero past R)
+  for (int i = tid; i < MLP_BM * C / 8; i += NCT) {
+    const int r = i / (C / 8), c8 = i % (C / 8);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < p.R)
+      v = reinterpret_cast<const uint4*>(p.o + static_cast<size_t>(row0 + r) * C)[c8];
+    const int kb = c8 / (S::KB / 8), b = (c8 % (S::KB / 8)) * 16;
+    *reinterpret_cast<uint4*>(smem + kb * 64 * S::SW + swz(r, b, S::SW)) = v;
+  }
+  fence_async_smem();
+  consumer_sync(NCT);
+
+  // 2. projection: this warpgroup's NW columns, K-block by K-block
+  float acc[S::NW / 2];
+#pragma unroll
+  for (int i = 0; i < S::NW / 2; ++i) acc[i] = 0.f;
+  for (int kb = 0; kb < S::NKB; ++kb) {
+    const int slot = w * S::NS + stage;
+    mbar_wait(&full[slot], phase);
+    const uint32_t a = smem_u32(smem + kb * 64 * S::SW);
+    const uint32_t b = smem_u32(ring + slot * S::STAGE);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < S::KB / 16; ++k)
+      wgmma_ss<S::NW>(acc, gmma_desc(a + 32 * k, S::SW),
+                      gmma_desc(b + 32 * k, S::SW), 1);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs<S::NW / 2>(acc);
+    mbar_arrive(&empty[slot]);
+    advance();
+  }
+
+  // 3. y = x + ls1 * (proj + b), each step rounded as in the plain path
+#pragma unroll
+  for (int i = 0; i < S::NW / 8; ++i) {
+    const int col = w * S::NW + 8 * i + q2;
+    const float b0 = opt(p.proj_b, col), b1 = opt(p.proj_b, col + 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + wr + 8 * h;
+      if (row >= p.R) continue;
+      float v0 = round_bf16(acc[4 * i + 2 * h] + b0);
+      float v1 = round_bf16(acc[4 * i + 2 * h + 1] + b1);
+      if (p.ls1) {
+        v0 = round_bf16(v0 * f32(p.ls1[col]));
+        v1 = round_bf16(v1 * f32(p.ls1[col + 1]));
+      }
+      const size_t idx = static_cast<size_t>(row) * C + col;
+      const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(p.x + idx);
+      *reinterpret_cast<__nv_bfloat162*>(p.y + idx) =
+          __floats2bfloat162_rn(f32(xv.x) + v0, f32(xv.y) + v1);
+    }
+  }
+  consumer_sync(NCT);
+
+  // 4. z = LayerNorm 2 of the y rows, over the o rows in A (zero past R);
+  // fp32 statistics in two passes, one warp a row
+  {
+    constexpr int NCH = (C / 8 + 31) / 32;   // 16-byte chunks per lane
+    const int warp = tid / 32, lane = tid % 32;
+    for (int r = warp; r < MLP_BM; r += NCT / 32) {
+      const int row = row0 + r;
+      float v[NCH][8];
+      float s = 0.f;
+#pragma unroll
+      for (int u = 0; u < NCH; ++u) {
+        const int c8 = lane + 32 * u;
+        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+        if (row < p.R && c8 < C / 8)
+          raw = __ldcg(reinterpret_cast<const uint4*>(p.y + static_cast<size_t>(row) * C) + c8);
+        const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          v[u][k] = f32(e[k]);
+          s += v[u][k];
+        }
+      }
+      const float mean = warp_sum(s) / C;
+      float ss = 0.f;
+#pragma unroll
+      for (int u = 0; u < NCH; ++u) {
+        if (lane + 32 * u >= C / 8) continue;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float d = v[u][k] - mean;
+          ss += d * d;
+        }
+      }
+      const float inv = 1.f / sqrtf(warp_sum(ss) / C + p.eps);
+#pragma unroll
+      for (int u = 0; u < NCH; ++u) {
+        const int c8 = lane + 32 * u;
+        if (c8 >= C / 8) continue;
+        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+        if (row < p.R) {
+          bf16* e = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const int c = c8 * 8 + k;
+            e[k] = __float2bfloat16((v[u][k] - mean) * inv * f32(p.ln_w[c]) +
+                                    f32(p.ln_b[c]));
+          }
+        }
+        const int kb = c8 / (S::KB / 8), b = (c8 % (S::KB / 8)) * 16;
+        *reinterpret_cast<uint4*>(smem + kb * 64 * S::SW + swz(r, b, S::SW)) = raw;
+      }
+    }
+  }
+  fence_async_smem();
+  consumer_sync(NCT);
+
+  // 5. MLP over this CTA's hidden chunks: GEMM1 into registers, bias and
+  // activation, bf16 into the H tile (two, alternating), GEMM2 into acc
+#pragma unroll
+  for (int i = 0; i < S::NW / 2; ++i) acc[i] = 0.f;
+  float hreg[HN / 2];
+  const int hsw = p.gated ? 64 : 128;   // H tile rows: hc bf16
+  int pend = -1;                         // ring slot GEMM2 may still read
+  for (int j = j0; j < j1; ++j) {
+    unsigned char* H = smem + S::HOFF + ((j - j0) & 1) * MLP_HBUF;
+    const int slot1 = w * S::NS + stage;
+    mbar_wait(&full[slot1], phase);
+    const uint32_t b1 = smem_u32(ring + slot1 * S::STAGE);
+    wgmma_fence();
+    if (!p.gated) {
+#pragma unroll
+      for (int kb = 0; kb < S::NKB; ++kb) {
+        const uint32_t a = smem_u32(smem + kb * 64 * S::SW);
+#pragma unroll
+        for (int k = 0; k < S::KB / 16; ++k)
+          wgmma_ss<HN>(hreg, gmma_desc(a + 32 * k, S::SW),
+                       gmma_desc(b1 + kb * HN * S::SW + 32 * k, S::SW),
+                       kb + k > 0);
       }
     } else {
-      for (int i = threadIdx.x; i < MLP_BM * 64; i += blockDim.x) {
-        const int r = i / 64, c = i % 64;
-        Hb[r * LD_HB + c] = __float2bfloat16(
-            activate(Hf[r * LD_HF + c] + opt(in_b, j * 64 + c), act));
-      }
-    }
-    __syncthreads();
 #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      const int tile = warp + f * MLP_WARPS;
-      if (tile < ot) {
-        const int mi = tile / nt, ni = tile % nt;
-        for (int k0 = 0; k0 < hc; k0 += 16) {
-          FragA a;
-          FragBt bw;
-          wmma::load_matrix_sync(a, Hb + mi * 16 * LD_HB + k0, LD_HB);
-          wmma::load_matrix_sync(
-              bw, out_w + static_cast<size_t>(ni * 16) * inner + j * hc + k0,
-              inner);
-          wmma::mma_sync(acc[f], a, bw, acc[f]);
+      for (int kb = 0; kb < S::NKB; ++kb) {
+        const uint32_t a = smem_u32(smem + kb * 64 * S::SW);
+#pragma unroll
+        for (int k = 0; k < S::KB / 16; ++k) {
+          wgmma_ss<HG>(hreg, gmma_desc(a + 32 * k, S::SW),
+                       gmma_desc(b1 + kb * HG * S::SW + 32 * k, S::SW),
+                       kb + k > 0);
+          wgmma_ss<HG>(hreg + HG / 2, gmma_desc(a + 32 * k, S::SW),
+                       gmma_desc(b1 + (S::NKB + kb) * HG * S::SW + 32 * k, S::SW),
+                       kb + k > 0);
         }
       }
     }
+    wgmma_commit();
+    wgmma_wait0();      // this chunk's GEMM1 and the last chunk's GEMM2
+    fence_regs<HN / 2>(hreg);
+    fence_regs<S::NW / 2>(acc);
+    mbar_arrive(&empty[slot1]);
+    if (pend >= 0) mbar_arrive(&empty[pend]);
+    advance();
+
+    if (!p.gated) {
+#pragma unroll
+      for (int i = 0; i < HN / 8; ++i) {
+        const int cl = w * HN + 8 * i + q2;
+        const float b0 = opt(p.in_b, j * 64 + cl), b1v = opt(p.in_b, j * 64 + cl + 1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<__nv_bfloat162*>(H + swz(wr + 8 * h, cl * 2, 128)) =
+              __floats2bfloat162_rn(activate(hreg[4 * i + 2 * h] + b0, p.act),
+                                    activate(hreg[4 * i + 2 * h + 1] + b1v, p.act));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < HG / 8; ++i) {
+        const int cl = w * HG + 8 * i + q2;
+        const float a0 = opt(p.in_b, j * 32 + cl), a1 = opt(p.in_b, j * 32 + cl + 1);
+        const float g0 = opt(p.in_b, p.inner + j * 32 + cl);
+        const float g1 = opt(p.in_b, p.inner + j * 32 + cl + 1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 4 * i + 2 * h;
+          *reinterpret_cast<__nv_bfloat162*>(H + swz(wr + 8 * h, cl * 2, 64)) =
+              __floats2bfloat162_rn(
+                  (hreg[e] + a0) * activate(hreg[HG / 2 + e] + g0, p.act),
+                  (hreg[e + 1] + a1) * activate(hreg[HG / 2 + e + 1] + g1, p.act));
+        }
+      }
+    }
+    fence_async_smem();
+    consumer_sync(NCT);
+
+    const int slot2 = w * S::NS + stage;
+    mbar_wait(&full[slot2], phase);
+    const uint32_t b2 = smem_u32(ring + slot2 * S::STAGE), ha = smem_u32(H);
+    wgmma_fence();
+    for (int k = 0; k < hc / 16; ++k)
+      wgmma_ss<S::NW>(acc, gmma_desc(ha + 32 * k, hsw),
+                      gmma_desc(b2 + 32 * k, hsw), 1);
+    wgmma_commit();
+    pend = slot2;
+    advance();
   }
+  wgmma_wait0();
+  fence_regs<S::NW / 2>(acc);
+  if (pend >= 0) mbar_arrive(&empty[pend]);
 
   // 6. out = y + ls2 * (mlp + b), or this split's partial sums
 #pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    const int tile = warp + f * MLP_WARPS;
-    if (tile < ot) {
-      const int mi = tile / nt, ni = tile % nt;
-      wmma::store_matrix_sync(F + mi * 16 * ldf + ni * 16, acc[f], ldf,
-                              wmma::mem_row_major);
+  for (int i = 0; i < S::NW / 8; ++i) {
+    const int col = w * S::NW + 8 * i + q2;
+    const float b0 = opt(p.out_b, col), b1 = opt(p.out_b, col + 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + wr + 8 * h;
+      if (row >= p.R) continue;
+      const size_t idx = static_cast<size_t>(row) * C + col;
+      if (splits > 1) {
+        *reinterpret_cast<float2*>(p.part + static_cast<size_t>(split) * p.R * C + idx) =
+            make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+        continue;
+      }
+      float m0 = round_bf16(acc[4 * i + 2 * h] + b0);
+      float m1 = round_bf16(acc[4 * i + 2 * h + 1] + b1);
+      if (p.ls2) {
+        m0 = round_bf16(m0 * f32(p.ls2[col]));
+        m1 = round_bf16(m1 * f32(p.ls2[col + 1]));
+      }
+      const __nv_bfloat162 yv = *reinterpret_cast<const __nv_bfloat162*>(p.y + idx);
+      *reinterpret_cast<__nv_bfloat162*>(p.out + idx) =
+          __floats2bfloat162_rn(f32(yv.x) + m0, f32(yv.y) + m1);
     }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < MLP_BM * C; i += blockDim.x) {
-    const int r = i / C, c = i % C;
-    if (row0 + r >= R) continue;
-    const size_t idx = static_cast<size_t>(row0 + r) * C + c;
-    if (splits > 1) {
-      part[static_cast<size_t>(split) * R * C + idx] = F[r * ldf + c];
-      if (split == 0) y_ws[idx] = Y[r * lda + c];
-      continue;
-    }
-    float m = round_bf16(F[r * ldf + c] + opt(out_b, c));
-    if (ls2) m = round_bf16(m * f32(ls2[c]));
-    out[idx] = __float2bfloat16(f32(Y[r * lda + c]) + m);
   }
 }
 
@@ -586,6 +970,91 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// ---------------------------------------------------------------------------
+// Tensor maps for the MLP kernel's TMA loads
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+struct MapKey {
+  const void* ptr;
+  uint64_t cols, rows;
+  uint32_t box_cols, box_rows;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && cols == o.cols && rows == o.rows &&
+           box_cols == o.box_cols && box_rows == o.box_rows;
+  }
+};
+
+// A [rows, cols] row-major bf16 matrix read in boxes of box_rows x
+// box_cols (box_cols * 2 = 128 or 64 bytes, the swizzle). Weights do not
+// move between steps, so maps are kept by their arguments (64 entries,
+// oldest replaced first).
+bool weight_map(CUtensorMap* map, const void* ptr, uint64_t rows,
+                uint64_t cols, uint32_t box_rows, uint32_t box_cols) {
+  static std::mutex lock;
+  static EncodeTiledFn encode = nullptr;
+  static MapKey keys[64];
+  static CUtensorMap maps[64];
+  static int used = 0, next = 0;
+  const MapKey key{ptr, cols, rows, box_cols, box_rows};
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < used; ++i)
+    if (keys[i] == key) {
+      *map = maps[i];
+      return true;
+    }
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return false;
+    encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return false;
+  keys[next] = key;
+  maps[next] = *map;
+  next = (next + 1) % 64;
+  if (used < 64) ++used;
+  return true;
+}
+
+template <int C>
+cudaError_t launch_mlp(const MlpArgs& a, const void* proj_w, const void* in_w,
+                       const void* out_w, int splits, cudaStream_t st) {
+  using S = MlpShape<C>;
+  const int hc = a.gated ? 32 : 64;
+  CUtensorMap m_proj, m_in, m_out;
+  if (!weight_map(&m_proj, proj_w, C, C, S::NW, S::KB) ||
+      !weight_map(&m_in, in_w, a.gated ? 2 * a.inner : a.inner, C,
+                  hc / S::NWG, S::KB) ||
+      !weight_map(&m_out, out_w, C, a.inner, S::NW, hc))
+    return cudaErrorInvalidValue;
+  cudaError_t e = set_smem(block_mlp_kernel<C>, S::SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.R + MLP_BM - 1) / MLP_BM, splits);
+  block_mlp_kernel<C><<<grid, S::THREADS, S::SMEM, st>>>(m_proj, m_in, m_out, a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry point launches on `stream`, allocates nothing and returns
@@ -611,43 +1080,22 @@ extern "C" int leod_block_attention(const void* x, void* o, const void* ln_w,
   return cudaGetLastError();
 }
 
-// How many CTAs share a row tile's hidden chunks: enough CTAs for two
-// waves over the card's SMs, but at least MLP_MIN_CHUNKS chunks each,
-// since every split redoes the projection and LN2. The wrapper sizes the
+// How many CTAs share a row tile's hidden chunks: about one wave of CTAs
+// over the card's SMs, but at least MLP_MIN_CHUNKS chunks each, since
+// every split redoes the projection and LN2. The wrapper sizes the
 // scratch of leod_block_mlp by it.
 extern "C" int leod_block_mlp_splits(int R, int inner, int gated,
                                      int num_sms) {
   if (R < 1) return 1;
   const int tiles = (R + MLP_BM - 1) / MLP_BM;
   const int most = inner / (gated ? 32 : 64) / MLP_MIN_CHUNKS;
-  const int want = (2 * num_sms + tiles - 1) / tiles;
-  return want < most ? want : (most > 1 ? most : 1);
+  const int want = num_sms / tiles;
+  const int s = want < most ? want : most;
+  return s > 1 ? s : 1;
 }
 
-template <int NF>
-cudaError_t launch_mlp(dim3 grid, size_t smem, cudaStream_t st,
-                       const void* x, const void* o, void* out,
-                       const void* proj_w, const void* proj_b,
-                       const void* ls1, const void* ln_w, const void* ln_b,
-                       const void* in_w, const void* in_b, const void* out_w,
-                       const void* out_b, const void* ls2, void* part,
-                       void* y_ws, int R, int C, int inner, int gated,
-                       int act, float eps) {
-  cudaError_t e = set_smem(block_mlp_kernel<NF>, smem);
-  if (e != cudaSuccess) return e;
-  block_mlp_kernel<NF><<<grid, MLP_WARPS * 32, smem, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(o),
-      static_cast<bf16*>(out), static_cast<const bf16*>(proj_w),
-      static_cast<const bf16*>(proj_b), static_cast<const bf16*>(ls1),
-      static_cast<const bf16*>(ln_w), static_cast<const bf16*>(ln_b),
-      static_cast<const bf16*>(in_w), static_cast<const bf16*>(in_b),
-      static_cast<const bf16*>(out_w), static_cast<const bf16*>(out_b),
-      static_cast<const bf16*>(ls2), static_cast<float*>(part),
-      static_cast<bf16*>(y_ws), R, C, inner, gated, act, eps);
-  return cudaGetLastError();
-}
-
-// splits > 1 needs part [splits, R, C] fp32 and y_ws [R, C] bf16 scratch
+// C in {32, 64, 128, 256, 512}; splits > 1 needs part [splits, R, C]
+// fp32 and y_ws [R, C] bf16 scratch
 extern "C" int leod_block_mlp(const void* x, const void* o, void* out,
                               const void* proj_w, const void* proj_b,
                               const void* ls1, const void* ln_w,
@@ -656,26 +1104,39 @@ extern "C" int leod_block_mlp(const void* x, const void* o, void* out,
                               const void* out_b, const void* ls2, void* part,
                               void* y_ws, int R, int C, int inner, int gated,
                               int act, float eps, int splits, void* stream) {
-  const int tiles = 2 * (C / 16);   // 16 x 16 output tiles of a 32-row CTA
-  if (C % 16 || tiles > MLP_MAXF * MLP_WARPS || inner % (gated ? 32 : 64) ||
-      splits < 1 || splits > inner / (gated ? 32 : 64) ||
+  const int hc = gated ? 32 : 64;
+  if (R < 1 || inner % hc || splits < 1 || splits > inner / hc ||
+      ln_w == nullptr || ln_b == nullptr ||
       (splits > 1 && (part == nullptr || y_ws == nullptr)))
     return cudaErrorInvalidValue;
-  size_t off[5];
-  const size_t smem = mlp_smem(C, off);
-  const dim3 grid((R + MLP_BM - 1) / MLP_BM, splits);
+  MlpArgs a;
+  a.x = static_cast<const bf16*>(x);
+  a.o = static_cast<const bf16*>(o);
+  a.proj_b = static_cast<const bf16*>(proj_b);
+  a.ls1 = static_cast<const bf16*>(ls1);
+  a.ln_w = static_cast<const bf16*>(ln_w);
+  a.ln_b = static_cast<const bf16*>(ln_b);
+  a.in_b = static_cast<const bf16*>(in_b);
+  a.out_b = static_cast<const bf16*>(out_b);
+  a.ls2 = static_cast<const bf16*>(ls2);
+  a.out = static_cast<bf16*>(out);
+  a.y = static_cast<bf16*>(splits > 1 ? y_ws : out);
+  a.part = static_cast<float*>(part);
+  a.R = R;
+  a.inner = inner;
+  a.gated = gated;
+  a.act = act;
+  a.eps = eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nf = (tiles + MLP_WARPS - 1) / MLP_WARPS;
   cudaError_t e;
-#define LEOD_MLP(NF)                                                         \
-  launch_mlp<NF>(grid, smem, st, x, o, out, proj_w, proj_b, ls1, ln_w, ln_b, \
-                 in_w, in_b, out_w, out_b, ls2, part, y_ws, R, C, inner,     \
-                 gated, act, eps)
-  if (nf <= 1) e = LEOD_MLP(1);
-  else if (nf <= 2) e = LEOD_MLP(2);
-  else if (nf <= 4) e = LEOD_MLP(4);
-  else e = LEOD_MLP(MLP_MAXF);
-#undef LEOD_MLP
+  switch (C) {
+    case 32: e = launch_mlp<32>(a, proj_w, in_w, out_w, splits, st); break;
+    case 64: e = launch_mlp<64>(a, proj_w, in_w, out_w, splits, st); break;
+    case 128: e = launch_mlp<128>(a, proj_w, in_w, out_w, splits, st); break;
+    case 256: e = launch_mlp<256>(a, proj_w, in_w, out_w, splits, st); break;
+    case 512: e = launch_mlp<512>(a, proj_w, in_w, out_w, splits, st); break;
+    default: return cudaErrorInvalidValue;
+  }
   if (e != cudaSuccess || splits == 1) return e;
   const size_t n = static_cast<size_t>(R) * C;
   const int blocks = static_cast<int>((n + 255) / 256 < 8192 ? (n + 255) / 256 : 8192);

@@ -9,12 +9,13 @@ kernels or raises. Each wrapper counts the calls in which it launched
 kernels in `.launches`.
 
 On the card, a block is two launches: `block_attention` (LN1 +
-per-head attention, one CTA per window and head) and `block_mlp`
-(projection, LayerScale, residual, LN2, MLP, LayerScale, residual, per
-token; with a third, `mlp_combine`, where few tokens make it split the
-hidden dim). `fused_stage` runs its pairs so and then launches the ConvLSTM
-update `lstm_update`. The kernels take bf16 activations and weights and
-accumulate in fp32.
+per-head attention, one CTA per window and head; plain version
+`block_attention_plain`) and `block_mlp` (projection, LayerScale,
+residual, LN2, MLP, LayerScale, residual, per token, on wgmma fed by TMA;
+with a third, `mlp_combine`, where few tokens make it split the hidden
+dim; plain version `block_mlp_plain`). `fused_stage` runs its pairs so
+and then launches the ConvLSTM update `lstm_update`. The kernels take
+bf16 activations and weights and accumulate in fp32.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ _SIGS = {
 }
 _ACTS = {"gelu": 0, "silu": 1, "relu": 2}
 DIM_HEAD = 32          # the kernels' head width
+MLP_DIMS = (32, 64, 128, 256, 512)   # the widths block_mlp's tiles take
 
 
 def _lib() -> ctypes.CDLL:
@@ -87,6 +89,27 @@ def _check_block(blk: PartitionAttention, skip_first_norm: bool,
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
+
+def block_attention_plain(x: torch.Tensor,
+                          blk: PartitionAttention) -> torch.Tensor:
+    """The half of a block that `block_attention_kernel` computes, on
+    partitioned tokens [N, T, C]: LayerNorm 1 (unless skipped) and
+    attention up to, not including, the output projection."""
+    return blk.attn.core(x if blk.skip_first_norm else blk.norm1(x))
+
+
+def block_mlp_plain(x: torch.Tensor, o: torch.Tensor,
+                    blk: PartitionAttention) -> torch.Tensor:
+    """The per-token half that `block_mlp_kernel` computes, on any
+    [..., C]: the output projection of the attention output `o`,
+    LayerScale 1, residual x, LayerNorm 2, MLP, LayerScale 2, residual.
+    `block_mlp_plain(x, block_attention_plain(x, blk), blk)` is
+    `blk(x)`."""
+    y = blk.attn.proj(o)
+    x = x + (y if blk.ls1 is None else y * blk.ls1)
+    y = blk.mlp(blk.norm2(x))
+    return x + (y if blk.ls2 is None else y * blk.ls2)
+
 
 def fused_block_pair_plain(x: torch.Tensor, window_block: PartitionAttention,
                            grid_block: PartitionAttention,
@@ -138,27 +161,41 @@ def _block_cuda(x: torch.Tensor, blk: PartitionAttention, grid_kind: bool,
     b, h, w, c = x.shape
     ph, pw = blk.partition_size
     norm1 = None if blk.skip_first_norm else blk.norm1
-    attn, mlp = blk.attn, blk.mlp
-    ws = [attn.qkv.weight, attn.qkv.bias, attn.proj.weight, attn.proj.bias,
-          blk.ls1, blk.norm2.weight, blk.norm2.bias, mlp.proj_in.weight,
-          mlp.proj_in.bias, mlp.proj_out.weight, mlp.proj_out.bias, blk.ls2]
+    attn = blk.attn
+    ws = [attn.qkv.weight, attn.qkv.bias]
     if norm1 is not None:
         ws += [norm1.weight, norm1.bias]
     _require_cuda("fused_block_pair", x, *ws)
-    lib, stream = _lib(), _stream(x)
     ln_w, ln_b = (None, None) if norm1 is None else (norm1.weight,
                                                      norm1.bias)
     o = torch.empty_like(x)
-    _build.check("leod_block_attention", lib.leod_block_attention(
+    _build.check("leod_block_attention", _lib().leod_block_attention(
         x.data_ptr(), o.data_ptr(), _ptr(ln_w), _ptr(ln_b),
         attn.qkv.weight.data_ptr(), _ptr(attn.qkv.bias), b, h, w, c, ph, pw,
-        int(grid_kind), eps, stream))
+        int(grid_kind), eps, _stream(x)))
+    return block_mlp(x, o, blk, act, gated, eps)
+
+
+def _mlp_cuda(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
+              act: str, gated: bool, eps: float,
+              splits: Optional[int]) -> torch.Tensor:
+    attn, mlp = blk.attn, blk.mlp
+    _require_cuda("block_mlp", x, o, attn.proj.weight, attn.proj.bias,
+                  blk.ls1, blk.norm2.weight, blk.norm2.bias,
+                  mlp.proj_in.weight, mlp.proj_in.bias, mlp.proj_out.weight,
+                  mlp.proj_out.bias, blk.ls2)
+    c = x.shape[-1]
+    if o.shape != x.shape or c not in MLP_DIMS or x.numel() == 0:
+        raise ValueError(f"block_mlp: x and o [..., C] of one shape, C in "
+                         f"{MLP_DIMS}; got {tuple(x.shape)}, {tuple(o.shape)}")
+    lib = _lib()
+    rows, inner = x.numel() // c, mlp.proj_out.in_features
     out = torch.empty_like(x)
-    rows, inner = b * h * w, mlp.proj_out.in_features
     # too few row tiles to fill the card: CTAs split the hidden dim and
     # write fp32 partial sums, which a second kernel adds up
-    splits = lib.leod_block_mlp_splits(rows, inner, int(gated),
-                                       _num_sms(x.device))
+    if splits is None:
+        splits = lib.leod_block_mlp_splits(rows, inner, int(gated),
+                                           _num_sms(x.device))
     part = y_ws = None
     if splits > 1:
         part = torch.empty((splits, rows, c), dtype=torch.float32,
@@ -171,7 +208,7 @@ def _block_cuda(x: torch.Tensor, blk: PartitionAttention, grid_kind: bool,
         mlp.proj_in.weight.data_ptr(), _ptr(mlp.proj_in.bias),
         mlp.proj_out.weight.data_ptr(), _ptr(mlp.proj_out.bias),
         _ptr(blk.ls2), _ptr(part), _ptr(y_ws), rows, c, inner, int(gated),
-        _ACTS[act], eps, splits, stream))
+        _ACTS[act], eps, splits, _stream(x)))
     return out
 
 
@@ -200,6 +237,28 @@ def _lstm_cuda(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Wrappers (the ports of the Pallas functions, same signatures)
 # ---------------------------------------------------------------------------
+
+def block_mlp(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
+              act: str = "gelu", gated: bool = False, eps: float = 1e-5, *,
+              splits: Optional[int] = None) -> torch.Tensor:
+    """The per-token half of a block (`block_mlp_plain`) on token rows
+    x, o [..., C]. On the card C is one of MLP_DIMS; `splits` forces how
+    many CTAs share a row tile's hidden dim (tests only; by default the
+    kernel picks)."""
+    if blk.mlp.act != act or blk.mlp.gated != gated:
+        raise ValueError("block module config disagrees with the call's "
+                         "act/gated")
+    if x.device.type == "cpu":
+        return block_mlp_plain(x, o, blk)
+    if act not in _ACTS:
+        raise ValueError(f"the CUDA block takes act in {sorted(_ACTS)}")
+    out = _mlp_cuda(x, o, blk, act, gated, eps, splits)
+    block_mlp.launches += 1
+    return out
+
+
+block_mlp.launches = 0
+
 
 def fused_block_pair(x: torch.Tensor, window_params: PartitionAttention,
                      grid_params: PartitionAttention,
@@ -250,4 +309,4 @@ def fused_stage(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
 
 fused_stage.launches = 0
 
-WRAPPERS = (fused_block_pair, fused_stage)
+WRAPPERS = (fused_block_pair, fused_stage, block_mlp)

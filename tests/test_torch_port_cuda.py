@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at small shapes that reach the kernels' edge cases: windows of T
 tokens that are no multiple of 16, 1, 2, 4 and 16 heads, the MLP with
-and without its hidden dim split over CTAs, the GLU MLP and SiLU, an
+and without its hidden dim split over CTAs, the per-token half
+`block_mlp` alone at every width its tiles take, row counts with a
+ragged last 64-row tile, and 1 to 8 CTAs sharing a tile's hidden dim,
+the GLU MLP and SiLU, an
 fp32 and a bf16 cell state, NMS with and without class ids at
 K = 1, 37, 1000 and 1024, and inputs the kernels refuse.
 
@@ -131,6 +134,39 @@ def test_nms_kernel_matches_plain(cuda, k, with_ids):
                        got[0])
 
 
+def _mlp_cases():
+    """C x R x MLP kind x CTAs per row tile, where the tiles allow the
+    split: each CTA needs a hidden chunk (64 units; 32 of each half in
+    the GLU) and 8 projection columns a warpgroup."""
+    cases = []
+    for dim in maxvit_cuda.MLP_DIMS:
+        for rows in (80, 640, 1000):
+            for act, gated in (("gelu", False), ("silu", False),
+                               ("gelu", True)):
+                chunks = (PartitionAttention(dim, (4, 5), "window",
+                                             mlp_gated=gated)
+                          .mlp.proj_out.in_features // (32 if gated else 64))
+                for splits in (1, 2, 4, 8):
+                    if splits <= chunks and dim // splits >= 8:
+                        cases.append((dim, rows, act, gated, splits))
+    return cases
+
+
+@pytest.mark.parametrize("dim,rows,act,gated,splits", _mlp_cases())
+def test_block_mlp_kernel_matches_plain(cuda, dim, rows, act, gated, splits):
+    blk = _randomized(PartitionAttention(dim, (4, 5), "window",
+                                         mlp_gated=gated, mlp_act=act),
+                      dim + rows, cuda)
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    x, o = (torch.randn(rows, dim, device=cuda, generator=g
+                        ).to(torch.bfloat16) for _ in range(2))
+    before = maxvit_cuda.block_mlp.launches
+    got = maxvit_cuda.block_mlp(x, o, blk, act, gated, splits=splits)
+    torch.cuda.synchronize()
+    assert maxvit_cuda.block_mlp.launches == before + 1
+    _close(got, maxvit_cuda.block_mlp_plain(x, o, blk))
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     wb, gb = _pair(32, (4, 5), False, "gelu", cuda)
     x = torch.zeros(1, H, W, 32, device=cuda)
@@ -140,6 +176,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
                      dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         maxvit_cuda.fused_block_pair(xt, wb, gb, (4, 5), True)
+    # 96 channels (3 heads) is no width the MLP kernel's tiles take
+    blk = _randomized(PartitionAttention(96, (4, 5), "window"), 0, cuda)
+    x96 = torch.zeros(80, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C in"):
+        maxvit_cuda.block_mlp(x96, x96, blk)
     boxes = torch.zeros(1, 1025, 4, device=cuda)
     valid = torch.ones(1, 1025, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="1..1024"):
