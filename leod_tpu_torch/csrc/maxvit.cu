@@ -19,10 +19,10 @@
 //       stay in shared memory, on wgmma with every weight tile streamed
 //       by TMA through a ring of shared-memory stages (section below).
 //       Where B*H*W gives too few row tiles to fill the card (stages 3-4,
-//       or any stage at small B), gridDim.y CTAs split the hidden chunks
-//       of a row tile, each redoing the projection and LN2, and write
-//       fp32 partial sums; mlp_combine_kernel adds them and applies the
-//       bias, LayerScale and residual.
+//       or any stage at small B), a thread-block cluster of up to 8 CTAs
+//       shares a row tile: each projects C / size of the columns and
+//       runs a share of the hidden chunks, and their fp32 partial sums
+//       are added over distributed shared memory.
 //   lstm_update_kernel  a tiled GEMM over rows B*H*W with K = 2C read
 //       from the two pointers x and h (no concat); one CTA owns channels
 //       j..j+15 of all four gates, so the gate epilogue writes h' and c'
@@ -56,7 +56,6 @@ constexpr int QKV_H = 3 * DH;      // one head's packed q|k|v columns
 constexpr int LD_QKV = QKV_H + 4;  // fp32 row stride of the q|k|v tile
 constexpr int ATTN_THREADS = 256;
 
-constexpr int MLP_MIN_CHUNKS = 4;  // hidden chunks per split at least
 
 constexpr int LSTM_BM = 32;
 constexpr int LSTM_BN = 16;        // channels per CTA (x 4 gates)
@@ -310,6 +309,12 @@ __global__ void __launch_bounds__(ATTN_THREADS) block_attention_kernel(
 // columns) issue wgmma.mma_async; one producer warp streams every weight
 // tile through a ring of NS stages per warpgroup with TMA (128- or
 // 64-byte swizzle, matching the wgmma descriptors), full/empty mbarriers.
+//
+// Shared memory at C = 512: the A tile (64 KB), 2 warpgroups x 2 stages
+// of 32 KB, two 8 KB H tiles; the fp32 partial of a cluster's reduction
+// (130 KB) reuses A and the ring once the last product is done. The y
+// rows go through `out` (L2) rather than a 64 KB shared tile, which
+// would leave one ring stage per warpgroup.
 
 constexpr int MLP_BM = 64;         // token rows per CTA (wgmma's M)
 constexpr int MLP_HBUF = 8192;     // bytes of one H tile (64 x 64 bf16)
@@ -333,9 +338,7 @@ struct MlpShape {
 
 struct MlpArgs {
   const bf16 *x, *o, *proj_b, *ls1, *ln_w, *ln_b, *in_b, *out_b, *ls2;
-  bf16* out;
-  bf16* y;        // y rows: `out` itself, or scratch when splits > 1
-  float* part;    // [splits, R, C] partial MLP sums when splits > 1
+  bf16* out;      // holds the y rows until the last step overwrites them
   int R, inner, gated, act;
   float eps;
 };
@@ -530,32 +533,66 @@ __device__ __forceinline__ void wgmma_ss<256>(float* d, uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+// barrier.cluster: arrive releases this thread's writes (shared and
+// global) to the cluster, wait acquires every peer's
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;" ::: "memory");
+}
+// 16 bytes at `p` in the shared memory of the cluster's CTA `rank`
+__device__ __forceinline__ float4 ld_peer(const float* p, uint32_t rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // Producer: one thread walks the CTA's weight tiles in the consumers'
-// order, for each warpgroup its own ring stage: the projection's K-blocks,
-// then per hidden chunk j the proj_in rows (GEMM1) and the proj_out
-// columns (GEMM2).
+// order, for each warpgroup its own ring stage: the projection's
+// K-blocks for this CTA's columns (kpt K-blocks a stage), then per hidden
+// chunk j the proj_in rows (GEMM1) and the proj_out columns (GEMM2).
+// `mlp_tiles` counts the projection's tiles, `first` says which to issue.
 template <int C>
 __device__ void mlp_produce(const CUtensorMap* m_proj, const CUtensorMap* m_in,
                             const CUtensorMap* m_out, unsigned char* ring,
                             uint64_t* full, uint64_t* empty, int inner,
-                            int gated, int j0, int j1) {
+                            int gated, int col0, int n0, int j0, int j1,
+                            bool first, int& stage, uint32_t& phase) {
   using S = MlpShape<C>;
   const int hc = gated ? 32 : 64;       // hidden units per chunk
   const int hr = hc / S::NWG;           // of them, per warpgroup
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int t = 0; t < S::NKB + 2 * (j1 - j0); ++t) {
+  const int kpt = S::STAGE / (n0 * S::SW) < S::NKB ? S::STAGE / (n0 * S::SW) : S::NKB;
+  const int tiles = first ? S::NKB / kpt : 2 * (j1 - j0);
+  for (int t = 0; t < tiles; ++t) {
     for (int w = 0; w < S::NWG; ++w) {
       const int slot = w * S::NS + stage;
       unsigned char* dst = ring + slot * S::STAGE;
       mbar_wait(&empty[slot], phase ^ 1);
-      if (t < S::NKB) {
-        mbar_expect_tx(&full[slot], S::NW * S::KB * 2);
-        tma_load_2d(dst, m_proj, &full[slot], t * S::KB, w * S::NW);
+      if (first) {
+        mbar_expect_tx(&full[slot], kpt * n0 * S::SW);
+        for (int k = 0; k < kpt; ++k)
+          tma_load_2d(dst + k * n0 * S::SW, m_proj, &full[slot],
+                      (t * kpt + k) * S::KB, col0 + w * n0);
         continue;
       }
-      const int j = j0 + (t - S::NKB) / 2;
-      if ((t - S::NKB) % 2 == 0) {
+      const int j = j0 + t / 2;
+      if (t % 2 == 0) {
         mbar_expect_tx(&full[slot], hr * C * 2 * (gated ? 2 : 1));
         for (int kb = 0; kb < S::NKB; ++kb) {
           tma_load_2d(dst + kb * hr * S::SW, m_in, &full[slot], kb * S::KB,
@@ -576,98 +613,46 @@ __device__ void mlp_produce(const CUtensorMap* m_proj, const CUtensorMap* m_in,
   }
 }
 
-// gridDim.y > 1 splits the hidden chunks: split s writes its partial
-// MLP sums to part[s], and every split the rows y to the scratch p.y;
-// mlp_combine_kernel finishes.
-template <int C>
-__global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
-    block_mlp_kernel(const __grid_constant__ CUtensorMap m_proj,
-                     const __grid_constant__ CUtensorMap m_in,
-                     const __grid_constant__ CUtensorMap m_out,
-                     const MlpArgs p) {
+// The projection of this CTA's columns col0.. (N0 per warpgroup) and
+// y = x + ls1 * (proj + b), each step rounded as in the plain path, into
+// `out` (read back by every CTA of the cluster for LayerNorm 2).
+template <int C, int N0>
+__device__ __forceinline__ void mlp_project(const MlpArgs& p,
+                                            unsigned char* smem,
+                                            uint64_t* full, uint64_t* empty,
+                                            int w, int col0, int row0, int wr,
+                                            int q2, int& stage,
+                                            uint32_t& phase) {
   using S = MlpShape<C>;
-  constexpr int HN = 64 / S::NWG;   // GEMM1 columns per warpgroup
-  constexpr int HG = HN / 2;        // gated: of each half
-  constexpr int NCT = S::NWG * 128; // consumer threads
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* ring = smem + S::RING;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BOFF);
-  uint64_t* empty = full + S::NWG * S::NS;
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * MLP_BM;
-  const int hc = p.gated ? 32 : 64;
-  const int nchunks = p.inner / hc;
-  const int splits = gridDim.y, split = blockIdx.y;
-  const int j0 = split * nchunks / splits;
-  const int j1 = (split + 1) * nchunks / splits;
-
-  if (tid == 0) {
-    for (int i = 0; i < S::NWG * S::NS; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 128);
+  constexpr int KPT = S::STAGE / (N0 * S::SW) < S::NKB ? S::STAGE / (N0 * S::SW) : S::NKB;
+  float acc[N0 / 2];
+#pragma unroll
+  for (int i = 0; i < N0 / 2; ++i) acc[i] = 0.f;
+  for (int t = 0; t < S::NKB / KPT; ++t) {
+    const int slot = w * S::NS + stage;
+    mbar_wait(&full[slot], phase);
+    const uint32_t b = smem_u32(smem + S::RING + slot * S::STAGE);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < KPT; ++k) {
+      const uint32_t a = smem_u32(smem + (t * KPT + k) * 64 * S::SW);
+#pragma unroll
+      for (int kk = 0; kk < S::KB / 16; ++kk)
+        wgmma_ss<N0>(acc, gmma_desc(a + 32 * kk, S::SW),
+                     gmma_desc(b + k * N0 * S::SW + 32 * kk, S::SW), 1);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-
-  if (tid >= NCT) {
-    if (tid == NCT)
-      mlp_produce<C>(&m_proj, &m_in, &m_out, ring, full, empty, p.inner,
-                     p.gated, j0, j1);
-    return;
-  }
-
-  const int w = tid / 128, t = tid % 128;
-  const int wr = (t / 32) * 16 + (t % 32) / 4;  // the thread's rows wr, wr + 8
-  const int q2 = (t % 4) * 2;                   // its column pair in each 8
-  int stage = 0;
-  uint32_t phase = 0;
-  auto advance = [&]() {
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs<N0 / 2>(acc);
+    mbar_arrive(&empty[slot]);
     if (++stage == S::NS) {
       stage = 0;
       phase ^= 1;
     }
-  };
-
-  // 1. attention output rows into A, swizzled (zero past R)
-  for (int i = tid; i < MLP_BM * C / 8; i += NCT) {
-    const int r = i / (C / 8), c8 = i % (C / 8);
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < p.R)
-      v = reinterpret_cast<const uint4*>(p.o + static_cast<size_t>(row0 + r) * C)[c8];
-    const int kb = c8 / (S::KB / 8), b = (c8 % (S::KB / 8)) * 16;
-    *reinterpret_cast<uint4*>(smem + kb * 64 * S::SW + swz(r, b, S::SW)) = v;
   }
-  fence_async_smem();
-  consumer_sync(NCT);
-
-  // 2. projection: this warpgroup's NW columns, K-block by K-block
-  float acc[S::NW / 2];
 #pragma unroll
-  for (int i = 0; i < S::NW / 2; ++i) acc[i] = 0.f;
-  for (int kb = 0; kb < S::NKB; ++kb) {
-    const int slot = w * S::NS + stage;
-    mbar_wait(&full[slot], phase);
-    const uint32_t a = smem_u32(smem + kb * 64 * S::SW);
-    const uint32_t b = smem_u32(ring + slot * S::STAGE);
-    wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < S::KB / 16; ++k)
-      wgmma_ss<S::NW>(acc, gmma_desc(a + 32 * k, S::SW),
-                      gmma_desc(b + 32 * k, S::SW), 1);
-    wgmma_commit();
-    wgmma_wait0();
-    fence_regs<S::NW / 2>(acc);
-    mbar_arrive(&empty[slot]);
-    advance();
-  }
-
-  // 3. y = x + ls1 * (proj + b), each step rounded as in the plain path
-#pragma unroll
-  for (int i = 0; i < S::NW / 8; ++i) {
-    const int col = w * S::NW + 8 * i + q2;
+  for (int i = 0; i < N0 / 8; ++i) {
+    const int col = col0 + w * N0 + 8 * i + q2;
     const float b0 = opt(p.proj_b, col), b1 = opt(p.proj_b, col + 1);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -681,14 +666,126 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
       }
       const size_t idx = static_cast<size_t>(row) * C + col;
       const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(p.x + idx);
-      *reinterpret_cast<__nv_bfloat162*>(p.y + idx) =
+      *reinterpret_cast<__nv_bfloat162*>(p.out + idx) =
           __floats2bfloat162_rn(f32(xv.x) + v0, f32(xv.y) + v1);
     }
   }
+}
+
+// A cluster of CS CTAs (2, 4 or 8; the launch's cluster dimension x)
+// shares a row tile (a CTA launched alone has the tile to itself): CTA r projects columns [r C/CS, (r+1) C/CS) and
+// writes their y rows; after a cluster barrier every CTA runs LN2 on the
+// whole rows and the MLP over its share of the hidden chunks; each keeps
+// its fp32 [64, C] partial in its own shared memory, and CTA r sums the
+// peers' partials of its columns over distributed shared memory in rank
+// order (so runs agree bit for bit) and writes them out.
+template <int C>
+__global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
+    block_mlp_kernel(const __grid_constant__ CUtensorMap m_proj,
+                     const __grid_constant__ CUtensorMap m_in,
+                     const __grid_constant__ CUtensorMap m_out,
+                     const MlpArgs p) {
+  using S = MlpShape<C>;
+  constexpr int HN = 64 / S::NWG;   // GEMM1 columns per warpgroup
+  constexpr int HG = HN / 2;        // gated: of each half
+  constexpr int NCT = S::NWG * 128; // consumer threads
+  constexpr int LDP = C + 4;        // fp32 row stride of the partial
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = smem + S::RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BOFF);
+  uint64_t* empty = full + S::NWG * S::NS;
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.y * MLP_BM;
+  const int hc = p.gated ? 32 : 64;
+  const int nchunks = p.inner / hc;
+  const int cs = static_cast<int>(cluster_size());
+  const int rank = static_cast<int>(cluster_rank());
+  const int j0 = rank * nchunks / cs, j1 = (rank + 1) * nchunks / cs;
+  const int ccols = C / cs, col0 = rank * ccols;   // this CTA's columns
+
+  if (tid == 0) {
+    for (int i = 0; i < S::NWG * S::NS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= NCT) {
+    // producer warp: it takes part in the three cluster barriers, and
+    // arrives at the first before it streams the MLP's tiles, which the
+    // consumers free only after that barrier
+    const bool lead = tid == NCT;
+    int stage = 0;
+    uint32_t phase = 0;
+    if (lead)
+      mlp_produce<C>(&m_proj, &m_in, &m_out, ring, full, empty, p.inner,
+                     p.gated, col0, ccols / S::NWG, j0, j1, true, stage,
+                     phase);
+    if (cs == 1) {
+      if (lead)
+        mlp_produce<C>(&m_proj, &m_in, &m_out, ring, full, empty, p.inner,
+                       p.gated, col0, ccols / S::NWG, j0, j1, false, stage,
+                       phase);
+      return;
+    }
+    __syncwarp();
+    cluster_arrive();
+    if (lead)
+      mlp_produce<C>(&m_proj, &m_in, &m_out, ring, full, empty, p.inner,
+                     p.gated, col0, ccols / S::NWG, j0, j1, false, stage,
+                     phase);
+    __syncwarp();
+    cluster_wait();
+    cluster_arrive();
+    cluster_wait();
+    cluster_arrive();
+    cluster_wait();
+    return;
+  }
+
+  const int w = tid / 128, t = tid % 128;
+  const int wr = (t / 32) * 16 + (t % 32) / 4;  // the thread's rows wr, wr + 8
+  const int q2 = (t % 4) * 2;                   // its column pair in each 8
+  int stage = 0;
+  uint32_t phase = 0;
+
+  // 1. attention output rows into A, swizzled (zero past R)
+  for (int i = tid; i < MLP_BM * C / 8; i += NCT) {
+    const int r = i / (C / 8), c8 = i % (C / 8);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < p.R)
+      v = reinterpret_cast<const uint4*>(p.o + static_cast<size_t>(row0 + r) * C)[c8];
+    const int kb = c8 / (S::KB / 8), b = (c8 % (S::KB / 8)) * 16;
+    *reinterpret_cast<uint4*>(smem + kb * 64 * S::SW + swz(r, b, S::SW)) = v;
+  }
+  fence_async_smem();
   consumer_sync(NCT);
 
-  // 4. z = LayerNorm 2 of the y rows, over the o rows in A (zero past R);
-  // fp32 statistics in two passes, one warp a row
+  // 2. projection and residual for this CTA's columns, y rows to `out`
+  if (cs == 1) {
+    mlp_project<C, S::NW>(p, smem, full, empty, w, col0, row0, wr, q2, stage, phase);
+  } else if (cs == 2) {
+    mlp_project<C, S::NW / 2>(p, smem, full, empty, w, col0, row0, wr, q2, stage, phase);
+  } else if (cs == 4) {
+    if constexpr (S::NW / 4 >= 8)
+      mlp_project<C, S::NW / 4>(p, smem, full, empty, w, col0, row0, wr, q2, stage, phase);
+  } else {
+    if constexpr (S::NW / 8 >= 8)
+      mlp_project<C, S::NW / 8>(p, smem, full, empty, w, col0, row0, wr, q2, stage, phase);
+  }
+  if (cs == 1) {
+    consumer_sync(NCT);
+  } else {
+    cluster_arrive();
+    cluster_wait();
+  }
+
+  // 3. z = LayerNorm 2 of the whole y rows, over the o rows in A (zero
+  // past R); fp32 statistics in two passes, one warp a row
   {
     constexpr int NCH = (C / 8 + 31) / 32;   // 16-byte chunks per lane
     const int warp = tid / 32, lane = tid % 32;
@@ -701,7 +798,7 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
         const int c8 = lane + 32 * u;
         uint4 raw = make_uint4(0u, 0u, 0u, 0u);
         if (row < p.R && c8 < C / 8)
-          raw = __ldcg(reinterpret_cast<const uint4*>(p.y + static_cast<size_t>(row) * C) + c8);
+          raw = __ldcg(reinterpret_cast<const uint4*>(p.out + static_cast<size_t>(row) * C) + c8);
         const bf16* e = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
@@ -743,8 +840,9 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
   fence_async_smem();
   consumer_sync(NCT);
 
-  // 5. MLP over this CTA's hidden chunks: GEMM1 into registers, bias and
+  // 4. MLP over this CTA's hidden chunks: GEMM1 into registers, bias and
   // activation, bf16 into the H tile (two, alternating), GEMM2 into acc
+  float acc[S::NW / 2];
 #pragma unroll
   for (int i = 0; i < S::NW / 2; ++i) acc[i] = 0.f;
   float hreg[HN / 2];
@@ -787,7 +885,10 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
     fence_regs<S::NW / 2>(acc);
     mbar_arrive(&empty[slot1]);
     if (pend >= 0) mbar_arrive(&empty[pend]);
-    advance();
+    if (++stage == S::NS) {
+      stage = 0;
+      phase ^= 1;
+    }
 
     if (!p.gated) {
 #pragma unroll
@@ -829,55 +930,87 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
                       gmma_desc(b2 + 32 * k, hsw), 1);
     wgmma_commit();
     pend = slot2;
-    advance();
+    if (++stage == S::NS) {
+      stage = 0;
+      phase ^= 1;
+    }
   }
   wgmma_wait0();
   fence_regs<S::NW / 2>(acc);
   if (pend >= 0) mbar_arrive(&empty[pend]);
 
-  // 6. out = y + ls2 * (mlp + b), or this split's partial sums
+  if (cs == 1) {
+    // 5'. alone on its tile: out = y + ls2 * (mlp + b) from the registers
+#pragma unroll
+    for (int i = 0; i < S::NW / 8; ++i) {
+      const int col = w * S::NW + 8 * i + q2;
+      const float b0 = opt(p.out_b, col), b1 = opt(p.out_b, col + 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + wr + 8 * h;
+        if (row >= p.R) continue;
+        const size_t idx = static_cast<size_t>(row) * C + col;
+        float m0 = round_bf16(acc[4 * i + 2 * h] + b0);
+        float m1 = round_bf16(acc[4 * i + 2 * h + 1] + b1);
+        if (p.ls2) {
+          m0 = round_bf16(m0 * f32(p.ls2[col]));
+          m1 = round_bf16(m1 * f32(p.ls2[col + 1]));
+        }
+        const __nv_bfloat162 yv = *reinterpret_cast<const __nv_bfloat162*>(p.out + idx);
+        *reinterpret_cast<__nv_bfloat162*>(p.out + idx) =
+            __floats2bfloat162_rn(f32(yv.x) + m0, f32(yv.y) + m1);
+      }
+    }
+    return;
+  }
+  // every wgmma of both warpgroups is done with A and the ring, which the
+  // partial now overwrites
+  consumer_sync(NCT);
+
+  // 5. this CTA's fp32 partial [64, C] into its own shared memory
+  float* part = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int i = 0; i < S::NW / 8; ++i) {
     const int col = w * S::NW + 8 * i + q2;
-    const float b0 = opt(p.out_b, col), b1 = opt(p.out_b, col + 1);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + wr + 8 * h;
-      if (row >= p.R) continue;
-      const size_t idx = static_cast<size_t>(row) * C + col;
-      if (splits > 1) {
-        *reinterpret_cast<float2*>(p.part + static_cast<size_t>(split) * p.R * C + idx) =
-            make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
-        continue;
-      }
-      float m0 = round_bf16(acc[4 * i + 2 * h] + b0);
-      float m1 = round_bf16(acc[4 * i + 2 * h + 1] + b1);
-      if (p.ls2) {
-        m0 = round_bf16(m0 * f32(p.ls2[col]));
-        m1 = round_bf16(m1 * f32(p.ls2[col + 1]));
-      }
-      const __nv_bfloat162 yv = *reinterpret_cast<const __nv_bfloat162*>(p.y + idx);
-      *reinterpret_cast<__nv_bfloat162*>(p.out + idx) =
-          __floats2bfloat162_rn(f32(yv.x) + m0, f32(yv.y) + m1);
-    }
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(part + (wr + 8 * h) * LDP + col) =
+          make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
   }
-}
+  cluster_arrive();
+  cluster_wait();
 
-// out = y + ls2 * (sum of the splits' partial MLP sums + b), elementwise
-__global__ void __launch_bounds__(256) mlp_combine_kernel(
-    const float* __restrict__ part, const bf16* __restrict__ y,
-    const bf16* __restrict__ out_b, const bf16* __restrict__ ls2,
-    bf16* __restrict__ out, int R, int C, int splits) {
-  const size_t n = static_cast<size_t>(R) * C;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const int c = static_cast<int>(i % C);
-    float sum = 0.f;
-    for (int s = 0; s < splits; ++s) sum += part[s * n + i];
-    float m = round_bf16(sum + opt(out_b, c));
-    if (ls2) m = round_bf16(m * f32(ls2[c]));
-    out[i] = __float2bfloat16(f32(y[i]) + m);
+  // 6. out = y + ls2 * (sum of the cluster's partials + b) for this CTA's
+  // columns, the partials added in rank order
+  for (int i = tid; i < MLP_BM * ccols / 4; i += NCT) {
+    const int r = i / (ccols / 4), col = col0 + (i % (ccols / 4)) * 4;
+    const int row = row0 + r;
+    if (row >= p.R) continue;
+    float4 sum = ld_peer(part + r * LDP + col, 0);
+    for (int q = 1; q < cs; ++q) {
+      const float4 v = ld_peer(part + r * LDP + col, q);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    const float m[4] = {sum.x, sum.y, sum.z, sum.w};
+    const size_t idx = static_cast<size_t>(row) * C + col;
+    const uint2 yraw = *reinterpret_cast<const uint2*>(p.out + idx);
+    const bf16* y = reinterpret_cast<const bf16*>(&yraw);
+    uint2 oraw;
+    bf16* o = reinterpret_cast<bf16*>(&oraw);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float v = round_bf16(m[k] + opt(p.out_b, col + k));
+      if (p.ls2) v = round_bf16(v * f32(p.ls2[col + k]));
+      o[k] = __float2bfloat16(f32(y[k]) + v);
+    }
+    *reinterpret_cast<uint2*>(p.out + idx) = oraw;
   }
+  // peers may still read this CTA's partial
+  cluster_arrive();
+  cluster_wait();
 }
 
 // ---------------------------------------------------------------------------
@@ -1039,20 +1172,59 @@ bool weight_map(CUtensorMap* map, const void* ptr, uint64_t rows,
 
 template <int C>
 cudaError_t launch_mlp(const MlpArgs& a, const void* proj_w, const void* in_w,
-                       const void* out_w, int splits, cudaStream_t st) {
+                       const void* out_w, int cluster, cudaStream_t st) {
   using S = MlpShape<C>;
   const int hc = a.gated ? 32 : 64;
   CUtensorMap m_proj, m_in, m_out;
-  if (!weight_map(&m_proj, proj_w, C, C, S::NW, S::KB) ||
+  if (!weight_map(&m_proj, proj_w, C, C, S::NW / cluster, S::KB) ||
       !weight_map(&m_in, in_w, a.gated ? 2 * a.inner : a.inner, C,
                   hc / S::NWG, S::KB) ||
       !weight_map(&m_out, out_w, C, a.inner, S::NW, hc))
     return cudaErrorInvalidValue;
   cudaError_t e = set_smem(block_mlp_kernel<C>, S::SMEM);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.R + MLP_BM - 1) / MLP_BM, splits);
-  block_mlp_kernel<C><<<grid, S::THREADS, S::SMEM, st>>>(m_proj, m_in, m_out, a);
+  const dim3 grid(cluster, (a.R + MLP_BM - 1) / MLP_BM);
+  if (cluster == 1) {
+    // alone on its tile, a CTA needs no cluster: no cluster barrier,
+    // the epilogue straight from the registers
+    block_mlp_kernel<C><<<grid, S::THREADS, S::SMEM, st>>>(m_proj, m_in,
+                                                            m_out, a);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(S::THREADS);
+  cfg.dynamicSmemBytes = S::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, block_mlp_kernel<C>, m_proj, m_in, m_out, a);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+int mlp_smem_bytes(int C) {
+  switch (C) {
+    case 32: return MlpShape<32>::SMEM;
+    case 64: return MlpShape<64>::SMEM;
+    case 128: return MlpShape<128>::SMEM;
+    case 256: return MlpShape<256>::SMEM;
+    case 512: return MlpShape<512>::SMEM;
+    default: return 0;
+  }
+}
+
+// The cluster sizes a width takes: each CTA projects at least 8 columns
+// a warpgroup and owns at least one hidden chunk.
+bool mlp_cluster_ok(int C, int inner, int gated, int cluster) {
+  const int nwg = C > 256 ? 2 : 1;
+  return (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) &&
+         C / nwg / cluster >= 8 && cluster <= inner / (gated ? 32 : 64);
 }
 
 }  // namespace
@@ -1080,34 +1252,35 @@ extern "C" int leod_block_attention(const void* x, void* o, const void* ln_w,
   return cudaGetLastError();
 }
 
-// How many CTAs share a row tile's hidden chunks: about one wave of CTAs
-// over the card's SMs, but at least MLP_MIN_CHUNKS chunks each, since
-// every split redoes the projection and LN2. The wrapper sizes the
-// scratch of leod_block_mlp by it.
-extern "C" int leod_block_mlp_splits(int R, int inner, int gated,
-                                     int num_sms) {
-  if (R < 1) return 1;
-  const int tiles = (R + MLP_BM - 1) / MLP_BM;
-  const int most = inner / (gated ? 32 : 64) / MLP_MIN_CHUNKS;
-  const int want = num_sms / tiles;
-  const int s = want < most ? want : most;
-  return s > 1 ? s : 1;
+// How many CTAs (a cluster) share a row tile: the largest size among
+// 1, 2, 4, 8 that the width takes and that keeps the grid within one
+// wave (num_sms x the CTAs an SM holds by shared memory). Splitting a
+// grid that already fills the card costs more than it gains: every CTA
+// pays its o load, LN2 over the whole rows and the cluster's barriers
+// (stage 1 at B = 8 ran 2.2x slower split 4 ways than alone, H100).
+extern "C" int leod_block_mlp_cluster(int R, int C, int inner, int gated,
+                                      int num_sms) {
+  const int smem = mlp_smem_bytes(C);
+  if (R < 1 || smem == 0) return 1;
+  const long tiles = (R + MLP_BM - 1) / MLP_BM;
+  const long slots = static_cast<long>(num_sms) * ((228 * 1024) / (smem + 1024));
+  int best = 1;
+  for (int cs = 2; cs <= 8; cs *= 2)
+    if (mlp_cluster_ok(C, inner, gated, cs) && tiles * cs <= slots) best = cs;
+  return best;
 }
 
-// C in {32, 64, 128, 256, 512}; splits > 1 needs part [splits, R, C]
-// fp32 and y_ws [R, C] bf16 scratch
+// C in {32, 64, 128, 256, 512}; `cluster` CTAs share each 64-row tile
 extern "C" int leod_block_mlp(const void* x, const void* o, void* out,
                               const void* proj_w, const void* proj_b,
                               const void* ls1, const void* ln_w,
                               const void* ln_b, const void* in_w,
                               const void* in_b, const void* out_w,
-                              const void* out_b, const void* ls2, void* part,
-                              void* y_ws, int R, int C, int inner, int gated,
-                              int act, float eps, int splits, void* stream) {
-  const int hc = gated ? 32 : 64;
-  if (R < 1 || inner % hc || splits < 1 || splits > inner / hc ||
-      ln_w == nullptr || ln_b == nullptr ||
-      (splits > 1 && (part == nullptr || y_ws == nullptr)))
+                              const void* out_b, const void* ls2, int R,
+                              int C, int inner, int gated, int act, float eps,
+                              int cluster, void* stream) {
+  if (R < 1 || inner % (gated ? 32 : 64) || ln_w == nullptr ||
+      ln_b == nullptr || !mlp_cluster_ok(C, inner, gated, cluster))
     return cudaErrorInvalidValue;
   MlpArgs a;
   a.x = static_cast<const bf16*>(x);
@@ -1120,31 +1293,20 @@ extern "C" int leod_block_mlp(const void* x, const void* o, void* out,
   a.out_b = static_cast<const bf16*>(out_b);
   a.ls2 = static_cast<const bf16*>(ls2);
   a.out = static_cast<bf16*>(out);
-  a.y = static_cast<bf16*>(splits > 1 ? y_ws : out);
-  a.part = static_cast<float*>(part);
   a.R = R;
   a.inner = inner;
   a.gated = gated;
   a.act = act;
   a.eps = eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
   switch (C) {
-    case 32: e = launch_mlp<32>(a, proj_w, in_w, out_w, splits, st); break;
-    case 64: e = launch_mlp<64>(a, proj_w, in_w, out_w, splits, st); break;
-    case 128: e = launch_mlp<128>(a, proj_w, in_w, out_w, splits, st); break;
-    case 256: e = launch_mlp<256>(a, proj_w, in_w, out_w, splits, st); break;
-    case 512: e = launch_mlp<512>(a, proj_w, in_w, out_w, splits, st); break;
+    case 32: return launch_mlp<32>(a, proj_w, in_w, out_w, cluster, st);
+    case 64: return launch_mlp<64>(a, proj_w, in_w, out_w, cluster, st);
+    case 128: return launch_mlp<128>(a, proj_w, in_w, out_w, cluster, st);
+    case 256: return launch_mlp<256>(a, proj_w, in_w, out_w, cluster, st);
+    case 512: return launch_mlp<512>(a, proj_w, in_w, out_w, cluster, st);
     default: return cudaErrorInvalidValue;
   }
-  if (e != cudaSuccess || splits == 1) return e;
-  const size_t n = static_cast<size_t>(R) * C;
-  const int blocks = static_cast<int>((n + 255) / 256 < 8192 ? (n + 255) / 256 : 8192);
-  mlp_combine_kernel<<<blocks, 256, 0, st>>>(
-      static_cast<const float*>(part), static_cast<const bf16*>(y_ws),
-      static_cast<const bf16*>(out_b), static_cast<const bf16*>(ls2),
-      static_cast<bf16*>(out), R, C, splits);
-  return cudaGetLastError();
 }
 
 extern "C" int leod_lstm_update(const void* x, const void* h, const void* c,

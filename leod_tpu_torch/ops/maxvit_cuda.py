@@ -12,8 +12,8 @@ On the card, a block is two launches: `block_attention` (LN1 +
 per-head attention, one CTA per window and head; plain version
 `block_attention_plain`) and `block_mlp` (projection, LayerScale,
 residual, LN2, MLP, LayerScale, residual, per token, on wgmma fed by TMA;
-with a third, `mlp_combine`, where few tokens make it split the hidden
-dim; plain version `block_mlp_plain`). `fused_stage` runs its pairs so
+where few tokens leave the card empty, a cluster of CTAs shares each
+row tile's hidden dim; plain version `block_mlp_plain`). `fused_stage` runs its pairs so
 and then launches the ConvLSTM update `lstm_update`. The kernels take
 bf16 activations and weights and accumulate in fp32.
 """
@@ -34,8 +34,8 @@ from ..models.layers import (PartitionAttention, _SplitGateConv,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
     "leod_block_attention": [_P] * 6 + [_I] * 7 + [_F, _P],
-    "leod_block_mlp": [_P] * 15 + [_I] * 5 + [_F, _I, _P],
-    "leod_block_mlp_splits": [_I] * 4,
+    "leod_block_mlp": [_P] * 13 + [_I] * 5 + [_F, _I, _P],
+    "leod_block_mlp_cluster": [_I] * 5,
     "leod_lstm_update": [_P] * 7 + [_I] * 3 + [_P],
 }
 _ACTS = {"gelu": 0, "silu": 1, "relu": 2}
@@ -178,7 +178,7 @@ def _block_cuda(x: torch.Tensor, blk: PartitionAttention, grid_kind: bool,
 
 def _mlp_cuda(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
               act: str, gated: bool, eps: float,
-              splits: Optional[int]) -> torch.Tensor:
+              cluster: Optional[int]) -> torch.Tensor:
     attn, mlp = blk.attn, blk.mlp
     _require_cuda("block_mlp", x, o, attn.proj.weight, attn.proj.bias,
                   blk.ls1, blk.norm2.weight, blk.norm2.bias,
@@ -190,25 +190,20 @@ def _mlp_cuda(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
                          f"{MLP_DIMS}; got {tuple(x.shape)}, {tuple(o.shape)}")
     lib = _lib()
     rows, inner = x.numel() // c, mlp.proj_out.in_features
+    if cluster is None:
+        # too few row tiles to fill the card: a cluster of CTAs shares
+        # each tile's projection columns and hidden chunks
+        cluster = lib.leod_block_mlp_cluster(rows, c, inner, int(gated),
+                                             _num_sms(x.device))
     out = torch.empty_like(x)
-    # too few row tiles to fill the card: CTAs split the hidden dim and
-    # write fp32 partial sums, which a second kernel adds up
-    if splits is None:
-        splits = lib.leod_block_mlp_splits(rows, inner, int(gated),
-                                           _num_sms(x.device))
-    part = y_ws = None
-    if splits > 1:
-        part = torch.empty((splits, rows, c), dtype=torch.float32,
-                           device=x.device)
-        y_ws = torch.empty_like(x)
     _build.check("leod_block_mlp", lib.leod_block_mlp(
         x.data_ptr(), o.data_ptr(), out.data_ptr(),
         attn.proj.weight.data_ptr(), _ptr(attn.proj.bias), _ptr(blk.ls1),
         blk.norm2.weight.data_ptr(), blk.norm2.bias.data_ptr(),
         mlp.proj_in.weight.data_ptr(), _ptr(mlp.proj_in.bias),
         mlp.proj_out.weight.data_ptr(), _ptr(mlp.proj_out.bias),
-        _ptr(blk.ls2), _ptr(part), _ptr(y_ws), rows, c, inner, int(gated),
-        _ACTS[act], eps, splits, _stream(x)))
+        _ptr(blk.ls2), rows, c, inner, int(gated), _ACTS[act], eps, cluster,
+        _stream(x)))
     return out
 
 
@@ -240,11 +235,11 @@ def _lstm_cuda(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
 
 def block_mlp(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
               act: str = "gelu", gated: bool = False, eps: float = 1e-5, *,
-              splits: Optional[int] = None) -> torch.Tensor:
+              cluster: Optional[int] = None) -> torch.Tensor:
     """The per-token half of a block (`block_mlp_plain`) on token rows
-    x, o [..., C]. On the card C is one of MLP_DIMS; `splits` forces how
-    many CTAs share a row tile's hidden dim (tests only; by default the
-    kernel picks)."""
+    x, o [..., C]. On the card C is one of MLP_DIMS; `cluster` (1, 2, 4
+    or 8) forces how many CTAs share a 64-row tile (tests only; by
+    default the kernel's heuristic picks)."""
     if blk.mlp.act != act or blk.mlp.gated != gated:
         raise ValueError("block module config disagrees with the call's "
                          "act/gated")
@@ -252,7 +247,7 @@ def block_mlp(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
         return block_mlp_plain(x, o, blk)
     if act not in _ACTS:
         raise ValueError(f"the CUDA block takes act in {sorted(_ACTS)}")
-    out = _mlp_cuda(x, o, blk, act, gated, eps, splits)
+    out = _mlp_cuda(x, o, blk, act, gated, eps, cluster)
     block_mlp.launches += 1
     return out
 

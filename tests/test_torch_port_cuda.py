@@ -3,7 +3,7 @@ card, at small shapes that reach the kernels' edge cases: windows of T
 tokens that are no multiple of 16, 1, 2, 4 and 16 heads, the MLP with
 and without its hidden dim split over CTAs, the per-token half
 `block_mlp` alone at every width its tiles take, row counts with a
-ragged last 64-row tile, and 1 to 8 CTAs sharing a tile's hidden dim,
+ragged last 64-row tile, and clusters of 1 to 8 CTAs sharing a tile,
 the GLU MLP and SiLU, an
 fp32 and a bf16 cell state, NMS with and without class ids at
 K = 1, 37, 1000 and 1024, and inputs the kernels refuse.
@@ -135,9 +135,9 @@ def test_nms_kernel_matches_plain(cuda, k, with_ids):
 
 
 def _mlp_cases():
-    """C x R x MLP kind x CTAs per row tile, where the tiles allow the
-    split: each CTA needs a hidden chunk (64 units; 32 of each half in
-    the GLU) and 8 projection columns a warpgroup."""
+    """C x R x MLP kind x cluster size (CTAs per row tile), where the
+    tiles allow it: each CTA needs a hidden chunk (64 units; 32 of each
+    half in the GLU) and 8 projection columns a warpgroup."""
     cases = []
     for dim in maxvit_cuda.MLP_DIMS:
         for rows in (80, 640, 1000):
@@ -146,14 +146,14 @@ def _mlp_cases():
                 chunks = (PartitionAttention(dim, (4, 5), "window",
                                              mlp_gated=gated)
                           .mlp.proj_out.in_features // (32 if gated else 64))
-                for splits in (1, 2, 4, 8):
-                    if splits <= chunks and dim // splits >= 8:
-                        cases.append((dim, rows, act, gated, splits))
+                for cluster in (1, 2, 4, 8):
+                    if cluster <= chunks and dim // cluster >= 8:
+                        cases.append((dim, rows, act, gated, cluster))
     return cases
 
 
-@pytest.mark.parametrize("dim,rows,act,gated,splits", _mlp_cases())
-def test_block_mlp_kernel_matches_plain(cuda, dim, rows, act, gated, splits):
+@pytest.mark.parametrize("dim,rows,act,gated,cluster", _mlp_cases())
+def test_block_mlp_kernel_matches_plain(cuda, dim, rows, act, gated, cluster):
     blk = _randomized(PartitionAttention(dim, (4, 5), "window",
                                          mlp_gated=gated, mlp_act=act),
                       dim + rows, cuda)
@@ -161,10 +161,13 @@ def test_block_mlp_kernel_matches_plain(cuda, dim, rows, act, gated, splits):
     x, o = (torch.randn(rows, dim, device=cuda, generator=g
                         ).to(torch.bfloat16) for _ in range(2))
     before = maxvit_cuda.block_mlp.launches
-    got = maxvit_cuda.block_mlp(x, o, blk, act, gated, splits=splits)
+    got = maxvit_cuda.block_mlp(x, o, blk, act, gated, cluster=cluster)
     torch.cuda.synchronize()
     assert maxvit_cuda.block_mlp.launches == before + 1
     _close(got, maxvit_cuda.block_mlp_plain(x, o, blk))
+    # the cluster adds its partial sums in rank order: runs agree exactly
+    assert torch.equal(got, maxvit_cuda.block_mlp(x, o, blk, act, gated,
+                                                  cluster=cluster))
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
