@@ -754,7 +754,9 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
   uint32_t phase = 0;
 
   // 1. attention output rows into A, swizzled (zero past R)
-  for (int i = tid; i < MLP_BM * C / 8; i += NCT) {
+#pragma unroll
+  for (int it = 0; it < MLP_BM * C / 8 / NCT; ++it) {
+    const int i = tid + it * NCT;
     const int r = i / (C / 8), c8 = i % (C / 8);
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < p.R)
@@ -785,55 +787,65 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
   }
 
   // 3. z = LayerNorm 2 of the whole y rows, over the o rows in A (zero
-  // past R); fp32 statistics in two passes, one warp a row
+  // past R); fp32 statistics in two passes, one warp a row, each warp's
+  // loads of LG rows in flight together
   {
     constexpr int NCH = (C / 8 + 31) / 32;   // 16-byte chunks per lane
+    constexpr int LG = 4;                    // rows a warp loads at once
     const int warp = tid / 32, lane = tid % 32;
-    for (int r = warp; r < MLP_BM; r += NCT / 32) {
-      const int row = row0 + r;
-      float v[NCH][8];
-      float s = 0.f;
+    for (int r0 = warp * LG; r0 < MLP_BM; r0 += NCT / 32 * LG) {
+      uint4 raw[LG][NCH];
 #pragma unroll
-      for (int u = 0; u < NCH; ++u) {
-        const int c8 = lane + 32 * u;
-        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-        if (row < p.R && c8 < C / 8)
-          raw = __ldcg(reinterpret_cast<const uint4*>(p.out + static_cast<size_t>(row) * C) + c8);
-        const bf16* e = reinterpret_cast<const bf16*>(&raw);
+      for (int g = 0; g < LG; ++g)
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          v[u][k] = f32(e[k]);
-          s += v[u][k];
+        for (int u = 0; u < NCH; ++u) {
+          const int row = row0 + r0 + g, c8 = lane + 32 * u;
+          raw[g][u] = make_uint4(0u, 0u, 0u, 0u);
+          if (row < p.R && c8 < C / 8)
+            raw[g][u] = __ldcg(reinterpret_cast<const uint4*>(
+                                   p.out + static_cast<size_t>(row) * C) + c8);
         }
-      }
-      const float mean = warp_sum(s) / C;
-      float ss = 0.f;
 #pragma unroll
-      for (int u = 0; u < NCH; ++u) {
-        if (lane + 32 * u >= C / 8) continue;
+      for (int g = 0; g < LG; ++g) {
+        const int r = r0 + g;
+        float s = 0.f;
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const float d = v[u][k] - mean;
-          ss += d * d;
+        for (int u = 0; u < NCH; ++u) {
+          const bf16* e = reinterpret_cast<const bf16*>(&raw[g][u]);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) s += f32(e[k]);
         }
-      }
-      const float inv = 1.f / sqrtf(warp_sum(ss) / C + p.eps);
+        const float mean = warp_sum(s) / C;
+        float ss = 0.f;
 #pragma unroll
-      for (int u = 0; u < NCH; ++u) {
-        const int c8 = lane + 32 * u;
-        if (c8 >= C / 8) continue;
-        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-        if (row < p.R) {
-          bf16* e = reinterpret_cast<bf16*>(&raw);
+        for (int u = 0; u < NCH; ++u) {
+          if (lane + 32 * u >= C / 8) continue;
+          const bf16* e = reinterpret_cast<const bf16*>(&raw[g][u]);
 #pragma unroll
           for (int k = 0; k < 8; ++k) {
-            const int c = c8 * 8 + k;
-            e[k] = __float2bfloat16((v[u][k] - mean) * inv * f32(p.ln_w[c]) +
-                                    f32(p.ln_b[c]));
+            const float d = f32(e[k]) - mean;
+            ss += d * d;
           }
         }
-        const int kb = c8 / (S::KB / 8), b = (c8 % (S::KB / 8)) * 16;
-        *reinterpret_cast<uint4*>(smem + kb * 64 * S::SW + swz(r, b, S::SW)) = raw;
+        const float inv = 1.f / sqrtf(warp_sum(ss) / C + p.eps);
+#pragma unroll
+        for (int u = 0; u < NCH; ++u) {
+          const int c8 = lane + 32 * u;
+          if (c8 >= C / 8) continue;
+          uint4 z = make_uint4(0u, 0u, 0u, 0u);
+          if (row0 + r < p.R) {
+            const bf16* e = reinterpret_cast<const bf16*>(&raw[g][u]);
+            bf16* ze = reinterpret_cast<bf16*>(&z);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              const int c = c8 * 8 + k;
+              ze[k] = __float2bfloat16((f32(e[k]) - mean) * inv *
+                                       f32(p.ln_w[c]) + f32(p.ln_b[c]));
+            }
+          }
+          const int kb = c8 / (S::KB / 8), b = (c8 % (S::KB / 8)) * 16;
+          *reinterpret_cast<uint4*>(smem + kb * 64 * S::SW + swz(r, b, S::SW)) = z;
+        }
       }
     }
   }
