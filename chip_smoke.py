@@ -40,6 +40,7 @@ machine without a CUDA device, or a directory without the package.
 """
 from __future__ import annotations
 
+import glob
 import json
 import os
 import re
@@ -62,7 +63,6 @@ PROFILE_STEPS = 10
 
 def port_kernels():
     """Names of the `__global__` kernels in leod_tpu_torch/csrc/*.cu."""
-    import glob
     names = set()
     for path in glob.glob(os.path.join(REPO, "leod_tpu_torch", "csrc",
                                        "*.cu")):

@@ -56,7 +56,6 @@ constexpr int QKV_H = 3 * DH;      // one head's packed q|k|v columns
 constexpr int LD_QKV = QKV_H + 4;  // fp32 row stride of the q|k|v tile
 constexpr int ATTN_THREADS = 256;
 
-
 constexpr int LSTM_BM = 32;
 constexpr int LSTM_BN = 16;        // channels per CTA (x 4 gates)
 constexpr int LD_G = 4 * LSTM_BN + 4;
@@ -567,7 +566,7 @@ __device__ __forceinline__ float4 ld_peer(const float* p, uint32_t rank) {
 // order, for each warpgroup its own ring stage: the projection's
 // K-blocks for this CTA's columns (kpt K-blocks a stage), then per hidden
 // chunk j the proj_in rows (GEMM1) and the proj_out columns (GEMM2).
-// `mlp_tiles` counts the projection's tiles, `first` says which to issue.
+// `first`: issue the projection's tiles, else the MLP's.
 template <int C>
 __device__ void mlp_produce(const CUtensorMap* m_proj, const CUtensorMap* m_in,
                             const CUtensorMap* m_out, unsigned char* ring,
@@ -673,9 +672,10 @@ __device__ __forceinline__ void mlp_project(const MlpArgs& p,
 }
 
 // A cluster of CS CTAs (2, 4 or 8; the launch's cluster dimension x)
-// shares a row tile (a CTA launched alone has the tile to itself): CTA r projects columns [r C/CS, (r+1) C/CS) and
-// writes their y rows; after a cluster barrier every CTA runs LN2 on the
-// whole rows and the MLP over its share of the hidden chunks; each keeps
+// shares a row tile (a CTA launched alone has the tile to itself): CTA r
+// projects columns [r C/CS, (r+1) C/CS) and writes their y rows; after
+// a cluster barrier every CTA runs LN2 on the whole rows and the MLP
+// over its share of the hidden chunks; each keeps
 // its fp32 [64, C] partial in its own shared memory, and CTA r sums the
 // peers' partials of its columns over distributed shared memory in rank
 // order (so runs agree bit for bit) and writes them out.
@@ -718,26 +718,22 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
     // producer warp: it takes part in the three cluster barriers, and
     // arrives at the first before it streams the MLP's tiles, which the
     // consumers free only after that barrier
-    const bool lead = tid == NCT;
     int stage = 0;
     uint32_t phase = 0;
-    if (lead)
-      mlp_produce<C>(&m_proj, &m_in, &m_out, ring, full, empty, p.inner,
-                     p.gated, col0, ccols / S::NWG, j0, j1, true, stage,
-                     phase);
-    if (cs == 1) {
-      if (lead)
+    auto produce = [&](bool first) {
+      if (tid == NCT)
         mlp_produce<C>(&m_proj, &m_in, &m_out, ring, full, empty, p.inner,
-                       p.gated, col0, ccols / S::NWG, j0, j1, false, stage,
+                       p.gated, col0, ccols / S::NWG, j0, j1, first, stage,
                        phase);
+    };
+    produce(true);
+    if (cs == 1) {
+      produce(false);
       return;
     }
     __syncwarp();
     cluster_arrive();
-    if (lead)
-      mlp_produce<C>(&m_proj, &m_in, &m_out, ring, full, empty, p.inner,
-                     p.gated, col0, ccols / S::NWG, j0, j1, false, stage,
-                     phase);
+    produce(false);
     __syncwarp();
     cluster_wait();
     cluster_arrive();
@@ -952,7 +948,7 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
   if (pend >= 0) mbar_arrive(&empty[pend]);
 
   if (cs == 1) {
-    // 5'. alone on its tile: out = y + ls2 * (mlp + b) from the registers
+    // alone on its tile: out = y + ls2 * (mlp + b) from the registers
 #pragma unroll
     for (int i = 0; i < S::NW / 8; ++i) {
       const int col = w * S::NW + 8 * i + q2;
