@@ -9,8 +9,10 @@
    on the card, on the same inputs, at the RVT-B Gen1 shapes the serving
    path gives it (B = 8 slots): the partition-attention block pair and
    the whole stage at all four stage shapes, from warm non-zero (h, c),
-   the per-token half of a block (`block_mlp`) alone at the same four
-   shapes, and the NMS keep mask at K = 1000. Timed with CUDA events
+   each kernel of a stage alone at the same four shapes (the attention
+   half `block_attention`, window and grid; the per-token half
+   `block_mlp`; the ConvLSTM update), and the NMS keep mask at K = 1000.
+   Each row carries its bound (bytes or tensor-core operations). Timed with CUDA events
    (median of 20 runs after warm-up).
 3. Slice phase: a seeded RVT-B Gen1 `Detector` behind `ServingEngine`
    answers requests from client threads, one of which forces an LRU
@@ -162,6 +164,31 @@ def mlp_work(blk, n_tok: int):
     return flops, wbytes + 3 * n_tok * c * 2
 
 
+def attn_work(blk, n_tok: int):
+    """(bf16 tensor-core FLOPs, bytes) of the attention half over n_tok
+    tokens: q|k|v, q k^T and p v; x read and o written once in bf16, the
+    q|k|v weights and LN1's vectors."""
+    c = blk.dim
+    t = blk.partition_size[0] * blk.partition_size[1]
+    flops = 2 * n_tok * c * 3 * c + 4 * n_tok * t * c
+    mods = [blk.attn.qkv] + ([] if blk.skip_first_norm else [blk.norm1])
+    wbytes = sum(p.numel() * p.element_size() for m in mods
+                 for p in m.parameters())
+    return flops, wbytes + 2 * n_tok * c * 2
+
+
+def lstm_work(gates, x, c_state):
+    """(bf16 tensor-core FLOPs, bytes) of the ConvLSTM update: the
+    [4C, 2C] gate mix over every token; x, h in and h' out in x's dtype,
+    c in and c' out in c's dtype, the gate weights."""
+    n_tok = x.shape[0] * x.shape[1] * x.shape[2]
+    c = x.shape[-1]
+    wbytes = sum(p.numel() * p.element_size() for p in gates.parameters())
+    io = 3 * x.numel() * x.element_size() + 2 * c_state.numel() * \
+        c_state.element_size()
+    return 2 * n_tok * 2 * c * 4 * c, wbytes + io
+
+
 def pair_work(pair, x):
     n_tok = x.shape[0] * x.shape[1] * x.shape[2]
     flops = wbytes = 0
@@ -178,14 +205,8 @@ def stage_work(pairs, gates, x, c_state):
         f, w = pair_work(pair, x)
         flops += f
         wbytes += w - 2 * x.numel() * x.element_size()
-    n_tok = x.shape[0] * x.shape[1] * x.shape[2]
-    c = x.shape[-1]
-    flops += 2 * n_tok * 2 * c * 4 * c
-    wbytes += sum(p.numel() * p.element_size() for p in gates.parameters())
-    # x, h in and h' out in x's dtype; c in and c' out in c's dtype
-    io = 3 * x.numel() * x.element_size() + 2 * c_state.numel() * \
-        c_state.element_size()
-    return flops, wbytes + io
+    f, nbytes = lstm_work(gates, x, c_state)
+    return flops + f, wbytes + nbytes
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +244,7 @@ def perturb_layerscale(det, seed: int) -> None:
 def phase_kernels(det):
     import torch
     from leod_tpu_torch.ops import maxvit_cuda as mc
+    from leod_tpu_torch.models import layers as lay
     from leod_tpu_torch.ops import nms_cuda
     from leod_tpu_torch.ops.nms import nms_mask as nms_plain
 
@@ -232,7 +254,24 @@ def phase_kernels(det):
               eps=bb.norm_eps)
     g = torch.Generator(device="cuda").manual_seed(1)
     h_in, w_in = bb.in_res_hw
-    rows = {"fused_block_pair": [], "fused_stage": [], "block_mlp": []}
+    rows = {"fused_block_pair": [], "fused_stage": [], "block_attention": [],
+            "block_mlp": [], "lstm_update": []}
+
+    def row(kern, plain, flops, nbytes, **extra):
+        """One shape's entry: the kernel against its plain version."""
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if isinstance(got, tuple):
+            errs = [compare(a, b, KERNEL_TOL) for a, b in zip(got, want)]
+            err, tol, _ = max(errs, key=lambda e: e[0] / max(e[1], 1e-30))
+            ok = all(e[2] for e in errs)
+        else:
+            err, tol, ok = compare(got, want, KERNEL_TOL)
+        bms, by = bound(flops, nbytes, PEAK_BF16)
+        return dict(extra, max_abs_err=err, tol=tol, ok=ok, ms=cuda_ms(kern),
+                    plain_ms=cuda_ms(plain), flops=flops, bytes=nbytes,
+                    bound_ms=bms, bound_by=by)
+
     for k, (dim, stride) in enumerate(zip(bb.stage_dims, bb.stage_strides)):
         stage = getattr(det.backbone, f"stage{k + 1}")
         shape = (B, h_in // stride, w_in // stride, dim)
@@ -244,60 +283,47 @@ def phase_kernels(det):
         pairs = stage.pairs()
         wb, gb = pairs[0]
 
-        def pair_k():
-            return mc.fused_block_pair(x, wb, gb, ps, True, **kw)
+        n_tok = B * shape[1] * shape[2]
+        rows["fused_block_pair"].append(row(
+            lambda: mc.fused_block_pair(x, wb, gb, ps, True, **kw),
+            lambda: mc.fused_block_pair_plain(x, wb, gb, ps),
+            *pair_work(pairs[0], x), shape=list(shape)))
 
-        def pair_p():
-            return mc.fused_block_pair_plain(x, wb, gb, ps)
+        # the attention half alone, window block (LN1 skipped, as in a
+        # stage's first pair) and grid block, on the NHWC map
+        for blk, grid_kind in ((wb, False), (gb, True)):
+            part, rev = ((lay.grid_partition, lay.grid_reverse) if grid_kind
+                         else (lay.window_partition, lay.window_reverse))
 
-        err, tol, ok = compare(pair_k(), pair_p(), KERNEL_TOL)
-        torch.cuda.synchronize()
-        flops, nbytes = pair_work(pairs[0], x)
-        bms, by = bound(flops, nbytes, PEAK_BF16)
-        rows["fused_block_pair"].append(dict(
-            shape=list(shape), max_abs_err=err, tol=tol, ok=ok,
-            ms=cuda_ms(pair_k), plain_ms=cuda_ms(pair_p), flops=flops,
-            bytes=nbytes, bound_ms=bms, bound_by=by))
+            def attn_p(blk=blk, part=part, rev=rev):
+                return rev(mc.block_attention_plain(part(x, *ps), blk), *ps,
+                           shape[1], shape[2])
+
+            rows["block_attention"].append(row(
+                lambda blk=blk, grid_kind=grid_kind: mc.block_attention(
+                    x, blk, grid_kind, kw["eps"]),
+                attn_p, *attn_work(blk, n_tok), shape=list(shape),
+                kind="grid" if grid_kind else "window"))
 
         # the per-token half alone: x and an attention output o as rows
         xr = x.reshape(-1, dim)
         o = torch.randn(xr.shape, device="cuda", generator=g).to(torch.bfloat16)
+        rows["block_mlp"].append(row(
+            lambda: mc.block_mlp(xr, o, wb, kw["act"], kw["gated"], kw["eps"]),
+            lambda: mc.block_mlp_plain(xr, o, wb),
+            *mlp_work(wb, xr.shape[0]), shape=list(xr.shape)))
 
-        def mlp_k():
-            return mc.block_mlp(xr, o, wb, kw["act"], kw["gated"], kw["eps"])
+        # the ConvLSTM update alone, from warm (h, c)
+        gates = stage.lstm.gates
+        rows["lstm_update"].append(row(
+            lambda: mc._lstm_cuda(x, hs, cs, gates),
+            lambda: mc.lstm_update_plain(x, hs, cs, gates),
+            *lstm_work(gates, x, cs), shape=list(shape)))
 
-        def mlp_p():
-            return mc.block_mlp_plain(xr, o, wb)
-
-        err, tol, ok = compare(mlp_k(), mlp_p(), KERNEL_TOL)
-        torch.cuda.synchronize()
-        flops, nbytes = mlp_work(wb, xr.shape[0])
-        bms, by = bound(flops, nbytes, PEAK_BF16)
-        rows["block_mlp"].append(dict(
-            shape=list(xr.shape), max_abs_err=err, tol=tol, ok=ok,
-            ms=cuda_ms(mlp_k), plain_ms=cuda_ms(mlp_p), flops=flops,
-            bytes=nbytes, bound_ms=bms, bound_by=by))
-
-        def stage_k():
-            return mc.fused_stage(x, hs, cs, pairs, stage.lstm.gates, ps,
-                                  True, **kw)
-
-        def stage_p():
-            return mc.fused_stage_plain(x, hs, cs, pairs, stage.lstm.gates,
-                                        ps)
-
-        (hk, ck), (hp, cp) = stage_k(), stage_p()
-        torch.cuda.synchronize()
-        e1, t1, ok1 = compare(hk, hp, KERNEL_TOL)
-        e2, t2, ok2 = compare(ck, cp, KERNEL_TOL)
-        err, tol = (e1, t1) if e1 / max(t1, 1e-30) >= e2 / max(t2, 1e-30) \
-            else (e2, t2)
-        flops, nbytes = stage_work(pairs, stage.lstm.gates, x, cs)
-        bms, by = bound(flops, nbytes, PEAK_BF16)
-        rows["fused_stage"].append(dict(
-            shape=list(shape), max_abs_err=err, tol=tol, ok=ok1 and ok2,
-            ms=cuda_ms(stage_k), plain_ms=cuda_ms(stage_p), flops=flops,
-            bytes=nbytes, bound_ms=bms, bound_by=by))
+        rows["fused_stage"].append(row(
+            lambda: mc.fused_stage(x, hs, cs, pairs, gates, ps, True, **kw),
+            lambda: mc.fused_stage_plain(x, hs, cs, pairs, gates, ps),
+            *stage_work(pairs, gates, x, cs), shape=list(shape)))
 
     # K3: B images of K = 1000 score-sorted boxes, two classes
     kk = det.cfg.postprocess.pre_nms_topk
@@ -365,7 +391,8 @@ def phase_slice(det, cfg):
     n_pairs = sum(cfg.model.backbone.num_blocks)
     n_stages = len(cfg.model.backbone.num_blocks)
     per_step = {"fused_block_pair": n_pairs, "fused_stage": n_stages,
-                "block_mlp": 2 * n_pairs, "nms_mask": 1}
+                "block_attention": 2 * n_pairs, "block_mlp": 2 * n_pairs,
+                "nms_mask": 1}
     shape = serve_input_shape(cfg, B)[1:]
     step = make_serve_step(det, conf_threshold=0.0)
     rng = np.random.default_rng(0)
@@ -580,9 +607,10 @@ def main() -> int:
     perturb_layerscale(det, seed=0)
     rows, nms_row = phase_kernels(det)
     emit({"kernel_phase": {**rows, "nms_mask": [nms_row]}})
-    if not all(r["ok"] for r in rows["block_mlp"]):
-        fail(f"block_mlp disagrees with its plain version: "
-             f"{[(r['shape'], r['max_abs_err'], r['tol']) for r in rows['block_mlp']]}")
+    for name in ("block_attention", "block_mlp", "lstm_update"):
+        if not all(r["ok"] for r in rows[name]):
+            fail(f"{name} disagrees with its plain version: "
+                 f"{[(r['shape'], r['max_abs_err'], r['tol']) for r in rows[name]]}")
     launches, steps, stats, parity, timing = phase_slice(det, cfg)
     emit({"slice": {"config": "RVT-B gen1 (experiment_preset('gen1', "
                               "'base'))", "slots": B, "steps": steps,

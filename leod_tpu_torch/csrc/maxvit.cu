@@ -6,13 +6,17 @@
 // on Hopper one image of stage 1 (64x80x64 bf16, 655 KB) does not fit in
 // the 227 KB of shared memory a block may use, so each block is split:
 //
-//   block_attention_kernel  one CTA per (window, head): gathers the
-//       window's T tokens straight from NHWC through the window or grid
-//       index map (no partition copy), LayerNorm 1, this head's q|k|v
-//       GEMM, softmax(q k^T / sqrt(dh)) v, and writes the head's 32
-//       channels of the pre-projection output back to NHWC positions.
-//       One CTA per (window, head) rather than per window keeps stage 4
-//       (one window per image) at 16 CTAs per image instead of 1.
+//   block_attention_kernel  a CTA per group of windows and of heads:
+//       gathers the windows' tokens straight from NHWC through the window
+//       or grid index map (no partition copy) and normalizes each once
+//       (LayerNorm 1) into a tile that wgmma reads; per head, q|k|v on
+//       wgmma with the weight rows streamed by TMA through a ring, then
+//       softmax(q k^T / sqrt(dh)) v on mma.sync with S and P held in
+//       registers; writes the heads' channels of the pre-projection
+//       output back to NHWC positions. Where windows are few (stages
+//       3-4, or any stage at small B), the head groups of a window group
+//       are a cluster that shares the LayerNorm over distributed shared
+//       memory (section below).
 //   block_mlp_kernel  per-token, 64 rows of B*H*W per CTA (wgmma's M):
 //       the output projection, LayerScale, residual, LayerNorm 2, and the
 //       MLP with the hidden dim walked in 64-wide chunks whose activations
@@ -32,9 +36,9 @@
 // 2*T*C*(3C + 2T) + 2*C*C + 16*C*C flops per token against 4*C bytes of
 // activations in and out, i.e. hundreds of flops per byte, so they are
 // bound by tensor-core operations (989 TFLOP/s bf16). The attention and
-// LSTM kernels are first versions on warp-level WMMA (mma.sync) with the
-// weight fragments read straight from L2, far from that bound; the MLP
-// kernel feeds wgmma from TMA. Rounding points follow the Pallas kernel:
+// MLP kernels feed wgmma from TMA; the LSTM kernel is a first version on
+// warp-level WMMA with the weight fragments read straight from L2, far
+// from that bound. Rounding points follow the Pallas kernel:
 // fp32 accumulate, bias added in fp32, one rounding to the working dtype
 // after each dense layer and LayerScale, LayerNorm and softmax in fp32.
 #include <cuda.h>
@@ -52,9 +56,6 @@ using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 constexpr int DH = 32;            // dim_head
-constexpr int QKV_H = 3 * DH;      // one head's packed q|k|v columns
-constexpr int LD_QKV = QKV_H + 4;  // fp32 row stride of the q|k|v tile
-constexpr int ATTN_THREADS = 256;
 
 constexpr int LSTM_BM = 32;
 constexpr int LSTM_BN = 16;        // channels per CTA (x 4 gates)
@@ -65,7 +66,6 @@ constexpr size_t kMaxSmem = 227 * 1024;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 // B given as the rows of W[n][k] (nn.Linear layout) is column-major B[k][n]
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 __host__ __device__ inline size_t align128(size_t v) {
@@ -100,197 +100,6 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
   if (act == 1) return v * sigmoid(v);
   return fmaxf(v, 0.f);
-}
-
-// LayerNorm of one row of C values, fp32 statistics (two passes).
-// One warp per row; `src` and `dst` may be shared or global.
-__device__ __forceinline__ void layernorm_row(const bf16* src, bf16* dst,
-                                              const bf16* w, const bf16* b,
-                                              int C, float eps, int lane) {
-  float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += f32(src[c]);
-  const float mean = warp_sum(s) / C;
-  float v = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float d = f32(src[c]) - mean;
-    v += d * d;
-  }
-  const float inv = 1.f / sqrtf(warp_sum(v) / C + eps);
-  for (int c = lane; c < C; c += 32)
-    dst[c] = __float2bfloat16((f32(src[c]) - mean) * inv * opt(w, c) + opt(b, c));
-}
-
-// ---------------------------------------------------------------------------
-// Attention half of a block
-// ---------------------------------------------------------------------------
-
-// Shared-memory carve-up for T tokens (padded to TP, a multiple of 16).
-__host__ __device__ inline size_t attn_smem(int T, int C, size_t off[5]) {
-  const int TP = (T + 15) / 16 * 16;
-  const int ldf = (TP + 4 > LD_QKV) ? TP + 4 : LD_QKV;
-  const size_t sz[5] = {
-      static_cast<size_t>(TP) * (C + 8) * 2,        // tok   bf16 [TP][C+8]
-      static_cast<size_t>(TP) * ldf * 4,            // f32 scratch: qkv, S, out
-      static_cast<size_t>(TP) * (DH + 8) * 2 * 3,   // q, k, v bf16 [TP][DH+8]
-      static_cast<size_t>(TP) * (TP + 8) * 2,       // P     bf16 [TP][TP+8]
-      static_cast<size_t>(TP) * 4};                 // token rows (int)
-  size_t s = 0;
-  for (int i = 0; i < 5; ++i) {
-    off[i] = s;
-    s = align128(s + sz[i]);
-  }
-  return s;
-}
-
-__global__ void __launch_bounds__(ATTN_THREADS) block_attention_kernel(
-    const bf16* __restrict__ x, bf16* __restrict__ o,
-    const bf16* __restrict__ ln_w, const bf16* __restrict__ ln_b,
-    const bf16* __restrict__ qkv_w, const bf16* __restrict__ qkv_b,
-    int H, int W, int C, int ph, int pw, int grid_kind, float eps,
-    float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int T = ph * pw, TP = (T + 15) / 16 * 16, mt = TP / 16;
-  size_t off[5];
-  attn_smem(T, C, off);
-  bf16* tok = reinterpret_cast<bf16*>(smem + off[0]);
-  float* fs = reinterpret_cast<float*>(smem + off[1]);
-  bf16* qs = reinterpret_cast<bf16*>(smem + off[2]);
-  bf16* ks = qs + TP * (DH + 8);
-  bf16* vs = ks + TP * (DH + 8);
-  bf16* ps = reinterpret_cast<bf16*>(smem + off[3]);
-  int* rows = reinterpret_cast<int*>(smem + off[4]);
-
-  const int ldt = C + 8, ldq = DH + 8, ldp = TP + 8, lds = TP + 4,
-            ldo = DH + 4;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31,
-            nwarps = blockDim.x >> 5;
-  const int nh = H / ph, nw = W / pw;
-  const int head = blockIdx.y;
-  const int b = blockIdx.x / (nh * nw), wi = blockIdx.x % (nh * nw);
-  const int wy = wi / nw, wx = wi % nw;
-
-  // token t = (tr, tc) of window (wy, wx); the grid partition indexes the
-  // outer, strided dims (layers.py grid_partition)
-  for (int t = threadIdx.x; t < TP; t += blockDim.x) {
-    int row = -1;
-    if (t < T) {
-      const int tr = t / pw, tc = t % pw;
-      const int r = grid_kind ? tr * nh + wy : wy * ph + tr;
-      const int c = grid_kind ? tc * nw + wx : wx * pw + tc;
-      row = (b * H + r) * W + c;
-    }
-    rows[t] = row;
-  }
-  __syncthreads();
-
-  // 1. gather the window's tokens, LayerNorm 1 unless skipped
-  for (int t = warp; t < TP; t += nwarps) {
-    bf16* dst = tok + t * ldt;
-    const int row = rows[t];
-    if (row < 0) {
-      for (int c = lane; c < C; c += 32) dst[c] = __float2bfloat16(0.f);
-    } else if (ln_w == nullptr) {
-      const bf16* src = x + static_cast<size_t>(row) * C;
-      for (int c = lane; c < C; c += 32) dst[c] = src[c];
-    } else {
-      layernorm_row(x + static_cast<size_t>(row) * C, dst, ln_w, ln_b, C,
-                    eps, lane);
-    }
-  }
-  __syncthreads();
-
-  // 2. this head's q|k|v columns (head-major packing: head*3*dh + {q,k,v}*dh)
-  const bf16* wq = qkv_w + static_cast<size_t>(head) * QKV_H * C;
-  for (int tile = warp; tile < mt * (QKV_H / 16); tile += nwarps) {
-    const int mi = tile / (QKV_H / 16), ni = tile % (QKV_H / 16);
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int k0 = 0; k0 < C; k0 += 16) {
-      FragA a;
-      FragBt bw;
-      wmma::load_matrix_sync(a, tok + mi * 16 * ldt + k0, ldt);
-      wmma::load_matrix_sync(bw, wq + static_cast<size_t>(ni * 16) * C + k0, C);
-      wmma::mma_sync(acc, a, bw, acc);
-    }
-    wmma::store_matrix_sync(fs + mi * 16 * LD_QKV + ni * 16, acc, LD_QKV,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // 3. + bias in fp32, one rounding, split into q, k, v (padded rows zero)
-  for (int i = threadIdx.x; i < TP * QKV_H; i += blockDim.x) {
-    const int t = i / QKV_H, col = i % QKV_H;
-    const float v =
-        t < T ? fs[t * LD_QKV + col] + opt(qkv_b, head * QKV_H + col) : 0.f;
-    bf16* dst = col < DH ? qs : (col < 2 * DH ? ks : vs);
-    dst[t * ldq + col % DH] = __float2bfloat16(v);
-  }
-  __syncthreads();
-
-  // 4. logits = q k^T in fp32
-  for (int tile = warp; tile < mt * mt; tile += nwarps) {
-    const int mi = tile / mt, ni = tile % mt;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int k0 = 0; k0 < DH; k0 += 16) {
-      FragA a;
-      FragBt bk;
-      wmma::load_matrix_sync(a, qs + mi * 16 * ldq + k0, ldq);
-      wmma::load_matrix_sync(bk, ks + ni * 16 * ldq + k0, ldq);
-      wmma::mma_sync(acc, a, bk, acc);
-    }
-    wmma::store_matrix_sync(fs + mi * 16 * lds + ni * 16, acc, lds,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // 5. softmax(logits * scale) over the T real keys, fp32, rounded once
-  for (int t = warp; t < TP; t += nwarps) {
-    float* srow = fs + t * lds;
-    bf16* prow = ps + t * ldp;
-    if (t >= T) {
-      for (int c = lane; c < TP; c += 32) prow[c] = __float2bfloat16(0.f);
-      continue;
-    }
-    float m = -INFINITY;
-    for (int c = lane; c < T; c += 32) m = fmaxf(m, srow[c] * scale);
-    m = warp_max(m);
-    float s = 0.f;
-    for (int c = lane; c < T; c += 32) {
-      const float e = expf(srow[c] * scale - m);
-      srow[c] = e;
-      s += e;
-    }
-    s = warp_sum(s);
-    __syncwarp();
-    for (int c = lane; c < TP; c += 32)
-      prow[c] = __float2bfloat16(c < T ? srow[c] / s : 0.f);
-  }
-  __syncthreads();
-
-  // 6. out = P v
-  for (int tile = warp; tile < mt * (DH / 16); tile += nwarps) {
-    const int mi = tile / (DH / 16), ni = tile % (DH / 16);
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int k0 = 0; k0 < TP; k0 += 16) {
-      FragA a;
-      FragB bv;
-      wmma::load_matrix_sync(a, ps + mi * 16 * ldp + k0, ldp);
-      wmma::load_matrix_sync(bv, vs + k0 * ldq + ni * 16, ldq);
-      wmma::mma_sync(acc, a, bv, acc);
-    }
-    wmma::store_matrix_sync(fs + mi * 16 * ldo + ni * 16, acc, ldo,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // 7. scatter this head's channels back to the tokens' NHWC positions
-  for (int i = threadIdx.x; i < T * DH; i += blockDim.x) {
-    const int t = i / DH, col = i % DH;
-    o[static_cast<size_t>(rows[t]) * C + head * DH + col] =
-        __float2bfloat16(fs[t * ldo + col]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1022,6 +831,438 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
 }
 
 // ---------------------------------------------------------------------------
+// Attention half of a block: LN1, partition, q|k|v, softmax(q k^T) v
+// ---------------------------------------------------------------------------
+//
+// A CTA owns a group of `nwin` windows (or grid cells) and a group of
+// heads. Each window's T tokens take TP = T rounded up to 16 rows of a
+// token tile (64-row slices, wgmma's M), gathered from NHWC through the
+// window or grid index map and normalized once, in bf16, swizzled as the
+// wgmma descriptors read it. Per head, q, k and v (32 columns each) are
+// three products on wgmma whose weight rows stream in K-blocks by TMA
+// through a ring (one producer warp, full/empty mbarriers); each weight
+// tile serves every window of the CTA. Bias in fp32 and one rounding
+// give bf16 q, k, v tiles of 64-byte rows (XOR-swizzled for ldmatrix).
+// Each warp then takes 16-query blocks: S = q k^T on mma.sync m16n8k16
+// fed by ldmatrix, the softmax over the T real keys in fp32 registers,
+// P rounded to bf16 and reused from the registers as the A operand of
+// P v (flash attention 2's layout), so S and P never touch shared
+// memory. O, rounded once, goes over the block's q rows and leaves in
+// 16-byte stores to the tokens' NHWC rows.
+//
+// The head groups of one window group form a cluster (grid x): CTA r
+// normalizes the 4-row groups r, r + cs, ... of the tile and writes them
+// into every peer's tile over distributed shared memory, so LN1 runs
+// once per token per launch.
+
+template <int C>
+struct AttnShape {
+  static constexpr int KB = C >= 64 ? 64 : 32;   // K-block of the q|k|v product
+  static constexpr int SW = KB * 2;              // its swizzle (= row) bytes
+  static constexpr int NKB = C / KB;
+  static constexpr int KPS = NKB < 2 ? NKB : 2;  // K-blocks a ring stage
+  static constexpr int NS = 2;                   // ring stages
+  static constexpr int STAGE = DH * KPS * SW;    // 32 weight rows
+  // 64-row slices of the token tile, so that two CTAs fit an SM below
+  // C = 512 (q, k and v take 3 x 64 bytes a row)
+  static constexpr int NMT = C <= 64 ? 5 : (C == 128 ? 3 : 2);
+  static constexpr int MP = NMT * 64;
+  static constexpr int THREADS = 128 + 32;       // a consumer warpgroup, a producer warp
+  static constexpr int MINB = C == 512 ? 1 : 2;
+  static constexpr int RING = MP * C * 2;        // after the token tile
+  static constexpr int QKV = MP * 64;            // bytes of one of q, k, v
+  static constexpr int QOFF = RING + NS * STAGE;
+  static constexpr int ROFF = QOFF + 3 * QKV;    // the rows' NHWC indices
+  static constexpr int BOFF = ROFF + MP * 4;
+  static constexpr int SMEM = BOFF + 2 * NS * 8 + 1024;  // + alignment
+};
+constexpr int ATTN_MAX_T = 80;     // a warp holds S of 16 queries x 80 keys
+constexpr int ATTN_LG = 4;         // token rows a warp normalizes at once
+
+struct AttnArgs {
+  const bf16 *x, *ln_w, *ln_b, *qkv_b;
+  bf16* o;
+  int H, W, ph, pw, grid_kind, nwin, nwindows, heads;   // heads a CTA
+  float eps, scale;
+};
+
+// Byte offset of bf16 column `col` of row `r` in a q, k or v tile: rows
+// of 64 bytes, their 16-byte chunks XORed with bits 1-2 of the row, so
+// that the eight rows an ldmatrix reads of one chunk hit distinct banks.
+__device__ __forceinline__ uint32_t qkv_off(int r, int col) {
+  return static_cast<uint32_t>(r * 64 + ((((col >> 3) ^ (r >> 1)) & 3) << 4) +
+                               (col & 7) * 2);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* d, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]) : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* d, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]) : "r"(addr) : "memory");
+}
+// D[16, 8] += A[16, 16] B[16, 8], bf16 operands, fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// 16 bytes to `p` in the shared memory of the cluster's CTA `rank`
+__device__ __forceinline__ void st_peer(void* p, uint32_t rank, uint4 v) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};"
+               :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+// generic-proxy writes to shared memory (this CTA's or a peer's), made
+// visible to wgmma's reads
+__device__ __forceinline__ void fence_async_all() {
+  asm volatile("fence.proxy.async;" ::: "memory");
+}
+
+// LN1 (or a copy, where the block skips it) of this CTA's share of the
+// token rows, one warp a row group, into the token tile of every CTA of
+// the cluster; rows that are no token are zero.
+template <int C>
+__device__ __forceinline__ void attn_gather(const AttnArgs& p,
+                                            unsigned char* smem,
+                                            const int* rows, int nrows,
+                                            int warp, int lane, int rank,
+                                            int cs) {
+  using S = AttnShape<C>;
+  constexpr int NCH = (C / 8 + 31) / 32;   // 16-byte chunks per lane
+  for (int r0 = (rank * 4 + warp) * ATTN_LG; r0 < nrows;
+       r0 += cs * 4 * ATTN_LG) {
+    uint4 raw[ATTN_LG][NCH];
+#pragma unroll
+    for (int g = 0; g < ATTN_LG; ++g)
+#pragma unroll
+      for (int u = 0; u < NCH; ++u) {
+        const int row = rows[r0 + g], c8 = lane + 32 * u;
+        raw[g][u] = make_uint4(0u, 0u, 0u, 0u);
+        if (row >= 0 && c8 < C / 8)
+          raw[g][u] = reinterpret_cast<const uint4*>(
+              p.x + static_cast<size_t>(row) * C)[c8];
+      }
+#pragma unroll
+    for (int g = 0; g < ATTN_LG; ++g) {
+      const int r = r0 + g;
+      const bool tok = rows[r] >= 0;
+      float mean = 0.f, inv = 0.f;
+      if (p.ln_w) {
+        float s = 0.f;
+#pragma unroll
+        for (int u = 0; u < NCH; ++u) {
+          const bf16* e = reinterpret_cast<const bf16*>(&raw[g][u]);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) s += f32(e[k]);
+        }
+        mean = warp_sum(s) / C;
+        float ss = 0.f;
+#pragma unroll
+        for (int u = 0; u < NCH; ++u) {
+          if (lane + 32 * u >= C / 8) continue;
+          const bf16* e = reinterpret_cast<const bf16*>(&raw[g][u]);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const float d = f32(e[k]) - mean;
+            ss += d * d;
+          }
+        }
+        inv = 1.f / sqrtf(warp_sum(ss) / C + p.eps);
+      }
+#pragma unroll
+      for (int u = 0; u < NCH; ++u) {
+        const int c8 = lane + 32 * u;
+        if (c8 >= C / 8) continue;
+        uint4 z = make_uint4(0u, 0u, 0u, 0u);
+        if (tok && p.ln_w) {
+          const bf16* e = reinterpret_cast<const bf16*>(&raw[g][u]);
+          bf16* ze = reinterpret_cast<bf16*>(&z);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const int c = c8 * 8 + k;
+            ze[k] = __float2bfloat16((f32(e[k]) - mean) * inv *
+                                     f32(p.ln_w[c]) + f32(p.ln_b[c]));
+          }
+        } else if (tok) {
+          z = raw[g][u];
+        }
+        const int kb = c8 / (S::KB / 8), b = (c8 % (S::KB / 8)) * 16;
+        unsigned char* dst = smem + kb * S::MP * S::SW + swz(r, b, S::SW);
+        if (cs == 1) {
+          *reinterpret_cast<uint4*>(dst) = z;
+        } else {
+          for (int q = 0; q < cs; ++q) st_peer(dst, q, z);
+        }
+      }
+    }
+  }
+}
+
+// One warp, one block of 16 queries (rows r0..r0+15) of the window whose
+// keys are rows wb..wb+TP-1 (T real): S = q k^T in registers, softmax
+// over the real keys, O = P v; O in bf16 over the block's q rows.
+__device__ __forceinline__ void attn_block(unsigned char* q, uint32_t kv_bytes,
+                                           int r0, int wb, int T, int TP,
+                                           float scale, int lane) {
+  constexpr int NT = ATTN_MAX_T / 8;
+  const uint32_t qs = smem_u32(q), ks = qs + kv_bytes, vs = ks + kv_bytes;
+  const int nt = TP / 8, g = lane >> 2, c2 = (lane & 3) * 2;
+  uint32_t qa[2][4];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    ldsm_x4(qa[k], qs + qkv_off(r0 + (lane & 15), (2 * k + (lane >> 4)) * 8));
+  float s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    if (j < nt) {
+      uint32_t kb[4];
+      ldsm_x4(kb, ks + qkv_off(wb + 8 * j + (lane & 7), (lane >> 3) * 8));
+      mma_bf16(s[j], qa[0], kb[0], kb[1]);
+      mma_bf16(s[j], qa[1], kb[2], kb[3]);
+    }
+  }
+  // rows g and g + 8 of the block; a row's 4 lanes hold its 8-key slices
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (j < nt && 8 * j + c2 + e < T) {
+        m0 = fmaxf(m0, s[j][e] * scale);
+        m1 = fmaxf(m1, s[j][2 + e] * scale);
+      }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+  }
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool key = j < nt && 8 * j + c2 + e < T;
+      s[j][e] = key ? expf(s[j][e] * scale - m0) : 0.f;
+      s[j][2 + e] = key ? expf(s[j][2 + e] * scale - m1) : 0.f;
+      l0 += s[j][e];
+      l1 += s[j][2 + e];
+    }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+  }
+  float acc[4][4];
+#pragma unroll
+  for (int d = 0; d < 4; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    if (2 * kk >= nt) continue;
+    const uint32_t pa[4] = {
+        pack_bf16(s[2 * kk][0] / l0, s[2 * kk][1] / l0),
+        pack_bf16(s[2 * kk][2] / l1, s[2 * kk][3] / l1),
+        pack_bf16(s[2 * kk + 1][0] / l0, s[2 * kk + 1][1] / l0),
+        pack_bf16(s[2 * kk + 1][2] / l1, s[2 * kk + 1][3] / l1)};
+#pragma unroll
+    for (int dp = 0; dp < 2; ++dp) {
+      uint32_t vb[4];
+      ldsm_x4_t(vb, vs + qkv_off(wb + 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                 (2 * dp + (lane >> 4)) * 8));
+      mma_bf16(acc[2 * dp], pa, vb[0], vb[1]);
+      mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    *reinterpret_cast<uint32_t*>(q + qkv_off(r0 + g, 8 * d + c2)) =
+        pack_bf16(acc[d][0], acc[d][1]);
+    *reinterpret_cast<uint32_t*>(q + qkv_off(r0 + g + 8, 8 * d + c2)) =
+        pack_bf16(acc[d][2], acc[d][3]);
+  }
+}
+
+// grid (cs, window groups): CTA x of a window group runs heads
+// [x * heads, (x + 1) * heads); a launch with cs > 1 is a cluster of the
+// group's cs CTAs (a CTA launched alone gathers its whole tile).
+template <int C>
+__global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
+    block_attention_kernel(const __grid_constant__ CUtensorMap m_qkv,
+                           const AttnArgs p) {
+  using S = AttnShape<C>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = smem + S::RING;
+  unsigned char* qkv = smem + S::QOFF;
+  int* rows = reinterpret_cast<int*>(smem + S::ROFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BOFF);
+  uint64_t* empty = full + S::NS;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int cs = static_cast<int>(cluster_size());
+  const int rank = static_cast<int>(cluster_rank());
+  const int T = p.ph * p.pw, TP = (T + 15) / 16 * 16;
+  const int w0 = blockIdx.y * p.nwin;
+  const int nwin = min(p.nwin, p.nwindows - w0);
+  const int nrows = (nwin * TP + 63) / 64 * 64;   // rows the products cover
+  const int nmt = nrows / 64;
+  const int head0 = blockIdx.x * p.heads;
+  constexpr int TILES = S::NKB / S::KPS;          // ring stages a product
+
+  if (tid == 0) {
+    for (int i = 0; i < S::NS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // token t of window w at row w * TP + t; the grid partition indexes the
+  // outer, strided dims (layers.py grid_partition)
+  const int nh = p.H / p.ph, nw = p.W / p.pw;
+  for (int r = tid; r < nrows; r += blockDim.x) {
+    const int w = r / TP, t = r % TP;
+    int row = -1;
+    if (w < nwin && t < T) {
+      const int gw = w0 + w, b = gw / (nh * nw), wi = gw % (nh * nw);
+      const int wy = wi / nw, wx = wi % nw, tr = t / p.pw, tc = t % p.pw;
+      const int y = p.grid_kind ? tr * nh + wy : wy * p.ph + tr;
+      const int x = p.grid_kind ? tc * nw + wx : wx * p.pw + tc;
+      row = (b * p.H + y) * p.W + x;
+    }
+    rows[r] = row;
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer: the head group's q, k, v weight rows, K-block by K-block,
+    // in the consumers' order; it arrives at the cluster barrier first,
+    // since the consumers free the ring only after it
+    if (cs > 1) cluster_arrive();
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int h = 0; h < p.heads; ++h)
+        for (int part = 0; part < 3; ++part)
+          for (int t = 0; t < TILES; ++t) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_expect_tx(&full[stage], S::STAGE);
+            for (int k = 0; k < S::KPS; ++k)
+              tma_load_2d(ring + stage * S::STAGE + k * DH * S::SW, &m_qkv,
+                          &full[stage], (t * S::KPS + k) * S::KB,
+                          ((head0 + h) * 3 + part) * DH);
+            if (++stage == S::NS) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+    }
+    if (cs > 1) {
+      __syncwarp();
+      cluster_wait();
+    }
+    return;
+  }
+
+  attn_gather<C>(p, smem, rows, nrows, warp, lane, rank, cs);
+  fence_async_all();
+  if (cs > 1) {
+    cluster_arrive();
+    cluster_wait();
+    fence_async_all();
+  } else {
+    consumer_sync(128);
+  }
+
+  const uint32_t tok = smem_u32(smem), wring = smem_u32(ring);
+  const int wr = warp * 16 + lane / 4, q2 = (lane % 4) * 2;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int h = 0; h < p.heads; ++h) {
+    const int head = head0 + h;
+    // 1. q, k, v = tok W^T + b over the tile's slices, bf16, zero on rows
+    // that are no token
+    for (int part = 0; part < 3; ++part) {
+      float acc[S::NMT][16];
+#pragma unroll
+      for (int mt = 0; mt < S::NMT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc[mt][i] = 0.f;
+      for (int t = 0; t < TILES; ++t) {
+        mbar_wait(&full[stage], phase);
+        const uint32_t b = wring + stage * S::STAGE;
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < S::KPS; ++k)
+#pragma unroll
+          for (int mt = 0; mt < S::NMT; ++mt) {
+            if (mt >= nmt) continue;
+            const uint32_t a = tok + (t * S::KPS + k) * S::MP * S::SW + mt * 64 * S::SW;
+#pragma unroll
+            for (int kk = 0; kk < S::KB / 16; ++kk)
+              wgmma_ss<DH>(acc[mt], gmma_desc(a + 32 * kk, S::SW),
+                           gmma_desc(b + k * DH * S::SW + 32 * kk, S::SW), 1);
+          }
+        wgmma_commit();
+        wgmma_wait0();
+#pragma unroll
+        for (int mt = 0; mt < S::NMT; ++mt) fence_regs<16>(acc[mt]);
+        mbar_arrive(&empty[stage]);
+        if (++stage == S::NS) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      unsigned char* dst = qkv + part * S::QKV;
+#pragma unroll
+      for (int mt = 0; mt < S::NMT; ++mt) {
+        if (mt >= nmt) continue;
+#pragma unroll
+        for (int i = 0; i < DH / 8; ++i) {
+          const int col = 8 * i + q2, bcol = (head * 3 + part) * DH + col;
+          const float b0 = opt(p.qkv_b, bcol), b1 = opt(p.qkv_b, bcol + 1);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int r = mt * 64 + wr + 8 * hh;
+            *reinterpret_cast<uint32_t*>(dst + qkv_off(r, col)) =
+                rows[r] >= 0 ? pack_bf16(acc[mt][4 * i + 2 * hh] + b0,
+                                         acc[mt][4 * i + 2 * hh + 1] + b1)
+                             : 0u;
+          }
+        }
+      }
+    }
+    consumer_sync(128);
+
+    // 2. softmax(q k^T * scale) v, a warp per 16-query block
+    for (int qb = warp; qb < nwin * TP / 16; qb += 4)
+      attn_block(qkv, S::QKV, qb * 16, qb * 16 / TP * TP, T, TP, p.scale, lane);
+    consumer_sync(128);
+
+    // 3. the head's 32 channels of each token to NHWC, 16 bytes a store
+    for (int i = tid; i < nrows * 4; i += 128) {
+      const int r = i / 4, c = i % 4, row = rows[r];
+      if (row < 0) continue;
+      *reinterpret_cast<uint4*>(p.o + static_cast<size_t>(row) * C + head * DH + c * 8) =
+          *reinterpret_cast<const uint4*>(qkv + qkv_off(r, c * 8));
+    }
+    consumer_sync(128);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // ConvLSTM update: mix = x Kx + h Kh + b, gates [f, i, o, g]
 // ---------------------------------------------------------------------------
 
@@ -1178,6 +1419,30 @@ bool weight_map(CUtensorMap* map, const void* ptr, uint64_t rows,
   return true;
 }
 
+// Launches kernel<<<grid, threads, smem, st>>>(args...), as a cluster of
+// `cluster` CTAs along x when cluster > 1.
+template <typename... K, typename... A>
+cudaError_t launch(void (*kernel)(K...), dim3 grid, int threads, int smem,
+                   int cluster, cudaStream_t st, A... args) {
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 template <int C>
 cudaError_t launch_mlp(const MlpArgs& a, const void* proj_w, const void* in_w,
                        const void* out_w, int cluster, cudaStream_t st) {
@@ -1189,31 +1454,73 @@ cudaError_t launch_mlp(const MlpArgs& a, const void* proj_w, const void* in_w,
                   hc / S::NWG, S::KB) ||
       !weight_map(&m_out, out_w, C, a.inner, S::NW, hc))
     return cudaErrorInvalidValue;
-  cudaError_t e = set_smem(block_mlp_kernel<C>, S::SMEM);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(cluster, (a.R + MLP_BM - 1) / MLP_BM);
-  if (cluster == 1) {
-    // alone on its tile, a CTA needs no cluster: no cluster barrier,
-    // the epilogue straight from the registers
-    block_mlp_kernel<C><<<grid, S::THREADS, S::SMEM, st>>>(m_proj, m_in,
-                                                            m_out, a);
-    return cudaGetLastError();
+  // alone on its tile (cluster 1), a CTA takes the path with no cluster
+  // barrier and writes its epilogue straight from the registers
+  return launch(block_mlp_kernel<C>, dim3(cluster, (a.R + MLP_BM - 1) / MLP_BM),
+                S::THREADS, S::SMEM, cluster, st, m_proj, m_in, m_out, a);
+}
+
+template <int C>
+cudaError_t launch_attention(const AttnArgs& a, const void* qkv_w, int cs,
+                             int groups, cudaStream_t st) {
+  using S = AttnShape<C>;
+  CUtensorMap m_qkv;
+  if (!weight_map(&m_qkv, qkv_w, 3 * C, C, DH, S::KB))
+    return cudaErrorInvalidValue;
+  return launch(block_attention_kernel<C>, dim3(cs, groups), S::THREADS,
+                S::SMEM, cs, st, m_qkv, a);
+}
+
+int attn_smem_bytes(int C) {
+  switch (C) {
+    case 32: return AttnShape<32>::SMEM;
+    case 64: return AttnShape<64>::SMEM;
+    case 128: return AttnShape<128>::SMEM;
+    case 256: return AttnShape<256>::SMEM;
+    case 512: return AttnShape<512>::SMEM;
+    default: return 0;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(S::THREADS);
-  cfg.dynamicSmemBytes = S::SMEM;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, block_mlp_kernel<C>, m_proj, m_in, m_out, a);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+}
+
+int attn_rows(int C) {
+  switch (C) {
+    case 32: return AttnShape<32>::MP;
+    case 64: return AttnShape<64>::MP;
+    case 128: return AttnShape<128>::MP;
+    case 256: return AttnShape<256>::MP;
+    default: return AttnShape<512>::MP;
+  }
+}
+
+// How the windows and heads are dealt out: `nwin` windows a CTA (at
+// most what its token tile holds) and `cs` CTAs on each window group,
+// one head group each (a cluster; 1, 2, 4 or 8, at most the heads). The
+// pair gives the most CTAs within one wave (num_sms x the CTAs an SM
+// holds by shared memory), the larger nwin on a tie: each CTA pays its
+// token gather and barriers, so splitting past one wave only adds them.
+// `cluster` > 0 fixes cs. Returns false for a cs the width does not take.
+bool attn_plan(int nwindows, int T, int C, int num_sms, int cluster,
+               int* nwin, int* cs) {
+  const int heads = C / DH, tp = (T + 15) / 16 * 16;
+  const int max_win = attn_rows(C) / tp;
+  const long slots = static_cast<long>(num_sms) *
+                     ((228 * 1024) / (attn_smem_bytes(C) + 1024));
+  long best = -1;
+  *nwin = max_win;
+  *cs = cluster > 0 ? cluster : 1;
+  for (int c = 1; c <= 8 && c <= heads; c *= 2) {
+    if (cluster > 0 && c != cluster) continue;
+    for (int n = max_win; n >= 1; --n) {
+      const long ctas = static_cast<long>((nwindows + n - 1) / n) * c;
+      if (ctas <= slots && (ctas > best || (ctas == best && n > *nwin))) {
+        best = ctas;
+        *nwin = n;
+        *cs = c;
+      }
+    }
+  }
+  return cluster <= 0 || ((cluster & (cluster - 1)) == 0 && cluster <= 8 &&
+                          cluster <= heads);
 }
 
 int mlp_smem_bytes(int C) {
@@ -1240,24 +1547,47 @@ bool mlp_cluster_ok(int C, int inner, int gated, int cluster) {
 // Each entry point launches on `stream`, allocates nothing and returns
 // cudaGetLastError() (0 on success). Optional vectors may be NULL.
 
+// C in {32, 64, 128, 256, 512}, T = ph * pw <= 80, dim_head 32; LN1
+// skipped where ln_w and ln_b are NULL. `cluster` > 0 fixes how many CTAs
+// (one head group each) share a window group; 0 lets attn_plan choose.
 extern "C" int leod_block_attention(const void* x, void* o, const void* ln_w,
                                     const void* ln_b, const void* qkv_w,
                                     const void* qkv_b, int B, int H, int W,
                                     int C, int ph, int pw, int grid_kind,
-                                    float eps, void* stream) {
-  if (C % DH || H % ph || W % pw) return cudaErrorInvalidValue;
-  size_t off[5];
-  const size_t smem = attn_smem(ph * pw, C, off);
-  cudaError_t e = set_smem(block_attention_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(B * (H / ph) * (W / pw), C / DH);
-  block_attention_kernel<<<grid, ATTN_THREADS, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<bf16*>(o),
-      static_cast<const bf16*>(ln_w), static_cast<const bf16*>(ln_b),
-      static_cast<const bf16*>(qkv_w), static_cast<const bf16*>(qkv_b), H, W,
-      C, ph, pw, grid_kind, eps, 1.f / sqrtf(static_cast<float>(DH)));
-  return cudaGetLastError();
+                                    float eps, int cluster, int num_sms,
+                                    void* stream) {
+  const int T = ph * pw;
+  if (B < 1 || ph < 1 || pw < 1 || H % ph || W % pw || T > ATTN_MAX_T ||
+      attn_smem_bytes(C) == 0 || (ln_w == nullptr) != (ln_b == nullptr))
+    return cudaErrorInvalidValue;
+  AttnArgs a;
+  a.nwindows = B * (H / ph) * (W / pw);
+  int cs;
+  if (!attn_plan(a.nwindows, T, C, num_sms, cluster, &a.nwin, &cs))
+    return cudaErrorInvalidValue;
+  const int groups = (a.nwindows + a.nwin - 1) / a.nwin;
+  if (groups > 65535) return cudaErrorInvalidValue;
+  a.x = static_cast<const bf16*>(x);
+  a.ln_w = static_cast<const bf16*>(ln_w);
+  a.ln_b = static_cast<const bf16*>(ln_b);
+  a.qkv_b = static_cast<const bf16*>(qkv_b);
+  a.o = static_cast<bf16*>(o);
+  a.H = H;
+  a.W = W;
+  a.ph = ph;
+  a.pw = pw;
+  a.grid_kind = grid_kind;
+  a.heads = C / DH / cs;
+  a.eps = eps;
+  a.scale = 1.f / sqrtf(static_cast<float>(DH));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 32: return launch_attention<32>(a, qkv_w, cs, groups, st);
+    case 64: return launch_attention<64>(a, qkv_w, cs, groups, st);
+    case 128: return launch_attention<128>(a, qkv_w, cs, groups, st);
+    case 256: return launch_attention<256>(a, qkv_w, cs, groups, st);
+    default: return launch_attention<512>(a, qkv_w, cs, groups, st);
+  }
 }
 
 // How many CTAs (a cluster) share a row tile: the largest size among

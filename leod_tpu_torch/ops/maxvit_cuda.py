@@ -8,8 +8,10 @@ plain PyTorch version (the token-layout path of the modules,
 kernels or raises. Each wrapper counts the calls in which it launched
 kernels in `.launches`.
 
-On the card, a block is two launches: `block_attention` (LN1 +
-per-head attention, one CTA per window and head; plain version
+On the card, a block is two launches: `block_attention` (LN1 once per
+token, q|k|v on wgmma fed by TMA, attention in registers, a CTA per
+group of windows and heads; where windows are few, the head groups of a
+window group are a cluster sharing LN1; plain version
 `block_attention_plain`) and `block_mlp` (projection, LayerScale,
 residual, LN2, MLP, LayerScale, residual, per token, on wgmma fed by TMA;
 where few tokens leave the card empty, a cluster of CTAs shares each
@@ -33,14 +35,15 @@ from ..models.layers import (PartitionAttention, _SplitGateConv,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
-    "leod_block_attention": [_P] * 6 + [_I] * 7 + [_F, _P],
+    "leod_block_attention": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
     "leod_block_mlp": [_P] * 13 + [_I] * 5 + [_F, _I, _P],
     "leod_block_mlp_cluster": [_I] * 5,
     "leod_lstm_update": [_P] * 7 + [_I] * 3 + [_P],
 }
 _ACTS = {"gelu": 0, "silu": 1, "relu": 2}
 DIM_HEAD = 32          # the kernels' head width
-MLP_DIMS = (32, 64, 128, 256, 512)   # the widths block_mlp's tiles take
+MLP_DIMS = (32, 64, 128, 256, 512)   # the widths the block kernels' tiles take
+MAX_TOKENS = 80        # block_attention's largest partition ph * pw
 
 
 def _lib() -> ctypes.CDLL:
@@ -158,22 +161,33 @@ def fused_stage_plain(x: torch.Tensor, h_prev: torch.Tensor,
 
 def _block_cuda(x: torch.Tensor, blk: PartitionAttention, grid_kind: bool,
                 act: str, gated: bool, eps: float) -> torch.Tensor:
-    b, h, w, c = x.shape
-    ph, pw = blk.partition_size
+    return block_mlp(x, block_attention(x, blk, grid_kind, eps), blk, act,
+                     gated, eps)
+
+
+def _attention_cuda(x: torch.Tensor, blk: PartitionAttention,
+                    grid_kind: bool, eps: float,
+                    cluster: Optional[int]) -> torch.Tensor:
     norm1 = None if blk.skip_first_norm else blk.norm1
-    attn = blk.attn
-    ws = [attn.qkv.weight, attn.qkv.bias]
-    if norm1 is not None:
-        ws += [norm1.weight, norm1.bias]
-    _require_cuda("fused_block_pair", x, *ws)
-    ln_w, ln_b = (None, None) if norm1 is None else (norm1.weight,
-                                                     norm1.bias)
+    qkv = blk.attn.qkv
+    _require_cuda("block_attention", x, qkv.weight, qkv.bias,
+                  *(() if norm1 is None else (norm1.weight, norm1.bias)))
+    b, h, w, c = x.shape if x.dim() == 4 else (0,) * 4
+    ph, pw = blk.partition_size
+    if (c not in MLP_DIMS or blk.attn.dim_head != DIM_HEAD
+            or h % ph or w % pw or ph * pw > MAX_TOKENS or b == 0):
+        raise ValueError(
+            f"block_attention: x [B, H, W, C] with C in {MLP_DIMS}, dim_head "
+            f"{DIM_HEAD}, H and W multiples of the partition, ph * pw <= "
+            f"{MAX_TOKENS}; got {tuple(x.shape)}, partition {(ph, pw)}")
     o = torch.empty_like(x)
     _build.check("leod_block_attention", _lib().leod_block_attention(
-        x.data_ptr(), o.data_ptr(), _ptr(ln_w), _ptr(ln_b),
-        attn.qkv.weight.data_ptr(), _ptr(attn.qkv.bias), b, h, w, c, ph, pw,
-        int(grid_kind), eps, _stream(x)))
-    return block_mlp(x, o, blk, act, gated, eps)
+        x.data_ptr(), o.data_ptr(),
+        _ptr(None if norm1 is None else norm1.weight),
+        _ptr(None if norm1 is None else norm1.bias), qkv.weight.data_ptr(),
+        _ptr(qkv.bias), b, h, w, c, ph, pw, int(grid_kind), eps,
+        cluster or 0, _num_sms(x.device), _stream(x)))
+    return o
 
 
 def _mlp_cuda(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
@@ -232,6 +246,30 @@ def _lstm_cuda(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Wrappers (the ports of the Pallas functions, same signatures)
 # ---------------------------------------------------------------------------
+
+def block_attention(x: torch.Tensor, blk: PartitionAttention,
+                    grid_kind: bool, eps: float = 1e-5, *,
+                    cluster: Optional[int] = None) -> torch.Tensor:
+    """The attention half of a block (`block_attention_plain`) on an NHWC
+    map x [B, H, W, C]: the window (or, with `grid_kind`, grid)
+    partition, LayerNorm 1 unless the block skips it, and attention up to
+    the output projection; returns o [B, H, W, C] at the tokens' NHWC
+    positions. `cluster` (1, 2, 4 or 8) forces how many CTAs, one head
+    group each, share a group of windows (tests only; by default the
+    kernel's plan picks)."""
+    if x.device.type == "cpu":
+        ph, pw = blk.partition_size
+        _, h, w, _ = x.shape
+        part, rev = ((grid_partition, grid_reverse) if grid_kind
+                     else (window_partition, window_reverse))
+        return rev(block_attention_plain(part(x, ph, pw), blk), ph, pw, h, w)
+    o = _attention_cuda(x, blk, grid_kind, eps, cluster)
+    block_attention.launches += 1
+    return o
+
+
+block_attention.launches = 0
+
 
 def block_mlp(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
               act: str = "gelu", gated: bool = False, eps: float = 1e-5, *,
@@ -304,4 +342,4 @@ def fused_stage(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
 
 fused_stage.launches = 0
 
-WRAPPERS = (fused_block_pair, fused_stage, block_mlp)
+WRAPPERS = (fused_block_pair, fused_stage, block_attention, block_mlp)

@@ -110,3 +110,44 @@ def test_block_mlp_wrapper_runs_the_plain_half_on_the_cpu():
     assert maxvit_cuda.block_mlp.launches == before
     with pytest.raises(ValueError, match="act/gated"):
         maxvit_cuda.block_mlp(tok, o, blk, gated=True)
+
+
+@pytest.mark.parametrize("grid_kind", [False, True])
+@pytest.mark.parametrize("skip", [False, True])
+def test_block_attention_wrapper_runs_the_plain_half_on_the_cpu(grid_kind,
+                                                                skip):
+    """On a CPU tensor `block_attention` is the partition, then
+    `block_attention_plain`, then the reverse, and counts no launch."""
+    x, _, mods = _pair(64, skip, False, seed=5 + 2 * grid_kind + skip)
+    blk = mods["grid" if grid_kind else "window"]
+    part, rev = ((grid_partition, grid_reverse) if grid_kind
+                 else (window_partition, window_reverse))
+    xt = torch.from_numpy(x)
+    with torch.no_grad():
+        before = maxvit_cuda.block_attention.launches
+        got = maxvit_cuda.block_attention(xt, blk, grid_kind)
+        want = rev(maxvit_cuda.block_attention_plain(part(xt, PH, PW), blk),
+                   PH, PW, H, W)
+    assert maxvit_cuda.block_attention.launches == before
+    assert got.shape == xt.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dim,skip,gated", CASES)
+def test_wrapped_halves_match_pallas(dim, skip, gated):
+    """`block_mlp(x, block_attention(x, blk, ...), blk)` on the NHWC map,
+    window block then grid block, holds the Pallas `fused_block_pair` in
+    interpret mode."""
+    x, params, mods = _pair(dim, skip, gated, seed=30 + dim + 2 * skip + gated)
+    want = jmp.fused_block_pair(jnp.asarray(x), params["window"],
+                                params["grid"], (PH, PW),
+                                skip_first_norm=skip, gated=gated,
+                                interpret=True)
+    y = torch.from_numpy(x)
+    with torch.no_grad():
+        for kind in ("window", "grid"):
+            blk = mods[kind]
+            y = maxvit_cuda.block_mlp(
+                y, maxvit_cuda.block_attention(y, blk, kind == "grid"), blk,
+                gated=gated)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), **TOL)

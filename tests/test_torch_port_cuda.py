@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at small shapes that reach the kernels' edge cases: windows of T
-tokens that are no multiple of 16, 1, 2, 4 and 16 heads, the MLP with
+tokens that are no multiple of 16, 1, 2, 4 and 16 heads, the attention
+half `block_attention` alone at every width, at T = 8, 20, 60 and 80,
+window and grid, with and without LN1, at B = 1 and 2 and with its
+heads split over clusters of 1 to 8 CTAs, the MLP with
 and without its hidden dim split over CTAs, the per-token half
 `block_mlp` alone at every width its tiles take, row counts with a
 ragged last 64-row tile, and clusters of 1 to 8 CTAs sharing a tile,
@@ -24,7 +27,9 @@ a few bf16 ulps of its largest value: 2^-5 * max|plain| per tensor, as
 import pytest
 import torch
 
-from leod_tpu_torch.models.layers import PartitionAttention, _SplitGateConv
+from leod_tpu_torch.models.layers import (PartitionAttention, _SplitGateConv,
+                                          grid_partition, grid_reverse,
+                                          window_partition, window_reverse)
 from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
 from leod_tpu_torch.ops.nms import nms_mask as nms_plain
 
@@ -170,6 +175,44 @@ def test_block_mlp_kernel_matches_plain(cuda, dim, rows, act, gated, cluster):
                                                   cluster=cluster))
 
 
+def _attention_cases():
+    """C x partition (T = 8, 20, 60, 80) x window/grid x LN1 skipped or
+    not x B x every cluster size the width takes (a head group a CTA)."""
+    cases = []
+    for dim in maxvit_cuda.MLP_DIMS:
+        for ps in ((2, 4), (4, 5), (6, 10), (8, 10)):
+            for grid_kind in (False, True):
+                for skip in (False, True):
+                    for b in (1, 2):
+                        for cluster in (1, 2, 4, 8):
+                            if cluster <= dim // 32:
+                                cases.append((dim, ps, grid_kind, skip, b,
+                                              cluster))
+    return cases
+
+
+@pytest.mark.parametrize("dim,ps,grid_kind,skip,b,cluster",
+                         _attention_cases())
+def test_block_attention_kernel_matches_plain(cuda, dim, ps, grid_kind, skip,
+                                              b, cluster):
+    kind = "grid" if grid_kind else "window"
+    blk = _randomized(PartitionAttention(dim, ps, kind, skip_first_norm=skip),
+                      dim + ps[0], cuda)
+    g = torch.Generator(device=cuda).manual_seed(b + ps[1])
+    x = torch.randn(b, 24, 20, dim, device=cuda, generator=g
+                    ).to(torch.bfloat16)
+    before = maxvit_cuda.block_attention.launches
+    got = maxvit_cuda.block_attention(x, blk, grid_kind, cluster=cluster)
+    torch.cuda.synchronize()
+    assert maxvit_cuda.block_attention.launches == before + 1
+    part, rev = ((grid_partition, grid_reverse) if grid_kind
+                 else (window_partition, window_reverse))
+    _close(got, rev(maxvit_cuda.block_attention_plain(part(x, *ps), blk),
+                    *ps, 24, 20))
+    assert torch.equal(got, maxvit_cuda.block_attention(x, blk, grid_kind,
+                                                        cluster=cluster))
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     wb, gb = _pair(32, (4, 5), False, "gelu", cuda)
     x = torch.zeros(1, H, W, 32, device=cuda)
@@ -184,6 +227,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     x96 = torch.zeros(80, 96, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="C in"):
         maxvit_cuda.block_mlp(x96, x96, blk)
+    # a partition of 100 tokens: more keys than a warp's S holds
+    blk = _randomized(PartitionAttention(32, (10, 10), "window"), 0, cuda)
+    x20 = torch.zeros(1, 20, 20, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ph \\* pw"):
+        maxvit_cuda.block_attention(x20, blk, False)
     boxes = torch.zeros(1, 1025, 4, device=cuda)
     valid = torch.ones(1, 1025, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="1..1024"):
