@@ -213,8 +213,11 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
-// all consumer threads (named barrier 1; the producer warp is not in it)
+// all consumer threads (named barrier 1; the producer warp is not in it).
+// bar.sync wants each warp converged, which the compiler does not see to
+// for inline PTX: the warp reconverges first.
 __device__ __forceinline__ void consumer_sync(int threads) {
+  __syncwarp();
   asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
 }
 __device__ __forceinline__ void wgmma_fence() {
@@ -860,14 +863,21 @@ struct AttnShape {
   static constexpr int KB = C >= 64 ? 64 : 32;   // K-block of the q|k|v product
   static constexpr int SW = KB * 2;              // its swizzle (= row) bytes
   static constexpr int NKB = C / KB;
-  static constexpr int KPS = NKB < 2 ? NKB : 2;  // K-blocks a ring stage
-  static constexpr int NS = 2;                   // ring stages
+  // K-blocks a ring stage, and stages: as deep as shared memory allows
+  // (two CTAs an SM below C = 512, one at 512)
+  static constexpr int KPS = C == 512 ? 4 : (NKB < 2 ? NKB : 2);
+  static constexpr int NS = C == 32 || C == 512 ? 4 : (C == 128 ? 3 : 2);
   static constexpr int STAGE = DH * KPS * SW;    // 32 weight rows
   // 64-row slices of the token tile, so that two CTAs fit an SM below
   // C = 512 (q, k and v take 3 x 64 bytes a row)
   static constexpr int NMT = C <= 64 ? 5 : (C == 128 ? 3 : 2);
   static constexpr int MP = NMT * 64;
-  static constexpr int THREADS = 128 + 32;       // a consumer warpgroup, a producer warp
+  // consumer warpgroups: two where one CTA fills an SM (C = 512), so
+  // that eight warps share the gather and the attention
+  static constexpr int NWG = C == 512 ? 2 : 1;
+  static constexpr int NCT = NWG * 128;          // consumer threads
+  static constexpr int MTW = (NMT + NWG - 1) / NWG;   // slices a warpgroup
+  static constexpr int THREADS = NCT + 32;       // + a producer warp
   static constexpr int MINB = C == 512 ? 1 : 2;
   static constexpr int RING = MP * C * 2;        // after the token tile
   static constexpr int QKV = MP * 64;            // bytes of one of q, k, v
@@ -877,7 +887,7 @@ struct AttnShape {
   static constexpr int SMEM = BOFF + 2 * NS * 8 + 1024;  // + alignment
 };
 constexpr int ATTN_MAX_T = 80;     // a warp holds S of 16 queries x 80 keys
-constexpr int ATTN_LG = 4;         // token rows a warp normalizes at once
+constexpr int ATTN_LG = 4;         // row sets a warp normalizes at once
 
 struct AttnArgs {
   const bf16 *x, *ln_w, *ln_b, *qkv_b;
@@ -931,9 +941,19 @@ __device__ __forceinline__ void fence_async_all() {
   asm volatile("fence.proxy.async;" ::: "memory");
 }
 
+// 2^x on the SFU
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // LN1 (or a copy, where the block skips it) of this CTA's share of the
-// token rows, one warp a row group, into the token tile of every CTA of
-// the cluster; rows that are no token are zero.
+// token rows into the token tile of every CTA of the cluster; rows that
+// are no token are zero. A row is LPR lanes of 16-byte chunks (a warp
+// takes 32 / LPR rows at once, ATTN_LG such sets in flight), its
+// statistics in fp32, two passes, reduced over its lanes. A row that is
+// no token is zeroed in each CTA's own tile.
 template <int C>
 __device__ __forceinline__ void attn_gather(const AttnArgs& p,
                                             unsigned char* smem,
@@ -941,66 +961,86 @@ __device__ __forceinline__ void attn_gather(const AttnArgs& p,
                                             int warp, int lane, int rank,
                                             int cs) {
   using S = AttnShape<C>;
-  constexpr int NCH = (C / 8 + 31) / 32;   // 16-byte chunks per lane
-  for (int r0 = (rank * 4 + warp) * ATTN_LG; r0 < nrows;
-       r0 += cs * 4 * ATTN_LG) {
+  constexpr int LPR = C / 8 < 32 ? C / 8 : 32;   // lanes a row
+  constexpr int RPW = 32 / LPR;                  // rows a warp takes at once
+  constexpr int NCH = C / 8 / LPR;               // chunks a lane
+  constexpr int NWARP = S::NCT / 32;
+  const int sub = lane / LPR, ln = lane % LPR;
+  float w[NCH][8], b[NCH][8];                    // this lane's LN1 columns
+#pragma unroll
+  for (int u = 0; u < NCH; ++u) {
+    uint4 wv = make_uint4(0u, 0u, 0u, 0u), bv = wv;
+    if (p.ln_w) {
+      wv = reinterpret_cast<const uint4*>(p.ln_w)[ln + LPR * u];
+      bv = reinterpret_cast<const uint4*>(p.ln_b)[ln + LPR * u];
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      w[u][k] = f32(reinterpret_cast<const bf16*>(&wv)[k]);
+      b[u][k] = f32(reinterpret_cast<const bf16*>(&bv)[k]);
+    }
+  }
+  // rows that are no token are zero in every CTA's tile, written locally
+  for (int i = warp * 32 + lane; i < nrows * (C / 8); i += S::NCT) {
+    const int r = i / (C / 8), c8 = i % (C / 8);
+    if (rows[r] < 0)
+      *reinterpret_cast<uint4*>(smem + c8 / (S::KB / 8) * S::MP * S::SW +
+                                swz(r, (c8 % (S::KB / 8)) * 16, S::SW)) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int r0 = (rank * NWARP + warp) * RPW * ATTN_LG; r0 < nrows;
+       r0 += cs * NWARP * RPW * ATTN_LG) {
     uint4 raw[ATTN_LG][NCH];
-#pragma unroll
-    for (int g = 0; g < ATTN_LG; ++g)
-#pragma unroll
-      for (int u = 0; u < NCH; ++u) {
-        const int row = rows[r0 + g], c8 = lane + 32 * u;
-        raw[g][u] = make_uint4(0u, 0u, 0u, 0u);
-        if (row >= 0 && c8 < C / 8)
-          raw[g][u] = reinterpret_cast<const uint4*>(
-              p.x + static_cast<size_t>(row) * C)[c8];
-      }
+    int row[ATTN_LG];
 #pragma unroll
     for (int g = 0; g < ATTN_LG; ++g) {
-      const int r = r0 + g;
-      const bool tok = rows[r] >= 0;
-      float mean = 0.f, inv = 0.f;
+      row[g] = rows[r0 + g * RPW + sub];
+#pragma unroll
+      for (int u = 0; u < NCH; ++u)
+        raw[g][u] = row[g] < 0 ? make_uint4(0u, 0u, 0u, 0u)
+                               : reinterpret_cast<const uint4*>(
+                                     p.x + static_cast<size_t>(row[g]) * C)[ln + LPR * u];
+    }
+#pragma unroll
+    for (int g = 0; g < ATTN_LG; ++g) {
+      const int r = r0 + g * RPW + sub;
+      float v[NCH][8];
+#pragma unroll
+      for (int u = 0; u < NCH; ++u)
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[u][k] = f32(reinterpret_cast<const bf16*>(&raw[g][u])[k]);
       if (p.ln_w) {
         float s = 0.f;
 #pragma unroll
-        for (int u = 0; u < NCH; ++u) {
-          const bf16* e = reinterpret_cast<const bf16*>(&raw[g][u]);
+        for (int u = 0; u < NCH; ++u)
 #pragma unroll
-          for (int k = 0; k < 8; ++k) s += f32(e[k]);
-        }
-        mean = warp_sum(s) / C;
+          for (int k = 0; k < 8; ++k) s += v[u][k];
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        const float mean = s / C;
         float ss = 0.f;
 #pragma unroll
-        for (int u = 0; u < NCH; ++u) {
-          if (lane + 32 * u >= C / 8) continue;
-          const bf16* e = reinterpret_cast<const bf16*>(&raw[g][u]);
+        for (int u = 0; u < NCH; ++u)
 #pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            const float d = f32(e[k]) - mean;
-            ss += d * d;
-          }
-        }
-        inv = 1.f / sqrtf(warp_sum(ss) / C + p.eps);
+          for (int k = 0; k < 8; ++k) ss += (v[u][k] - mean) * (v[u][k] - mean);
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+        const float inv = 1.f / sqrtf(ss / C + p.eps);
+#pragma unroll
+        for (int u = 0; u < NCH; ++u)
+#pragma unroll
+          for (int k = 0; k < 8; ++k) v[u][k] = (v[u][k] - mean) * inv * w[u][k] + b[u][k];
       }
+      if (row[g] < 0) continue;
 #pragma unroll
       for (int u = 0; u < NCH; ++u) {
-        const int c8 = lane + 32 * u;
-        if (c8 >= C / 8) continue;
-        uint4 z = make_uint4(0u, 0u, 0u, 0u);
-        if (tok && p.ln_w) {
-          const bf16* e = reinterpret_cast<const bf16*>(&raw[g][u]);
-          bf16* ze = reinterpret_cast<bf16*>(&z);
+        uint4 z;
+        uint32_t* zw = reinterpret_cast<uint32_t*>(&z);
 #pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            const int c = c8 * 8 + k;
-            ze[k] = __float2bfloat16((f32(e[k]) - mean) * inv *
-                                     f32(p.ln_w[c]) + f32(p.ln_b[c]));
-          }
-        } else if (tok) {
-          z = raw[g][u];
-        }
-        const int kb = c8 / (S::KB / 8), b = (c8 % (S::KB / 8)) * 16;
-        unsigned char* dst = smem + kb * S::MP * S::SW + swz(r, b, S::SW);
+        for (int k = 0; k < 4; ++k) zw[k] = pack_bf16(v[u][2 * k], v[u][2 * k + 1]);
+        const int c8 = ln + LPR * u;
+        const int kb = c8 / (S::KB / 8), off = (c8 % (S::KB / 8)) * 16;
+        unsigned char* dst = smem + kb * S::MP * S::SW + swz(r, off, S::SW);
         if (cs == 1) {
           *reinterpret_cast<uint4*>(dst) = z;
         } else {
@@ -1013,10 +1053,11 @@ __device__ __forceinline__ void attn_gather(const AttnArgs& p,
 
 // One warp, one block of 16 queries (rows r0..r0+15) of the window whose
 // keys are rows wb..wb+TP-1 (T real): S = q k^T in registers, softmax
-// over the real keys, O = P v; O in bf16 over the block's q rows.
+// over the real keys in fp32, O = P v; O in bf16 over the block's q rows.
+// sl2 is the logits' scale times log2(e): exp(scale (s - m)) = 2^(sl2 (s - m)).
 __device__ __forceinline__ void attn_block(unsigned char* q, uint32_t kv_bytes,
                                            int r0, int wb, int T, int TP,
-                                           float scale, int lane) {
+                                           float sl2, int lane) {
   constexpr int NT = ATTN_MAX_T / 8;
   const uint32_t qs = smem_u32(q), ks = qs + kv_bytes, vs = ks + kv_bytes;
   const int nt = TP / 8, g = lane >> 2, c2 = (lane & 3) * 2;
@@ -1035,37 +1076,42 @@ __device__ __forceinline__ void attn_block(unsigned char* q, uint32_t kv_bytes,
       mma_bf16(s[j], qa[1], kb[2], kb[3]);
     }
   }
-  // rows g and g + 8 of the block; a row's 4 lanes hold its 8-key slices
-  float m0 = -INFINITY, m1 = -INFINITY;
+  // rows g and g + 8 of the block; a row's 4 lanes hold its 8-key slices.
+  // Keys past T are masked to -inf (their probability is exactly 0).
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e)
-      if (j < nt && 8 * j + c2 + e < T) {
-        m0 = fmaxf(m0, s[j][e] * scale);
-        m1 = fmaxf(m1, s[j][2 + e] * scale);
-      }
+      if (j >= nt || 8 * j + c2 + e >= T) s[j][e] = s[j][2 + e] = -INFINITY;
+  float m0 = s[0][0], m1 = s[0][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+    m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+  }
 #pragma unroll
   for (int o = 1; o <= 2; o <<= 1) {
     m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
     m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
   }
+  const float n0 = -m0 * sl2, n1 = -m1 * sl2;
   float l0 = 0.f, l1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool key = j < nt && 8 * j + c2 + e < T;
-      s[j][e] = key ? expf(s[j][e] * scale - m0) : 0.f;
-      s[j][2 + e] = key ? expf(s[j][2 + e] * scale - m1) : 0.f;
-      l0 += s[j][e];
-      l1 += s[j][2 + e];
-    }
+  for (int j = 0; j < NT; ++j) {
+    if (j >= nt) continue;
+    s[j][0] = ex2(fmaf(s[j][0], sl2, n0));
+    s[j][1] = ex2(fmaf(s[j][1], sl2, n0));
+    s[j][2] = ex2(fmaf(s[j][2], sl2, n1));
+    s[j][3] = ex2(fmaf(s[j][3], sl2, n1));
+    l0 += s[j][0] + s[j][1];
+    l1 += s[j][2] + s[j][3];
+  }
 #pragma unroll
   for (int o = 1; o <= 2; o <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, o);
     l1 += __shfl_xor_sync(0xffffffffu, l1, o);
   }
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
   float acc[4][4];
 #pragma unroll
   for (int d = 0; d < 4; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
@@ -1073,10 +1119,10 @@ __device__ __forceinline__ void attn_block(unsigned char* q, uint32_t kv_bytes,
   for (int kk = 0; kk < NT / 2; ++kk) {
     if (2 * kk >= nt) continue;
     const uint32_t pa[4] = {
-        pack_bf16(s[2 * kk][0] / l0, s[2 * kk][1] / l0),
-        pack_bf16(s[2 * kk][2] / l1, s[2 * kk][3] / l1),
-        pack_bf16(s[2 * kk + 1][0] / l0, s[2 * kk + 1][1] / l0),
-        pack_bf16(s[2 * kk + 1][2] / l1, s[2 * kk + 1][3] / l1)};
+        pack_bf16(s[2 * kk][0] * i0, s[2 * kk][1] * i0),
+        pack_bf16(s[2 * kk][2] * i1, s[2 * kk][3] * i1),
+        pack_bf16(s[2 * kk + 1][0] * i0, s[2 * kk + 1][1] * i0),
+        pack_bf16(s[2 * kk + 1][2] * i1, s[2 * kk + 1][3] * i1)};
 #pragma unroll
     for (int dp = 0; dp < 2; ++dp) {
       uint32_t vb[4];
@@ -1122,10 +1168,13 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
   const int head0 = blockIdx.x * p.heads;
   constexpr int TILES = S::NKB / S::KPS;          // ring stages a product
 
+  // a peer's shared memory may be written only once the peer runs: a
+  // cluster barrier (arrived here, waited for before the gather) orders it
+  if (cs > 1) cluster_arrive();
   if (tid == 0) {
     for (int i = 0; i < S::NS; ++i) {
       mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 128);
+      mbar_init(&empty[i], S::NCT);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -1146,12 +1195,15 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
   }
   __syncthreads();
 
-  if (warp == 4) {
+  if (tid >= S::NCT) {
     // producer: the head group's q, k, v weight rows, K-block by K-block,
-    // in the consumers' order; it arrives at the cluster barrier first,
-    // since the consumers free the ring only after it
-    if (cs > 1) cluster_arrive();
-    if (lane == 0) {
+    // in the consumers' order; it arrives at the second cluster barrier
+    // first, since the consumers free the ring only after it
+    if (cs > 1) {
+      cluster_wait();
+      cluster_arrive();
+    }
+    if (tid == S::NCT) {
       int stage = 0;
       uint32_t phase = 0;
       for (int h = 0; h < p.heads; ++h)
@@ -1176,6 +1228,7 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
     return;
   }
 
+  if (cs > 1) cluster_wait();
   attn_gather<C>(p, smem, rows, nrows, warp, lane, rank, cs);
   fence_async_all();
   if (cs > 1) {
@@ -1183,11 +1236,13 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
     cluster_wait();
     fence_async_all();
   } else {
-    consumer_sync(128);
+    consumer_sync(S::NCT);
   }
 
   const uint32_t tok = smem_u32(smem), wring = smem_u32(ring);
-  const int wr = warp * 16 + lane / 4, q2 = (lane % 4) * 2;
+  const int wg = warp / 4;                        // warpgroup: slices wg, wg + NWG, ...
+  const int wr = (warp % 4) * 16 + lane / 4, q2 = (lane % 4) * 2;
+  const float sl2 = p.scale * 1.4426950408889634f;
   int stage = 0;
   uint32_t phase = 0;
   for (int h = 0; h < p.heads; ++h) {
@@ -1195,11 +1250,20 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
     // 1. q, k, v = tok W^T + b over the tile's slices, bf16, zero on rows
     // that are no token
     for (int part = 0; part < 3; ++part) {
-      float acc[S::NMT][16];
+      float bias[DH / 8][2];                      // loaded while wgmma runs
 #pragma unroll
-      for (int mt = 0; mt < S::NMT; ++mt)
+      for (int i = 0; i < DH / 8; ++i) {
+        const int bcol = (head * 3 + part) * DH + 8 * i + q2;
+        bias[i][0] = opt(p.qkv_b, bcol);
+        bias[i][1] = opt(p.qkv_b, bcol + 1);
+      }
+      float acc[S::MTW][16];
 #pragma unroll
-        for (int i = 0; i < 16; ++i) acc[mt][i] = 0.f;
+      for (int i = 0; i < S::MTW; ++i) {
+#pragma unroll
+        for (int e = 0; e < 16; ++e) acc[i][e] = 0.f;
+        fence_regs<16>(acc[i]);   // zeroed before the first wgmma's fence
+      }
       for (int t = 0; t < TILES; ++t) {
         mbar_wait(&full[stage], phase);
         const uint32_t b = wring + stage * S::STAGE;
@@ -1207,18 +1271,19 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
 #pragma unroll
         for (int k = 0; k < S::KPS; ++k)
 #pragma unroll
-          for (int mt = 0; mt < S::NMT; ++mt) {
+          for (int i = 0; i < S::MTW; ++i) {
+            const int mt = i * S::NWG + wg;
             if (mt >= nmt) continue;
             const uint32_t a = tok + (t * S::KPS + k) * S::MP * S::SW + mt * 64 * S::SW;
 #pragma unroll
             for (int kk = 0; kk < S::KB / 16; ++kk)
-              wgmma_ss<DH>(acc[mt], gmma_desc(a + 32 * kk, S::SW),
+              wgmma_ss<DH>(acc[i], gmma_desc(a + 32 * kk, S::SW),
                            gmma_desc(b + k * DH * S::SW + 32 * kk, S::SW), 1);
           }
         wgmma_commit();
         wgmma_wait0();
 #pragma unroll
-        for (int mt = 0; mt < S::NMT; ++mt) fence_regs<16>(acc[mt]);
+        for (int i = 0; i < S::MTW; ++i) fence_regs<16>(acc[i]);
         mbar_arrive(&empty[stage]);
         if (++stage == S::NS) {
           stage = 0;
@@ -1227,38 +1292,36 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
       }
       unsigned char* dst = qkv + part * S::QKV;
 #pragma unroll
-      for (int mt = 0; mt < S::NMT; ++mt) {
+      for (int i = 0; i < S::MTW; ++i) {
+        const int mt = i * S::NWG + wg;
         if (mt >= nmt) continue;
 #pragma unroll
-        for (int i = 0; i < DH / 8; ++i) {
-          const int col = 8 * i + q2, bcol = (head * 3 + part) * DH + col;
-          const float b0 = opt(p.qkv_b, bcol), b1 = opt(p.qkv_b, bcol + 1);
+        for (int n = 0; n < DH / 8; ++n)
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             const int r = mt * 64 + wr + 8 * hh;
-            *reinterpret_cast<uint32_t*>(dst + qkv_off(r, col)) =
-                rows[r] >= 0 ? pack_bf16(acc[mt][4 * i + 2 * hh] + b0,
-                                         acc[mt][4 * i + 2 * hh + 1] + b1)
+            *reinterpret_cast<uint32_t*>(dst + qkv_off(r, 8 * n + q2)) =
+                rows[r] >= 0 ? pack_bf16(acc[i][4 * n + 2 * hh] + bias[n][0],
+                                         acc[i][4 * n + 2 * hh + 1] + bias[n][1])
                              : 0u;
           }
-        }
       }
     }
-    consumer_sync(128);
+    consumer_sync(S::NCT);
 
     // 2. softmax(q k^T * scale) v, a warp per 16-query block
-    for (int qb = warp; qb < nwin * TP / 16; qb += 4)
-      attn_block(qkv, S::QKV, qb * 16, qb * 16 / TP * TP, T, TP, p.scale, lane);
-    consumer_sync(128);
+    for (int qb = warp; qb < nwin * TP / 16; qb += S::NCT / 32)
+      attn_block(qkv, S::QKV, qb * 16, qb * 16 / TP * TP, T, TP, sl2, lane);
+    consumer_sync(S::NCT);
 
     // 3. the head's 32 channels of each token to NHWC, 16 bytes a store
-    for (int i = tid; i < nrows * 4; i += 128) {
+    for (int i = tid; i < nrows * 4; i += S::NCT) {
       const int r = i / 4, c = i % 4, row = rows[r];
       if (row < 0) continue;
       *reinterpret_cast<uint4*>(p.o + static_cast<size_t>(row) * C + head * DH + c * 8) =
           *reinterpret_cast<const uint4*>(qkv + qkv_off(r, c * 8));
     }
-    consumer_sync(128);
+    consumer_sync(S::NCT);
   }
 }
 
@@ -1420,11 +1483,14 @@ bool weight_map(CUtensorMap* map, const void* ptr, uint64_t rows,
 }
 
 // Launches kernel<<<grid, threads, smem, st>>>(args...), as a cluster of
-// `cluster` CTAs along x when cluster > 1.
+// `cluster` CTAs along x when cluster > 1 (above 8, Hopper's
+// non-portable sizes, up to 16).
 template <typename... K, typename... A>
 cudaError_t launch(void (*kernel)(K...), dim3 grid, int threads, int smem,
                    int cluster, cudaStream_t st, A... args) {
   cudaError_t e = set_smem(kernel, smem);
+  if (e == cudaSuccess && cluster > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
@@ -1492,24 +1558,77 @@ int attn_rows(int C) {
   }
 }
 
+// CTAs of block_attention_kernel<C> the card runs at once in clusters of
+// cs (0 if the card cannot run such clusters)
+template <int C>
+long attn_slots_of(int cs, int num_sms) {
+  using S = AttnShape<C>;
+  const void* fn = reinterpret_cast<const void*>(block_attention_kernel<C>);
+  if (set_smem(block_attention_kernel<C>, S::SMEM) != cudaSuccess ||
+      cudaFuncSetAttribute(block_attention_kernel<C>,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1) != cudaSuccess)
+    return 0;
+  int n = 0;
+  if (cs == 1)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, S::THREADS,
+                                                         S::SMEM) == cudaSuccess
+               ? static_cast<long>(n) * num_sms : 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, 1);
+  cfg.blockDim = dim3(S::THREADS);
+  cfg.dynamicSmemBytes = S::SMEM;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(&n, fn, &cfg) == cudaSuccess
+             ? static_cast<long>(n) * cs : 0;
+}
+
+// attn_slots_of, kept per (C, cs): the answer does not change on a card
+long attn_slots(int C, int cs, int num_sms) {
+  static std::mutex lock;
+  static long cache[5][5];
+  static bool known[5][5] = {};
+  int ci = 0, si = 0;
+  while ((32 << ci) < C) ++ci;
+  while ((1 << si) < cs) ++si;
+  std::lock_guard<std::mutex> guard(lock);
+  if (!known[ci][si]) {
+    switch (C) {
+      case 32: cache[ci][si] = attn_slots_of<32>(cs, num_sms); break;
+      case 64: cache[ci][si] = attn_slots_of<64>(cs, num_sms); break;
+      case 128: cache[ci][si] = attn_slots_of<128>(cs, num_sms); break;
+      case 256: cache[ci][si] = attn_slots_of<256>(cs, num_sms); break;
+      default: cache[ci][si] = attn_slots_of<512>(cs, num_sms); break;
+    }
+    known[ci][si] = true;
+  }
+  return cache[ci][si];
+}
+
 // How the windows and heads are dealt out: `nwin` windows a CTA (at
 // most what its token tile holds) and `cs` CTAs on each window group,
-// one head group each (a cluster; 1, 2, 4 or 8, at most the heads). The
-// pair gives the most CTAs within one wave (num_sms x the CTAs an SM
-// holds by shared memory), the larger nwin on a tie: each CTA pays its
-// token gather and barriers, so splitting past one wave only adds them.
-// `cluster` > 0 fixes cs. Returns false for a cs the width does not take.
+// one head group each (a cluster of 1, 2, 4, 8 or 16, at most the heads). The
+// pair gives the most CTAs within one wave (the CTAs the card runs at
+// once in clusters of cs, by the occupancy calculator), the larger nwin
+// on a tie: each CTA pays its token gather and barriers, so splitting
+// past one wave only adds them. `cluster` > 0 fixes cs. Returns false
+// for a cs the width does not take.
 bool attn_plan(int nwindows, int T, int C, int num_sms, int cluster,
                int* nwin, int* cs) {
   const int heads = C / DH, tp = (T + 15) / 16 * 16;
   const int max_win = attn_rows(C) / tp;
-  const long slots = static_cast<long>(num_sms) *
-                     ((228 * 1024) / (attn_smem_bytes(C) + 1024));
   long best = -1;
   *nwin = max_win;
   *cs = cluster > 0 ? cluster : 1;
-  for (int c = 1; c <= 8 && c <= heads; c *= 2) {
+  for (int c = 1; c <= 16 && c <= heads; c *= 2) {
     if (cluster > 0 && c != cluster) continue;
+    const long slots = attn_slots(C, c, num_sms);
     for (int n = max_win; n >= 1; --n) {
       const long ctas = static_cast<long>((nwindows + n - 1) / n) * c;
       if (ctas <= slots && (ctas > best || (ctas == best && n > *nwin))) {
@@ -1519,7 +1638,7 @@ bool attn_plan(int nwindows, int T, int C, int num_sms, int cluster,
       }
     }
   }
-  return cluster <= 0 || ((cluster & (cluster - 1)) == 0 && cluster <= 8 &&
+  return cluster <= 0 || ((cluster & (cluster - 1)) == 0 && cluster <= 16 &&
                           cluster <= heads);
 }
 
@@ -1676,3 +1795,4 @@ extern "C" int leod_lstm_update(const void* x, const void* h, const void* c,
   }
   return cudaGetLastError();
 }
+

@@ -254,7 +254,7 @@ def block_attention(x: torch.Tensor, blk: PartitionAttention,
     map x [B, H, W, C]: the window (or, with `grid_kind`, grid)
     partition, LayerNorm 1 unless the block skips it, and attention up to
     the output projection; returns o [B, H, W, C] at the tokens' NHWC
-    positions. `cluster` (1, 2, 4 or 8) forces how many CTAs, one head
+    positions. `cluster` (1, 2, 4, 8 or 16) forces how many CTAs, one head
     group each, share a group of windows (tests only; by default the
     kernel's plan picks)."""
     if x.device.type == "cpu":

@@ -3,7 +3,7 @@ card, at small shapes that reach the kernels' edge cases: windows of T
 tokens that are no multiple of 16, 1, 2, 4 and 16 heads, the attention
 half `block_attention` alone at every width, at T = 8, 20, 60 and 80,
 window and grid, with and without LN1, at B = 1 and 2 and with its
-heads split over clusters of 1 to 8 CTAs, the MLP with
+heads split over clusters of 1 to 16 CTAs, the MLP with
 and without its hidden dim split over CTAs, the per-token half
 `block_mlp` alone at every width its tiles take, row counts with a
 ragged last 64-row tile, and clusters of 1 to 8 CTAs sharing a tile,
@@ -184,7 +184,7 @@ def _attention_cases():
             for grid_kind in (False, True):
                 for skip in (False, True):
                     for b in (1, 2):
-                        for cluster in (1, 2, 4, 8):
+                        for cluster in (1, 2, 4, 8, 16):
                             if cluster <= dim // 32:
                                 cases.append((dim, ps, grid_kind, skip, b,
                                               cluster))
