@@ -291,6 +291,22 @@ __device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t a, uint64_t b,
 }
 
 template <>
+__device__ __forceinline__ void wgmma_ss<96>(float* d, uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t a, uint64_t b,
                                             int scale_d) {
   asm volatile(
@@ -841,10 +857,11 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
 // heads. Each window's T tokens take TP = T rounded up to 16 rows of a
 // token tile (64-row slices, wgmma's M), gathered from NHWC through the
 // window or grid index map and normalized once, in bf16, swizzled as the
-// wgmma descriptors read it. Per head, q, k and v (32 columns each) are
-// three products on wgmma whose weight rows stream in K-blocks by TMA
-// through a ring (one producer warp, full/empty mbarriers); each weight
-// tile serves every window of the CTA. Bias in fp32 and one rounding
+// wgmma descriptors read it. Per head, q|k|v (96 columns) is one wgmma
+// product a 64-row slice, N = 96, whose weight rows stream in K-blocks
+// by TMA through a ring (one producer warp, full/empty mbarriers); each
+// weight tile serves two slices of the CTA's windows (one a warpgroup
+// where two warpgroups share the tile). Bias in fp32 and one rounding
 // give bf16 q, k, v tiles of 64-byte rows (XOR-swizzled for ldmatrix).
 // Each warp then takes 16-query blocks: S = q k^T on mma.sync m16n8k16
 // fed by ldmatrix, the softmax over the T real keys in fp32 registers,
@@ -863,22 +880,24 @@ struct AttnShape {
   static constexpr int KB = C >= 64 ? 64 : 32;   // K-block of the q|k|v product
   static constexpr int SW = KB * 2;              // its swizzle (= row) bytes
   static constexpr int NKB = C / KB;
-  // K-blocks a ring stage, and stages: as deep as shared memory allows
-  // (two CTAs an SM below C = 512, one at 512)
-  static constexpr int KPS = C == 512 ? 4 : (NKB < 2 ? NKB : 2);
-  static constexpr int NS = C == 32 || C == 512 ? 4 : (C == 128 ? 3 : 2);
-  static constexpr int STAGE = DH * KPS * SW;    // 32 weight rows
-  // 64-row slices of the token tile, so that two CTAs fit an SM below
-  // C = 512 (q, k and v take 3 x 64 bytes a row)
-  static constexpr int NMT = C <= 64 ? 5 : (C == 128 ? 3 : 2);
+  static constexpr int QKV_N = 3 * DH;           // a head's q|k|v: one wgmma's N
+  // 64-row slices of the token tile; with q, k and v (3 x 64 bytes a
+  // row) and the ring they keep two CTAs an SM below C = 256
+  static constexpr int NMT = C == 32 ? 5 : (C == 64 ? 4 : (C == 128 ? 3 : 2));
   static constexpr int MP = NMT * 64;
-  // consumer warpgroups: two where one CTA fills an SM (C = 512), so
-  // that eight warps share the gather and the attention
-  static constexpr int NWG = C == 512 ? 2 : 1;
+  // consumer warpgroups: two where one CTA fills an SM (C >= 256), so
+  // that eight warps share the gather and the attention, a slice each
+  static constexpr int NWG = C >= 256 ? 2 : 1;
   static constexpr int NCT = NWG * 128;          // consumer threads
-  static constexpr int MTW = (NMT + NWG - 1) / NWG;   // slices a warpgroup
   static constexpr int THREADS = NCT + 32;       // + a producer warp
-  static constexpr int MINB = C == 512 ? 1 : 2;
+  static constexpr int MINB = C >= 256 ? 1 : 2;
+  // slices a warpgroup accumulates at once (48 fp32 registers each); a
+  // head's weights stream once per such pass
+  static constexpr int MG = NWG == 1 ? 2 : 1;
+  // K-blocks a ring stage, and stages, as deep as shared memory allows
+  static constexpr int KPS = C == 256 ? 2 : 1;
+  static constexpr int NS = C == 32 || C >= 256 ? 4 : 2;
+  static constexpr int STAGE = QKV_N * KPS * SW;
   static constexpr int RING = MP * C * 2;        // after the token tile
   static constexpr int QKV = MP * 64;            // bytes of one of q, k, v
   static constexpr int QOFF = RING + NS * STAGE;
@@ -1166,7 +1185,9 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
   const int nrows = (nwin * TP + 63) / 64 * 64;   // rows the products cover
   const int nmt = nrows / 64;
   const int head0 = blockIdx.x * p.heads;
-  constexpr int TILES = S::NKB / S::KPS;          // ring stages a product
+  constexpr int TILES = S::NKB / S::KPS;          // ring stages a pass
+  // passes over a head's weights: each warpgroup's slices MG at a time
+  const int passes = (nmt + S::NWG * S::MG - 1) / (S::NWG * S::MG);
 
   // a peer's shared memory may be written only once the peer runs: a
   // cluster barrier (arrived here, waited for before the gather) orders it
@@ -1196,9 +1217,9 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
   __syncthreads();
 
   if (tid >= S::NCT) {
-    // producer: the head group's q, k, v weight rows, K-block by K-block,
-    // in the consumers' order; it arrives at the second cluster barrier
-    // first, since the consumers free the ring only after it
+    // producer: each head's 96 q|k|v weight rows, K-block by K-block, once
+    // a pass, in the consumers' order; it arrives at the second cluster
+    // barrier first, since the consumers free the ring only after it
     if (cs > 1) {
       cluster_wait();
       cluster_arrive();
@@ -1207,14 +1228,14 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
       int stage = 0;
       uint32_t phase = 0;
       for (int h = 0; h < p.heads; ++h)
-        for (int part = 0; part < 3; ++part)
+        for (int pass = 0; pass < passes; ++pass)
           for (int t = 0; t < TILES; ++t) {
             mbar_wait(&empty[stage], phase ^ 1);
             mbar_expect_tx(&full[stage], S::STAGE);
             for (int k = 0; k < S::KPS; ++k)
-              tma_load_2d(ring + stage * S::STAGE + k * DH * S::SW, &m_qkv,
-                          &full[stage], (t * S::KPS + k) * S::KB,
-                          ((head0 + h) * 3 + part) * DH);
+              tma_load_2d(ring + stage * S::STAGE + k * S::QKV_N * S::SW,
+                          &m_qkv, &full[stage], (t * S::KPS + k) * S::KB,
+                          (head0 + h) * S::QKV_N);
             if (++stage == S::NS) {
               stage = 0;
               phase ^= 1;
@@ -1247,22 +1268,21 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
   uint32_t phase = 0;
   for (int h = 0; h < p.heads; ++h) {
     const int head = head0 + h;
-    // 1. q, k, v = tok W^T + b over the tile's slices, bf16, zero on rows
-    // that are no token
-    for (int part = 0; part < 3; ++part) {
-      float bias[DH / 8][2];                      // loaded while wgmma runs
+    // 1. q|k|v = tok W^T + b, one N = 96 product a slice, bf16 into the
+    // q, k and v tiles, zero on rows that are no token
+    float bias[S::QKV_N / 8][2];                  // loaded while wgmma runs
 #pragma unroll
-      for (int i = 0; i < DH / 8; ++i) {
-        const int bcol = (head * 3 + part) * DH + 8 * i + q2;
-        bias[i][0] = opt(p.qkv_b, bcol);
-        bias[i][1] = opt(p.qkv_b, bcol + 1);
-      }
-      float acc[S::MTW][16];
+    for (int n = 0; n < S::QKV_N / 8; ++n) {
+      bias[n][0] = opt(p.qkv_b, head * S::QKV_N + 8 * n + q2);
+      bias[n][1] = opt(p.qkv_b, head * S::QKV_N + 8 * n + q2 + 1);
+    }
+    for (int pass = 0; pass < passes; ++pass) {
+      float acc[S::MG][S::QKV_N / 2];
 #pragma unroll
-      for (int i = 0; i < S::MTW; ++i) {
+      for (int i = 0; i < S::MG; ++i) {
 #pragma unroll
-        for (int e = 0; e < 16; ++e) acc[i][e] = 0.f;
-        fence_regs<16>(acc[i]);   // zeroed before the first wgmma's fence
+        for (int e = 0; e < S::QKV_N / 2; ++e) acc[i][e] = 0.f;
+        fence_regs<S::QKV_N / 2>(acc[i]);   // zeroed before the first wgmma's fence
       }
       for (int t = 0; t < TILES; ++t) {
         mbar_wait(&full[stage], phase);
@@ -1271,36 +1291,37 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
 #pragma unroll
         for (int k = 0; k < S::KPS; ++k)
 #pragma unroll
-          for (int i = 0; i < S::MTW; ++i) {
-            const int mt = i * S::NWG + wg;
+          for (int i = 0; i < S::MG; ++i) {
+            const int mt = (pass * S::MG + i) * S::NWG + wg;
             if (mt >= nmt) continue;
             const uint32_t a = tok + (t * S::KPS + k) * S::MP * S::SW + mt * 64 * S::SW;
 #pragma unroll
             for (int kk = 0; kk < S::KB / 16; ++kk)
-              wgmma_ss<DH>(acc[i], gmma_desc(a + 32 * kk, S::SW),
-                           gmma_desc(b + k * DH * S::SW + 32 * kk, S::SW), 1);
+              wgmma_ss<S::QKV_N>(acc[i], gmma_desc(a + 32 * kk, S::SW),
+                                 gmma_desc(b + k * S::QKV_N * S::SW + 32 * kk, S::SW), 1);
           }
         wgmma_commit();
         wgmma_wait0();
 #pragma unroll
-        for (int i = 0; i < S::MTW; ++i) fence_regs<16>(acc[i]);
+        for (int i = 0; i < S::MG; ++i) fence_regs<S::QKV_N / 2>(acc[i]);
         mbar_arrive(&empty[stage]);
         if (++stage == S::NS) {
           stage = 0;
           phase ^= 1;
         }
       }
-      unsigned char* dst = qkv + part * S::QKV;
 #pragma unroll
-      for (int i = 0; i < S::MTW; ++i) {
-        const int mt = i * S::NWG + wg;
+      for (int i = 0; i < S::MG; ++i) {
+        const int mt = (pass * S::MG + i) * S::NWG + wg;
         if (mt >= nmt) continue;
 #pragma unroll
-        for (int n = 0; n < DH / 8; ++n)
+        for (int n = 0; n < S::QKV_N / 8; ++n)
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             const int r = mt * 64 + wr + 8 * hh;
-            *reinterpret_cast<uint32_t*>(dst + qkv_off(r, 8 * n + q2)) =
+            // columns 8n..8n+7 of q|k|v: tile n / 4, its columns 8 (n % 4)..
+            *reinterpret_cast<uint32_t*>(qkv + n / 4 * S::QKV +
+                                         qkv_off(r, 8 * (n % 4) + q2)) =
                 rows[r] >= 0 ? pack_bf16(acc[i][4 * n + 2 * hh] + bias[n][0],
                                          acc[i][4 * n + 2 * hh + 1] + bias[n][1])
                              : 0u;
@@ -1531,7 +1552,7 @@ cudaError_t launch_attention(const AttnArgs& a, const void* qkv_w, int cs,
                              int groups, cudaStream_t st) {
   using S = AttnShape<C>;
   CUtensorMap m_qkv;
-  if (!weight_map(&m_qkv, qkv_w, 3 * C, C, DH, S::KB))
+  if (!weight_map(&m_qkv, qkv_w, 3 * C, C, S::QKV_N, S::KB))
     return cudaErrorInvalidValue;
   return launch(block_attention_kernel<C>, dim3(cs, groups), S::THREADS,
                 S::SMEM, cs, st, m_qkv, a);
@@ -1795,4 +1816,5 @@ extern "C" int leod_lstm_update(const void* x, const void* h, const void* c,
   }
   return cudaGetLastError();
 }
+
 
