@@ -871,9 +871,9 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
 // 16-byte stores to the tokens' NHWC rows.
 //
 // The head groups of one window group form a cluster (grid x): CTA r
-// normalizes the 4-row groups r, r + cs, ... of the tile and writes them
-// into every peer's tile over distributed shared memory, so LN1 runs
-// once per token per launch.
+// normalizes the r-th block of the tile's rows into its own tile, and
+// the bulk-copy engine copies the block into every peer's tile over
+// distributed shared memory, so LN1 runs once per token per launch.
 
 template <int C>
 struct AttnShape {
@@ -903,7 +903,7 @@ struct AttnShape {
   static constexpr int QOFF = RING + NS * STAGE;
   static constexpr int ROFF = QOFF + 3 * QKV;    // the rows' NHWC indices
   static constexpr int BOFF = ROFF + MP * 4;
-  static constexpr int SMEM = BOFF + 2 * NS * 8 + 1024;  // + alignment
+  static constexpr int SMEM = BOFF + (2 * NS + 1) * 8 + 1024;  // + alignment
 };
 constexpr int ATTN_MAX_T = 80;     // a warp holds S of 16 queries x 80 keys
 constexpr int ATTN_LG = 4;         // row sets a warp normalizes at once
@@ -946,18 +946,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
-// 16 bytes to `p` in the shared memory of the cluster's CTA `rank`
-__device__ __forceinline__ void st_peer(void* p, uint32_t rank, uint4 v) {
-  uint32_t addr;
+// `bytes` of this CTA's shared memory at `src` to the same offset in the
+// shared memory of the cluster's CTA `rank`, by the bulk-copy engine; the
+// bytes count against that CTA's mbarrier at `bar`'s offset
+__device__ __forceinline__ void copy_to_peer(const void* src, uint32_t rank,
+                                             uint32_t bytes, uint64_t* bar) {
+  uint32_t dst, rbar;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
-  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};"
-               :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
-}
-// generic-proxy writes to shared memory (this CTA's or a peer's), made
-// visible to wgmma's reads
-__device__ __forceinline__ void fence_async_all() {
-  asm volatile("fence.proxy.async;" ::: "memory");
+               : "=r"(dst) : "r"(smem_u32(src)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(rbar) : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst), "r"(smem_u32(src)), "r"(bytes),
+      "r"(rbar) : "memory");
 }
 
 // 2^x on the SFU
@@ -967,18 +969,16 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// LN1 (or a copy, where the block skips it) of this CTA's share of the
-// token rows into the token tile of every CTA of the cluster; rows that
-// are no token are zero. A row is LPR lanes of 16-byte chunks (a warp
-// takes 32 / LPR rows at once, ATTN_LG such sets in flight), its
-// statistics in fp32, two passes, reduced over its lanes. A row that is
-// no token is zeroed in each CTA's own tile.
+// LN1 (or a copy, where the block skips it) of token rows r_begin..r_end
+// into this CTA's token tile; rows that are no token are zero. A row is
+// LPR lanes of 16-byte chunks (a warp takes 32 / LPR rows at once,
+// ATTN_LG such sets in flight), its statistics in fp32, two passes,
+// reduced over its lanes.
 template <int C>
 __device__ __forceinline__ void attn_gather(const AttnArgs& p,
                                             unsigned char* smem,
-                                            const int* rows, int nrows,
-                                            int warp, int lane, int rank,
-                                            int cs) {
+                                            const int* rows, int r_begin,
+                                            int r_end, int warp, int lane) {
   using S = AttnShape<C>;
   constexpr int LPR = C / 8 < 32 ? C / 8 : 32;   // lanes a row
   constexpr int RPW = 32 / LPR;                  // rows a warp takes at once
@@ -999,21 +999,14 @@ __device__ __forceinline__ void attn_gather(const AttnArgs& p,
       b[u][k] = f32(reinterpret_cast<const bf16*>(&bv)[k]);
     }
   }
-  // rows that are no token are zero in every CTA's tile, written locally
-  for (int i = warp * 32 + lane; i < nrows * (C / 8); i += S::NCT) {
-    const int r = i / (C / 8), c8 = i % (C / 8);
-    if (rows[r] < 0)
-      *reinterpret_cast<uint4*>(smem + c8 / (S::KB / 8) * S::MP * S::SW +
-                                swz(r, (c8 % (S::KB / 8)) * 16, S::SW)) =
-          make_uint4(0u, 0u, 0u, 0u);
-  }
-  for (int r0 = (rank * NWARP + warp) * RPW * ATTN_LG; r0 < nrows;
-       r0 += cs * NWARP * RPW * ATTN_LG) {
+  for (int r0 = r_begin + warp * RPW * ATTN_LG; r0 < r_end;
+       r0 += NWARP * RPW * ATTN_LG) {
     uint4 raw[ATTN_LG][NCH];
     int row[ATTN_LG];
 #pragma unroll
     for (int g = 0; g < ATTN_LG; ++g) {
-      row[g] = rows[r0 + g * RPW + sub];
+      const int r = r0 + g * RPW + sub;
+      row[g] = r < r_end ? rows[r] : -1;
 #pragma unroll
       for (int u = 0; u < NCH; ++u)
         raw[g][u] = row[g] < 0 ? make_uint4(0u, 0u, 0u, 0u)
@@ -1050,21 +1043,17 @@ __device__ __forceinline__ void attn_gather(const AttnArgs& p,
 #pragma unroll
           for (int k = 0; k < 8; ++k) v[u][k] = (v[u][k] - mean) * inv * w[u][k] + b[u][k];
       }
-      if (row[g] < 0) continue;
+      if (r >= r_end) continue;
 #pragma unroll
       for (int u = 0; u < NCH; ++u) {
-        uint4 z;
+        uint4 z = make_uint4(0u, 0u, 0u, 0u);
         uint32_t* zw = reinterpret_cast<uint32_t*>(&z);
+        if (row[g] >= 0)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) zw[k] = pack_bf16(v[u][2 * k], v[u][2 * k + 1]);
+          for (int k = 0; k < 4; ++k) zw[k] = pack_bf16(v[u][2 * k], v[u][2 * k + 1]);
         const int c8 = ln + LPR * u;
         const int kb = c8 / (S::KB / 8), off = (c8 % (S::KB / 8)) * 16;
-        unsigned char* dst = smem + kb * S::MP * S::SW + swz(r, off, S::SW);
-        if (cs == 1) {
-          *reinterpret_cast<uint4*>(dst) = z;
-        } else {
-          for (int q = 0; q < cs; ++q) st_peer(dst, q, z);
-        }
+        *reinterpret_cast<uint4*>(smem + kb * S::MP * S::SW + swz(r, off, S::SW)) = z;
       }
     }
   }
@@ -1175,6 +1164,7 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
   int* rows = reinterpret_cast<int*>(smem + S::ROFF);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BOFF);
   uint64_t* empty = full + S::NS;
+  uint64_t* tok_full = empty + S::NS;    // the peers' rows have arrived
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int cs = static_cast<int>(cluster_size());
@@ -1189,16 +1179,20 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
   // passes over a head's weights: each warpgroup's slices MG at a time
   const int passes = (nmt + S::NWG * S::MG - 1) / (S::NWG * S::MG);
 
-  // a peer's shared memory may be written only once the peer runs: a
-  // cluster barrier (arrived here, waited for before the gather) orders it
-  if (cs > 1) cluster_arrive();
+  const int rb = nrows / cs;                      // token rows a CTA normalizes
   if (tid == 0) {
     for (int i = 0; i < S::NS; ++i) {
       mbar_init(&full[i], 1);
       mbar_init(&empty[i], S::NCT);
     }
+    mbar_init(tok_full, 1);
+    if (cs > 1) mbar_expect_tx(tok_full, (nrows - rb) * C * 2);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  // a peer's shared memory may be written only once the peer runs and its
+  // barriers are set up: a cluster barrier (arrived here, waited for
+  // before the gather) orders it
+  if (cs > 1) cluster_arrive();
   // token t of window w at row w * TP + t; the grid partition indexes the
   // outer, strided dims (layers.py grid_partition)
   const int nh = p.H / p.ph, nw = p.W / p.pw;
@@ -1249,15 +1243,23 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
     return;
   }
 
+  // the token tile: this CTA's block of rb rows normalized here, each
+  // peer's block copied in by the bulk-copy engine (a K-block's rows of a
+  // block are contiguous bytes, swizzle included)
   if (cs > 1) cluster_wait();
-  attn_gather<C>(p, smem, rows, nrows, warp, lane, rank, cs);
-  fence_async_all();
+  attn_gather<C>(p, smem, rows, rank * rb, (rank + 1) * rb, warp, lane);
+  fence_async_smem();
+  consumer_sync(S::NCT);
   if (cs > 1) {
+    if (tid == 0)
+      for (int q = 1; q < cs; ++q)
+        for (int kb = 0; kb < S::NKB; ++kb)
+          copy_to_peer(smem + kb * S::MP * S::SW + rank * rb * S::SW,
+                       (rank + q) % cs, rb * S::SW, tok_full);
+    mbar_wait(tok_full, 0);
+    // arrived once every copy into this CTA is done; waited for before
+    // exiting, so that no CTA leaves while its rows are being copied
     cluster_arrive();
-    cluster_wait();
-    fence_async_all();
-  } else {
-    consumer_sync(S::NCT);
   }
 
   const uint32_t tok = smem_u32(smem), wring = smem_u32(ring);
@@ -1344,6 +1346,7 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
     }
     consumer_sync(S::NCT);
   }
+  if (cs > 1) cluster_wait();
 }
 
 // ---------------------------------------------------------------------------
