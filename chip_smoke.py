@@ -568,6 +568,12 @@ def phase_profile(det, cfg, timing):
         if missing:
             fail(f"port kernels absent from the profiled B = {bsz} steps: "
                  f"{missing}")
+        # and by instantiation, e.g. block_attention_kernel<64>: by width
+        by_inst = {}
+        for n, v in by_name.items():
+            m = re.search(r"\b(\w+(?:<[^>()]*>)?)\(", n)
+            if m and m.group(1).split("<")[0] in kernels:
+                by_inst[m.group(1)] = by_inst.get(m.group(1), 0.0) + v[0]
         port_ms = sum(per_kernel.values()) / 1e3
         step_ms = timing[f"step_ms_b{bsz}"]
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
@@ -578,6 +584,8 @@ def phase_profile(det, cfg, timing):
             "port_kernels_ms_per_step": port_ms / PROFILE_STEPS,
             "port_kernel_ms_per_step": {
                 k: v / 1e3 / PROFILE_STEPS for k, v in per_kernel.items()},
+            "port_kernel_instances_ms_per_step": {
+                k: v / 1e3 / PROFILE_STEPS for k, v in sorted(by_inst.items())},
             "device_events_per_step": len(dev_events) / PROFILE_STEPS,
             "top": [{"name": n[:90], "ms_per_step": v[0] / 1e3 / PROFILE_STEPS,
                      "per_step": v[1] / PROFILE_STEPS} for n, v in top]}

@@ -159,12 +159,6 @@ def fused_stage_plain(x: torch.Tensor, h_prev: torch.Tensor,
 # Kernel launches
 # ---------------------------------------------------------------------------
 
-def _block_cuda(x: torch.Tensor, blk: PartitionAttention, grid_kind: bool,
-                act: str, gated: bool, eps: float) -> torch.Tensor:
-    return block_mlp(x, block_attention(x, blk, grid_kind, eps), blk, act,
-                     gated, eps)
-
-
 def _attention_cuda(x: torch.Tensor, blk: PartitionAttention,
                     grid_kind: bool, eps: float,
                     cluster: Optional[int]) -> torch.Tensor:
@@ -310,8 +304,9 @@ def fused_block_pair(x: torch.Tensor, window_params: PartitionAttention,
     if dim_head != DIM_HEAD or act not in _ACTS:
         raise ValueError(f"the CUDA block takes dim_head {DIM_HEAD} and "
                          f"act in {sorted(_ACTS)}")
-    x = _block_cuda(x, window_params, False, act, gated, eps)
-    x = _block_cuda(x, grid_params, True, act, gated, eps)
+    for blk, grid_kind in ((window_params, False), (grid_params, True)):
+        x = block_mlp(x, block_attention(x, blk, grid_kind, eps), blk, act,
+                      gated, eps)
     fused_block_pair.launches += 1
     return x
 

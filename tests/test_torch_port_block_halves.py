@@ -4,8 +4,11 @@ attention before the output projection, `block_attention_kernel`) and
 `block_mlp_plain` (projection to the end of the block,
 `block_mlp_kernel`). Composed, they are the PartitionAttention block
 exactly, and the composed pair holds the JAX package's Pallas
-`fused_block_pair` in interpret mode at 1e-4 in float32. Inputs are
-made with numpy from a seed; weights go across through
+`fused_block_pair` in interpret mode at 1e-4 in float32. The wrappers
+`block_attention` (NHWC in and out, the partition inside) and
+`block_mlp` run their plain versions on CPU tensors and count no launch;
+composed, window block then grid block, they hold the Pallas pair too.
+Inputs are made with numpy from a seed; weights go across through
 `load_jax_variables`."""
 import numpy as np
 import pytest
