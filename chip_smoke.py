@@ -10,15 +10,18 @@
    path gives it (B = 8 slots): the partition-attention block pair and
    the whole stage at all four stage shapes, from warm non-zero (h, c),
    each kernel of a stage alone at the same four shapes (the attention
-   half `block_attention`, window and grid; the per-token half
-   `block_mlp`; the ConvLSTM update), and the NMS keep mask at K = 1000.
-   Each row carries its bound (bytes or tensor-core operations). Timed with CUDA events
+   half `block_attention`, window and grid, and the per-token half
+   `block_mlp`, each also at B = 1, where their plans of windows, heads,
+   row tiles and clusters differ, with the plan the launch took; the
+   ConvLSTM update), and the NMS keep mask at K = 1000. Each row carries
+   its bound (bytes or tensor-core operations). Timed with CUDA events
    (median of 20 runs after warm-up).
 3. Slice phase: a seeded RVT-B Gen1 `Detector` behind `ServingEngine`
    answers requests from client threads, one of which forces an LRU
    eviction. Every kernel's launch count must rise by what the path
    implies per step. One step through the plain versions is held
-   against the kernel step, and the step is timed at B = 1 and B = 8.
+   against the kernel step, at B = 8 and at B = 1, and the step is
+   timed at B = 1 and B = 8.
 
 Tolerances, fixed before any run: the kernels compute in bf16 with fp32
 accumulation and round at other points than the plain bf16 version
@@ -289,29 +292,40 @@ def phase_kernels(det):
             lambda: mc.fused_block_pair_plain(x, wb, gb, ps),
             *pair_work(pairs[0], x), shape=list(shape)))
 
-        # the attention half alone, window block (LN1 skipped, as in a
-        # stage's first pair) and grid block, on the NHWC map
-        for blk, grid_kind in ((wb, False), (gb, True)):
-            part, rev = ((lay.grid_partition, lay.grid_reverse) if grid_kind
-                         else (lay.window_partition, lay.window_reverse))
+        o = torch.randn((n_tok, dim), device="cuda", generator=g
+                        ).to(torch.bfloat16)
+        # each half alone at B and at B = 1, whose plans differ: the
+        # attention half, window block (LN1 skipped, as in a stage's
+        # first pair) and grid block, on the NHWC map; the per-token half
+        # on x and an attention output o as rows. "plan" is what the
+        # launch took: (windows a CTA, CTAs a cluster), CTAs a row tile.
+        for bsz in (B, 1):
+            xb = x[:bsz]
+            for blk, grid_kind in ((wb, False), (gb, True)):
+                part, rev = ((lay.grid_partition, lay.grid_reverse)
+                             if grid_kind
+                             else (lay.window_partition, lay.window_reverse))
 
-            def attn_p(blk=blk, part=part, rev=rev):
-                return rev(mc.block_attention_plain(part(x, *ps), blk), *ps,
-                           shape[1], shape[2])
+                def attn_p(xb=xb, blk=blk, part=part, rev=rev):
+                    return rev(mc.block_attention_plain(part(xb, *ps), blk),
+                               *ps, shape[1], shape[2])
 
-            rows["block_attention"].append(row(
-                lambda blk=blk, grid_kind=grid_kind: mc.block_attention(
-                    x, blk, grid_kind, kw["eps"]),
-                attn_p, *attn_work(blk, n_tok), shape=list(shape),
-                kind="grid" if grid_kind else "window"))
+                r = row(lambda xb=xb, blk=blk, grid_kind=grid_kind:
+                        mc.block_attention(xb, blk, grid_kind, kw["eps"]),
+                        attn_p, *attn_work(blk, xb.shape[0] * n_tok // B),
+                        shape=list(xb.shape),
+                        kind="grid" if grid_kind else "window")
+                r["plan"] = list(mc.block_attention.plan)
+                rows["block_attention"].append(r)
 
-        # the per-token half alone: x and an attention output o as rows
-        xr = x.reshape(-1, dim)
-        o = torch.randn(xr.shape, device="cuda", generator=g).to(torch.bfloat16)
-        rows["block_mlp"].append(row(
-            lambda: mc.block_mlp(xr, o, wb, kw["act"], kw["gated"], kw["eps"]),
-            lambda: mc.block_mlp_plain(xr, o, wb),
-            *mlp_work(wb, xr.shape[0]), shape=list(xr.shape)))
+            xr = xb.reshape(-1, dim)
+            ob = o[:xr.shape[0]]
+            r = row(lambda xr=xr, ob=ob: mc.block_mlp(
+                        xr, ob, wb, kw["act"], kw["gated"], kw["eps"]),
+                    lambda xr=xr, ob=ob: mc.block_mlp_plain(xr, ob, wb),
+                    *mlp_work(wb, xr.shape[0]), shape=list(xr.shape))
+            r["plan"] = mc.block_mlp.plan
+            rows["block_mlp"].append(r)
 
         # the ConvLSTM update alone, from warm (h, c)
         gates = stage.lstm.gates
@@ -455,28 +469,32 @@ def phase_slice(det, cfg):
     active = torch.tensor([i % 3 != 2 for i in range(B)], device=dev)
     from leod_tpu_torch.models.backbone import reset_states
     st0 = reset_states(states, reset)
-    out = {}
-    for plain in (False, True):
-        feats, new = det.forward_backbone(ev, st0, plain=plain)
-        preds, _ = det.forward_detect(feats)
-        out[plain] = (new, preds)
-    torch.cuda.synchronize()
-    worst = 0.0
-    pairs = [(f"h{k + 1}", a[0], b[0]) for k, (a, b)
-             in enumerate(zip(out[False][0], out[True][0]))]
-    pairs += [(f"c{k + 1}", a[1], b[1]) for k, (a, b)
-              in enumerate(zip(out[False][0], out[True][0]))]
-    pk, pp = out[False][1], out[True][1]
-    pairs += [("pred_xy", pk[..., :2], pp[..., :2]),
-              ("pred_wh", pk[..., 2:4], pp[..., 2:4]),
-              ("pred_scores", pk[..., 4:], pp[..., 4:])]
     parity = {}
-    for name, a, b in pairs:
-        err, tol, ok = compare(a, b, SLICE_TOL)
-        parity[name] = [err, tol]
-        if not ok:
-            fail(f"slice parity {name}: |kernel - plain| {err} > {tol}")
-        worst = max(worst, err / tol if tol else 0.0)
+    # at B and at B = 1 (the last row, warm), where the kernels' plans
+    # differ: clusters over heads and hidden chunks where windows and
+    # row tiles are few
+    for sl, tag in ((slice(0, B), ""), (slice(B - 1, B), "b1_")):
+        st_b = [(h[sl], c[sl]) for h, c in st0]
+        out = {}
+        for plain in (False, True):
+            feats, new = det.forward_backbone(ev[sl], st_b, plain=plain)
+            preds, _ = det.forward_detect(feats)
+            out[plain] = (new, preds)
+        torch.cuda.synchronize()
+        pairs = [(f"h{k + 1}", a[0], b[0]) for k, (a, b)
+                 in enumerate(zip(out[False][0], out[True][0]))]
+        pairs += [(f"c{k + 1}", a[1], b[1]) for k, (a, b)
+                  in enumerate(zip(out[False][0], out[True][0]))]
+        pk, pp = out[False][1], out[True][1]
+        pairs += [("pred_xy", pk[..., :2], pp[..., :2]),
+                  ("pred_wh", pk[..., 2:4], pp[..., 2:4]),
+                  ("pred_scores", pk[..., 4:], pp[..., 4:])]
+        for name, a, b in pairs:
+            err, tol, ok = compare(a, b, SLICE_TOL)
+            parity[tag + name] = [err, tol]
+            if not ok:
+                fail(f"slice parity {tag + name}: |kernel - plain| {err} > "
+                     f"{tol}")
     k_step = step(st0, ev, reset, active)
     plain_step = make_serve_step(det, conf_threshold=0.0, plain=True)
     p_step = plain_step(st0, ev, reset, active)

@@ -48,7 +48,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <map>
 #include <mutex>
+#include <utility>
 
 namespace {
 
@@ -1328,8 +1330,9 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
     consumer_sync(S::NCT);
 
     // 2. softmax(q k^T * scale) v, a warp per 16-query block
-    for (int qb = warp; qb < nwin * TP / 16; qb += S::NCT / 32)
+    for (int qb = warp; qb < nwin * TP / 16; qb += S::NCT / 32) {
       attn_block(qkv, S::QKV, qb * 16, qb * 16 / TP * TP, T, TP, sl2, lane);
+    }
     consumer_sync(S::NCT);
 
     // 3. the head's 32 channels of each token to NHWC, 16 bytes a store
@@ -1545,54 +1548,35 @@ cudaError_t launch_mlp(const MlpArgs& a, const void* proj_w, const void* in_w,
                 S::THREADS, S::SMEM, cluster, st, m_proj, m_in, m_out, a);
 }
 
+// CTAs of block_attention_kernel<C> the current card runs at once in
+// clusters of cs (0 if it cannot run such clusters), kept per (card, cs):
+// the answer does not change on a card
 template <int C>
-cudaError_t launch_attention(const AttnArgs& a, const void* qkv_w, int cs,
-                             int groups, cudaStream_t st) {
+long attn_slots(int cs, int num_sms) {
   using S = AttnShape<C>;
-  CUtensorMap m_qkv;
-  if (!weight_map(&m_qkv, qkv_w, 3 * C, C, S::QKV_N, S::KB))
-    return cudaErrorInvalidValue;
-  return launch(block_attention_kernel<C>, dim3(cs, groups), S::THREADS,
-                S::SMEM, cs, st, m_qkv, a);
-}
-
-int attn_smem_bytes(int C) {
-  switch (C) {
-    case 32: return AttnShape<32>::SMEM;
-    case 64: return AttnShape<64>::SMEM;
-    case 128: return AttnShape<128>::SMEM;
-    case 256: return AttnShape<256>::SMEM;
-    case 512: return AttnShape<512>::SMEM;
-    default: return 0;
-  }
-}
-
-int attn_rows(int C) {
-  switch (C) {
-    case 32: return AttnShape<32>::MP;
-    case 64: return AttnShape<64>::MP;
-    case 128: return AttnShape<128>::MP;
-    case 256: return AttnShape<256>::MP;
-    default: return AttnShape<512>::MP;
-  }
-}
-
-// CTAs of block_attention_kernel<C> the card runs at once in clusters of
-// cs (0 if the card cannot run such clusters)
-template <int C>
-long attn_slots_of(int cs, int num_sms) {
-  using S = AttnShape<C>;
+  static std::mutex lock;
+  static std::map<std::pair<int, int>, long> known;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  const std::pair<int, int> key(dev, cs);
+  std::lock_guard<std::mutex> guard(lock);
+  const auto hit = known.find(key);
+  if (hit != known.end()) return hit->second;
+  long& slots = known[key];
+  slots = 0;
   const void* fn = reinterpret_cast<const void*>(block_attention_kernel<C>);
   if (set_smem(block_attention_kernel<C>, S::SMEM) != cudaSuccess ||
       cudaFuncSetAttribute(block_attention_kernel<C>,
                            cudaFuncAttributeNonPortableClusterSizeAllowed,
                            1) != cudaSuccess)
-    return 0;
+    return slots;
   int n = 0;
-  if (cs == 1)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, S::THREADS,
-                                                         S::SMEM) == cudaSuccess
-               ? static_cast<long>(n) * num_sms : 0;
+  if (cs == 1) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, S::THREADS,
+                                                      S::SMEM) == cudaSuccess)
+      slots = static_cast<long>(n) * num_sms;
+    return slots;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cs, 1);
   cfg.blockDim = dim3(S::THREADS);
@@ -1604,61 +1588,55 @@ long attn_slots_of(int cs, int num_sms) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(&n, fn, &cfg) == cudaSuccess
-             ? static_cast<long>(n) * cs : 0;
+  if (cudaOccupancyMaxActiveClusters(&n, fn, &cfg) == cudaSuccess)
+    slots = static_cast<long>(n) * cs;
+  return slots;
 }
 
-// attn_slots_of, kept per (C, cs): the answer does not change on a card
-long attn_slots(int C, int cs, int num_sms) {
-  static std::mutex lock;
-  static long cache[5][5];
-  static bool known[5][5] = {};
-  int ci = 0, si = 0;
-  while ((32 << ci) < C) ++ci;
-  while ((1 << si) < cs) ++si;
-  std::lock_guard<std::mutex> guard(lock);
-  if (!known[ci][si]) {
-    switch (C) {
-      case 32: cache[ci][si] = attn_slots_of<32>(cs, num_sms); break;
-      case 64: cache[ci][si] = attn_slots_of<64>(cs, num_sms); break;
-      case 128: cache[ci][si] = attn_slots_of<128>(cs, num_sms); break;
-      case 256: cache[ci][si] = attn_slots_of<256>(cs, num_sms); break;
-      default: cache[ci][si] = attn_slots_of<512>(cs, num_sms); break;
-    }
-    known[ci][si] = true;
-  }
-  return cache[ci][si];
-}
-
-// How the windows and heads are dealt out: `nwin` windows a CTA (at
-// most what its token tile holds) and `cs` CTAs on each window group,
-// one head group each (a cluster of 1, 2, 4, 8 or 16, at most the heads). The
+// Plans and launches block_attention_kernel<C> over a.nwindows windows of
+// T = ph * pw tokens. The plan deals `a.nwin` windows a CTA (at most what
+// its token tile holds) and `cs` CTAs to each window group, one head
+// group each (a cluster of 1, 2, 4, 8 or 16, at most the heads). The
 // pair gives the most CTAs within one wave (the CTAs the card runs at
 // once in clusters of cs, by the occupancy calculator), the larger nwin
 // on a tie: each CTA pays its token gather and barriers, so splitting
-// past one wave only adds them. `cluster` > 0 fixes cs. Returns false
-// for a cs the width does not take.
-bool attn_plan(int nwindows, int T, int C, int num_sms, int cluster,
-               int* nwin, int* cs) {
-  const int heads = C / DH, tp = (T + 15) / 16 * 16;
-  const int max_win = attn_rows(C) / tp;
+// past one wave only adds them. `cluster` > 0 fixes cs. The plan goes to
+// plan[0] (windows a CTA) and plan[1] (cs) where plan is not NULL.
+template <int C>
+cudaError_t launch_attention(AttnArgs a, const void* qkv_w, int cluster,
+                             int num_sms, int* plan, cudaStream_t st) {
+  using S = AttnShape<C>;
+  const int heads = C / DH, tp = (a.ph * a.pw + 15) / 16 * 16;
+  if (cluster > 0 && ((cluster & (cluster - 1)) || cluster > 16 || cluster > heads))
+    return cudaErrorInvalidValue;
+  const int max_win = S::MP / tp;
   long best = -1;
-  *nwin = max_win;
-  *cs = cluster > 0 ? cluster : 1;
+  int cs = cluster > 0 ? cluster : 1;
+  a.nwin = max_win;
   for (int c = 1; c <= 16 && c <= heads; c *= 2) {
     if (cluster > 0 && c != cluster) continue;
-    const long slots = attn_slots(C, c, num_sms);
+    const long slots = attn_slots<C>(c, num_sms);
     for (int n = max_win; n >= 1; --n) {
-      const long ctas = static_cast<long>((nwindows + n - 1) / n) * c;
-      if (ctas <= slots && (ctas > best || (ctas == best && n > *nwin))) {
+      const long ctas = static_cast<long>((a.nwindows + n - 1) / n) * c;
+      if (ctas <= slots && (ctas > best || (ctas == best && n > a.nwin))) {
         best = ctas;
-        *nwin = n;
-        *cs = c;
+        a.nwin = n;
+        cs = c;
       }
     }
   }
-  return cluster <= 0 || ((cluster & (cluster - 1)) == 0 && cluster <= 16 &&
-                          cluster <= heads);
+  const int groups = (a.nwindows + a.nwin - 1) / a.nwin;
+  if (groups > 65535) return cudaErrorInvalidValue;
+  a.heads = heads / cs;
+  if (plan != nullptr) {
+    plan[0] = a.nwin;
+    plan[1] = cs;
+  }
+  CUtensorMap m_qkv;
+  if (!weight_map(&m_qkv, qkv_w, 3 * C, C, S::QKV_N, S::KB))
+    return cudaErrorInvalidValue;
+  return launch(block_attention_kernel<C>, dim3(cs, groups), S::THREADS,
+                S::SMEM, cs, st, m_qkv, a);
 }
 
 int mlp_smem_bytes(int C) {
@@ -1687,24 +1665,19 @@ bool mlp_cluster_ok(int C, int inner, int gated, int cluster) {
 
 // C in {32, 64, 128, 256, 512}, T = ph * pw <= 80, dim_head 32; LN1
 // skipped where ln_w and ln_b are NULL. `cluster` > 0 fixes how many CTAs
-// (one head group each) share a window group; 0 lets attn_plan choose.
+// (one head group each) share a window group; 0 lets the plan choose.
+// `plan` (NULL or two ints) receives the windows a CTA and the cluster
+// size the launch took.
 extern "C" int leod_block_attention(const void* x, void* o, const void* ln_w,
                                     const void* ln_b, const void* qkv_w,
                                     const void* qkv_b, int B, int H, int W,
                                     int C, int ph, int pw, int grid_kind,
                                     float eps, int cluster, int num_sms,
-                                    void* stream) {
-  const int T = ph * pw;
-  if (B < 1 || ph < 1 || pw < 1 || H % ph || W % pw || T > ATTN_MAX_T ||
-      attn_smem_bytes(C) == 0 || (ln_w == nullptr) != (ln_b == nullptr))
+                                    int* plan, void* stream) {
+  if (B < 1 || ph < 1 || pw < 1 || H % ph || W % pw || ph * pw > ATTN_MAX_T ||
+      (ln_w == nullptr) != (ln_b == nullptr))
     return cudaErrorInvalidValue;
   AttnArgs a;
-  a.nwindows = B * (H / ph) * (W / pw);
-  int cs;
-  if (!attn_plan(a.nwindows, T, C, num_sms, cluster, &a.nwin, &cs))
-    return cudaErrorInvalidValue;
-  const int groups = (a.nwindows + a.nwin - 1) / a.nwin;
-  if (groups > 65535) return cudaErrorInvalidValue;
   a.x = static_cast<const bf16*>(x);
   a.ln_w = static_cast<const bf16*>(ln_w);
   a.ln_b = static_cast<const bf16*>(ln_b);
@@ -1715,16 +1688,17 @@ extern "C" int leod_block_attention(const void* x, void* o, const void* ln_w,
   a.ph = ph;
   a.pw = pw;
   a.grid_kind = grid_kind;
-  a.heads = C / DH / cs;
+  a.nwindows = B * (H / ph) * (W / pw);
   a.eps = eps;
   a.scale = 1.f / sqrtf(static_cast<float>(DH));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 32: return launch_attention<32>(a, qkv_w, cs, groups, st);
-    case 64: return launch_attention<64>(a, qkv_w, cs, groups, st);
-    case 128: return launch_attention<128>(a, qkv_w, cs, groups, st);
-    case 256: return launch_attention<256>(a, qkv_w, cs, groups, st);
-    default: return launch_attention<512>(a, qkv_w, cs, groups, st);
+    case 32: return launch_attention<32>(a, qkv_w, cluster, num_sms, plan, st);
+    case 64: return launch_attention<64>(a, qkv_w, cluster, num_sms, plan, st);
+    case 128: return launch_attention<128>(a, qkv_w, cluster, num_sms, plan, st);
+    case 256: return launch_attention<256>(a, qkv_w, cluster, num_sms, plan, st);
+    case 512: return launch_attention<512>(a, qkv_w, cluster, num_sms, plan, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 

@@ -6,7 +6,8 @@ Each wrapper dispatches on where its tensor lies: on the CPU it runs the
 plain PyTorch version (the token-layout path of the modules,
 `leod_tpu/models/backbone.py:89-107`); on a CUDA tensor it launches the
 kernels or raises. Each wrapper counts the calls in which it launched
-kernels in `.launches`.
+kernels in `.launches`; `block_attention.plan` and `block_mlp.plan` keep
+how its last launch dealt out the work.
 
 On the card, a block is two launches: `block_attention` (LN1 once per
 token, q|k|v on wgmma fed by TMA, attention in registers, a CTA per
@@ -35,7 +36,7 @@ from ..models.layers import (PartitionAttention, _SplitGateConv,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
-    "leod_block_attention": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
+    "leod_block_attention": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P, _P],
     "leod_block_mlp": [_P] * 13 + [_I] * 5 + [_F, _I, _P],
     "leod_block_mlp_cluster": [_I] * 5,
     "leod_lstm_update": [_P] * 7 + [_I] * 3 + [_P],
@@ -161,7 +162,8 @@ def fused_stage_plain(x: torch.Tensor, h_prev: torch.Tensor,
 
 def _attention_cuda(x: torch.Tensor, blk: PartitionAttention,
                     grid_kind: bool, eps: float,
-                    cluster: Optional[int]) -> torch.Tensor:
+                    cluster: Optional[int]
+                    ) -> Tuple[torch.Tensor, Tuple[int, int]]:
     norm1 = None if blk.skip_first_norm else blk.norm1
     qkv = blk.attn.qkv
     _require_cuda("block_attention", x, qkv.weight, qkv.bias,
@@ -175,18 +177,19 @@ def _attention_cuda(x: torch.Tensor, blk: PartitionAttention,
             f"{DIM_HEAD}, H and W multiples of the partition, ph * pw <= "
             f"{MAX_TOKENS}; got {tuple(x.shape)}, partition {(ph, pw)}")
     o = torch.empty_like(x)
+    plan = (ctypes.c_int * 2)()
     _build.check("leod_block_attention", _lib().leod_block_attention(
         x.data_ptr(), o.data_ptr(),
         _ptr(None if norm1 is None else norm1.weight),
         _ptr(None if norm1 is None else norm1.bias), qkv.weight.data_ptr(),
         _ptr(qkv.bias), b, h, w, c, ph, pw, int(grid_kind), eps,
-        cluster or 0, _num_sms(x.device), _stream(x)))
-    return o
+        cluster or 0, _num_sms(x.device), plan, _stream(x)))
+    return o, (plan[0], plan[1])
 
 
 def _mlp_cuda(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
               act: str, gated: bool, eps: float,
-              cluster: Optional[int]) -> torch.Tensor:
+              cluster: Optional[int]) -> Tuple[torch.Tensor, int]:
     attn, mlp = blk.attn, blk.mlp
     _require_cuda("block_mlp", x, o, attn.proj.weight, attn.proj.bias,
                   blk.ls1, blk.norm2.weight, blk.norm2.bias,
@@ -212,7 +215,7 @@ def _mlp_cuda(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
         mlp.proj_out.weight.data_ptr(), _ptr(mlp.proj_out.bias),
         _ptr(blk.ls2), rows, c, inner, int(gated), _ACTS[act], eps, cluster,
         _stream(x)))
-    return out
+    return out, cluster
 
 
 def _lstm_cuda(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
@@ -250,19 +253,21 @@ def block_attention(x: torch.Tensor, blk: PartitionAttention,
     the output projection; returns o [B, H, W, C] at the tokens' NHWC
     positions. `cluster` (1, 2, 4, 8 or 16) forces how many CTAs, one head
     group each, share a group of windows (tests only; by default the
-    kernel's plan picks)."""
+    kernel's plan picks). On the card, `block_attention.plan` is the last
+    launch's (windows a CTA, CTAs a cluster)."""
     if x.device.type == "cpu":
         ph, pw = blk.partition_size
         _, h, w, _ = x.shape
         part, rev = ((grid_partition, grid_reverse) if grid_kind
                      else (window_partition, window_reverse))
         return rev(block_attention_plain(part(x, ph, pw), blk), ph, pw, h, w)
-    o = _attention_cuda(x, blk, grid_kind, eps, cluster)
+    o, block_attention.plan = _attention_cuda(x, blk, grid_kind, eps, cluster)
     block_attention.launches += 1
     return o
 
 
 block_attention.launches = 0
+block_attention.plan = None
 
 
 def block_mlp(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
@@ -271,7 +276,8 @@ def block_mlp(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
     """The per-token half of a block (`block_mlp_plain`) on token rows
     x, o [..., C]. On the card C is one of MLP_DIMS; `cluster` (1, 2, 4
     or 8) forces how many CTAs share a 64-row tile (tests only; by
-    default the kernel's heuristic picks)."""
+    default the kernel's heuristic picks); `block_mlp.plan` is the last
+    launch's."""
     if blk.mlp.act != act or blk.mlp.gated != gated:
         raise ValueError("block module config disagrees with the call's "
                          "act/gated")
@@ -279,12 +285,13 @@ def block_mlp(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
         return block_mlp_plain(x, o, blk)
     if act not in _ACTS:
         raise ValueError(f"the CUDA block takes act in {sorted(_ACTS)}")
-    out = _mlp_cuda(x, o, blk, act, gated, eps, cluster)
+    out, block_mlp.plan = _mlp_cuda(x, o, blk, act, gated, eps, cluster)
     block_mlp.launches += 1
     return out
 
 
 block_mlp.launches = 0
+block_mlp.plan = None
 
 
 def fused_block_pair(x: torch.Tensor, window_params: PartitionAttention,

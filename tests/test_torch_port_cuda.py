@@ -4,7 +4,7 @@ tokens that are no multiple of 16, 1, 2, 4 and 16 heads, the attention
 half `block_attention` alone at every width, at T = 8, 20, 60 and 80,
 window and grid, with and without LN1, at B = 1 and 2 and with its
 heads split over clusters of 1 to 16 CTAs, launched back to back at
-the stage shapes, the MLP with
+the stage shapes at B = 1 and 8 by its own plan, the MLP with
 and without its hidden dim split over CTAs, the per-token half
 `block_mlp` alone at every width its tiles take, row counts with a
 ragged last 64-row tile, and clusters of 1 to 8 CTAs sharing a tile,
@@ -214,22 +214,28 @@ def test_block_attention_kernel_matches_plain(cuda, dim, ps, grid_kind, skip,
                                                         cluster=cluster))
 
 
+@pytest.mark.parametrize("b", [1, 8])
 @pytest.mark.parametrize("grid_kind", [False, True])
 @pytest.mark.parametrize("dim,hw", [(64, (64, 80)), (128, (32, 40)),
                                     (256, (16, 20)), (512, (8, 10))])
-def test_block_attention_back_to_back_launches_agree(cuda, dim, hw, grid_kind):
-    """At the RVT-B Gen1 stage shapes (B = 8, the kernel's own plan of
-    windows, heads and clusters), 40 launches queued back to back all
-    give the first launch's output bit for bit: no launch overlaps or
-    races the next."""
-    blk = _randomized(PartitionAttention(dim, (8, 10),
-                                         "grid" if grid_kind else "window"),
-                      dim, cuda)
+def test_block_attention_back_to_back_launches_agree(cuda, dim, hw, grid_kind,
+                                                     b):
+    """At the RVT-B Gen1 stage shapes, B = 8 and 1 (the kernel's own plan
+    of windows, heads and clusters, which differs between them: B = 1
+    splits heads over clusters up to 16 CTAs), 40 launches queued back to
+    back all give the first launch's output bit for bit, which holds the
+    plain version: no launch overlaps or races the next."""
+    kind = "grid" if grid_kind else "window"
+    blk = _randomized(PartitionAttention(dim, (8, 10), kind), dim, cuda)
     g = torch.Generator(device=cuda).manual_seed(dim)
-    x = torch.randn(8, *hw, dim, device=cuda, generator=g).to(torch.bfloat16)
+    x = torch.randn(b, *hw, dim, device=cuda, generator=g).to(torch.bfloat16)
     outs = [maxvit_cuda.block_attention(x, blk, grid_kind) for _ in range(40)]
     torch.cuda.synchronize()
     assert all(torch.equal(outs[0], o) for o in outs[1:])
+    part, rev = ((grid_partition, grid_reverse) if grid_kind
+                 else (window_partition, window_reverse))
+    _close(outs[0], rev(maxvit_cuda.block_attention_plain(
+        part(x, 8, 10), blk), 8, 10, *hw))
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
