@@ -10,10 +10,11 @@
    path gives it (B = 8 slots): the partition-attention block pair and
    the whole stage at all four stage shapes, from warm non-zero (h, c),
    each kernel of a stage alone at the same four shapes (the attention
-   half `block_attention`, window and grid, and the per-token half
-   `block_mlp`, each also at B = 1, where their plans of windows, heads,
-   row tiles and clusters differ, with the plan the launch took; the
-   ConvLSTM update), and the NMS keep mask at K = 1000. Each row carries
+   half `block_attention`, window and grid, the per-token half
+   `block_mlp` and the ConvLSTM update `lstm_update`, each also at
+   B = 1, where their plans of windows, heads, row tiles and clusters
+   differ, with the plan the launch took), and the NMS keep mask at
+   K = 1000. Each row carries
    its bound (bytes or tensor-core operations). Timed with CUDA events
    (median of 20 runs after warm-up).
 3. Slice phase: a seeded RVT-B Gen1 `Detector` behind `ServingEngine`
@@ -62,6 +63,9 @@ PEAK_FP32 = 67e12           # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bytes/s
 KERNEL_TOL = 2.0 ** -5
 SLICE_TOL = 2.0 ** -4
+# an assumed latency, in SM cycles, of one step of a dependent chain of
+# warp shuffles (not measured on the card): the NMS sweep's bound
+SHFL_CYCLES = 20
 REPS = 20
 PROFILE_STEPS = 10
 
@@ -75,6 +79,16 @@ def port_kernels():
             names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
                                     r"\([^)]*\)\s*)?(\w+)", f.read()))
     return tuple(sorted(names))
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's highest SM clock, in MHz, as nvidia-smi reports it."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return float(smi.stdout.split()[0])
 
 
 def fail(msg: str) -> None:
@@ -327,12 +341,19 @@ def phase_kernels(det):
             r["plan"] = mc.block_mlp.plan
             rows["block_mlp"].append(r)
 
-        # the ConvLSTM update alone, from warm (h, c)
+        # the ConvLSTM update alone, from warm (h, c), at B and at B = 1,
+        # whose plans differ: "plan" is (rows a tile, channels a tile,
+        # CTAs a cluster splitting K)
         gates = stage.lstm.gates
-        rows["lstm_update"].append(row(
-            lambda: mc._lstm_cuda(x, hs, cs, gates),
-            lambda: mc.lstm_update_plain(x, hs, cs, gates),
-            *lstm_work(gates, x, cs), shape=list(shape)))
+        for bsz in (B, 1):
+            xb, hb, cb = x[:bsz], hs[:bsz], cs[:bsz]
+            r = row(lambda xb=xb, hb=hb, cb=cb: mc.lstm_update(xb, hb, cb,
+                                                               gates),
+                    lambda xb=xb, hb=hb, cb=cb: mc.lstm_update_plain(
+                        xb, hb, cb, gates),
+                    *lstm_work(gates, xb, cb), shape=list(xb.shape))
+            r["plan"] = list(mc.lstm_update.plan)
+            rows["lstm_update"].append(r)
 
         rows["fused_stage"].append(row(
             lambda: mc.fused_stage(x, hs, cs, pairs, gates, ps, True, **kw),
@@ -362,10 +383,21 @@ def phase_kernels(det):
     ops = B * kk * (kk - 1) / 2 * 13
     nbytes = B * kk * (16 + 1 + 4 + 1)
     bms, by = bound(ops, nbytes, PEAK_FP32)
+    # each kernel alone: nms_build_kernel does the IoU tests, reads the
+    # boxes and class ids and writes the K x ceil(K/32) mask words;
+    # nms_sweep_kernel reads the mask and valid and writes keep, and its
+    # K steps are a dependent chain of warp shuffles, at SHFL_CYCLES a
+    # step and the card's highest SM clock
+    mask_bytes = B * kk * ((kk + 31) // 32) * 4
+    build_ms, build_by = bound(ops, B * kk * (16 + 4) + mask_bytes, PEAK_FP32)
+    chain_ms = kk * SHFL_CYCLES / (max_sm_clock_mhz() * 1e6) * 1e3
+    sweep_ms = (mask_bytes + 2 * B * kk) / PEAK_BYTES * 1e3 + chain_ms
     nms_row = dict(shape=[B, kk, 4], max_abs_err=float(mismatches), tol=0.0,
                    ok=mismatches == 0, kept=int(keep_p.sum()),
                    ms=cuda_ms(nms_k), plain_ms=cuda_ms(nms_p), flops=ops,
-                   bytes=nbytes, bound_ms=bms, bound_by=by)
+                   bytes=nbytes, bound_ms=bms, bound_by=by,
+                   build_bound_ms=build_ms, build_bound_by=build_by,
+                   sweep_bound_ms=sweep_ms, sweep_chain_ms=chain_ms)
     return rows, nms_row
 
 
@@ -406,7 +438,7 @@ def phase_slice(det, cfg):
     n_stages = len(cfg.model.backbone.num_blocks)
     per_step = {"fused_block_pair": n_pairs, "fused_stage": n_stages,
                 "block_attention": 2 * n_pairs, "block_mlp": 2 * n_pairs,
-                "nms_mask": 1}
+                "lstm_update": n_stages, "nms_mask": 1}
     shape = serve_input_shape(cfg, B)[1:]
     step = make_serve_step(det, conf_threshold=0.0)
     rng = np.random.default_rng(0)

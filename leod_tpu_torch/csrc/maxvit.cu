@@ -1762,8 +1762,15 @@ extern "C" int leod_block_mlp(const void* x, const void* o, void* out,
 extern "C" int leod_lstm_update(const void* x, const void* h, const void* c,
                                 const void* w, const void* b, void* h_out,
                                 void* c_out, int R, int C, int c_f32,
+                                int cluster, int num_sms, int* plan,
                                 void* stream) {
-  if (C % LSTM_BN) return cudaErrorInvalidValue;
+  (void)num_sms;
+  if (C % LSTM_BN || cluster > 1) return cudaErrorInvalidValue;
+  if (plan != nullptr) {
+    plan[0] = LSTM_BM;
+    plan[1] = LSTM_BN;
+    plan[2] = 1;
+  }
   size_t off[2];
   const size_t smem = lstm_smem(C, off);
   const dim3 grid((R + LSTM_BM - 1) / LSTM_BM, C / LSTM_BN);

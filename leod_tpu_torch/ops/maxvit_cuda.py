@@ -6,8 +6,8 @@ Each wrapper dispatches on where its tensor lies: on the CPU it runs the
 plain PyTorch version (the token-layout path of the modules,
 `leod_tpu/models/backbone.py:89-107`); on a CUDA tensor it launches the
 kernels or raises. Each wrapper counts the calls in which it launched
-kernels in `.launches`; `block_attention.plan` and `block_mlp.plan` keep
-how its last launch dealt out the work.
+kernels in `.launches`; `block_attention.plan`, `block_mlp.plan` and
+`lstm_update.plan` keep how its last launch dealt out the work.
 
 On the card, a block is two launches: `block_attention` (LN1 once per
 token, q|k|v on wgmma fed by TMA, attention in registers, a CTA per
@@ -17,8 +17,10 @@ window group are a cluster sharing LN1; plain version
 residual, LN2, MLP, LayerScale, residual, per token, on wgmma fed by TMA;
 where few tokens leave the card empty, a cluster of CTAs shares each
 row tile's hidden dim; plain version `block_mlp_plain`). `fused_stage` runs its pairs so
-and then launches the ConvLSTM update `lstm_update`. The kernels take
-bf16 activations and weights and accumulate in fp32.
+and then the ConvLSTM update `lstm_update` (the gate product on wgmma fed
+by TMA, the gates in registers; where rows are few, a cluster of CTAs
+splits K; plain version `lstm_update_plain`). The kernels take bf16
+activations and weights and accumulate in fp32.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ _SIGS = {
     "leod_block_attention": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P, _P],
     "leod_block_mlp": [_P] * 13 + [_I] * 5 + [_F, _I, _P],
     "leod_block_mlp_cluster": [_I] * 5,
-    "leod_lstm_update": [_P] * 7 + [_I] * 3 + [_P],
+    "leod_lstm_update": [_P] * 7 + [_I] * 5 + [_P, _P],
 }
 _ACTS = {"gelu": 0, "silu": 1, "relu": 2}
 DIM_HEAD = 32          # the kernels' head width
@@ -219,25 +221,32 @@ def _mlp_cuda(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
 
 
 def _lstm_cuda(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
-               gates: _SplitGateConv) -> Tuple[torch.Tensor, torch.Tensor]:
+               gates: _SplitGateConv, cluster: Optional[int]
+               ) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
+                          Tuple[int, int, int]]:
     h_prev = h_prev.to(x.dtype).contiguous()
     w = gates.weight.view(gates.weight.shape[0], -1)         # [4C, 2C]
-    _require_cuda("fused_stage", x, h_prev, w, gates.bias)
+    _require_cuda("lstm_update", x, h_prev, w, gates.bias)
     if c_prev.dtype not in (torch.bfloat16, torch.float32) or \
             not c_prev.is_contiguous() or c_prev.device != x.device:
-        raise ValueError("fused_stage: c_prev must be a contiguous bf16 or "
+        raise ValueError("lstm_update: c_prev must be a contiguous bf16 or "
                          "fp32 tensor on x's device")
     if c_prev.shape != x.shape or h_prev.shape != x.shape:
-        raise ValueError("fused_stage: x, h_prev and c_prev must share a "
+        raise ValueError("lstm_update: x, h_prev and c_prev must share a "
                          "shape")
-    b, h, w_, c = x.shape
+    c = x.shape[-1]
+    if c not in MLP_DIMS or x.numel() == 0:
+        raise ValueError(f"lstm_update: x [..., C] with C in {MLP_DIMS}; "
+                         f"got {tuple(x.shape)}")
     h_out = torch.empty_like(x)
     c_out = torch.empty_like(c_prev)
+    plan = (ctypes.c_int * 3)()
     _build.check("leod_lstm_update", _lib().leod_lstm_update(
         x.data_ptr(), h_prev.data_ptr(), c_prev.data_ptr(), w.data_ptr(),
         gates.bias.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-        b * h * w_, c, int(c_prev.dtype == torch.float32), _stream(x)))
-    return h_out, c_out
+        x.numel() // c, c, int(c_prev.dtype == torch.float32), cluster or 0,
+        _num_sms(x.device), plan, _stream(x)))
+    return (h_out, c_out), (plan[0], plan[1], plan[2])
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +303,26 @@ block_mlp.launches = 0
 block_mlp.plan = None
 
 
+def lstm_update(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
+                gates: _SplitGateConv, *, cluster: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ConvLSTM update (`lstm_update_plain`) on x, h_prev, c_prev of
+    one shape [..., C]: h' in x's dtype, c' in c_prev's (bf16 or fp32 on
+    the card). On the card C is one of MLP_DIMS; `cluster` (1, 2, 4 or 8)
+    forces how many CTAs split K for one tile of rows and channels (tests
+    only; by default the kernel's plan picks); `lstm_update.plan` is the
+    last launch's (rows a tile, channels a tile, CTAs a cluster)."""
+    if x.device.type == "cpu":
+        return lstm_update_plain(x, h_prev, c_prev, gates)
+    out, lstm_update.plan = _lstm_cuda(x, h_prev, c_prev, gates, cluster)
+    lstm_update.launches += 1
+    return out
+
+
+lstm_update.launches = 0
+lstm_update.plan = None
+
+
 def fused_block_pair(x: torch.Tensor, window_params: PartitionAttention,
                      grid_params: PartitionAttention,
                      partition_size: Tuple[int, int], skip_first_norm: bool,
@@ -335,13 +364,13 @@ def fused_stage(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
         x = fused_block_pair(x, wp, gp, partition_size,
                              skip_first_norm and i == 0, dim_head, act,
                              gated, eps)
-    if x.device.type == "cpu":
-        return lstm_update_plain(x, h_prev, c_prev, lstm_params)
-    out = _lstm_cuda(x, h_prev, c_prev, lstm_params)
-    fused_stage.launches += 1
+    out = lstm_update(x, h_prev, c_prev, lstm_params)
+    if x.device.type != "cpu":
+        fused_stage.launches += 1
     return out
 
 
 fused_stage.launches = 0
 
-WRAPPERS = (fused_block_pair, fused_stage, block_attention, block_mlp)
+WRAPPERS = (fused_block_pair, fused_stage, block_attention, block_mlp,
+            lstm_update)
