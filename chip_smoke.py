@@ -16,7 +16,8 @@
    differ, with the plan the launch took), and the NMS keep mask at
    K = 1000. Each row carries
    its bound (bytes or tensor-core operations). Timed with CUDA events
-   (median of 20 runs after warm-up).
+   (median of 20 runs after warm-up); "host_us" is the host time of one
+   wrapper call alone (what it costs the host to launch).
 3. Slice phase: a seeded RVT-B Gen1 `Detector` behind `ServingEngine`
    answers requests from client threads, one of which forces an LRU
    eviction. Every kernel's launch count must rise by what the path
@@ -129,6 +130,22 @@ def host_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
         fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def enqueue_us(fn, reps: int = REPS, warmup: int = 3) -> float:
+    """Median host time of fn() alone, in us: what a call costs the host
+    to launch, with the device idle at the start of each run."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -286,8 +303,8 @@ def phase_kernels(det):
             err, tol, ok = compare(got, want, KERNEL_TOL)
         bms, by = bound(flops, nbytes, PEAK_BF16)
         return dict(extra, max_abs_err=err, tol=tol, ok=ok, ms=cuda_ms(kern),
-                    plain_ms=cuda_ms(plain), flops=flops, bytes=nbytes,
-                    bound_ms=bms, bound_by=by)
+                    plain_ms=cuda_ms(plain), host_us=enqueue_us(kern),
+                    flops=flops, bytes=nbytes, bound_ms=bms, bound_by=by)
 
     for k, (dim, stride) in enumerate(zip(bb.stage_dims, bb.stage_strides)):
         stage = getattr(det.backbone, f"stage{k + 1}")

@@ -27,52 +27,40 @@
 //       shares a row tile: each projects C / size of the columns and
 //       runs a share of the hidden chunks, and their fp32 partial sums
 //       are added over distributed shared memory.
-//   lstm_update_kernel  a tiled GEMM over rows B*H*W with K = 2C read
-//       from the two pointers x and h (no concat); one CTA owns channels
-//       j..j+15 of all four gates, so the gate epilogue writes h' and c'
-//       in one pass.
+//   lstm_update_kernel  the gate product [rows, 2C] x [2C, 4C] on wgmma,
+//       a CTA per 128 rows of B*H*W and 64 channels of all four gates,
+//       with x and h (no concat) and the weight streamed by TMA through
+//       a ring; the gates meet in the accumulator registers, where the
+//       epilogue writes h' and c'. Where rows are few, a cluster of CTAs
+//       splits K and adds its partial sums over distributed shared
+//       memory (section below).
 //
 // Bound on the H100: at the RVT-B Gen1 shapes the blocks do about
 // 2*T*C*(3C + 2T) + 2*C*C + 16*C*C flops per token against 4*C bytes of
 // activations in and out, i.e. hundreds of flops per byte, so they are
-// bound by tensor-core operations (989 TFLOP/s bf16). The attention and
-// MLP kernels feed wgmma from TMA; the LSTM kernel is a first version on
-// warp-level WMMA with the weight fragments read straight from L2, far
-// from that bound. Rounding points follow the Pallas kernel:
+// bound by tensor-core operations (989 TFLOP/s bf16). The ConvLSTM update
+// does 16*C*C flops per token against 10*C bytes: bytes bound below
+// C = 256 (its section). All three feed wgmma from TMA. Rounding points
+// follow the Pallas kernel:
 // fp32 accumulate, bias added in fp32, one rounding to the working dtype
 // after each dense layer and LayerScale, LayerNorm and softmax in fp32.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <map>
 #include <mutex>
-#include <utility>
+#include <tuple>
 
 namespace {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 constexpr int DH = 32;            // dim_head
 
-constexpr int LSTM_BM = 32;
-constexpr int LSTM_BN = 16;        // channels per CTA (x 4 gates)
-constexpr int LD_G = 4 * LSTM_BN + 4;
-
 constexpr size_t kMaxSmem = 227 * 1024;
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-// B given as the rows of W[n][k] (nn.Linear layout) is column-major B[k][n]
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-__host__ __device__ inline size_t align128(size_t v) {
-  return (v + 127) & ~static_cast<size_t>(127);
-}
 
 __device__ __forceinline__ float f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float opt(const bf16* p, int i) {
@@ -225,6 +213,9 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
 }
 // keeps the compiler from moving accumulator reads above wgmma_wait0
 template <int N>
@@ -384,6 +375,16 @@ __device__ __forceinline__ float4 ld_peer(const float* p, uint32_t rank) {
   asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
                : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr)
                : "memory");
+  return v;
+}
+// 8 bytes at `p` in the shared memory of the cluster's CTA `rank`
+__device__ __forceinline__ float2 ld_peer2(const float* p, uint32_t rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
   return v;
 }
 
@@ -1350,83 +1351,271 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
 // ---------------------------------------------------------------------------
 // ConvLSTM update: mix = x Kx + h Kh + b, gates [f, i, o, g]
 // ---------------------------------------------------------------------------
+//
+// A tile is BM = 128 rows of B*H*W (two consumer warpgroups of 64 rows,
+// wgmma's M) by J = min(C, 64) channels of all four gates: the product
+// [128, 2C] x [2C, 4J], with N = 4J <= 256 one wgmma N. Its B operand is
+// rows g C + j0 .. + J of the [4C, 2C] weight for g = f, i, o, g, four
+// TMA boxes that land as one K-major [4J, KB] tile. K = 2C walks through
+// a ring of NS stages in KB-wide chunks, first the C / KB chunks of x,
+// then those of h (no concat); one producer warp keeps them in flight
+// with TMA (the A box [BM, KB] of x or h, rows past R filled with zeros;
+// 128-byte swizzle, 64-byte at C = 32), full/empty mbarriers. Each
+// warpgroup multiplies its 64 rows of a chunk by the shared B chunk, one
+// wgmma group in flight while the next is issued. Two warpgroups share
+// every weight chunk, which halves the weight bytes a row costs; the
+// N = 256 accumulator (128 registers a thread) keeps one CTA an SM either
+// way.
+//
+// The gate epilogue runs in registers: in the m64nNk16 accumulator a
+// thread holds columns 8t + 2 (lane % 4) + {0, 1} for every t, so channel
+// j's f, i, o and g (columns j, J + j, 2J + j, 3J + j) sit in the same
+// thread. Bias in fp32, sigmoid and tanh, c read, c' = f c + i g in fp32
+// and h' = o tanh(c'), each rounded once and written in paired stores.
+//
+// Where tiles outnumber the CTAs one wave holds, CTAs are persistent: a
+// CTA walks tiles blockIdx.y, + gridDim.y, ..., and the producer streams
+// the next tile's chunks while the consumers run the epilogue. Where
+// tiles are few (stage 4 at B = 8, every stage at B = 1), a cluster of CS
+// CTAs (2, 4 or 8; the launch's cluster dimension x) shares one tile and
+// splits K: rank r takes chunks [r NK / CS, (r + 1) NK / CS), writes its
+// fp32 [BM, N] partial over its own ring, and after a cluster barrier
+// each rank sums the partials of BM / CS rows over distributed shared
+// memory in rank order (so launches agree bit for bit) and runs their
+// epilogue.
+//
+// Bound: 16 R C^2 flops against 10 R C bytes of bf16 activations and
+// 16 C^2 of weights: bytes at C = 64-128 (about 1.6 C flops a byte,
+// below the card's 295), tensor-core operations at C = 256-512 for
+// B = 8 (R = 2560 and 640).
 
-__device__ __forceinline__ float load_state(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float load_state(const bf16* p, size_t i) { return f32(p[i]); }
-__device__ __forceinline__ void store_state(float* p, size_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void store_state(bf16* p, size_t i, float v) {
-  p[i] = __float2bfloat16(v);
-}
-
-__host__ __device__ inline size_t lstm_smem(int C, size_t off[2]) {
-  off[0] = 0;                                                     // x, h rows
-  off[1] = align128(static_cast<size_t>(2) * LSTM_BM * (C + 8) * 2);  // gates
-  return align128(off[1] + static_cast<size_t>(LSTM_BM) * LD_G * 4);
-}
+template <int C>
+struct LstmShape {
+  static constexpr int BM = 128;                 // rows a tile
+  static constexpr int NCT = 256;                // consumer threads
+  static constexpr int THREADS = NCT + 32;       // + a producer warp
+  static constexpr int J = C < 64 ? C : 64;      // channels a tile, each gate
+  static constexpr int N = 4 * J;                // the product's width
+  static constexpr int KB = C >= 64 ? 64 : 32;   // K chunk
+  static constexpr int SW = KB * 2;              // its swizzle (= row) bytes
+  static constexpr int NKX = C / KB;             // chunks of x, and of h
+  static constexpr int NK = 2 * NKX;
+  static constexpr int A_BYTES = BM * SW;
+  static constexpr int STAGE = A_BYTES + N * SW;
+  static constexpr int NS = 4;                   // ring stages
+  static constexpr int LDP = N + 4;              // fp32 row stride of a partial
+  static constexpr int PART = BM * LDP * 4;
+  static constexpr int BODY = NS * STAGE > PART ? NS * STAGE : PART;
+  static constexpr int SMEM = BODY + 2 * NS * 8 + 1024;   // + alignment
+};
 
 template <typename CT>
-__global__ void __launch_bounds__(256) lstm_update_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ h,
-    const CT* __restrict__ c, const bf16* __restrict__ w,
-    const bf16* __restrict__ bias, bf16* __restrict__ h_out,
-    CT* __restrict__ c_out, int R, int C) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  size_t off[2];
-  lstm_smem(C, off);
-  const int lda = C + 8;
-  bf16* xs = reinterpret_cast<bf16*>(smem + off[0]);
-  bf16* hs = xs + LSTM_BM * lda;
-  float* G = reinterpret_cast<float*>(smem + off[1]);
-  const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * LSTM_BM, j0 = blockIdx.y * LSTM_BN;
+struct LstmArgs {
+  const CT* c;
+  const bf16* bias;
+  bf16* h_out;
+  CT* c_out;
+  int R, tiles;
+};
 
-  const int vec = C / 8;
-  for (int i = threadIdx.x; i < 2 * LSTM_BM * vec; i += blockDim.x) {
-    const int which = i / (LSTM_BM * vec), r = (i / vec) % LSTM_BM, v = i % vec;
-    const bf16* src = which ? h : x;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < R)
-      val = reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * C)[v];
-    *reinterpret_cast<uint4*>((which ? hs : xs) + r * lda + v * 8) = val;
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// h' and c' of two neighbouring channels (ch, ch + 1) of row `row`, from
+// their gate sums (bias not yet added), biases bv[gate] and c
+template <int C, typename CT>
+__device__ __forceinline__ void lstm_out2(const LstmArgs<CT>& p, int row,
+                                          int ch, const float (&mix)[4][2],
+                                          const float2 (&bv)[4]) {
+  const size_t idx = static_cast<size_t>(row) * C + ch;
+  const float2 cp = load_pair(p.c + idx);
+  const float cprev[2] = {cp.x, cp.y};
+  float hn[2], cn[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float f = sigmoid(mix[0][e] + (e ? bv[0].y : bv[0].x));
+    const float i = sigmoid(mix[1][e] + (e ? bv[1].y : bv[1].x));
+    const float o = sigmoid(mix[2][e] + (e ? bv[2].y : bv[2].x));
+    const float g = tanhf(mix[3][e] + (e ? bv[3].y : bv[3].x));
+    cn[e] = f * cprev[e] + i * g;
+    hn[e] = o * tanhf(cn[e]);
+  }
+  store_pair(p.h_out + idx, hn[0], hn[1]);
+  store_pair(p.c_out + idx, cn[0], cn[1]);
+}
+
+template <int C>
+__device__ __forceinline__ float2 lstm_bias(const bf16* bias, int gate, int ch) {
+  return load_pair(bias + gate * C + ch);
+}
+
+template <int C, typename CT>
+__global__ void __launch_bounds__(LstmShape<C>::THREADS, 1)
+    lstm_update_kernel(const __grid_constant__ CUtensorMap m_x,
+                       const __grid_constant__ CUtensorMap m_h,
+                       const __grid_constant__ CUtensorMap m_w,
+                       const LstmArgs<CT> p) {
+  using S = LstmShape<C>;
+  constexpr int NBLK = C / S::J;   // channel blocks: tile = row tile * NBLK + block
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BODY);
+  uint64_t* empty = full + S::NS;
+  const int tid = threadIdx.x;
+  const int cs = static_cast<int>(cluster_size());
+  const int rank = static_cast<int>(cluster_rank());
+  const int k0 = rank * S::NK / cs, k1 = (rank + 1) * S::NK / cs;
+
+  if (tid == 0) {
+    for (int i = 0; i < S::NS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], S::NCT);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  // warp = (row tile, gate): columns gate*C + j0 .. +16 of the [4C, 2C] kernel
-  const int mi = warp / 4, gate = warp % 4;
-  const bf16* wg = w + static_cast<size_t>(gate * C + j0) * (2 * C);
-  FragC acc;
-  wmma::fill_fragment(acc, 0.f);
-  for (int k0 = 0; k0 < C; k0 += 16) {
-    FragA a;
-    FragBt bw;
-    wmma::load_matrix_sync(a, xs + mi * 16 * lda + k0, lda);
-    wmma::load_matrix_sync(bw, wg + k0, 2 * C);
-    wmma::mma_sync(acc, a, bw, acc);
+  if (tid >= S::NCT) {
+    // producer: chunk k of a tile is the A box of x (k < NKX) or h, and
+    // the four gates' weight boxes at the same K
+    if (tid == S::NCT) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.y; tile < p.tiles; tile += gridDim.y) {
+        const int row0 = tile / NBLK * S::BM, j0 = tile % NBLK * S::J;
+        for (int k = k0; k < k1; ++k) {
+          unsigned char* dst = smem + stage * S::STAGE;
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], S::STAGE);
+          tma_load_2d(dst, k < S::NKX ? &m_x : &m_h, &full[stage],
+                      (k % S::NKX) * S::KB, row0);
+          for (int g = 0; g < 4; ++g)
+            tma_load_2d(dst + S::A_BYTES + g * S::J * S::SW, &m_w, &full[stage],
+                        k * S::KB, g * C + j0);
+          if (++stage == S::NS) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    // a cluster's CTA owns one tile: the consumers' two cluster barriers
+    if (cs > 1) {
+      __syncwarp();
+      cluster_arrive();
+      cluster_wait();
+      cluster_arrive();
+      cluster_wait();
+    }
+    return;
   }
-  for (int k0 = 0; k0 < C; k0 += 16) {
-    FragA a;
-    FragBt bw;
-    wmma::load_matrix_sync(a, hs + mi * 16 * lda + k0, lda);
-    wmma::load_matrix_sync(bw, wg + C + k0, 2 * C);
-    wmma::mma_sync(acc, a, bw, acc);
-  }
-  wmma::store_matrix_sync(G + mi * 16 * LD_G + gate * LSTM_BN, acc, LD_G,
-                          wmma::mem_row_major);
-  __syncthreads();
 
-  for (int i = threadIdx.x; i < LSTM_BM * LSTM_BN; i += blockDim.x) {
-    const int r = i / LSTM_BN, jj = i % LSTM_BN, row = row0 + r;
-    if (row >= R) continue;
-    const int ch = j0 + jj;
-    const float* g = G + r * LD_G;
-    const float fg = sigmoid(g[jj] + opt(bias, ch));
-    const float ig = sigmoid(g[LSTM_BN + jj] + opt(bias, C + ch));
-    const float og = sigmoid(g[2 * LSTM_BN + jj] + opt(bias, 2 * C + ch));
-    const float cg = tanhf(g[3 * LSTM_BN + jj] + opt(bias, 3 * C + ch));
-    const size_t idx = static_cast<size_t>(row) * C + ch;
-    const float cn = fg * load_state(c, idx) + ig * cg;
-    h_out[idx] = __float2bfloat16(og * tanhf(cn));
-    store_state(c_out, idx, cn);
+  const int w = tid / 128, t = tid % 128;
+  const int wr = (t / 32) * 16 + (t % 32) / 4;  // the thread's rows wr, wr + 8
+  const int q2 = (t % 4) * 2;                   // its column pair in each 8
+  int stage = 0;
+  uint32_t phase = 0;
+  float acc[S::N / 2];
+  for (int tile = blockIdx.y; tile < p.tiles; tile += gridDim.y) {
+    const int row0 = tile / NBLK * S::BM, j0 = tile % NBLK * S::J;
+#pragma unroll
+    for (int i = 0; i < S::N / 2; ++i) acc[i] = 0.f;
+    int prev = -1;
+    for (int k = k0; k < k1; ++k) {
+      mbar_wait(&full[stage], phase);
+      const uint32_t a = smem_u32(smem + stage * S::STAGE) + w * 64 * S::SW;
+      const uint32_t b = smem_u32(smem + stage * S::STAGE + S::A_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < S::KB / 16; ++kk)
+        wgmma_ss<S::N>(acc, gmma_desc(a + 32 * kk, S::SW),
+                       gmma_desc(b + 32 * kk, S::SW), 1);
+      wgmma_commit();
+      wgmma_wait1();     // the previous chunk's products are done
+      if (prev >= 0) mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == S::NS) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait0();
+    fence_regs<S::N / 2>(acc);
+    mbar_arrive(&empty[prev]);
+
+    if (cs == 1) {
+      // gate g of channel j0 + 8u + q2 + e, row wr + 8hh of this
+      // warpgroup's 64: acc[g J / 2 + 4u + 2hh + e]
+#pragma unroll
+      for (int u = 0; u < S::J / 8; ++u) {
+        const int ch = j0 + 8 * u + q2;
+        float2 bv[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) bv[g] = lstm_bias<C>(p.bias, g, ch);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = row0 + w * 64 + wr + 8 * hh;
+          if (row >= p.R) continue;
+          float mix[4][2];
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) mix[g][e] = acc[g * S::J / 2 + 4 * u + 2 * hh + e];
+          lstm_out2<C>(p, row, ch, mix, bv);
+        }
+      }
+      continue;
+    }
+
+    // cluster: every wgmma of both warpgroups is done with the ring, which
+    // this CTA's fp32 partial [BM, N] now overwrites
+    consumer_sync(S::NCT);
+    float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int i = 0; i < S::N / 8; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(part + (w * 64 + wr + 8 * hh) * S::LDP + 8 * i + q2) =
+            make_float2(acc[4 * i + 2 * hh], acc[4 * i + 2 * hh + 1]);
+    cluster_arrive();
+    cluster_wait();
+    // rows [rank BM / cs, (rank + 1) BM / cs) of the tile, a pair of
+    // channels a thread at a time: the partials added in rank order
+    const int rb = S::BM / cs;
+    for (int i = tid; i < rb * S::J / 2; i += S::NCT) {
+      const int r = rank * rb + i / (S::J / 2), c2 = (i % (S::J / 2)) * 2;
+      const int row = row0 + r;
+      if (row >= p.R) continue;
+      float mix[4][2];
+      float2 bv[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float* src = part + r * S::LDP + g * S::J + c2;
+        float2 v = ld_peer2(src, 0);
+        for (int q = 1; q < cs; ++q) {
+          const float2 o = ld_peer2(src, q);
+          v.x += o.x;
+          v.y += o.y;
+        }
+        mix[g][0] = v.x;
+        mix[g][1] = v.y;
+        bv[g] = lstm_bias<C>(p.bias, g, j0 + c2);
+      }
+      lstm_out2<C>(p, row, j0 + c2, mix, bv);
+    }
+    // peers may still read this CTA's partial
+    cluster_arrive();
+    cluster_wait();
   }
 }
 
@@ -1460,14 +1649,44 @@ struct MapKey {
   }
 };
 
+EncodeTiledFn encoder() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(f);
+  }();
+  return fn;
+}
+
 // A [rows, cols] row-major bf16 matrix read in boxes of box_rows x
-// box_cols (box_cols * 2 = 128 or 64 bytes, the swizzle). Weights do not
-// move between steps, so maps are kept by their arguments (64 entries,
-// oldest replaced first).
+// box_cols (box_cols * 2 = 128 or 64 bytes, the swizzle); boxes reaching
+// past the matrix read zeros there.
+bool encode_map(CUtensorMap* map, const void* ptr, uint64_t rows,
+                uint64_t cols, uint32_t box_rows, uint32_t box_cols) {
+  const EncodeTiledFn encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+                dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// encode_map for weights: they do not move between steps, so maps are
+// kept by their arguments (64 entries, oldest replaced first).
+// Activations, which move every step, are encoded per launch instead, so
+// that they never evict the weights' maps.
 bool weight_map(CUtensorMap* map, const void* ptr, uint64_t rows,
                 uint64_t cols, uint32_t box_rows, uint32_t box_cols) {
   static std::mutex lock;
-  static EncodeTiledFn encode = nullptr;
   static MapKey keys[64];
   static CUtensorMap maps[64];
   static int used = 0, next = 0;
@@ -1478,25 +1697,7 @@ bool weight_map(CUtensorMap* map, const void* ptr, uint64_t rows,
       *map = maps[i];
       return true;
     }
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
-                                &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return false;
-    encode = reinterpret_cast<EncodeTiledFn>(fn);
-  }
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return false;
+  if (!encode_map(map, ptr, rows, cols, box_rows, box_cols)) return false;
   keys[next] = key;
   maps[next] = *map;
   next = (next + 1) % 64;
@@ -1548,39 +1749,39 @@ cudaError_t launch_mlp(const MlpArgs& a, const void* proj_w, const void* in_w,
                 S::THREADS, S::SMEM, cluster, st, m_proj, m_in, m_out, a);
 }
 
-// CTAs of block_attention_kernel<C> the current card runs at once in
-// clusters of cs (0 if it cannot run such clusters), kept per (card, cs):
-// the answer does not change on a card
-template <int C>
-long attn_slots(int cs, int num_sms) {
-  using S = AttnShape<C>;
+// CTAs of `kernel` (threads, smem bytes) the current card runs at once
+// in clusters of cs (0 if it cannot run such clusters), by the occupancy
+// calculator, kept per (kernel, card, cs): the answer does not change on
+// a card
+template <typename... K>
+long cluster_slots(void (*kernel)(K...), int threads, int smem, int cs,
+                   int num_sms) {
   static std::mutex lock;
-  static std::map<std::pair<int, int>, long> known;
+  static std::map<std::tuple<const void*, int, int>, long> known;
+  const void* fn = reinterpret_cast<const void*>(kernel);
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  const std::pair<int, int> key(dev, cs);
+  const std::tuple<const void*, int, int> key(fn, dev, cs);
   std::lock_guard<std::mutex> guard(lock);
   const auto hit = known.find(key);
   if (hit != known.end()) return hit->second;
   long& slots = known[key];
   slots = 0;
-  const void* fn = reinterpret_cast<const void*>(block_attention_kernel<C>);
-  if (set_smem(block_attention_kernel<C>, S::SMEM) != cudaSuccess ||
-      cudaFuncSetAttribute(block_attention_kernel<C>,
-                           cudaFuncAttributeNonPortableClusterSizeAllowed,
+  if (set_smem(kernel, smem) != cudaSuccess ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
                            1) != cudaSuccess)
     return slots;
   int n = 0;
   if (cs == 1) {
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, S::THREADS,
-                                                      S::SMEM) == cudaSuccess)
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads, smem) ==
+        cudaSuccess)
       slots = static_cast<long>(n) * num_sms;
     return slots;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cs, 1);
-  cfg.blockDim = dim3(S::THREADS);
-  cfg.dynamicSmemBytes = S::SMEM;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cs;
@@ -1615,7 +1816,8 @@ cudaError_t launch_attention(AttnArgs a, const void* qkv_w, int cluster,
   a.nwin = max_win;
   for (int c = 1; c <= 16 && c <= heads; c *= 2) {
     if (cluster > 0 && c != cluster) continue;
-    const long slots = attn_slots<C>(c, num_sms);
+    const long slots = cluster_slots(block_attention_kernel<C>, S::THREADS,
+                                     S::SMEM, c, num_sms);
     for (int n = max_win; n >= 1; --n) {
       const long ctas = static_cast<long>((a.nwindows + n - 1) / n) * c;
       if (ctas <= slots && (ctas > best || (ctas == best && n > a.nwin))) {
@@ -1656,6 +1858,63 @@ bool mlp_cluster_ok(int C, int inner, int gated, int cluster) {
   const int nwg = C > 256 ? 2 : 1;
   return (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) &&
          C / nwg / cluster >= 8 && cluster <= inner / (gated ? 32 : 64);
+}
+
+// Plans and launches lstm_update_kernel<C, CT> over a.R rows: tiles of
+// BM rows by J channels, and cs CTAs (a cluster splitting K) a tile, the
+// largest cs of 2, 4, 8 (at most the K chunks) whose grid the card runs
+// in one wave; else cs = 1 and at most one wave of persistent CTAs that
+// walk the tiles. `cluster` > 0 fixes cs. The plan goes to plan[0..2]
+// (BM, J, cs) where plan is not NULL.
+template <int C, typename CT>
+cudaError_t launch_lstm(LstmArgs<CT> a, const void* x, const void* h,
+                        const void* w, int cluster, int num_sms, int* plan,
+                        cudaStream_t st) {
+  using S = LstmShape<C>;
+  if (cluster < 0 || cluster > 8 || (cluster & (cluster - 1)) || cluster > S::NK)
+    return cudaErrorInvalidValue;
+  auto kernel = lstm_update_kernel<C, CT>;
+  a.tiles = (a.R + S::BM - 1) / S::BM * (C / S::J);
+  int cs = cluster > 0 ? cluster : 1;
+  for (int c = 2; cluster == 0 && c <= 8 && c <= S::NK; c *= 2)
+    if (static_cast<long>(a.tiles) * c <=
+        cluster_slots(kernel, S::THREADS, S::SMEM, c, num_sms))
+      cs = c;
+  // a cluster's CTA owns one tile (its partial overwrites the ring)
+  long ctas = a.tiles;
+  if (cs == 1) {
+    const long slots = cluster_slots(kernel, S::THREADS, S::SMEM, 1, num_sms);
+    if (slots == 0) return cudaErrorInvalidValue;
+    ctas = slots < ctas ? slots : ctas;
+  }
+  if (ctas > 65535) return cudaErrorInvalidValue;
+  if (plan != nullptr) {
+    plan[0] = S::BM;
+    plan[1] = S::J;
+    plan[2] = cs;
+  }
+  CUtensorMap m_x, m_h, m_w;
+  if (!encode_map(&m_x, x, a.R, C, S::BM, S::KB) ||
+      !encode_map(&m_h, h, a.R, C, S::BM, S::KB) ||
+      !weight_map(&m_w, w, 4 * C, 2 * C, S::J, S::KB))
+    return cudaErrorInvalidValue;
+  return launch(kernel, dim3(cs, static_cast<unsigned>(ctas)), S::THREADS,
+                S::SMEM, cs, st, m_x, m_h, m_w, a);
+}
+
+template <int C>
+cudaError_t launch_lstm_c(const void* x, const void* h, const void* c,
+                          const void* w, const void* b, void* h_out,
+                          void* c_out, int R, int c_f32, int cluster,
+                          int num_sms, int* plan, cudaStream_t st) {
+  if (c_f32) {
+    const LstmArgs<float> a{static_cast<const float*>(c), static_cast<const bf16*>(b),
+                            static_cast<bf16*>(h_out), static_cast<float*>(c_out), R, 0};
+    return launch_lstm<C, float>(a, x, h, w, cluster, num_sms, plan, st);
+  }
+  const LstmArgs<bf16> a{static_cast<const bf16*>(c), static_cast<const bf16*>(b),
+                         static_cast<bf16*>(h_out), static_cast<bf16*>(c_out), R, 0};
+  return launch_lstm<C, bf16>(a, x, h, w, cluster, num_sms, plan, st);
 }
 
 }  // namespace
@@ -1759,41 +2018,24 @@ extern "C" int leod_block_mlp(const void* x, const void* o, void* out,
   }
 }
 
+// C in {32, 64, 128, 256, 512}; x, h, w [4C, 2C], b and h_out bf16, c
+// and c_out fp32 where c_f32, else bf16. `cluster` > 0 fixes how many
+// CTAs (1, 2, 4 or 8) split K for a tile; 0 lets the plan choose. `plan`
+// (NULL or three ints) receives the rows and channels a tile and the
+// cluster size the launch took.
 extern "C" int leod_lstm_update(const void* x, const void* h, const void* c,
                                 const void* w, const void* b, void* h_out,
                                 void* c_out, int R, int C, int c_f32,
                                 int cluster, int num_sms, int* plan,
                                 void* stream) {
-  (void)num_sms;
-  if (C % LSTM_BN || cluster > 1) return cudaErrorInvalidValue;
-  if (plan != nullptr) {
-    plan[0] = LSTM_BM;
-    plan[1] = LSTM_BN;
-    plan[2] = 1;
-  }
-  size_t off[2];
-  const size_t smem = lstm_smem(C, off);
-  const dim3 grid((R + LSTM_BM - 1) / LSTM_BM, C / LSTM_BN);
+  if (R < 1 || b == nullptr) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (c_f32) {
-    e = set_smem(lstm_update_kernel<float>, smem);
-    if (e != cudaSuccess) return e;
-    lstm_update_kernel<float><<<grid, 256, smem, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(h),
-        static_cast<const float*>(c), static_cast<const bf16*>(w),
-        static_cast<const bf16*>(b), static_cast<bf16*>(h_out),
-        static_cast<float*>(c_out), R, C);
-  } else {
-    e = set_smem(lstm_update_kernel<bf16>, smem);
-    if (e != cudaSuccess) return e;
-    lstm_update_kernel<bf16><<<grid, 256, smem, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(h),
-        static_cast<const bf16*>(c), static_cast<const bf16*>(w),
-        static_cast<const bf16*>(b), static_cast<bf16*>(h_out),
-        static_cast<bf16*>(c_out), R, C);
+  switch (C) {
+    case 32: return launch_lstm_c<32>(x, h, c, w, b, h_out, c_out, R, c_f32, cluster, num_sms, plan, st);
+    case 64: return launch_lstm_c<64>(x, h, c, w, b, h_out, c_out, R, c_f32, cluster, num_sms, plan, st);
+    case 128: return launch_lstm_c<128>(x, h, c, w, b, h_out, c_out, R, c_f32, cluster, num_sms, plan, st);
+    case 256: return launch_lstm_c<256>(x, h, c, w, b, h_out, c_out, R, c_f32, cluster, num_sms, plan, st);
+    case 512: return launch_lstm_c<512>(x, h, c, w, b, h_out, c_out, R, c_f32, cluster, num_sms, plan, st);
+    default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
-
-

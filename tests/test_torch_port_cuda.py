@@ -9,7 +9,10 @@ and without its hidden dim split over CTAs, the per-token half
 `block_mlp` alone at every width its tiles take, row counts with a
 ragged last 64-row tile, and clusters of 1 to 8 CTAs sharing a tile,
 the GLU MLP and SiLU, an
-fp32 and a bf16 cell state, NMS with and without class ids at
+fp32 and a bf16 cell state, the ConvLSTM update `lstm_update` alone at
+every width, with a ragged last 128-row tile, at B = 1 and 2, with K
+split over clusters of 1 to 8 CTAs, and launched back to back at the
+stage shapes at B = 1 and 8 by its own plan, NMS with and without class ids at
 K = 1, 37, 1000 and 1024, and inputs the kernels refuse.
 
 These tests need an NVIDIA Hopper card and `nvcc`; without a card they
@@ -238,6 +241,68 @@ def test_block_attention_back_to_back_launches_agree(cuda, dim, hw, grid_kind,
         part(x, 8, 10), blk), 8, 10, *hw))
 
 
+def _lstm_cases():
+    """C x B x map (R = B * H * W: 320, 480, 640 and 960 rows, three of
+    them with a ragged last 128-row tile) x c in bf16 or fp32 x every
+    cluster size the width takes (at most its 64-wide K chunks, 2C / 64;
+    2 at C = 32)."""
+    cases = []
+    for dim in maxvit_cuda.MLP_DIMS:
+        chunks = max(2, 2 * dim // 64)
+        for b in (1, 2):
+            for hw in ((16, 20), (24, 20)):
+                for c_f32 in (False, True):
+                    for cluster in (1, 2, 4, 8):
+                        if cluster <= chunks:
+                            cases.append((dim, b, hw, c_f32, cluster))
+    return cases
+
+
+def _lstm_inputs(dim, b, hw, c_dtype, dev, seed):
+    gates = _randomized(_SplitGateConv(dim), seed, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x, h, c = (torch.randn(b, *hw, dim, device=dev, generator=g)
+               for _ in range(3))
+    return (x.to(torch.bfloat16), (h * 0.5).to(torch.bfloat16),
+            (c * 0.5).to(c_dtype), gates)
+
+
+@pytest.mark.parametrize("dim,b,hw,c_f32,cluster", _lstm_cases())
+def test_lstm_update_kernel_matches_plain(cuda, dim, b, hw, c_f32, cluster):
+    c_dtype = torch.float32 if c_f32 else torch.bfloat16
+    x, h, c, gates = _lstm_inputs(dim, b, hw, c_dtype, cuda, dim + b)
+    before = maxvit_cuda.lstm_update.launches
+    hk, ck = maxvit_cuda.lstm_update(x, h, c, gates, cluster=cluster)
+    torch.cuda.synchronize()
+    assert maxvit_cuda.lstm_update.launches == before + 1
+    assert maxvit_cuda.lstm_update.plan[2] == cluster
+    assert hk.dtype == torch.bfloat16 and ck.dtype == c_dtype
+    hp, cp = maxvit_cuda.lstm_update_plain(x, h, c, gates)
+    _close(hk, hp)
+    _close(ck, cp)
+    # a cluster adds its partial sums in rank order: runs agree exactly
+    h2, c2 = maxvit_cuda.lstm_update(x, h, c, gates, cluster=cluster)
+    assert torch.equal(hk, h2) and torch.equal(ck, c2)
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("dim,hw", [(64, (64, 80)), (128, (32, 40)),
+                                    (256, (16, 20)), (512, (8, 10))])
+def test_lstm_update_back_to_back_launches_agree(cuda, dim, hw, b):
+    """At the RVT-B Gen1 stage shapes, B = 8 and 1, by the kernel's own
+    plan (persistent CTAs, or clusters splitting K where rows are few),
+    40 launches queued back to back all give the first launch's output
+    bit for bit, which holds the plain version."""
+    x, h, c, gates = _lstm_inputs(dim, b, hw, torch.bfloat16, cuda, dim)
+    outs = [maxvit_cuda.lstm_update(x, h, c, gates) for _ in range(40)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0][0], o[0]) and torch.equal(outs[0][1], o[1])
+               for o in outs[1:])
+    hp, cp = maxvit_cuda.lstm_update_plain(x, h, c, gates)
+    _close(outs[0][0], hp)
+    _close(outs[0][1], cp)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     wb, gb = _pair(32, (4, 5), False, "gelu", cuda)
     x = torch.zeros(1, H, W, 32, device=cuda)
@@ -252,6 +317,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     x96 = torch.zeros(80, 96, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="C in"):
         maxvit_cuda.block_mlp(x96, x96, blk)
+    # nor the ConvLSTM kernel's
+    gates = _randomized(_SplitGateConv(96), 0, cuda)
+    x96 = torch.zeros(1, H, W, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C in"):
+        maxvit_cuda.lstm_update(x96, x96, x96, gates)
     # a partition of 100 tokens: more keys than a warp's S holds
     blk = _randomized(PartitionAttention(32, (10, 10), "window"), 0, cuda)
     x20 = torch.zeros(1, 20, 20, 32, device=cuda, dtype=torch.bfloat16)
