@@ -31,9 +31,9 @@
 //       a CTA per 128 rows of B*H*W and 64 channels of all four gates,
 //       with x and h (no concat) and the weight streamed by TMA through
 //       a ring; the gates meet in the accumulator registers, where the
-//       epilogue writes h' and c'. Where rows are few, a cluster of CTAs
-//       splits K and adds its partial sums over distributed shared
-//       memory (section below).
+//       epilogue writes h' and c'. Where rows are few and K long, a
+//       cluster of CTAs splits K and adds its partial sums over
+//       distributed shared memory (section below).
 //
 // Bound on the H100: at the RVT-B Gen1 shapes the blocks do about
 // 2*T*C*(3C + 2T) + 2*C*C + 16*C*C flops per token against 4*C bytes of
@@ -1358,7 +1358,7 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
 // rows g C + j0 .. + J of the [4C, 2C] weight for g = f, i, o, g, four
 // TMA boxes that land as one K-major [4J, KB] tile. K = 2C walks through
 // a ring of NS stages in KB-wide chunks, first the C / KB chunks of x,
-// then those of h (no concat); one producer warp keeps them in flight
+// then those of h (no concat); one producer thread keeps them in flight
 // with TMA (the A box [BM, KB] of x or h, rows past R filled with zeros;
 // 128-byte swizzle, 64-byte at C = 32), full/empty mbarriers. Each
 // warpgroup multiplies its 64 rows of a chunk by the shared B chunk, one
@@ -1370,15 +1370,20 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
 // The gate epilogue runs in registers: in the m64nNk16 accumulator a
 // thread holds columns 8t + 2 (lane % 4) + {0, 1} for every t, so channel
 // j's f, i, o and g (columns j, J + j, 2J + j, 3J + j) sit in the same
-// thread. Bias in fp32, sigmoid and tanh, c read, c' = f c + i g in fp32
-// and h' = o tanh(c'), each rounded once and written in paired stores.
+// thread. Bias in fp32, sigmoid and tanh, c' = f c + i g in fp32 and
+// h' = o tanh(c'), each rounded once and written in paired stores. The
+// producer brings each tile's c (a swizzled TMA box) and biases into one
+// of two epilogue buffers while the tile's products run, so the epilogue
+// waits on no load from device memory (read from global memory, each
+// thread's loads of c and the biases queued behind its stores of h' and
+// c', which may alias them: 22.0 against 17.3 us at stage 1, B = 8, H100).
 //
 // Where tiles outnumber the CTAs one wave holds, CTAs are persistent: a
 // CTA walks tiles blockIdx.y, + gridDim.y, ..., and the producer streams
 // the next tile's chunks while the consumers run the epilogue. Where
-// tiles are few (stage 4 at B = 8, every stage at B = 1), a cluster of CS
-// CTAs (2, 4 or 8; the launch's cluster dimension x) shares one tile and
-// splits K: rank r takes chunks [r NK / CS, (r + 1) NK / CS), writes its
+// tiles are few and K is long (the plan in launch_lstm; at the RVT-B
+// shapes, C = 512), a cluster of CS CTAs (2, 4 or 8; the launch's cluster
+// dimension x) shares one tile and splits K: rank r takes chunks [r NK / CS, (r + 1) NK / CS), writes its
 // fp32 [BM, N] partial over its own ring, and after a cluster barrier
 // each rank sums the partials of BM / CS rows over distributed shared
 // memory in rank order (so launches agree bit for bit) and runs their
@@ -1389,11 +1394,15 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
 // below the card's 295), tensor-core operations at C = 256-512 for
 // B = 8 (R = 2560 and 640).
 
-template <int C>
+template <int C, typename CT>
 struct LstmShape {
   static constexpr int BM = 128;                 // rows a tile
   static constexpr int NCT = 256;                // consumer threads
-  static constexpr int THREADS = NCT + 32;       // + a producer warp
+  // + a producer warpgroup (one thread of it issues the loads): three
+  // warpgroups let setmaxnreg move registers to the consumers, 232 a
+  // thread; with a producer warp alone, ptxas capped every thread at 168
+  // (three warps on an SM sub-partition) and the epilogue spilled
+  static constexpr int THREADS = NCT + 128;
   static constexpr int J = C < 64 ? C : 64;      // channels a tile, each gate
   static constexpr int N = 4 * J;                // the product's width
   static constexpr int KB = C >= 64 ? 64 : 32;   // K chunk
@@ -1402,16 +1411,21 @@ struct LstmShape {
   static constexpr int NK = 2 * NKX;
   static constexpr int A_BYTES = BM * SW;
   static constexpr int STAGE = A_BYTES + N * SW;
-  static constexpr int NS = 4;                   // ring stages
+  static constexpr int NS = 3;                   // ring stages
   static constexpr int LDP = N + 4;              // fp32 row stride of a partial
   static constexpr int PART = BM * LDP * 4;
   static constexpr int BODY = NS * STAGE > PART ? NS * STAGE : PART;
-  static constexpr int SMEM = BODY + 2 * NS * 8 + 1024;   // + alignment
+  // a tile's c [BM, J] in boxes of CIB bytes a row (the swizzle), then
+  // its four gates' J biases: an epilogue buffer, two of them
+  static constexpr int CIB = J * sizeof(CT) < 128 ? J * sizeof(CT) : 128;
+  static constexpr int C_BYTES = BM * J * sizeof(CT);
+  static constexpr int EPI = (C_BYTES + 8 * J + 1023) / 1024 * 1024;
+  static constexpr int BOFF = BODY + 2 * EPI;    // the mbarriers
+  static constexpr int SMEM = BOFF + (2 * NS + 4) * 8 + 1024;   // + alignment
 };
 
 template <typename CT>
 struct LstmArgs {
-  const CT* c;
   const bf16* bias;
   bf16* h_out;
   CT* c_out;
@@ -1431,46 +1445,77 @@ __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// h' and c' of two neighbouring channels (ch, ch + 1) of row `row`, from
-// their gate sums (bias not yet added), biases bv[gate] and c
+// `bytes` (a multiple of 16) from global `src` to shared `dst` by the
+// bulk-copy engine, counted against the mbarrier at `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(smem_u32(bar)) : "memory");
+}
+
+// The gates' tanh and sigmoid on the SFU's tanh (about 2^-11 relative
+// error, far below a bf16 ulp of h'; the plain version's accurate tanhf
+// and expf took most of the kernel's time): sigmoid(v) = (1 + tanh(v/2)) / 2
+__device__ __forceinline__ float gate_tanh(float v) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(v));
+  return y;
+}
+__device__ __forceinline__ float gate_sigmoid(float v) {
+  return fmaf(0.5f, gate_tanh(0.5f * v), 0.5f);
+}
+
+// h' and c' of channels (cl, cl + 1) of the tile, row r of the tile
+// (`row` of the map), from their gate sums mix[gate] (bias not yet
+// added), with c and the biases read from the epilogue buffer `eb`
 template <int C, typename CT>
-__device__ __forceinline__ void lstm_out2(const LstmArgs<CT>& p, int row,
-                                          int ch, const float (&mix)[4][2],
-                                          const float2 (&bv)[4]) {
-  const size_t idx = static_cast<size_t>(row) * C + ch;
-  const float2 cp = load_pair(p.c + idx);
+__device__ __forceinline__ void lstm_out2(const LstmArgs<CT>& p,
+                                          const unsigned char* eb, int r,
+                                          int row, int j0, int cl,
+                                          const float (&mix)[4][2]) {
+  using S = LstmShape<C, CT>;
+  const int cb = cl * static_cast<int>(sizeof(CT));
+  const float2 cp = load_pair(reinterpret_cast<const CT*>(
+      eb + cb / S::CIB * S::BM * S::CIB + swz(r, cb % S::CIB, S::CIB)));
+  const bf16* bias = reinterpret_cast<const bf16*>(eb + S::C_BYTES);
+  float2 bv[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) bv[g] = load_pair(bias + g * S::J + cl);
   const float cprev[2] = {cp.x, cp.y};
   float hn[2], cn[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
-    const float f = sigmoid(mix[0][e] + (e ? bv[0].y : bv[0].x));
-    const float i = sigmoid(mix[1][e] + (e ? bv[1].y : bv[1].x));
-    const float o = sigmoid(mix[2][e] + (e ? bv[2].y : bv[2].x));
-    const float g = tanhf(mix[3][e] + (e ? bv[3].y : bv[3].x));
+    const float f = gate_sigmoid(mix[0][e] + (e ? bv[0].y : bv[0].x));
+    const float i = gate_sigmoid(mix[1][e] + (e ? bv[1].y : bv[1].x));
+    const float o = gate_sigmoid(mix[2][e] + (e ? bv[2].y : bv[2].x));
+    const float g = gate_tanh(mix[3][e] + (e ? bv[3].y : bv[3].x));
     cn[e] = f * cprev[e] + i * g;
-    hn[e] = o * tanhf(cn[e]);
+    hn[e] = o * gate_tanh(cn[e]);
   }
+  const size_t idx = static_cast<size_t>(row) * C + j0 + cl;
   store_pair(p.h_out + idx, hn[0], hn[1]);
   store_pair(p.c_out + idx, cn[0], cn[1]);
 }
 
-template <int C>
-__device__ __forceinline__ float2 lstm_bias(const bf16* bias, int gate, int ch) {
-  return load_pair(bias + gate * C + ch);
-}
-
 template <int C, typename CT>
-__global__ void __launch_bounds__(LstmShape<C>::THREADS, 1)
+__global__ void __launch_bounds__(LstmShape<C, CT>::THREADS, 1)
     lstm_update_kernel(const __grid_constant__ CUtensorMap m_x,
                        const __grid_constant__ CUtensorMap m_h,
                        const __grid_constant__ CUtensorMap m_w,
+                       const __grid_constant__ CUtensorMap m_c,
                        const LstmArgs<CT> p) {
-  using S = LstmShape<C>;
+  using S = LstmShape<C, CT>;
   constexpr int NBLK = C / S::J;   // channel blocks: tile = row tile * NBLK + block
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BODY);
+  unsigned char* epi = smem + S::BODY;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BOFF);
   uint64_t* empty = full + S::NS;
+  uint64_t* efull = empty + S::NS;     // the two epilogue buffers
+  uint64_t* eempty = efull + 2;
   const int tid = threadIdx.x;
   const int cs = static_cast<int>(cluster_size());
   const int rank = static_cast<int>(cluster_rank());
@@ -1481,17 +1526,24 @@ __global__ void __launch_bounds__(LstmShape<C>::THREADS, 1)
       mbar_init(&full[i], 1);
       mbar_init(&empty[i], S::NCT);
     }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&efull[i], 1);
+      mbar_init(&eempty[i], S::NCT);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
   if (tid >= S::NCT) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
     // producer: chunk k of a tile is the A box of x (k < NKX) or h, and
-    // the four gates' weight boxes at the same K
+    // the four gates' weight boxes at the same K; after a tile's chunks,
+    // its c and biases into epilogue buffer n % 2 (n: the CTA's tiles so far)
     if (tid == S::NCT) {
       int stage = 0;
       uint32_t phase = 0;
-      for (int tile = blockIdx.y; tile < p.tiles; tile += gridDim.y) {
+      int n = 0;
+      for (int tile = blockIdx.y; tile < p.tiles; tile += gridDim.y, ++n) {
         const int row0 = tile / NBLK * S::BM, j0 = tile % NBLK * S::J;
         for (int k = k0; k < k1; ++k) {
           unsigned char* dst = smem + stage * S::STAGE;
@@ -1507,6 +1559,16 @@ __global__ void __launch_bounds__(LstmShape<C>::THREADS, 1)
             phase ^= 1;
           }
         }
+        const int b = n & 1;
+        unsigned char* eb = epi + b * S::EPI;
+        mbar_wait(&eempty[b], ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(&efull[b], S::C_BYTES + 8 * S::J);
+        for (int bx = 0; bx < S::C_BYTES / (S::BM * S::CIB); ++bx)
+          tma_load_2d(eb + bx * S::BM * S::CIB, &m_c, &efull[b],
+                      j0 + bx * S::CIB / static_cast<int>(sizeof(CT)), row0);
+        for (int g = 0; g < 4; ++g)
+          bulk_load(eb + S::C_BYTES + g * S::J * 2, p.bias + g * C + j0,
+                    S::J * 2, &efull[b]);
       }
     }
     // a cluster's CTA owns one tile: the consumers' two cluster barriers
@@ -1520,13 +1582,15 @@ __global__ void __launch_bounds__(LstmShape<C>::THREADS, 1)
     return;
   }
 
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
   const int w = tid / 128, t = tid % 128;
   const int wr = (t / 32) * 16 + (t % 32) / 4;  // the thread's rows wr, wr + 8
   const int q2 = (t % 4) * 2;                   // its column pair in each 8
   int stage = 0;
   uint32_t phase = 0;
   float acc[S::N / 2];
-  for (int tile = blockIdx.y; tile < p.tiles; tile += gridDim.y) {
+  int n = 0;
+  for (int tile = blockIdx.y; tile < p.tiles; tile += gridDim.y, ++n) {
     const int row0 = tile / NBLK * S::BM, j0 = tile % NBLK * S::J;
 #pragma unroll
     for (int i = 0; i < S::N / 2; ++i) acc[i] = 0.f;
@@ -1552,28 +1616,26 @@ __global__ void __launch_bounds__(LstmShape<C>::THREADS, 1)
     wgmma_wait0();
     fence_regs<S::N / 2>(acc);
     mbar_arrive(&empty[prev]);
+    const unsigned char* eb = epi + (n & 1) * S::EPI;
 
     if (cs == 1) {
-      // gate g of channel j0 + 8u + q2 + e, row wr + 8hh of this
+      // gate g of channel 8u + q2 + e of the tile, row wr + 8hh of this
       // warpgroup's 64: acc[g J / 2 + 4u + 2hh + e]
+      mbar_wait(&efull[n & 1], (n >> 1) & 1);
 #pragma unroll
-      for (int u = 0; u < S::J / 8; ++u) {
-        const int ch = j0 + 8 * u + q2;
-        float2 bv[4];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) bv[g] = lstm_bias<C>(p.bias, g, ch);
+      for (int u = 0; u < S::J / 8; ++u)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          const int row = row0 + w * 64 + wr + 8 * hh;
-          if (row >= p.R) continue;
+          const int r = w * 64 + wr + 8 * hh;
+          if (row0 + r >= p.R) continue;
           float mix[4][2];
 #pragma unroll
           for (int g = 0; g < 4; ++g)
 #pragma unroll
             for (int e = 0; e < 2; ++e) mix[g][e] = acc[g * S::J / 2 + 4 * u + 2 * hh + e];
-          lstm_out2<C>(p, row, ch, mix, bv);
+          lstm_out2<C>(p, eb, r, row0 + r, j0, 8 * u + q2, mix);
         }
-      }
+      mbar_arrive(&eempty[n & 1]);
       continue;
     }
 
@@ -1588,30 +1650,35 @@ __global__ void __launch_bounds__(LstmShape<C>::THREADS, 1)
         *reinterpret_cast<float2*>(part + (w * 64 + wr + 8 * hh) * S::LDP + 8 * i + q2) =
             make_float2(acc[4 * i + 2 * hh], acc[4 * i + 2 * hh + 1]);
     cluster_arrive();
+    mbar_wait(&efull[n & 1], (n >> 1) & 1);
     cluster_wait();
     // rows [rank BM / cs, (rank + 1) BM / cs) of the tile, a pair of
-    // channels a thread at a time: the partials added in rank order
+    // channels a thread at a time: the partials added in rank order, all
+    // 4 cs loads of a pair in flight at once (issued one after another,
+    // each waiting on the sum before it, they took most of the launch)
     const int rb = S::BM / cs;
     for (int i = tid; i < rb * S::J / 2; i += S::NCT) {
-      const int r = rank * rb + i / (S::J / 2), c2 = (i % (S::J / 2)) * 2;
-      const int row = row0 + r;
-      if (row >= p.R) continue;
+      const int r = rank * rb + i / (S::J / 2), cl = (i % (S::J / 2)) * 2;
+      if (row0 + r >= p.R) continue;
+      float2 v[4][8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          if (q < cs) v[g][q] = ld_peer2(part + r * S::LDP + g * S::J + cl, q);
       float mix[4][2];
-      float2 bv[4];
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        const float* src = part + r * S::LDP + g * S::J + c2;
-        float2 v = ld_peer2(src, 0);
-        for (int q = 1; q < cs; ++q) {
-          const float2 o = ld_peer2(src, q);
-          v.x += o.x;
-          v.y += o.y;
-        }
-        mix[g][0] = v.x;
-        mix[g][1] = v.y;
-        bv[g] = lstm_bias<C>(p.bias, g, j0 + c2);
+        mix[g][0] = v[g][0].x;
+        mix[g][1] = v[g][0].y;
+#pragma unroll
+        for (int q = 1; q < 8; ++q)
+          if (q < cs) {
+            mix[g][0] += v[g][q].x;
+            mix[g][1] += v[g][q].y;
+          }
       }
-      lstm_out2<C>(p, row, j0 + c2, mix, bv);
+      lstm_out2<C>(p, eb, r, row0 + r, j0, cl, mix);
     }
     // peers may still read this CTA's partial
     cluster_arrive();
@@ -1662,20 +1729,24 @@ EncodeTiledFn encoder() {
   return fn;
 }
 
-// A [rows, cols] row-major bf16 matrix read in boxes of box_rows x
-// box_cols (box_cols * 2 = 128 or 64 bytes, the swizzle); boxes reaching
-// past the matrix read zeros there.
+// A [rows, cols] row-major bf16 (or, with elem = 4, fp32) matrix read
+// in boxes of box_rows x box_cols (box_cols * elem = 128 or 64 bytes, the
+// swizzle); boxes reaching past the matrix read zeros there.
 bool encode_map(CUtensorMap* map, const void* ptr, uint64_t rows,
-                uint64_t cols, uint32_t box_rows, uint32_t box_cols) {
+                uint64_t cols, uint32_t box_rows, uint32_t box_cols,
+                uint32_t elem = 2) {
   const EncodeTiledFn encode = encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint64_t strides[1] = {cols * elem};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t estr[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-                dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+  return encode(map, elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                2, const_cast<void*>(ptr), dims, strides, box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                box_cols * elem == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                       : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1862,24 +1933,33 @@ bool mlp_cluster_ok(int C, int inner, int gated, int cluster) {
 
 // Plans and launches lstm_update_kernel<C, CT> over a.R rows: tiles of
 // BM rows by J channels, and cs CTAs (a cluster splitting K) a tile, the
-// largest cs of 2, 4, 8 (at most the K chunks) whose grid the card runs
-// in one wave; else cs = 1 and at most one wave of persistent CTAs that
+// largest cs of 2, 4, 8 whose grid the card runs in one wave and that
+// spares each CTA at least LSTM_SPLIT_SAVES of the NK K chunks it would
+// walk alone; else cs = 1 and at most one wave of persistent CTAs that
 // walk the tiles. `cluster` > 0 fixes cs. The plan goes to plan[0..2]
 // (BM, J, cs) where plan is not NULL.
+//
+// A split costs the partials' reduction over distributed shared memory
+// (128 KB a CTA), which took about as long as 8 chunks on an H100: at the
+// RVT-B Gen1 shapes, B = 1, C = 64-256 ran faster alone than split 2-8
+// ways (6.5 / 7.1 / 9.3 us against 9.5-10.9 us), C = 512 (16 chunks)
+// faster split 8 ways (9.4 against 13.5 us).
+constexpr int LSTM_SPLIT_SAVES = 8;
 template <int C, typename CT>
 cudaError_t launch_lstm(LstmArgs<CT> a, const void* x, const void* h,
-                        const void* w, int cluster, int num_sms, int* plan,
-                        cudaStream_t st) {
-  using S = LstmShape<C>;
+                        const void* c, const void* w, int cluster,
+                        int num_sms, int* plan, cudaStream_t st) {
+  using S = LstmShape<C, CT>;
   if (cluster < 0 || cluster > 8 || (cluster & (cluster - 1)) || cluster > S::NK)
     return cudaErrorInvalidValue;
   auto kernel = lstm_update_kernel<C, CT>;
   a.tiles = (a.R + S::BM - 1) / S::BM * (C / S::J);
   int cs = cluster > 0 ? cluster : 1;
-  for (int c = 2; cluster == 0 && c <= 8 && c <= S::NK; c *= 2)
-    if (static_cast<long>(a.tiles) * c <=
-        cluster_slots(kernel, S::THREADS, S::SMEM, c, num_sms))
-      cs = c;
+  for (int n = 2; cluster == 0 && n <= 8 && n <= S::NK; n *= 2)
+    if (S::NK - S::NK / n >= LSTM_SPLIT_SAVES &&
+        static_cast<long>(a.tiles) * n <=
+            cluster_slots(kernel, S::THREADS, S::SMEM, n, num_sms))
+      cs = n;
   // a cluster's CTA owns one tile (its partial overwrites the ring)
   long ctas = a.tiles;
   if (cs == 1) {
@@ -1893,13 +1973,14 @@ cudaError_t launch_lstm(LstmArgs<CT> a, const void* x, const void* h,
     plan[1] = S::J;
     plan[2] = cs;
   }
-  CUtensorMap m_x, m_h, m_w;
+  CUtensorMap m_x, m_h, m_w, m_c;
   if (!encode_map(&m_x, x, a.R, C, S::BM, S::KB) ||
       !encode_map(&m_h, h, a.R, C, S::BM, S::KB) ||
+      !encode_map(&m_c, c, a.R, C, S::BM, S::CIB / sizeof(CT), sizeof(CT)) ||
       !weight_map(&m_w, w, 4 * C, 2 * C, S::J, S::KB))
     return cudaErrorInvalidValue;
   return launch(kernel, dim3(cs, static_cast<unsigned>(ctas)), S::THREADS,
-                S::SMEM, cs, st, m_x, m_h, m_w, a);
+                S::SMEM, cs, st, m_x, m_h, m_w, m_c, a);
 }
 
 template <int C>
@@ -1908,13 +1989,13 @@ cudaError_t launch_lstm_c(const void* x, const void* h, const void* c,
                           void* c_out, int R, int c_f32, int cluster,
                           int num_sms, int* plan, cudaStream_t st) {
   if (c_f32) {
-    const LstmArgs<float> a{static_cast<const float*>(c), static_cast<const bf16*>(b),
-                            static_cast<bf16*>(h_out), static_cast<float*>(c_out), R, 0};
-    return launch_lstm<C, float>(a, x, h, w, cluster, num_sms, plan, st);
+    const LstmArgs<float> a{static_cast<const bf16*>(b), static_cast<bf16*>(h_out),
+                            static_cast<float*>(c_out), R, 0};
+    return launch_lstm<C, float>(a, x, h, c, w, cluster, num_sms, plan, st);
   }
-  const LstmArgs<bf16> a{static_cast<const bf16*>(c), static_cast<const bf16*>(b),
-                         static_cast<bf16*>(h_out), static_cast<bf16*>(c_out), R, 0};
-  return launch_lstm<C, bf16>(a, x, h, w, cluster, num_sms, plan, st);
+  const LstmArgs<bf16> a{static_cast<const bf16*>(b), static_cast<bf16*>(h_out),
+                         static_cast<bf16*>(c_out), R, 0};
+  return launch_lstm<C, bf16>(a, x, h, c, w, cluster, num_sms, plan, st);
 }
 
 }  // namespace
