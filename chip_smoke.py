@@ -254,9 +254,9 @@ def phase_build():
     dt = time.perf_counter() - t0
     for p in paths:
         with open(p + ".log") as f:
-            report = [ln.strip() for ln in f if "ptxas info" in ln
-                      and ("Used" in ln or "spill" in ln
-                           or "Compiling entry" in ln)]
+            report = [ln.strip() for ln in f if "spill" in ln
+                      or ("ptxas info" in ln and ("Used" in ln
+                                                  or "Compiling entry" in ln))]
         emit({"build": os.path.relpath(p, REPO), "ptxas": report})
     emit({"build_seconds": round(dt, 3)})
 

@@ -1376,7 +1376,7 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
 // of two epilogue buffers while the tile's products run, so the epilogue
 // waits on no load from device memory (read from global memory, each
 // thread's loads of c and the biases queued behind its stores of h' and
-// c', which may alias them: 22.0 against 17.3 us at stage 1, B = 8, H100).
+// c', which may alias them).
 //
 // Where tiles outnumber the CTAs one wave holds, CTAs are persistent: a
 // CTA walks tiles blockIdx.y, + gridDim.y, ..., and the producer streams
@@ -1457,8 +1457,9 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 }
 
 // The gates' tanh and sigmoid on the SFU's tanh (about 2^-11 relative
-// error, far below a bf16 ulp of h'; the plain version's accurate tanhf
-// and expf took most of the kernel's time): sigmoid(v) = (1 + tanh(v/2)) / 2
+// error, far below a bf16 ulp of h'): sigmoid(v) = (1 + tanh(v/2)) / 2.
+// The plain version's accurate tanhf and expf, five an output, made the
+// epilogue the larger part of a launch.
 __device__ __forceinline__ float gate_tanh(float v) {
   float y;
   asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(v));
@@ -1940,10 +1941,10 @@ bool mlp_cluster_ok(int C, int inner, int gated, int cluster) {
 // (BM, J, cs) where plan is not NULL.
 //
 // A split costs the partials' reduction over distributed shared memory
-// (128 KB a CTA), which took about as long as 8 chunks on an H100: at the
-// RVT-B Gen1 shapes, B = 1, C = 64-256 ran faster alone than split 2-8
-// ways (6.5 / 7.1 / 9.3 us against 9.5-10.9 us), C = 512 (16 chunks)
-// faster split 8 ways (9.4 against 13.5 us).
+// (128 KB a CTA), about as long as 8 chunks take on an H100: at the RVT-B
+// Gen1 shapes, B = 1, C = 64-256 (2-8 chunks) ran faster alone than
+// split, C = 512 (16 chunks) faster split 8 ways
+// (`python -m leod_tpu_torch.lstm_sweep` times each cluster size).
 constexpr int LSTM_SPLIT_SAVES = 8;
 template <int C, typename CT>
 cudaError_t launch_lstm(LstmArgs<CT> a, const void* x, const void* h,
