@@ -1383,11 +1383,11 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
 // the next tile's chunks while the consumers run the epilogue. Where
 // tiles are few and K is long (the plan in launch_lstm; at the RVT-B
 // shapes, C = 512), a cluster of CS CTAs (2, 4 or 8; the launch's cluster
-// dimension x) shares one tile and splits K: rank r takes chunks [r NK / CS, (r + 1) NK / CS), writes its
-// fp32 [BM, N] partial over its own ring, and after a cluster barrier
-// each rank sums the partials of BM / CS rows over distributed shared
-// memory in rank order (so launches agree bit for bit) and runs their
-// epilogue.
+// dimension x) shares one tile and splits K: rank r takes chunks
+// [r NK / CS, (r + 1) NK / CS), writes its fp32 [BM, N] partial over its
+// own ring, and after a cluster barrier each rank sums the partials of
+// BM / CS rows over distributed shared memory in rank order (so launches
+// agree bit for bit) and runs their epilogue.
 //
 // Bound: 16 R C^2 flops against 10 R C bytes of bf16 activations and
 // 16 C^2 of weights: bytes at C = 64-128 (about 1.6 C flops a byte,

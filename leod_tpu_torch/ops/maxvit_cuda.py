@@ -18,8 +18,8 @@ residual, LN2, MLP, LayerScale, residual, per token, on wgmma fed by TMA;
 where few tokens leave the card empty, a cluster of CTAs shares each
 row tile's hidden dim; plain version `block_mlp_plain`). `fused_stage` runs its pairs so
 and then the ConvLSTM update `lstm_update` (the gate product on wgmma fed
-by TMA, the gates in registers; where rows are few, a cluster of CTAs
-splits K; plain version `lstm_update_plain`). The kernels take bf16
+by TMA, the gates in registers; where rows are few and K long, a cluster
+of CTAs splits K; plain version `lstm_update_plain`). The kernels take bf16
 activations and weights and accumulate in fp32.
 """
 from __future__ import annotations
