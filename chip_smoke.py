@@ -13,11 +13,16 @@
    half `block_attention`, window and grid, the per-token half
    `block_mlp` and the ConvLSTM update `lstm_update`, each also at
    B = 1, where their plans of windows, heads, row tiles and clusters
-   differ, with the plan the launch took), and the NMS keep mask at
-   K = 1000. Each row carries
+   differ, with the plan the launch took; `lstm_update` also with every
+   cluster size its K takes, forced, and with c in fp32, by device
+   time), and the NMS keep
+   mask at K = 1000. Each row carries
    its bound (bytes or tensor-core operations). Timed with CUDA events
    (median of 20 runs after warm-up); "host_us" is the host time of one
-   wrapper call alone (what it costs the host to launch).
+   wrapper call alone (what it costs the host to launch). Beside the NMS
+   sweep's bound, its design's latency floor: K steps of a dependent
+   warp-shuffle chain, at the latency a one-warp probe (built beside the
+   kernels) measures with clock64 and %globaltimer.
 3. Slice phase: a seeded RVT-B Gen1 `Detector` behind `ServingEngine`
    answers requests from client threads, one of which forces an LRU
    eviction. Every kernel's launch count must rise by what the path
@@ -64,11 +69,48 @@ PEAK_FP32 = 67e12           # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bytes/s
 KERNEL_TOL = 2.0 ** -5
 SLICE_TOL = 2.0 ** -4
-# an assumed latency, in SM cycles, of one step of a dependent chain of
-# warp shuffles (not measured on the card): the NMS sweep's bound
-SHFL_CYCLES = 20
 REPS = 20
 PROFILE_STEPS = 10
+SHFL_STEPS = 1 << 16
+
+# One warp passes a value lane to lane through n dependent __shfl_sync,
+# each waiting on the one before, between two reads of clock64 and
+# %globaltimer: the latency of one step of the NMS sweep's shuffle chain.
+SHFL_PROBE = r"""
+#include <cuda_runtime.h>
+
+__global__ void shfl_chain_kernel(int n, long long* out) {
+  const int src = (threadIdx.x + 1) & 31;
+  unsigned v = threadIdx.x;
+  unsigned long long t0, t1;
+  __syncwarp();
+  const long long c0 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  for (int i = 0; i < n; i += 32) {
+#pragma unroll
+    for (int s = 0; s < 32; ++s) v = __shfl_sync(0xffffffffu, v, src);
+  }
+  asm volatile("" ::"r"(v) : "memory");   // the chain ends before the clocks
+  const long long c1 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1));
+  if (threadIdx.x == 0) {
+    out[0] = c1 - c0;
+    out[1] = static_cast<long long>(t1 - t0);
+    out[2] = v;
+  }
+}
+
+// out: SM cycles, ns and the chain's last value, of a second launch
+extern "C" int shfl_chain(int n, long long* out) {
+  long long* d = nullptr;
+  cudaError_t e = cudaMalloc(&d, 3 * sizeof(long long));
+  if (e != cudaSuccess) return e;
+  for (int r = 0; r < 2; ++r) shfl_chain_kernel<<<1, 32>>>(n, d);
+  e = cudaMemcpy(out, d, 3 * sizeof(long long), cudaMemcpyDeviceToHost);
+  cudaFree(d);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+"""
 
 
 def port_kernels():
@@ -82,14 +124,37 @@ def port_kernels():
     return tuple(sorted(names))
 
 
-def max_sm_clock_mhz() -> float:
-    """The card's highest SM clock, in MHz, as nvidia-smi reports it."""
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    return float(smi.stdout.split()[0])
+def shfl_latency(lib_path: str):
+    """(SM cycles, ns) of one step of a dependent warp-shuffle chain, from
+    SHFL_STEPS steps of the probe on the card."""
+    import ctypes
+    lib = ctypes.CDLL(lib_path)
+    out = (ctypes.c_longlong * 3)()
+    rc = lib.shfl_chain(ctypes.c_int(SHFL_STEPS), out)
+    if rc != 0:
+        fail(f"the shuffle probe failed: CUDA error {rc}")
+    return out[0] / SHFL_STEPS, out[1] / SHFL_STEPS
+
+
+def device_us(fn, kernel: str, reps: int = REPS) -> float:
+    """Mean device time of one launch of `kernel` in fn(), in us
+    (torch.profiler over reps calls after warm-up; fn launches it once)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and re.search(rf"\b{kernel}\b", e.name)]
+    if len(times) != reps:
+        fail(f"profiled {len(times)} launches of {kernel}, not {reps}")
+    return sum(times) / reps
 
 
 def fail(msg: str) -> None:
@@ -164,6 +229,16 @@ def compare(got, want, rel_tol: float):
     err = float((got - want).abs().max())
     tol = rel_tol * float(want.abs().max())
     return err, tol, err <= tol
+
+
+def compare_all(got, want, rel_tol: float):
+    """compare() over one output or a tuple of them: the error and
+    tolerance of the tensor nearest its tolerance, and whether all pass."""
+    if not isinstance(got, tuple):
+        return compare(got, want, rel_tol)
+    errs = [compare(a, b, rel_tol) for a, b in zip(got, want)]
+    err, tol, _ = max(errs, key=lambda e: e[0] / max(e[1], 1e-30))
+    return err, tol, all(e[2] for e in errs)
 
 
 # ---------------------------------------------------------------------------
@@ -247,10 +322,24 @@ def stage_work(pairs, gates, x, c_state):
 # Phases
 # ---------------------------------------------------------------------------
 
-def phase_build():
+def phase_build() -> str:
+    """Build the port's sources and, beside them, the shuffle probe;
+    returns the probe's library."""
     from leod_tpu_torch.ops import _build
     t0 = time.perf_counter()
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    probe = os.path.join(_build.BUILD_DIR, "shfl_chain.cu")
+    with open(probe, "w") as f:
+        f.write(SHFL_PROBE)
+    probe_lib = probe[:-3] + ".so"
+    nvcc = subprocess.Popen(
+        [_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-o", probe_lib, probe],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     paths = _build.build_all()
+    probe_log = nvcc.communicate(timeout=300)[0]
+    if nvcc.returncode != 0:
+        fail(f"nvcc failed for the shuffle probe:\n{probe_log}")
     dt = time.perf_counter() - t0
     for p in paths:
         with open(p + ".log") as f:
@@ -259,6 +348,7 @@ def phase_build():
                                                   or "Compiling entry" in ln))]
         emit({"build": os.path.relpath(p, REPO), "ptxas": report})
     emit({"build_seconds": round(dt, 3)})
+    return probe_lib
 
 
 def perturb_layerscale(det, seed: int) -> None:
@@ -275,7 +365,7 @@ def perturb_layerscale(det, seed: int) -> None:
                     p.copy_(torch.rand(p.shape, generator=g) * 0.4 + 0.1)
 
 
-def phase_kernels(det):
+def phase_kernels(det, probe_lib: str):
     import torch
     from leod_tpu_torch.ops import maxvit_cuda as mc
     from leod_tpu_torch.models import layers as lay
@@ -289,18 +379,12 @@ def phase_kernels(det):
     g = torch.Generator(device="cuda").manual_seed(1)
     h_in, w_in = bb.in_res_hw
     rows = {"fused_block_pair": [], "fused_stage": [], "block_attention": [],
-            "block_mlp": [], "lstm_update": []}
+            "block_mlp": [], "lstm_update": [], "lstm_update_clusters": [],
+            "lstm_update_c_fp32": []}
 
     def row(kern, plain, flops, nbytes, **extra):
         """One shape's entry: the kernel against its plain version."""
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        if isinstance(got, tuple):
-            errs = [compare(a, b, KERNEL_TOL) for a, b in zip(got, want)]
-            err, tol, _ = max(errs, key=lambda e: e[0] / max(e[1], 1e-30))
-            ok = all(e[2] for e in errs)
-        else:
-            err, tol, ok = compare(got, want, KERNEL_TOL)
+        err, tol, ok = compare_all(kern(), plain(), KERNEL_TOL)
         bms, by = bound(flops, nbytes, PEAK_BF16)
         return dict(extra, max_abs_err=err, tol=tol, ok=ok, ms=cuda_ms(kern),
                     plain_ms=cuda_ms(plain), host_us=enqueue_us(kern),
@@ -360,7 +444,9 @@ def phase_kernels(det):
 
         # the ConvLSTM update alone, from warm (h, c), at B and at B = 1,
         # whose plans differ: "plan" is (rows a tile, channels a tile,
-        # CTAs a cluster splitting K)
+        # CTAs a cluster splitting K). Then by its plan (cluster None) and
+        # with every cluster size its K chunks take, forced: the device
+        # time of a launch, the evidence for the plan's rule of splitting
         gates = stage.lstm.gates
         for bsz in (B, 1):
             xb, hb, cb = x[:bsz], hs[:bsz], cs[:bsz]
@@ -371,6 +457,35 @@ def phase_kernels(det):
                     *lstm_work(gates, xb, cb), shape=list(xb.shape))
             r["plan"] = list(mc.lstm_update.plan)
             rows["lstm_update"].append(r)
+            want = mc.lstm_update_plain(xb, hb, cb, gates)
+            for cl in (None, 1, 2, 4, 8):
+                if cl is not None and cl > max(2, 2 * dim // 64):
+                    continue
+
+                def kern(xb=xb, hb=hb, cb=cb, cl=cl):
+                    return mc.lstm_update(xb, hb, cb, gates, cluster=cl)
+
+                err, tol, ok = compare_all(kern(), want, KERNEL_TOL)
+                rows["lstm_update_clusters"].append(dict(
+                    shape=list(xb.shape), cluster=cl,
+                    plan=list(mc.lstm_update.plan),
+                    device_us=device_us(kern, "lstm_update_kernel"),
+                    max_abs_err=err, tol=tol, ok=ok))
+        # c in fp32 (off the serve path), at B: the kernel's accurate
+        # gates for c'; "c_rel_err" is |c' - plain| / max|plain|
+        cf = cs.float()
+
+        def kern_f(cf=cf):
+            return mc.lstm_update(x, hs, cf, gates)
+
+        got, want = kern_f(), mc.lstm_update_plain(x, hs, cf, gates)
+        err, tol, ok = compare_all(got, want, KERNEL_TOL)
+        rows["lstm_update_c_fp32"].append(dict(
+            shape=list(x.shape), device_us=device_us(kern_f,
+                                                     "lstm_update_kernel"),
+            max_abs_err=err, tol=tol, ok=ok,
+            c_rel_err=float((got[1] - want[1]).abs().max()
+                            / want[1].abs().max())))
 
         rows["fused_stage"].append(row(
             lambda: mc.fused_stage(x, hs, cs, pairs, gates, ps, True, **kw),
@@ -402,19 +517,22 @@ def phase_kernels(det):
     bms, by = bound(ops, nbytes, PEAK_FP32)
     # each kernel alone: nms_build_kernel does the IoU tests, reads the
     # boxes and class ids and writes the K x ceil(K/32) mask words;
-    # nms_sweep_kernel reads the mask and valid and writes keep, and its
-    # K steps are a dependent chain of warp shuffles, at SHFL_CYCLES a
-    # step and the card's highest SM clock
+    # nms_sweep_kernel reads the mask and valid and writes keep, its
+    # bound. Beside it, that design's latency floor (not a bound of the
+    # function): its K steps are a dependent chain of warp shuffles, at
+    # the latency the probe measures on this card
     mask_bytes = B * kk * ((kk + 31) // 32) * 4
     build_ms, build_by = bound(ops, B * kk * (16 + 4) + mask_bytes, PEAK_FP32)
-    chain_ms = kk * SHFL_CYCLES / (max_sm_clock_mhz() * 1e6) * 1e3
-    sweep_ms = (mask_bytes + 2 * B * kk) / PEAK_BYTES * 1e3 + chain_ms
+    sweep_ms = (mask_bytes + 2 * B * kk) / PEAK_BYTES * 1e3
+    shfl_cycles, shfl_ns = shfl_latency(probe_lib)
     nms_row = dict(shape=[B, kk, 4], max_abs_err=float(mismatches), tol=0.0,
                    ok=mismatches == 0, kept=int(keep_p.sum()),
                    ms=cuda_ms(nms_k), plain_ms=cuda_ms(nms_p), flops=ops,
                    bytes=nbytes, bound_ms=bms, bound_by=by,
                    build_bound_ms=build_ms, build_bound_by=build_by,
-                   sweep_bound_ms=sweep_ms, sweep_chain_ms=chain_ms)
+                   sweep_bound_ms=sweep_ms, sweep_bound_by="bytes",
+                   shfl_cycles=shfl_cycles, shfl_ns=shfl_ns,
+                   sweep_chain_floor_ms=kk * shfl_ns * 1e-6)
     return rows, nms_row
 
 
@@ -676,13 +794,14 @@ def main() -> int:
     from leod_tpu_torch.config import experiment_preset
     from leod_tpu_torch.models.detector import Detector
 
-    phase_build()
+    probe_lib = phase_build()
     cfg = experiment_preset("gen1", "base")
     det = Detector(cfg.model, device="cuda", seed=0)
     perturb_layerscale(det, seed=0)
-    rows, nms_row = phase_kernels(det)
+    rows, nms_row = phase_kernels(det, probe_lib)
     emit({"kernel_phase": {**rows, "nms_mask": [nms_row]}})
-    for name in ("block_attention", "block_mlp", "lstm_update"):
+    for name in ("block_attention", "block_mlp", "lstm_update",
+                 "lstm_update_clusters", "lstm_update_c_fp32"):
         if not all(r["ok"] for r in rows[name]):
             fail(f"{name} disagrees with its plain version: "
                  f"{[(r['shape'], r['max_abs_err'], r['tol']) for r in rows[name]]}")

@@ -53,6 +53,7 @@
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
 
 namespace {
 
@@ -1370,8 +1371,10 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
 // The gate epilogue runs in registers: in the m64nNk16 accumulator a
 // thread holds columns 8t + 2 (lane % 4) + {0, 1} for every t, so channel
 // j's f, i, o and g (columns j, J + j, 2J + j, 3J + j) sit in the same
-// thread. Bias in fp32, sigmoid and tanh, c' = f c + i g in fp32 and
-// h' = o tanh(c'), each rounded once and written in paired stores. The
+// thread. Bias in fp32, sigmoid and tanh (on the SFU where the result
+// reaches only bf16 outputs, accurate for c' in fp32: gate_tanh),
+// c' = f c + i g in fp32 and h' = o tanh(c'), each rounded once and
+// written in paired stores. The
 // producer brings each tile's c (a swizzled TMA box) and biases into one
 // of two epilogue buffers while the tile's products run, so the epilogue
 // waits on no load from device memory (read from global memory, each
@@ -1456,17 +1459,32 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "r"(smem_u32(bar)) : "memory");
 }
 
-// The gates' tanh and sigmoid on the SFU's tanh (about 2^-11 relative
-// error, far below a bf16 ulp of h'): sigmoid(v) = (1 + tanh(v/2)) / 2.
-// The plain version's accurate tanhf and expf, five an output, made the
-// epilogue the larger part of a launch.
+// The gates' tanh and sigmoid, ACCURATE (tanhf and expf, as the plain
+// version computes them) or on the SFU's tanh, with sigmoid(v) =
+// (1 + tanh(v/2)) / 2 (tanh.approx.f32: at most 2^-11 relative error).
+// The SFU serves whatever reaches only a bf16 output, whose ulp is far
+// coarser: h' always (o and tanh(c')), and c' where c is bf16. The
+// accurate tanhf and expf, five an output, made the epilogue the larger
+// part of a launch. An fp32 c' keeps fp32's accuracy: f, i and g are
+// accurate where c is fp32, and `test_lstm_update_kernel_matches_plain`
+// holds c' to 2^-18 · max|plain|, which the SFU's gates miss.
+template <bool ACCURATE>
 __device__ __forceinline__ float gate_tanh(float v) {
-  float y;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(v));
-  return y;
+  if constexpr (ACCURATE) {
+    return tanhf(v);
+  } else {
+    float y;
+    asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(v));
+    return y;
+  }
 }
+template <bool ACCURATE>
 __device__ __forceinline__ float gate_sigmoid(float v) {
-  return fmaf(0.5f, gate_tanh(0.5f * v), 0.5f);
+  if constexpr (ACCURATE) {
+    return sigmoid(v);
+  } else {
+    return fmaf(0.5f, gate_tanh<false>(0.5f * v), 0.5f);
+  }
 }
 
 // h' and c' of channels (cl, cl + 1) of the tile, row r of the tile
@@ -1486,15 +1504,16 @@ __device__ __forceinline__ void lstm_out2(const LstmArgs<CT>& p,
 #pragma unroll
   for (int g = 0; g < 4; ++g) bv[g] = load_pair(bias + g * S::J + cl);
   const float cprev[2] = {cp.x, cp.y};
+  constexpr bool C32 = std::is_same_v<CT, float>;   // c' in fp32
   float hn[2], cn[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
-    const float f = gate_sigmoid(mix[0][e] + (e ? bv[0].y : bv[0].x));
-    const float i = gate_sigmoid(mix[1][e] + (e ? bv[1].y : bv[1].x));
-    const float o = gate_sigmoid(mix[2][e] + (e ? bv[2].y : bv[2].x));
-    const float g = gate_tanh(mix[3][e] + (e ? bv[3].y : bv[3].x));
+    const float f = gate_sigmoid<C32>(mix[0][e] + (e ? bv[0].y : bv[0].x));
+    const float i = gate_sigmoid<C32>(mix[1][e] + (e ? bv[1].y : bv[1].x));
+    const float o = gate_sigmoid<false>(mix[2][e] + (e ? bv[2].y : bv[2].x));
+    const float g = gate_tanh<C32>(mix[3][e] + (e ? bv[3].y : bv[3].x));
     cn[e] = f * cprev[e] + i * g;
-    hn[e] = o * gate_tanh(cn[e]);
+    hn[e] = o * gate_tanh<false>(cn[e]);
   }
   const size_t idx = static_cast<size_t>(row) * C + j0 + cl;
   store_pair(p.h_out + idx, hn[0], hn[1]);
@@ -1943,8 +1962,8 @@ bool mlp_cluster_ok(int C, int inner, int gated, int cluster) {
 // A split costs the partials' reduction over distributed shared memory
 // (128 KB a CTA), about as long as 8 chunks take on an H100: at the RVT-B
 // Gen1 shapes, B = 1, C = 64-256 (2-8 chunks) ran faster alone than
-// split, C = 512 (16 chunks) faster split 8 ways
-// (`python -m leod_tpu_torch.lstm_sweep` times each cluster size).
+// split, C = 512 (16 chunks) faster split 8 ways (`chip_smoke.py`'s
+// kernel phase times each cluster size, "lstm_update_clusters").
 constexpr int LSTM_SPLIT_SAVES = 8;
 template <int C, typename CT>
 cudaError_t launch_lstm(LstmArgs<CT> a, const void* x, const void* h,
