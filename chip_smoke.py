@@ -5,8 +5,17 @@
 
 1. Build: every CUDA source under leod_tpu_torch/csrc/ is compiled with
    nvcc for sm_90a, one nvcc per source, all started together.
+
+Phases 2-4 run for two paths in turn, each a seeded model at full width
+and depth: RVT-B Gen1 (`experiment_preset("gen1", "base")`: stages
+64/128/256/512, heads of 32) and RVT-S Gen1 (`experiment_preset("gen1",
+"small")`: stages 48/96/192/384, heads of 24). RVT-S's kernel phase
+leaves out what RVT-B's measures of the kernels' plans and variants
+(the forced cluster sizes, the fp32 cell state, the NMS build's row
+source, the shuffle probe), never a width or a shape.
+
 2. Kernel phase: each kernel's wrapper against its plain PyTorch version
-   on the card, on the same inputs, at the RVT-B Gen1 shapes the serving
+   on the card, on the same inputs, at the Gen1 shapes the serving
    path gives it (B = 8 slots): the partition-attention block pair and
    the whole stage at all four stage shapes, from warm non-zero (h, c),
    each kernel of a stage alone at the same four shapes (the attention
@@ -16,19 +25,22 @@
    differ, with the plan the launch took; `lstm_update` also with every
    cluster size its K takes, forced, and with c in fp32, by device
    time), and the NMS keep
-   mask at K = 1000. Each row carries
+   mask at K = 1000 (with the mask build's row boxes staged in shared
+   memory, and read from L2: its device time both ways, at B = 8 and 1).
+   Each row carries
    its bound (bytes or tensor-core operations). Timed with CUDA events
    (median of 20 runs after warm-up); "host_us" is the host time of one
    wrapper call alone (what it costs the host to launch). Beside the NMS
    sweep's bound, its design's latency floor: K steps of a dependent
    warp-shuffle chain, at the latency a one-warp probe (built beside the
    kernels) measures with clock64 and %globaltimer.
-3. Slice phase: a seeded RVT-B Gen1 `Detector` behind `ServingEngine`
+3. Slice phase: the path's seeded `Detector` behind `ServingEngine`
    answers requests from client threads, one of which forces an LRU
    eviction. Every kernel's launch count must rise by what the path
    implies per step. One step through the plain versions is held
-   against the kernel step, at B = 8 and at B = 1, and the step is
-   timed at B = 1 and B = 8.
+   against the kernel step, at B = 8 and at B = 1, the NMS keep mask of
+   the kernel step's own top-k candidates is held exactly against the
+   plain NMS on them, and the step is timed at B = 1 and B = 8.
 
 Tolerances, fixed before any run: the kernels compute in bf16 with fp32
 accumulation and round at other points than the plain bf16 version
@@ -46,9 +58,11 @@ switched off for the fp32 products of the plain ConvLSTM update.
    `__global__` kernel in leod_tpu_torch/csrc/ must show up in the
    profiled steps.
 
-Prints the kernels' JSON line, the card's name and power limit, and the
-result JSON as the last line. Any failure exits non-zero; so does a
-machine without a CUDA device, or a directory without the package.
+Prints the kernels' JSON line (each kernel wrapper of each path: its
+RVT-B entry under its own name, its RVT-S entry as "<name>[RVT-S]"),
+the card's name and power limit, and the result JSON as the last line.
+Any failure exits non-zero; so does a machine without a CUDA device, or
+a directory without the package.
 """
 from __future__ import annotations
 
@@ -71,6 +85,11 @@ KERNEL_TOL = 2.0 ** -5
 SLICE_TOL = 2.0 ** -4
 REPS = 20
 PROFILE_STEPS = 10
+# torch.profiler may lose a window's device events (seen with CUDA 12.8
+# on an H100: a first profiling session that recorded no launch at all, a
+# B = 1 window short of 7 events a step): a measurement is taken again
+# when its events are incomplete, at most this many times in all
+PROFILE_TRIES = 3
 SHFL_STEPS = 1 << 16
 
 # One warp passes a value lane to lane through n dependent __shfl_sync,
@@ -138,23 +157,27 @@ def shfl_latency(lib_path: str):
 
 def device_us(fn, kernel: str, reps: int = REPS) -> float:
     """Mean device time of one launch of `kernel` in fn(), in us
-    (torch.profiler over reps calls after warm-up; fn launches it once)."""
+    (torch.profiler over reps calls after warm-up; fn launches it once).
+    A window that recorded another number of launches than reps is
+    profiled again (PROFILE_TRIES)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and re.search(rf"\b{kernel}\b", e.name)]
-    if len(times) != reps:
-        fail(f"profiled {len(times)} launches of {kernel}, not {reps}")
-    return sum(times) / reps
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and re.search(rf"\b{kernel}\b", e.name)]
+        if len(times) == reps:
+            return sum(times) / reps
+    fail(f"profiled {len(times)} launches of {kernel}, not {reps}, "
+         f"{PROFILE_TRIES} times")
 
 
 def fail(msg: str) -> None:
@@ -365,7 +388,11 @@ def perturb_layerscale(det, seed: int) -> None:
                     p.copy_(torch.rand(p.shape, generator=g) * 0.4 + 0.1)
 
 
-def phase_kernels(det, probe_lib: str):
+def phase_kernels(det, probe_lib):
+    """Every kernel against its plain version at the model's stage shapes.
+    With probe_lib None (the second path) it leaves out the plan and
+    variant measurements: forced LSTM clusters, fp32 c, the NMS build's
+    row source, and the shuffle probe."""
     import torch
     from leod_tpu_torch.ops import maxvit_cuda as mc
     from leod_tpu_torch.models import layers as lay
@@ -428,7 +455,7 @@ def phase_kernels(det, probe_lib: str):
                 r = row(lambda xb=xb, blk=blk, grid_kind=grid_kind:
                         mc.block_attention(xb, blk, grid_kind, kw["eps"]),
                         attn_p, *attn_work(blk, xb.shape[0] * n_tok // B),
-                        shape=list(xb.shape),
+                        shape=list(xb.shape), batch=bsz,
                         kind="grid" if grid_kind else "window")
                 r["plan"] = list(mc.block_attention.plan)
                 rows["block_attention"].append(r)
@@ -438,7 +465,8 @@ def phase_kernels(det, probe_lib: str):
             r = row(lambda xr=xr, ob=ob: mc.block_mlp(
                         xr, ob, wb, kw["act"], kw["gated"], kw["eps"]),
                     lambda xr=xr, ob=ob: mc.block_mlp_plain(xr, ob, wb),
-                    *mlp_work(wb, xr.shape[0]), shape=list(xr.shape))
+                    *mlp_work(wb, xr.shape[0]), shape=list(xr.shape),
+                    batch=bsz)
             r["plan"] = mc.block_mlp.plan
             rows["block_mlp"].append(r)
 
@@ -454,9 +482,12 @@ def phase_kernels(det, probe_lib: str):
                                                                gates),
                     lambda xb=xb, hb=hb, cb=cb: mc.lstm_update_plain(
                         xb, hb, cb, gates),
-                    *lstm_work(gates, xb, cb), shape=list(xb.shape))
+                    *lstm_work(gates, xb, cb), shape=list(xb.shape),
+                    batch=bsz)
             r["plan"] = list(mc.lstm_update.plan)
             rows["lstm_update"].append(r)
+            if probe_lib is None:
+                continue
             want = mc.lstm_update_plain(xb, hb, cb, gates)
             for cl in (None, 1, 2, 4, 8):
                 if cl is not None and cl > max(2, 2 * dim // 64):
@@ -478,14 +509,15 @@ def phase_kernels(det, probe_lib: str):
         def kern_f(cf=cf):
             return mc.lstm_update(x, hs, cf, gates)
 
-        got, want = kern_f(), mc.lstm_update_plain(x, hs, cf, gates)
-        err, tol, ok = compare_all(got, want, KERNEL_TOL)
-        rows["lstm_update_c_fp32"].append(dict(
-            shape=list(x.shape), device_us=device_us(kern_f,
-                                                     "lstm_update_kernel"),
-            max_abs_err=err, tol=tol, ok=ok,
-            c_rel_err=float((got[1] - want[1]).abs().max()
-                            / want[1].abs().max())))
+        if probe_lib is not None:
+            got, want = kern_f(), mc.lstm_update_plain(x, hs, cf, gates)
+            err, tol, ok = compare_all(got, want, KERNEL_TOL)
+            rows["lstm_update_c_fp32"].append(dict(
+                shape=list(x.shape), device_us=device_us(
+                    kern_f, "lstm_update_kernel"),
+                max_abs_err=err, tol=tol, ok=ok,
+                c_rel_err=float((got[1] - want[1]).abs().max()
+                                / want[1].abs().max())))
 
         rows["fused_stage"].append(row(
             lambda: mc.fused_stage(x, hs, cs, pairs, gates, ps, True, **kw),
@@ -511,6 +543,19 @@ def phase_kernels(det, probe_lib: str):
     keep_k, keep_p = nms_k(), nms_p()
     torch.cuda.synchronize()
     mismatches = int((keep_k != keep_p).sum())
+    # the mask build's row boxes staged in shared memory (the wrapper's
+    # way) or read from L2: device us of nms_build_kernel a launch, at
+    # B and at B = 1, and the keep mask of each (exact)
+    build_rows = []
+    for bsz in ((B, 1) if probe_lib is not None else ()):
+        for l2 in (False, True):
+            def fn(bsz=bsz, l2=l2):
+                return nms_cuda.nms_mask(boxes[:bsz], thr, valid[:bsz],
+                                         ids[:bsz], rows_from_l2=l2)
+            mismatches += int((fn() != keep_p[:bsz]).sum())
+            build_rows.append(dict(batch=bsz, rows_from_l2=l2,
+                                   device_us=device_us(fn,
+                                                       "nms_build_kernel")))
     # per image: K (K-1) / 2 IoU tests of ~13 fp32 operations each
     ops = B * kk * (kk - 1) / 2 * 13
     nbytes = B * kk * (16 + 1 + 4 + 1)
@@ -524,24 +569,29 @@ def phase_kernels(det, probe_lib: str):
     mask_bytes = B * kk * ((kk + 31) // 32) * 4
     build_ms, build_by = bound(ops, B * kk * (16 + 4) + mask_bytes, PEAK_FP32)
     sweep_ms = (mask_bytes + 2 * B * kk) / PEAK_BYTES * 1e3
-    shfl_cycles, shfl_ns = shfl_latency(probe_lib)
     nms_row = dict(shape=[B, kk, 4], max_abs_err=float(mismatches), tol=0.0,
                    ok=mismatches == 0, kept=int(keep_p.sum()),
                    ms=cuda_ms(nms_k), plain_ms=cuda_ms(nms_p), flops=ops,
                    bytes=nbytes, bound_ms=bms, bound_by=by,
                    build_bound_ms=build_ms, build_bound_by=build_by,
                    sweep_bound_ms=sweep_ms, sweep_bound_by="bytes",
-                   shfl_cycles=shfl_cycles, shfl_ns=shfl_ns,
-                   sweep_chain_floor_ms=kk * shfl_ns * 1e-6)
+                   build_rows=build_rows)
+    if probe_lib is not None:
+        shfl_cycles, shfl_ns = shfl_latency(probe_lib)
+        nms_row.update(shfl_cycles=shfl_cycles, shfl_ns=shfl_ns,
+                       sweep_chain_floor_ms=kk * shfl_ns * 1e-6)
     return rows, nms_row
 
 
 def _summary(name, replaces, source, shape_rows, launches, peak_ops):
     """One kernel's entry: times, work and bound summed over the shapes
-    one serve step gives it; the worst error relative to its tolerance."""
+    one B-slot serve step gives it (the rows at batch B, where a kernel
+    was also run at B = 1); the worst error relative to its tolerance
+    over every row."""
     worst = max(shape_rows, key=lambda r: r["max_abs_err"] / max(r["tol"],
                                                                  1e-30))
-    tot = {k: sum(r[k] for r in shape_rows)
+    step_rows = [r for r in shape_rows if r.get("batch", B) == B]
+    tot = {k: sum(r[k] for r in step_rows)
            for k in ("ms", "plain_ms", "flops", "bytes")}
     bms, by = bound(tot["flops"], tot["bytes"], peak_ops)
     return {"name": name, "route": "cuda", "source": source,
@@ -662,6 +712,22 @@ def phase_slice(det, cfg):
             if not ok:
                 fail(f"slice parity {tag + name}: |kernel - plain| {err} > "
                      f"{tol}")
+    # the NMS keep mask of the kernel step's own top-k candidates, kernel
+    # against the plain NMS on the same boxes: exact
+    from leod_tpu_torch.ops.nms import nms_mask as nms_plain
+    from leod_tpu_torch.ops.nms import topk_candidates
+    pp = cfg.model.postprocess
+    feats, _ = det.forward_backbone(ev, st0)
+    preds, _ = det.forward_detect(feats)
+    _, bx, ok_rows, ids, _ = topk_candidates(
+        preds, cfg.model.head.num_classes, 0.0, pp.pre_nms_topk)
+    keep_k = nms_cuda.nms_mask(bx, pp.nms_threshold, ok_rows, ids)
+    keep_p = nms_plain(bx, pp.nms_threshold, ok_rows, ids)
+    nms_check = {"shape": list(bx.shape), "kept": int(keep_p.sum()),
+                 "mismatches": int((keep_k != keep_p).sum())}
+    if nms_check["mismatches"]:
+        fail(f"the step's NMS keep mask differs from the plain NMS on "
+             f"its candidates: {nms_check}")
     k_step = step(st0, ev, reset, active)
     plain_step = make_serve_step(det, conf_threshold=0.0, plain=True)
     p_step = plain_step(st0, ev, reset, active)
@@ -690,7 +756,7 @@ def phase_slice(det, cfg):
     st = det.init_states(B)
     timing[f"plain_step_ms_b{B}"] = host_ms(
         lambda: plain_step(st, evb, flags, flags), reps=10)
-    return launches, steps, stats, parity, timing
+    return launches, steps, stats, parity, timing, nms_check
 
 
 def _busy_us(spans) -> float:
@@ -708,12 +774,21 @@ def phase_profile(det, cfg, timing):
     """Where a serve step's time goes: torch.profiler over PROFILE_STEPS
     steps at B = 1 and B. The device-busy time per step is the union of
     the device events' intervals; the idle share is measured against the
-    unprofiled step time of the slice phase."""
+    unprofiled step time of the slice phase. A window whose port-kernel
+    events fall short of the launches the wrappers counted in it (one a
+    call; two, build and sweep, a `nms_mask` call) lost events and is
+    profiled again (PROFILE_TRIES)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
     from leod_tpu_torch.serve import make_serve_step, serve_input_shape
+
+    kernels_a_call = [(w, 1) for w in (maxvit_cuda.block_attention,
+                                       maxvit_cuda.block_mlp,
+                                       maxvit_cuda.lstm_update)]
+    kernels_a_call.append((nms_cuda.nms_mask, 2))
 
     step = make_serve_step(det, conf_threshold=0.0)
     shape = serve_input_shape(cfg, 1)[1:]
@@ -729,13 +804,23 @@ def phase_profile(det, cfg, timing):
         for _ in range(3):
             step(st, ev, flags, flags)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILE_STEPS):
-                step(st, ev, flags, flags)
-            torch.cuda.synchronize()
-        dev_events = [e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA]
+        for tries in range(1, PROFILE_TRIES + 1):
+            before = sum(w.launches * n for w, n in kernels_a_call)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(PROFILE_STEPS):
+                    step(st, ev, flags, flags)
+                torch.cuda.synchronize()
+            launched = sum(w.launches * n for w, n in kernels_a_call) - before
+            dev_events = [e for e in prof.events()
+                          if e.device_type == DeviceType.CUDA]
+            seen = sum(1 for e in dev_events if any(
+                re.search(rf"\b{k}\b", e.name) for k in kernels))
+            if seen == launched:
+                break
+        else:
+            fail(f"the profiled B = {bsz} steps recorded {seen} port-kernel "
+                 f"launches of {launched}, {PROFILE_TRIES} times")
         by_name = {}
         for e in dev_events:
             tot = by_name.setdefault(e.name, [0.0, 0])
@@ -764,6 +849,7 @@ def phase_profile(det, cfg, timing):
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
         out[f"b{bsz}"] = {
             "step_ms": step_ms,
+            "profile_tries": tries,
             "device_busy_ms_per_step": busy_ms if dev_events else None,
             "idle_share": 1 - busy_ms / step_ms if dev_events else None,
             "port_kernels_ms_per_step": port_ms / PROFILE_STEPS,
@@ -774,6 +860,57 @@ def phase_profile(det, cfg, timing):
             "device_events_per_step": len(dev_events) / PROFILE_STEPS,
             "top": [{"name": n[:90], "ms_per_step": v[0] / 1e3 / PROFILE_STEPS,
                      "per_step": v[1] / PROFILE_STEPS} for n, v in top]}
+    return out
+
+
+# (tag, experiment_preset size) of the paths driven, in order
+PATHS = (("RVT-B", "base"), ("RVT-S", "small"))
+
+
+def drive_path(tag: str, size: str, probe_lib):
+    """Phases 2-4 for one Gen1 model at full width and depth; returns its
+    kernels' entries of the JSON line."""
+    import torch
+    from leod_tpu_torch.config import experiment_preset
+    from leod_tpu_torch.models.detector import Detector
+
+    cfg = experiment_preset("gen1", size)
+    name = f"{tag} gen1 (experiment_preset('gen1', '{size}'))"
+    det = Detector(cfg.model, device="cuda", seed=0)
+    perturb_layerscale(det, seed=0)
+    rows, nms_row = phase_kernels(det, probe_lib)
+    emit({"kernel_phase": {"config": name, **rows, "nms_mask": [nms_row]}})
+    for kind in ("block_attention", "block_mlp", "lstm_update",
+                 "lstm_update_clusters", "lstm_update_c_fp32"):
+        if not all(r["ok"] for r in rows[kind]):
+            fail(f"{tag} {kind} disagrees with its plain version: "
+                 f"{[(r['shape'], r['max_abs_err'], r['tol']) for r in rows[kind]]}")
+    launches, steps, stats, parity, timing, nms_check = phase_slice(det, cfg)
+    emit({"slice": {"config": name, "slots": B, "steps": steps,
+                    "launches": launches, "parity": parity, **timing,
+                    "nms_keep_check": nms_check, "engine_stats": stats,
+                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}})
+    emit({"profile": {"config": name, **phase_profile(det, cfg, timing)}})
+
+    suffix = "" if tag == "RVT-B" else f"[{tag}]"
+    src, pallas = "leod_tpu_torch/csrc/maxvit.cu", "leod_tpu/ops/maxvit_pallas.py"
+    entries = [
+        ("fused_block_pair", f"{pallas}:254", src, rows["fused_block_pair"],
+         PEAK_BF16),
+        ("fused_stage", f"{pallas}:206", src, rows["fused_stage"], PEAK_BF16),
+        ("block_attention", f"{pallas}:62", src, rows["block_attention"],
+         PEAK_BF16),
+        ("block_mlp", f"{pallas}:92", src, rows["block_mlp"], PEAK_BF16),
+        ("lstm_update", f"{pallas}:163", src, rows["lstm_update"], PEAK_BF16),
+        ("nms_mask", "leod_tpu/ops/nms_pallas.py:65",
+         "leod_tpu_torch/csrc/nms.cu", [nms_row], PEAK_FP32)]
+    out = []
+    for kname, replaces, source, shape_rows, peak in entries:
+        e = _summary(kname + suffix, replaces, source, shape_rows,
+                     launches[kname], peak)
+        e["config"] = name
+        out.append(e)
+    del det
     return out
 
 
@@ -791,39 +928,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from leod_tpu_torch.config import experiment_preset
-    from leod_tpu_torch.models.detector import Detector
-
     probe_lib = phase_build()
-    cfg = experiment_preset("gen1", "base")
-    det = Detector(cfg.model, device="cuda", seed=0)
-    perturb_layerscale(det, seed=0)
-    rows, nms_row = phase_kernels(det, probe_lib)
-    emit({"kernel_phase": {**rows, "nms_mask": [nms_row]}})
-    for name in ("block_attention", "block_mlp", "lstm_update",
-                 "lstm_update_clusters", "lstm_update_c_fp32"):
-        if not all(r["ok"] for r in rows[name]):
-            fail(f"{name} disagrees with its plain version: "
-                 f"{[(r['shape'], r['max_abs_err'], r['tol']) for r in rows[name]]}")
-    launches, steps, stats, parity, timing = phase_slice(det, cfg)
-    emit({"slice": {"config": "RVT-B gen1 (experiment_preset('gen1', "
-                              "'base'))", "slots": B, "steps": steps,
-                    "launches": launches, "parity": parity, **timing,
-                    "engine_stats": stats,
-                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}})
-    emit({"profile": phase_profile(det, cfg, timing)})
-
-    kernels = [
-        _summary("fused_block_pair", "leod_tpu/ops/maxvit_pallas.py:254",
-                 "leod_tpu_torch/csrc/maxvit.cu", rows["fused_block_pair"],
-                 launches["fused_block_pair"], PEAK_BF16),
-        _summary("fused_stage", "leod_tpu/ops/maxvit_pallas.py:206",
-                 "leod_tpu_torch/csrc/maxvit.cu", rows["fused_stage"],
-                 launches["fused_stage"], PEAK_BF16),
-        _summary("nms_mask", "leod_tpu/ops/nms_pallas.py:65",
-                 "leod_tpu_torch/csrc/nms.cu", [nms_row],
-                 launches["nms_mask"], PEAK_FP32),
-    ]
+    kernels = []
+    for tag, size in PATHS:
+        kernels += drive_path(tag, size, probe_lib if tag == "RVT-B" else None)
+        torch.cuda.empty_cache()
     emit({"kernels": kernels})
     bad = [k["name"] for k in kernels if not k["ok"]]
     if bad:

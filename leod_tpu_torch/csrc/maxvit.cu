@@ -59,9 +59,24 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int DH = 32;            // dim_head
-
 constexpr size_t kMaxSmem = 227 * 1024;
+
+// The K-block of a C-deep operand: the largest of 64, 32 and 16 columns
+// that divides C (its rows are 128, 64 or 32 bytes, the swizzle). RVT-T
+// and RVT-B (C = 32-512) take 64, or 32 at C = 32; RVT-S (48-384) takes
+// 16 at C = 48 and 32 at C = 96.
+__host__ __device__ constexpr int kblock(int c) {
+  return c % 64 == 0 ? 64 : (c % 32 == 0 ? 32 : 16);
+}
+
+// K-blocks one ring stage of `stage` bytes holds of an n0-row operand
+// with rows of `sw` bytes: the largest divisor of nkb that fits
+__host__ __device__ constexpr int kblocks_per_stage(int stage, int n0, int sw,
+                                                    int nkb) {
+  int k = stage / (n0 * sw) < nkb ? stage / (n0 * sw) : nkb;
+  while (nkb % k) --k;
+  return k;
+}
 
 __device__ __forceinline__ float f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float opt(const bf16* p, int i) {
@@ -101,8 +116,8 @@ __device__ __forceinline__ float activate(float v, int act) {
 // reach device memory (flash attention's P.V pattern). Consumer
 // warpgroups (one, or two at C = 512, each owning C / NWG output
 // columns) issue wgmma.mma_async; one producer warp streams every weight
-// tile through a ring of NS stages per warpgroup with TMA (128- or
-// 64-byte swizzle, matching the wgmma descriptors), full/empty mbarriers.
+// tile through a ring of NS stages per warpgroup with TMA (128-, 64- or
+// 32-byte swizzle, matching the wgmma descriptors), full/empty mbarriers.
 //
 // Shared memory at C = 512: the A tile (64 KB), 2 warpgroups x 2 stages
 // of 32 KB, two 8 KB H tiles; the fp32 partial of a cluster's reduction
@@ -117,13 +132,13 @@ template <int C>
 struct MlpShape {
   static constexpr int NWG = C > 256 ? 2 : 1;   // consumer warpgroups
   static constexpr int NW = C / NWG;            // output columns of each
-  static constexpr int KB = C >= 64 ? 64 : 32;  // K-block of a C-deep operand
+  static constexpr int KB = kblock(C);          // K-block of a C-deep operand
   static constexpr int NKB = C / KB;
   static constexpr int SW = KB * 2;             // its swizzle (= row) bytes
   static constexpr int NS = C > 256 ? 2 : 4;    // ring stages per warpgroup
   static constexpr int STAGE = NW * 128;        // bytes of one stage
   static constexpr int THREADS = NWG * 128 + 32;
-  static constexpr int MINB = C >= 256 ? 1 : (C == 128 ? 2 : 3);
+  static constexpr int MINB = C >= 192 ? 1 : (C >= 96 ? 2 : 3);
   static constexpr int RING = 128 * C;          // offset of the ring (after A)
   static constexpr int HOFF = RING + NWG * NS * STAGE;
   static constexpr int BOFF = HOFF + 2 * MLP_HBUF;
@@ -143,18 +158,19 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // Byte offset of byte `b` of row `r` in a K-block whose rows are `sw`
 // bytes, swizzled as TMA's SWIZZLE_<sw>B writes it (16-byte chunks XORed
-// with the row's position in its 1024- or 512-byte atom).
+// with the row's position in its 1024-, 512- or 256-byte atom).
 __device__ __forceinline__ uint32_t swz(int r, int b, int sw) {
   const uint32_t o = static_cast<uint32_t>(r * sw + b);
   return o ^ (((o >> 7) & static_cast<uint32_t>(sw / 16 - 1)) << 4);
 }
 
 // wgmma descriptor of a K-major tile in that layout: rows of `sw` bytes,
-// 8-row groups `8 * sw` bytes apart (SBO), LBO unused when swizzled.
+// 8-row groups `8 * sw` bytes apart (SBO), LBO unused when swizzled;
+// layout type 1, 2 or 3 for the 128-, 64- or 32-byte swizzle.
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, int sw) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          (static_cast<uint64_t>(sw / 2) << 32) |
-         (static_cast<uint64_t>(sw == 128 ? 1 : 2) << 62);
+         (static_cast<uint64_t>(sw == 128 ? 1 : (sw == 64 ? 2 : 3)) << 62);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -349,6 +365,76 @@ __device__ __forceinline__ void wgmma_ss<256>(float* d, uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_ss<24>(float* d, uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<48>(float* d, uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<72>(float* d, uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35}, %36, %37, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<192>(float* d, uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
@@ -403,7 +489,7 @@ __device__ void mlp_produce(const CUtensorMap* m_proj, const CUtensorMap* m_in,
   using S = MlpShape<C>;
   const int hc = gated ? 32 : 64;       // hidden units per chunk
   const int hr = hc / S::NWG;           // of them, per warpgroup
-  const int kpt = S::STAGE / (n0 * S::SW) < S::NKB ? S::STAGE / (n0 * S::SW) : S::NKB;
+  const int kpt = kblocks_per_stage(S::STAGE, n0, S::SW, S::NKB);
   const int tiles = first ? S::NKB / kpt : 2 * (j1 - j0);
   for (int t = 0; t < tiles; ++t) {
     for (int w = 0; w < S::NWG; ++w) {
@@ -450,7 +536,7 @@ __device__ __forceinline__ void mlp_project(const MlpArgs& p,
                                             int q2, int& stage,
                                             uint32_t& phase) {
   using S = MlpShape<C>;
-  constexpr int KPT = S::STAGE / (N0 * S::SW) < S::NKB ? S::STAGE / (N0 * S::SW) : S::NKB;
+  constexpr int KPT = kblocks_per_stage(S::STAGE, N0, S::SW, S::NKB);
   float acc[N0 / 2];
 #pragma unroll
   for (int i = 0; i < N0 / 2; ++i) acc[i] = 0.f;
@@ -591,15 +677,18 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
   consumer_sync(NCT);
 
   // 2. projection and residual for this CTA's columns, y rows to `out`
+  // (a cluster size is taken only where each CTA's share of a warpgroup's
+  // columns is a multiple of 8, wgmma's N step: mlp_cluster_ok)
   if (cs == 1) {
     mlp_project<C, S::NW>(p, smem, full, empty, w, col0, row0, wr, q2, stage, phase);
   } else if (cs == 2) {
-    mlp_project<C, S::NW / 2>(p, smem, full, empty, w, col0, row0, wr, q2, stage, phase);
+    if constexpr (S::NW % 16 == 0)
+      mlp_project<C, S::NW / 2>(p, smem, full, empty, w, col0, row0, wr, q2, stage, phase);
   } else if (cs == 4) {
-    if constexpr (S::NW / 4 >= 8)
+    if constexpr (S::NW % 32 == 0)
       mlp_project<C, S::NW / 4>(p, smem, full, empty, w, col0, row0, wr, q2, stage, phase);
   } else {
-    if constexpr (S::NW / 8 >= 8)
+    if constexpr (S::NW % 64 == 0)
       mlp_project<C, S::NW / 8>(p, smem, full, empty, w, col0, row0, wr, q2, stage, phase);
   }
   if (cs == 1) {
@@ -856,33 +945,36 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
 // heads. Each window's T tokens take TP = T rounded up to 16 rows of a
 // token tile (64-row slices, wgmma's M), gathered from NHWC through the
 // window or grid index map and normalized once, in bf16, swizzled as the
-// wgmma descriptors read it. Per head, q|k|v (96 columns) is one wgmma
-// product a 64-row slice, N = 96, whose weight rows stream in K-blocks
-// by TMA through a ring (one producer warp, full/empty mbarriers); each
-// weight tile serves two slices of the CTA's windows (one a warpgroup
-// where two warpgroups share the tile). Bias in fp32 and one rounding
-// give bf16 q, k, v tiles of 64-byte rows (XOR-swizzled for ldmatrix).
+// wgmma descriptors read it. Per head, q|k|v (3 DH columns: 96 at
+// dim_head DH = 32, 72 at DH = 24) is one wgmma product a 64-row slice,
+// whose weight rows stream in K-blocks by TMA through a ring (one
+// producer warp, full/empty mbarriers); each weight tile serves two
+// slices of the CTA's windows (one a warpgroup where two warpgroups
+// share the tile). Bias in fp32 and one rounding give bf16 q, k, v
+// tiles of 64-byte rows (XOR-swizzled for ldmatrix; at DH = 24 columns
+// 24-31 of q and k hold zeros, so that q k^T runs as two k16 steps).
 // Each warp then takes 16-query blocks: S = q k^T on mma.sync m16n8k16
 // fed by ldmatrix, the softmax over the T real keys in fp32 registers,
 // P rounded to bf16 and reused from the registers as the A operand of
-// P v (flash attention 2's layout), so S and P never touch shared
-// memory. O, rounded once, goes over the block's q rows and leaves in
-// 16-byte stores to the tokens' NHWC rows.
+// P v (flash attention 2's layout; DH / 8 n8 tiles), so S and P never
+// touch shared memory. O, rounded once, goes over the block's q rows and
+// leaves in 16-byte stores to the tokens' NHWC rows.
 //
 // The head groups of one window group form a cluster (grid x): CTA r
 // normalizes the r-th block of the tile's rows into its own tile, and
 // the bulk-copy engine copies the block into every peer's tile over
 // distributed shared memory, so LN1 runs once per token per launch.
 
-template <int C>
+template <int C, int DH>
 struct AttnShape {
-  static constexpr int KB = C >= 64 ? 64 : 32;   // K-block of the q|k|v product
+  static_assert(DH == 32 || DH == 24, "dim_head 32 or 24");
+  static constexpr int KB = kblock(C);           // K-block of the q|k|v product
   static constexpr int SW = KB * 2;              // its swizzle (= row) bytes
   static constexpr int NKB = C / KB;
   static constexpr int QKV_N = 3 * DH;           // a head's q|k|v: one wgmma's N
   // 64-row slices of the token tile; with q, k and v (3 x 64 bytes a
   // row) and the ring they keep two CTAs an SM below C = 256
-  static constexpr int NMT = C == 32 ? 5 : (C == 64 ? 4 : (C == 128 ? 3 : 2));
+  static constexpr int NMT = C <= 48 ? 5 : (C <= 96 ? 4 : (C <= 128 ? 3 : 2));
   static constexpr int MP = NMT * 64;
   // consumer warpgroups: two where one CTA fills an SM (C >= 256), so
   // that eight warps share the gather and the attention, a slice each
@@ -893,9 +985,11 @@ struct AttnShape {
   // slices a warpgroup accumulates at once (48 fp32 registers each); a
   // head's weights stream once per such pass
   static constexpr int MG = NWG == 1 ? 2 : 1;
-  // K-blocks a ring stage, and stages, as deep as shared memory allows
-  static constexpr int KPS = C == 256 ? 2 : 1;
-  static constexpr int NS = C == 32 || C >= 256 ? 4 : 2;
+  // K-blocks a ring stage (a divisor of NKB), and stages, as deep as
+  // shared memory allows
+  static constexpr int KPS = C == 256 || C == 384 ? 2 : 1;
+  static constexpr int NS = C <= 48 || C >= 256 ? 4 : 2;
+  static_assert(NKB % KPS == 0, "a ring stage holds whole K-blocks");
   static constexpr int STAGE = QKV_N * KPS * SW;
   static constexpr int RING = MP * C * 2;        // after the token tile
   static constexpr int QKV = MP * 64;            // bytes of one of q, k, v
@@ -973,13 +1067,18 @@ __device__ __forceinline__ float ex2(float x) {
 // LPR lanes of 16-byte chunks (a warp takes 32 / LPR rows at once,
 // ATTN_LG such sets in flight), its statistics in fp32, two passes,
 // reduced over its lanes.
-template <int C>
+template <int C, int DH>
 __device__ __forceinline__ void attn_gather(const AttnArgs& p,
                                             unsigned char* smem,
                                             const int* rows, int r_begin,
                                             int r_end, int warp, int lane) {
-  using S = AttnShape<C>;
-  constexpr int LPR = C / 8 < 32 ? C / 8 : 32;   // lanes a row
+  using S = AttnShape<C, DH>;
+  // lanes a row: the largest power of two up to 32 that divides the
+  // row's C / 8 chunks (4-32 at C = 32-512, 2-16 at C = 48-384), so
+  // that every lane of a row takes NCH chunks and a row's sums reduce
+  // by xor-shuffles
+  constexpr int LOW = (C / 8) & -(C / 8);        // C / 8's lowest set bit
+  constexpr int LPR = LOW < 32 ? LOW : 32;
   constexpr int RPW = 32 / LPR;                  // rows a warp takes at once
   constexpr int NCH = C / 8 / LPR;               // chunks a lane
   constexpr int NWARP = S::NCT / 32;
@@ -1060,12 +1159,16 @@ __device__ __forceinline__ void attn_gather(const AttnArgs& p,
 
 // One warp, one block of 16 queries (rows r0..r0+15) of the window whose
 // keys are rows wb..wb+TP-1 (T real): S = q k^T in registers, softmax
-// over the real keys in fp32, O = P v; O in bf16 over the block's q rows.
+// over the real keys in fp32, O = P v; O in bf16 over the block's q rows
+// (its DH columns: DH / 8 n8 tiles). q and k hold zeros past DH, so
+// S = q k^T takes two k16 steps at DH = 24 as at 32.
 // sl2 is the logits' scale times log2(e): exp(scale (s - m)) = 2^(sl2 (s - m)).
+template <int DH>
 __device__ __forceinline__ void attn_block(unsigned char* q, uint32_t kv_bytes,
                                            int r0, int wb, int T, int TP,
                                            float sl2, int lane) {
   constexpr int NT = ATTN_MAX_T / 8;
+  constexpr int ND = DH / 8;          // n8 tiles of O
   const uint32_t qs = smem_u32(q), ks = qs + kv_bytes, vs = ks + kv_bytes;
   const int nt = TP / 8, g = lane >> 2, c2 = (lane & 3) * 2;
   uint32_t qa[2][4];
@@ -1119,9 +1222,10 @@ __device__ __forceinline__ void attn_block(unsigned char* q, uint32_t kv_bytes,
     l1 += __shfl_xor_sync(0xffffffffu, l1, o);
   }
   const float i0 = 1.f / l0, i1 = 1.f / l1;
-  float acc[4][4];
+  float acc[2 * ((ND + 1) / 2)][4];   // v's ldmatrix.x4 serves n8 tiles in pairs
 #pragma unroll
-  for (int d = 0; d < 4; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  for (int d = 0; d < 2 * ((ND + 1) / 2); ++d)
+    acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk) {
     if (2 * kk >= nt) continue;
@@ -1131,16 +1235,16 @@ __device__ __forceinline__ void attn_block(unsigned char* q, uint32_t kv_bytes,
         pack_bf16(s[2 * kk + 1][0] * i0, s[2 * kk + 1][1] * i0),
         pack_bf16(s[2 * kk + 1][2] * i1, s[2 * kk + 1][3] * i1)};
 #pragma unroll
-    for (int dp = 0; dp < 2; ++dp) {
+    for (int dp = 0; dp < (ND + 1) / 2; ++dp) {
       uint32_t vb[4];
       ldsm_x4_t(vb, vs + qkv_off(wb + 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8,
                                  (2 * dp + (lane >> 4)) * 8));
       mma_bf16(acc[2 * dp], pa, vb[0], vb[1]);
-      mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
+      if (2 * dp + 1 < ND) mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
     }
   }
 #pragma unroll
-  for (int d = 0; d < 4; ++d) {
+  for (int d = 0; d < ND; ++d) {
     *reinterpret_cast<uint32_t*>(q + qkv_off(r0 + g, 8 * d + c2)) =
         pack_bf16(acc[d][0], acc[d][1]);
     *reinterpret_cast<uint32_t*>(q + qkv_off(r0 + g + 8, 8 * d + c2)) =
@@ -1151,11 +1255,11 @@ __device__ __forceinline__ void attn_block(unsigned char* q, uint32_t kv_bytes,
 // grid (cs, window groups): CTA x of a window group runs heads
 // [x * heads, (x + 1) * heads); a launch with cs > 1 is a cluster of the
 // group's cs CTAs (a CTA launched alone gathers its whole tile).
-template <int C>
-__global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
+template <int C, int DH>
+__global__ void __launch_bounds__(AttnShape<C, DH>::THREADS, AttnShape<C, DH>::MINB)
     block_attention_kernel(const __grid_constant__ CUtensorMap m_qkv,
                            const AttnArgs p) {
-  using S = AttnShape<C>;
+  using S = AttnShape<C, DH>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* ring = smem + S::RING;
@@ -1246,7 +1350,16 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
   // peer's block copied in by the bulk-copy engine (a K-block's rows of a
   // block are contiguous bytes, swizzle included)
   if (cs > 1) cluster_wait();
-  attn_gather<C>(p, smem, rows, rank * rb, (rank + 1) * rb, warp, lane);
+  attn_gather<C, DH>(p, smem, rows, rank * rb, (rank + 1) * rb, warp, lane);
+  if constexpr (DH < 32) {
+    // q and k: zeros in columns DH..31 of every row, which the products
+    // below never write, so that q k^T may run its two k16 steps
+    for (int r = tid; r < 2 * S::MP; r += S::NCT)
+      for (int c8 = DH / 8; c8 < 4; ++c8)
+        *reinterpret_cast<uint4*>(qkv + r / S::MP * S::QKV +
+                                  qkv_off(r % S::MP, c8 * 8)) =
+            make_uint4(0u, 0u, 0u, 0u);
+  }
   fence_async_smem();
   consumer_sync(S::NCT);
   if (cs > 1) {
@@ -1264,12 +1377,13 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
   const uint32_t tok = smem_u32(smem), wring = smem_u32(ring);
   const int wg = warp / 4;                        // warpgroup: slices wg, wg + NWG, ...
   const int wr = (warp % 4) * 16 + lane / 4, q2 = (lane % 4) * 2;
+  constexpr int NPT = DH / 8;                     // n8 tiles of each of q, k, v
   const float sl2 = p.scale * 1.4426950408889634f;
   int stage = 0;
   uint32_t phase = 0;
   for (int h = 0; h < p.heads; ++h) {
     const int head = head0 + h;
-    // 1. q|k|v = tok W^T + b, one N = 96 product a slice, bf16 into the
+    // 1. q|k|v = tok W^T + b, one N = 3 DH product a slice, bf16 into the
     // q, k and v tiles, zero on rows that are no token
     float bias[S::QKV_N / 8][2];                  // loaded while wgmma runs
 #pragma unroll
@@ -1320,9 +1434,9 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             const int r = mt * 64 + wr + 8 * hh;
-            // columns 8n..8n+7 of q|k|v: tile n / 4, its columns 8 (n % 4)..
-            *reinterpret_cast<uint32_t*>(qkv + n / 4 * S::QKV +
-                                         qkv_off(r, 8 * (n % 4) + q2)) =
+            // columns 8n..8n+7 of q|k|v: tile n / NPT, its columns 8 (n % NPT)..
+            *reinterpret_cast<uint32_t*>(qkv + n / NPT * S::QKV +
+                                         qkv_off(r, 8 * (n % NPT) + q2)) =
                 rows[r] >= 0 ? pack_bf16(acc[i][4 * n + 2 * hh] + bias[n][0],
                                          acc[i][4 * n + 2 * hh + 1] + bias[n][1])
                              : 0u;
@@ -1333,13 +1447,13 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
 
     // 2. softmax(q k^T * scale) v, a warp per 16-query block
     for (int qb = warp; qb < nwin * TP / 16; qb += S::NCT / 32) {
-      attn_block(qkv, S::QKV, qb * 16, qb * 16 / TP * TP, T, TP, sl2, lane);
+      attn_block<DH>(qkv, S::QKV, qb * 16, qb * 16 / TP * TP, T, TP, sl2, lane);
     }
     consumer_sync(S::NCT);
 
-    // 3. the head's 32 channels of each token to NHWC, 16 bytes a store
-    for (int i = tid; i < nrows * 4; i += S::NCT) {
-      const int r = i / 4, c = i % 4, row = rows[r];
+    // 3. the head's DH channels of each token to NHWC, 16 bytes a store
+    for (int i = tid; i < nrows * NPT; i += S::NCT) {
+      const int r = i / NPT, c = i % NPT, row = rows[r];
       if (row < 0) continue;
       *reinterpret_cast<uint4*>(p.o + static_cast<size_t>(row) * C + head * DH + c * 8) =
           *reinterpret_cast<const uint4*>(qkv + qkv_off(r, c * 8));
@@ -1354,14 +1468,15 @@ __global__ void __launch_bounds__(AttnShape<C>::THREADS, AttnShape<C>::MINB)
 // ---------------------------------------------------------------------------
 //
 // A tile is BM = 128 rows of B*H*W (two consumer warpgroups of 64 rows,
-// wgmma's M) by J = min(C, 64) channels of all four gates: the product
-// [128, 2C] x [2C, 4J], with N = 4J <= 256 one wgmma N. Its B operand is
+// wgmma's M) by J channels of all four gates (64 where 64 divides C, else
+// 48 where 48 does, else C: 32 at C = 32, 48 at C = 48 and 96): the
+// product [128, 2C] x [2C, 4J], with N = 4J <= 256 one wgmma N. Its B operand is
 // rows g C + j0 .. + J of the [4C, 2C] weight for g = f, i, o, g, four
 // TMA boxes that land as one K-major [4J, KB] tile. K = 2C walks through
-// a ring of NS stages in KB-wide chunks, first the C / KB chunks of x,
-// then those of h (no concat); one producer thread keeps them in flight
-// with TMA (the A box [BM, KB] of x or h, rows past R filled with zeros;
-// 128-byte swizzle, 64-byte at C = 32), full/empty mbarriers. Each
+// a ring of NS stages in KB-wide chunks (kblock), first the C / KB
+// chunks of x, then those of h (no concat); one producer thread keeps them
+// in flight with TMA (the A box [BM, KB] of x or h, rows past R filled
+// with zeros; the 128-, 64- or 32-byte swizzle of KB), full/empty mbarriers. Each
 // warpgroup multiplies its 64 rows of a chunk by the shared B chunk, one
 // wgmma group in flight while the next is issued. Two warpgroups share
 // every weight chunk, which halves the weight bytes a row costs; the
@@ -1406,9 +1521,9 @@ struct LstmShape {
   // thread; with a producer warp alone, ptxas capped every thread at 168
   // (three warps on an SM sub-partition) and the epilogue spilled
   static constexpr int THREADS = NCT + 128;
-  static constexpr int J = C < 64 ? C : 64;      // channels a tile, each gate
+  static constexpr int J = C % 64 == 0 ? 64 : (C % 48 == 0 ? 48 : C);   // channels a tile, each gate
   static constexpr int N = 4 * J;                // the product's width
-  static constexpr int KB = C >= 64 ? 64 : 32;   // K chunk
+  static constexpr int KB = kblock(C);           // K chunk
   static constexpr int SW = KB * 2;              // its swizzle (= row) bytes
   static constexpr int NKX = C / KB;             // chunks of x, and of h
   static constexpr int NK = 2 * NKX;
@@ -1418,9 +1533,11 @@ struct LstmShape {
   static constexpr int LDP = N + 4;              // fp32 row stride of a partial
   static constexpr int PART = BM * LDP * 4;
   static constexpr int BODY = NS * STAGE > PART ? NS * STAGE : PART;
-  // a tile's c [BM, J] in boxes of CIB bytes a row (the swizzle), then
-  // its four gates' J biases: an epilogue buffer, two of them
-  static constexpr int CIB = J * sizeof(CT) < 128 ? J * sizeof(CT) : 128;
+  // a tile's c [BM, J] in boxes of CIB bytes a row (the swizzle: the
+  // largest of 128, 64 and 32 that divides a row's J * sizeof(CT)
+  // bytes), then its four gates' J biases: an epilogue buffer, two of them
+  static constexpr int CROW = J * static_cast<int>(sizeof(CT));
+  static constexpr int CIB = CROW % 128 == 0 ? 128 : (CROW % 64 == 0 ? 64 : 32);
   static constexpr int C_BYTES = BM * J * sizeof(CT);
   static constexpr int EPI = (C_BYTES + 8 * J + 1023) / 1024 * 1024;
   static constexpr int BOFF = BODY + 2 * EPI;    // the mbarriers
@@ -1750,8 +1867,8 @@ EncodeTiledFn encoder() {
 }
 
 // A [rows, cols] row-major bf16 (or, with elem = 4, fp32) matrix read
-// in boxes of box_rows x box_cols (box_cols * elem = 128 or 64 bytes, the
-// swizzle); boxes reaching past the matrix read zeros there.
+// in boxes of box_rows x box_cols (box_cols * elem = 128, 64 or 32 bytes,
+// the swizzle); boxes reaching past the matrix read zeros there.
 bool encode_map(CUtensorMap* map, const void* ptr, uint64_t rows,
                 uint64_t cols, uint32_t box_rows, uint32_t box_cols,
                 uint32_t elem = 2) {
@@ -1766,7 +1883,8 @@ bool encode_map(CUtensorMap* map, const void* ptr, uint64_t rows,
                 2, const_cast<void*>(ptr), dims, strides, box, estr,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
                 box_cols * elem == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                       : CU_TENSOR_MAP_SWIZZLE_64B,
+                : box_cols * elem == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                        : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1885,7 +2003,7 @@ long cluster_slots(void (*kernel)(K...), int threads, int smem, int cs,
   return slots;
 }
 
-// Plans and launches block_attention_kernel<C> over a.nwindows windows of
+// Plans and launches block_attention_kernel<C, DH> over a.nwindows windows of
 // T = ph * pw tokens. The plan deals `a.nwin` windows a CTA (at most what
 // its token tile holds) and `cs` CTAs to each window group, one head
 // group each (a cluster of 1, 2, 4, 8 or 16, at most the heads). The
@@ -1894,11 +2012,12 @@ long cluster_slots(void (*kernel)(K...), int threads, int smem, int cs,
 // on a tie: each CTA pays its token gather and barriers, so splitting
 // past one wave only adds them. `cluster` > 0 fixes cs. The plan goes to
 // plan[0] (windows a CTA) and plan[1] (cs) where plan is not NULL.
-template <int C>
+template <int C, int DH>
 cudaError_t launch_attention(AttnArgs a, const void* qkv_w, int cluster,
                              int num_sms, int* plan, cudaStream_t st) {
-  using S = AttnShape<C>;
+  using S = AttnShape<C, DH>;
   const int heads = C / DH, tp = (a.ph * a.pw + 15) / 16 * 16;
+  a.scale = 1.f / sqrtf(static_cast<float>(DH));
   if (cluster > 0 && ((cluster & (cluster - 1)) || cluster > 16 || cluster > heads))
     return cudaErrorInvalidValue;
   const int max_win = S::MP / tp;
@@ -1907,7 +2026,7 @@ cudaError_t launch_attention(AttnArgs a, const void* qkv_w, int cluster,
   a.nwin = max_win;
   for (int c = 1; c <= 16 && c <= heads; c *= 2) {
     if (cluster > 0 && c != cluster) continue;
-    const long slots = cluster_slots(block_attention_kernel<C>, S::THREADS,
+    const long slots = cluster_slots(block_attention_kernel<C, DH>, S::THREADS,
                                      S::SMEM, c, num_sms);
     for (int n = max_win; n >= 1; --n) {
       const long ctas = static_cast<long>((a.nwindows + n - 1) / n) * c;
@@ -1928,27 +2047,31 @@ cudaError_t launch_attention(AttnArgs a, const void* qkv_w, int cluster,
   CUtensorMap m_qkv;
   if (!weight_map(&m_qkv, qkv_w, 3 * C, C, S::QKV_N, S::KB))
     return cudaErrorInvalidValue;
-  return launch(block_attention_kernel<C>, dim3(cs, groups), S::THREADS,
+  return launch(block_attention_kernel<C, DH>, dim3(cs, groups), S::THREADS,
                 S::SMEM, cs, st, m_qkv, a);
 }
 
 int mlp_smem_bytes(int C) {
   switch (C) {
     case 32: return MlpShape<32>::SMEM;
+    case 48: return MlpShape<48>::SMEM;
     case 64: return MlpShape<64>::SMEM;
+    case 96: return MlpShape<96>::SMEM;
     case 128: return MlpShape<128>::SMEM;
+    case 192: return MlpShape<192>::SMEM;
     case 256: return MlpShape<256>::SMEM;
+    case 384: return MlpShape<384>::SMEM;
     case 512: return MlpShape<512>::SMEM;
     default: return 0;
   }
 }
 
-// The cluster sizes a width takes: each CTA projects at least 8 columns
-// a warpgroup and owns at least one hidden chunk.
+// The cluster sizes a width takes: each CTA projects a multiple of 8
+// columns a warpgroup (wgmma's N step) and owns at least one hidden chunk.
 bool mlp_cluster_ok(int C, int inner, int gated, int cluster) {
   const int nwg = C > 256 ? 2 : 1;
   return (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) &&
-         C / nwg / cluster >= 8 && cluster <= inner / (gated ? 32 : 64);
+         C % (nwg * 8 * cluster) == 0 && cluster <= inner / (gated ? 32 : 64);
 }
 
 // Plans and launches lstm_update_kernel<C, CT> over a.R rows: tiles of
@@ -2023,17 +2146,18 @@ cudaError_t launch_lstm_c(const void* x, const void* h, const void* c,
 // Each entry point launches on `stream`, allocates nothing and returns
 // cudaGetLastError() (0 on success). Optional vectors may be NULL.
 
-// C in {32, 64, 128, 256, 512}, T = ph * pw <= 80, dim_head 32; LN1
-// skipped where ln_w and ln_b are NULL. `cluster` > 0 fixes how many CTAs
+// (C, dim_head) in {32, 64, 128, 256, 512} x {32} (RVT-T, RVT-B) and
+// {48, 96, 192, 384} x {24} (RVT-S), T = ph * pw <= 80; LN1 skipped
+// where ln_w and ln_b are NULL. `cluster` > 0 fixes how many CTAs
 // (one head group each) share a window group; 0 lets the plan choose.
 // `plan` (NULL or two ints) receives the windows a CTA and the cluster
 // size the launch took.
 extern "C" int leod_block_attention(const void* x, void* o, const void* ln_w,
                                     const void* ln_b, const void* qkv_w,
                                     const void* qkv_b, int B, int H, int W,
-                                    int C, int ph, int pw, int grid_kind,
-                                    float eps, int cluster, int num_sms,
-                                    int* plan, void* stream) {
+                                    int C, int dim_head, int ph, int pw,
+                                    int grid_kind, float eps, int cluster,
+                                    int num_sms, int* plan, void* stream) {
   if (B < 1 || ph < 1 || pw < 1 || H % ph || W % pw || ph * pw > ATTN_MAX_T ||
       (ln_w == nullptr) != (ln_b == nullptr))
     return cudaErrorInvalidValue;
@@ -2050,21 +2174,26 @@ extern "C" int leod_block_attention(const void* x, void* o, const void* ln_w,
   a.grid_kind = grid_kind;
   a.nwindows = B * (H / ph) * (W / pw);
   a.eps = eps;
-  a.scale = 1.f / sqrtf(static_cast<float>(DH));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 32: return launch_attention<32>(a, qkv_w, cluster, num_sms, plan, st);
-    case 64: return launch_attention<64>(a, qkv_w, cluster, num_sms, plan, st);
-    case 128: return launch_attention<128>(a, qkv_w, cluster, num_sms, plan, st);
-    case 256: return launch_attention<256>(a, qkv_w, cluster, num_sms, plan, st);
-    case 512: return launch_attention<512>(a, qkv_w, cluster, num_sms, plan, st);
+  switch (dim_head == 32 ? C : (dim_head == 24 ? -C : 0)) {
+    case 32: return launch_attention<32, 32>(a, qkv_w, cluster, num_sms, plan, st);
+    case 64: return launch_attention<64, 32>(a, qkv_w, cluster, num_sms, plan, st);
+    case 128: return launch_attention<128, 32>(a, qkv_w, cluster, num_sms, plan, st);
+    case 256: return launch_attention<256, 32>(a, qkv_w, cluster, num_sms, plan, st);
+    case 512: return launch_attention<512, 32>(a, qkv_w, cluster, num_sms, plan, st);
+    case -48: return launch_attention<48, 24>(a, qkv_w, cluster, num_sms, plan, st);
+    case -96: return launch_attention<96, 24>(a, qkv_w, cluster, num_sms, plan, st);
+    case -192: return launch_attention<192, 24>(a, qkv_w, cluster, num_sms, plan, st);
+    case -384: return launch_attention<384, 24>(a, qkv_w, cluster, num_sms, plan, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // How many CTAs (a cluster) share a row tile: the largest size among
-// 1, 2, 4, 8 that the width takes and that keeps the grid within one
-// wave (num_sms x the CTAs an SM holds by shared memory). Splitting a
+// 1, 2, 4, 8 that the width takes, that divides the hidden chunks evenly
+// (3 at C = 48 give no cluster, 6 at 96 two CTAs) and that keeps the
+// grid within one wave (num_sms x the CTAs an SM holds by shared
+// memory). Splitting a
 // grid that already fills the card costs more than it gains: every CTA
 // pays its o load, LN2 over the whole rows and the cluster's barriers
 // (stage 1 at B = 8 ran 2.2x slower split 4 ways than alone, H100).
@@ -2074,13 +2203,17 @@ extern "C" int leod_block_mlp_cluster(int R, int C, int inner, int gated,
   if (R < 1 || smem == 0) return 1;
   const long tiles = (R + MLP_BM - 1) / MLP_BM;
   const long slots = static_cast<long>(num_sms) * ((228 * 1024) / (smem + 1024));
+  const int chunks = inner / (gated ? 32 : 64);
   int best = 1;
   for (int cs = 2; cs <= 8; cs *= 2)
-    if (mlp_cluster_ok(C, inner, gated, cs) && tiles * cs <= slots) best = cs;
+    if (mlp_cluster_ok(C, inner, gated, cs) && chunks % cs == 0 &&
+        tiles * cs <= slots)
+      best = cs;
   return best;
 }
 
-// C in {32, 64, 128, 256, 512}; `cluster` CTAs share each 64-row tile
+// C in {32, 48, 64, 96, 128, 192, 256, 384, 512}; `cluster` CTAs share
+// each 64-row tile
 extern "C" int leod_block_mlp(const void* x, const void* o, void* out,
                               const void* proj_w, const void* proj_b,
                               const void* ls1, const void* ln_w,
@@ -2111,15 +2244,20 @@ extern "C" int leod_block_mlp(const void* x, const void* o, void* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 32: return launch_mlp<32>(a, proj_w, in_w, out_w, cluster, st);
+    case 48: return launch_mlp<48>(a, proj_w, in_w, out_w, cluster, st);
     case 64: return launch_mlp<64>(a, proj_w, in_w, out_w, cluster, st);
+    case 96: return launch_mlp<96>(a, proj_w, in_w, out_w, cluster, st);
     case 128: return launch_mlp<128>(a, proj_w, in_w, out_w, cluster, st);
+    case 192: return launch_mlp<192>(a, proj_w, in_w, out_w, cluster, st);
     case 256: return launch_mlp<256>(a, proj_w, in_w, out_w, cluster, st);
+    case 384: return launch_mlp<384>(a, proj_w, in_w, out_w, cluster, st);
     case 512: return launch_mlp<512>(a, proj_w, in_w, out_w, cluster, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// C in {32, 64, 128, 256, 512}; x, h, w [4C, 2C], b and h_out bf16, c
+// C in {32, 48, 64, 96, 128, 192, 256, 384, 512}; x, h, w [4C, 2C], b
+// and h_out bf16, c
 // and c_out fp32 where c_f32, else bf16. `cluster` > 0 fixes how many
 // CTAs (1, 2, 4 or 8) split K for a tile; 0 lets the plan choose. `plan`
 // (NULL or three ints) receives the rows and channels a tile and the
@@ -2133,9 +2271,13 @@ extern "C" int leod_lstm_update(const void* x, const void* h, const void* c,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 32: return launch_lstm_c<32>(x, h, c, w, b, h_out, c_out, R, c_f32, cluster, num_sms, plan, st);
+    case 48: return launch_lstm_c<48>(x, h, c, w, b, h_out, c_out, R, c_f32, cluster, num_sms, plan, st);
     case 64: return launch_lstm_c<64>(x, h, c, w, b, h_out, c_out, R, c_f32, cluster, num_sms, plan, st);
+    case 96: return launch_lstm_c<96>(x, h, c, w, b, h_out, c_out, R, c_f32, cluster, num_sms, plan, st);
     case 128: return launch_lstm_c<128>(x, h, c, w, b, h_out, c_out, R, c_f32, cluster, num_sms, plan, st);
+    case 192: return launch_lstm_c<192>(x, h, c, w, b, h_out, c_out, R, c_f32, cluster, num_sms, plan, st);
     case 256: return launch_lstm_c<256>(x, h, c, w, b, h_out, c_out, R, c_f32, cluster, num_sms, plan, st);
+    case 384: return launch_lstm_c<384>(x, h, c, w, b, h_out, c_out, R, c_f32, cluster, num_sms, plan, st);
     case 512: return launch_lstm_c<512>(x, h, c, w, b, h_out, c_out, R, c_f32, cluster, num_sms, plan, st);
     default: return cudaErrorInvalidValue;
   }

@@ -8,13 +8,20 @@
 //
 // Design. The Pallas kernel builds a K x K IoU matrix in VMEM and then
 // runs K sequential steps over it. Here:
-//   1. nms_build_kernel, one CTA per 32 rows of one image, builds the
-//      suppression bitmask in device memory: bit j of row i is set when
-//      j > i, the classes match, and IoU(i, j) > thr. At K = 1000 that
-//      is 32 uint32 words a row, 128 KB an image, spread over 32 CTAs
-//      an image (the IoU tests are the work; one CTA an image left 131
-//      of 132 SMs idle at B = 1). Words wholly at or below the diagonal
-//      are written as 0 without a test.
+//   1. nms_build_kernel builds the suppression bitmask in device memory:
+//      bit j of row i is set when j > i, the classes match, and
+//      IoU(i, j) > thr. At K = 1000 that is 32 uint32 words a row, 128 KB
+//      an image. Its unit of work is a task, one (row tile, word) pair:
+//      32 rows by the 32 columns of one mask word, and a warp runs it.
+//      Lane l owns column 32 b + l, its box in registers; the warp walks
+//      the tile's 32 rows, whose boxes it staged in shared memory (one
+//      broadcast read a row, no bank conflict), and the 32 tests of a
+//      row run at once, one a lane, `__ballot_sync` forming the word.
+//      Only the tasks on or above the diagonal (word >= row tile) exist,
+//      K/32 (K/32 + 1) / 2 an image (528 at K = 1000, 4 warps a CTA:
+//      132 CTAs an image, every SM of an H100 at B = 1); each task above
+//      the diagonal also writes its mirror below it, row tile b's word a,
+//      as zeros, which the sweep reads.
 //   2. nms_sweep_kernel, one CTA per image, stages the image's mask in
 //      shared memory (128 KB fits), then one warp sweeps it: lane w keeps
 //      word w of the keep bitmap in a register, box i's bit is broadcast
@@ -31,16 +38,17 @@
 // Bound on the H100: the work is K(K-1)/2 IoU tests an image (about 13
 // fp32 operations each) plus a K-step sequential sweep; at K = 1000 that
 // is a few MFLOP and about 20 KB of inputs an image, so neither the
-// fp32 rate nor the memory rate bounds it: its time is the sweep's
-// dependent chain of K shuffles and shared-memory reads, and the launch.
+// fp32 rate nor the memory rate bounds it. The build issues about 30
+// instructions a test (the division alone about 10), 4 M tests at
+// B = 8: a few microseconds of the SMs' issue slots. The sweep's time is
+// its dependent chain of K shuffles and shared-memory reads.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kMaxK = 1024;        // one warp sweeps <= 32 words a row
-constexpr int kRows = 32;          // mask rows per build CTA
-constexpr int kBuildThreads = 256;
+constexpr int kBuildWarps = 4;     // build tasks (warps) a CTA
 constexpr int kSweepThreads = 256;
 
 __device__ __forceinline__ float area_of(float4 b) {
@@ -48,54 +56,87 @@ __device__ __forceinline__ float area_of(float4 b) {
 }
 
 // IoU(a, b) > thr in the exact operation order of ops/boxes.py
-// pairwise_iou: strict tl < br overlap, union floored at 1e-16
+// pairwise_iou: strict tl < br overlap, union floored at 1e-16. Where the
+// boxes do not overlap, inter is +0 and the quotient +0 (the floored
+// union is positive), so the division, whose zero dividend would send it
+// down its slow path, is skipped: the same bit for every input.
 __device__ __forceinline__ bool iou_exceeds(float4 a, float area_a, float4 b,
                                             float area_b, float thr) {
   const float tlx = fmaxf(a.x, b.x), tly = fmaxf(a.y, b.y);
   const float brx = fminf(a.z, b.z), bry = fminf(a.w, b.w);
-  const float inter = (tlx < brx && tly < bry)
-                          ? __fmul_rn(__fsub_rn(brx, tlx), __fsub_rn(bry, tly))
-                          : 0.f;
+  if (!(tlx < brx && tly < bry)) return 0.f > thr;
+  const float inter = __fmul_rn(__fsub_rn(brx, tlx), __fsub_rn(bry, tly));
   const float uni = __fsub_rn(__fadd_rn(area_a, area_b), inter);
   return __fdiv_rn(inter, fmaxf(uni, 1e-16f)) > thr;
 }
 
-// grid (ceil(K / kRows), B): rows r0 .. r0 + kRows of image blockIdx.y.
-// Only boxes r0 .. K can appear in these rows, so only they are staged.
-__global__ void __launch_bounds__(kBuildThreads) nms_build_kernel(
-    const float* __restrict__ boxes, const float* __restrict__ cls, float thr,
-    int K, int words, uint32_t* __restrict__ mask) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int img = blockIdx.y, r0 = blockIdx.x * kRows, n = K - r0;
-  float4* bx = reinterpret_cast<float4*>(smem);                // [n]
-  float* area = reinterpret_cast<float*>(bx + n);              // [n]
-  float* cl = area + n;                                        // [n]
-  const float* b = boxes + (static_cast<size_t>(img) * K + r0) * 4;
-  for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    const float4 v = make_float4(b[4 * t], b[4 * t + 1], b[4 * t + 2], b[4 * t + 3]);
-    bx[t] = v;
-    area[t] = area_of(v);
-    cl[t] = cls ? cls[static_cast<size_t>(img) * K + r0 + t] : 0.f;
+// Row tile a and word b of an image's task t: tasks are numbered row
+// tile by row tile, words - a of them in row tile a (b = a .. words - 1).
+__device__ __forceinline__ void build_task(int t, int words, int& a, int& b) {
+  a = 0;
+  while (t >= words - a) {
+    t -= words - a;
+    ++a;
   }
-  __syncthreads();
+  b = a + t;
+}
 
-  uint32_t* out = mask + (static_cast<size_t>(img) * K + r0) * words;
-  const int rows = n < kRows ? n : kRows;
-  for (int idx = threadIdx.x; idx < rows * words; idx += blockDim.x) {
-    const int r = idx / words, w = idx % words;    // row i = r0 + r
-    uint32_t bits = 0u;
-    if (w * 32 + 31 > r0 + r) {
-      const float4 bi = bx[r];
-      const float ai = area[r], ci = cl[r];
-      for (int s = 0; s < 32; ++s) {
-        const int t = w * 32 + s - r0;               // column j = r0 + t
-        if (t > r && t < n && cl[t] == ci &&
-            iou_exceeds(bi, ai, bx[t], area[t], thr))
-          bits |= 1u << s;
-      }
-    }
-    out[idx] = bits;
+// grid (ceil(tasks / kBuildWarps), B), a warp a task of image blockIdx.y.
+// ROWS_L2: read each row's box, area and class straight from global
+// memory (L1/L2, one address a warp) instead of the warp's shared-memory
+// copy; `chip_smoke.py` times both, and the wrapper takes shared memory.
+template <bool ROWS_L2>
+__global__ void __launch_bounds__(kBuildWarps * 32) nms_build_kernel(
+    const float4* __restrict__ boxes, const float* __restrict__ cls,
+    float thr, int K, int words, uint32_t* __restrict__ mask) {
+  __shared__ float4 rbox[kBuildWarps][32];      // the tile's row boxes
+  __shared__ float2 rac[kBuildWarps][32];       // their (area, class)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = blockIdx.x * kBuildWarps + warp;
+  if (t >= words * (words + 1) / 2) return;     // a whole warp leaves
+  int a, b;
+  build_task(t, words, a, b);
+  const float4* bimg = boxes + static_cast<size_t>(blockIdx.y) * K;
+  const float* cimg = cls ? cls + static_cast<size_t>(blockIdx.y) * K : nullptr;
+  // row i = 32 a + lane into the warp's slice; column j = 32 b + lane
+  // into this lane's registers (zeros past K, never stored or set)
+  const int i = 32 * a + lane, j = 32 * b + lane;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (!ROWS_L2) {
+    const float4 bi = i < K ? bimg[i] : zero;
+    rbox[warp][lane] = bi;
+    rac[warp][lane] = make_float2(area_of(bi), i < K && cimg ? cimg[i] : 0.f);
+    __syncwarp();
   }
+  const bool jin = j < K;
+  const float4 bj = jin ? bimg[j] : zero;
+  const float aj = area_of(bj), cj = jin && cimg ? cimg[j] : 0.f;
+
+  uint32_t mine = 0u;                           // the word of row 32 a + lane
+#pragma unroll 8
+  for (int r = 0; r < 32; ++r) {
+    float4 br;
+    float ar, cr;
+    if (ROWS_L2) {
+      const int ir = min(32 * a + r, K - 1);    // rows past K are not stored
+      br = __ldg(bimg + ir);
+      ar = area_of(br);
+      cr = cimg ? __ldg(cimg + ir) : 0.f;
+    } else {
+      br = rbox[warp][r];
+      const float2 ac = rac[warp][r];
+      ar = ac.x;
+      cr = ac.y;
+    }
+    const bool hit = jin && cr == cj && iou_exceeds(br, ar, bj, aj, thr);
+    const uint32_t word = __ballot_sync(0xffffffffu, hit);
+    if (lane == r) mine = word;
+  }
+  if (a == b) mine &= lane == 31 ? 0u : ~0u << (lane + 1);   // only j > i
+  if (i < K) mask[(static_cast<size_t>(blockIdx.y) * K + i) * words + b] = mine;
+  // the mirror below the diagonal: rows 32 b + lane, word a, all zero
+  if (b > a && j < K)
+    mask[(static_cast<size_t>(blockIdx.y) * K + j) * words + a] = 0u;
 }
 
 // grid B: stage image blockIdx.x's [K][words] mask, then one warp sweeps
@@ -129,21 +170,29 @@ __global__ void __launch_bounds__(kSweepThreads) nms_sweep_kernel(
 
 }  // namespace
 
-// boxes [B, K, 4] f32, valid [B, K] uint8, cls [B, K] f32 or NULL
-// (class-agnostic), mask [B, K, ceil(K/32)] uint32 scratch, keep [B, K]
-// uint8. Launches on `stream`, allocates nothing, returns
-// cudaGetLastError().
+// boxes [B, K, 4] f32 (16-byte aligned), valid [B, K] uint8, cls [B, K]
+// f32 or NULL (class-agnostic), mask [B, K, ceil(K/32)] uint32 scratch,
+// keep [B, K] uint8. rows_l2: the build reads its row boxes from L2
+// instead of shared memory (nms_build_kernel). Launches on `stream`,
+// allocates nothing, returns cudaGetLastError().
 extern "C" int leod_nms_mask(const void* boxes, const void* valid,
                              const void* cls, float thr, int B, int K,
-                             void* mask, void* keep, void* stream) {
-  if (K < 1 || K > kMaxK || B < 1) return cudaErrorInvalidValue;
+                             void* mask, void* keep, int rows_l2,
+                             void* stream) {
+  if (K < 1 || K > kMaxK || B < 1 || B > 65535 ||
+      reinterpret_cast<uintptr_t>(boxes) % 16)
+    return cudaErrorInvalidValue;
   const int words = (K + 31) / 32;
+  const int tasks = words * (words + 1) / 2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t build_smem = static_cast<size_t>(K) * (16 + 4 + 4);
-  nms_build_kernel<<<dim3((K + kRows - 1) / kRows, B), kBuildThreads,
-                     build_smem, st>>>(
-      static_cast<const float*>(boxes), static_cast<const float*>(cls), thr,
-      K, words, static_cast<uint32_t*>(mask));
+  const dim3 grid((tasks + kBuildWarps - 1) / kBuildWarps, B);
+  const float4* bx = static_cast<const float4*>(boxes);
+  const float* cl = static_cast<const float*>(cls);
+  uint32_t* m = static_cast<uint32_t*>(mask);
+  if (rows_l2)
+    nms_build_kernel<true><<<grid, kBuildWarps * 32, 0, st>>>(bx, cl, thr, K, words, m);
+  else
+    nms_build_kernel<false><<<grid, kBuildWarps * 32, 0, st>>>(bx, cl, thr, K, words, m);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const size_t sweep_smem = static_cast<size_t>(K) * words * 4;

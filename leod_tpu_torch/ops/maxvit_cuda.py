@@ -20,7 +20,9 @@ row tile's hidden dim; plain version `block_mlp_plain`). `fused_stage` runs its 
 and then the ConvLSTM update `lstm_update` (the gate product on wgmma fed
 by TMA, the gates in registers; where rows are few and K long, a cluster
 of CTAs splits K; plain version `lstm_update_plain`). The kernels take bf16
-activations and weights and accumulate in fp32.
+activations and weights and accumulate in fp32, at the widths and head
+widths of RVT-T, RVT-S and RVT-B (`ATTN_SHAPES`, `KERNEL_DIMS`); any
+other shape raises on the card.
 """
 from __future__ import annotations
 
@@ -38,14 +40,18 @@ from ..models.layers import (PartitionAttention, _SplitGateConv,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
-    "leod_block_attention": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P, _P],
+    "leod_block_attention": [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P, _P],
     "leod_block_mlp": [_P] * 13 + [_I] * 5 + [_F, _I, _P],
     "leod_block_mlp_cluster": [_I] * 5,
     "leod_lstm_update": [_P] * 7 + [_I] * 5 + [_P, _P],
 }
 _ACTS = {"gelu": 0, "silu": 1, "relu": 2}
-DIM_HEAD = 32          # the kernels' head width
-MLP_DIMS = (32, 64, 128, 256, 512)   # the widths the block kernels' tiles take
+# (C, dim_head) pairs `block_attention`'s kernel is built for: the stage
+# widths of RVT-T and RVT-B (heads of 32) and of RVT-S (heads of 24)
+ATTN_SHAPES = frozenset([(32, 32), (64, 32), (128, 32), (256, 32), (512, 32),
+                         (48, 24), (96, 24), (192, 24), (384, 24)])
+# the widths C `block_mlp`'s and `lstm_update`'s kernels are built for
+KERNEL_DIMS = tuple(sorted(c for c, _ in ATTN_SHAPES))
 MAX_TOKENS = 80        # block_attention's largest partition ph * pw
 
 
@@ -172,19 +178,21 @@ def _attention_cuda(x: torch.Tensor, blk: PartitionAttention,
                   *(() if norm1 is None else (norm1.weight, norm1.bias)))
     b, h, w, c = x.shape if x.dim() == 4 else (0,) * 4
     ph, pw = blk.partition_size
-    if (c not in MLP_DIMS or blk.attn.dim_head != DIM_HEAD
-            or h % ph or w % pw or ph * pw > MAX_TOKENS or b == 0):
+    dh = blk.attn.dim_head
+    if ((c, dh) not in ATTN_SHAPES or h % ph or w % pw
+            or ph * pw > MAX_TOKENS or b == 0):
         raise ValueError(
-            f"block_attention: x [B, H, W, C] with C in {MLP_DIMS}, dim_head "
-            f"{DIM_HEAD}, H and W multiples of the partition, ph * pw <= "
-            f"{MAX_TOKENS}; got {tuple(x.shape)}, partition {(ph, pw)}")
+            f"block_attention: x [B, H, W, C] with (C, dim_head) in "
+            f"{sorted(ATTN_SHAPES)}, H and W multiples of the partition, "
+            f"ph * pw <= {MAX_TOKENS}; got {tuple(x.shape)}, dim_head {dh}, "
+            f"partition {(ph, pw)}")
     o = torch.empty_like(x)
     plan = (ctypes.c_int * 2)()
     _build.check("leod_block_attention", _lib().leod_block_attention(
         x.data_ptr(), o.data_ptr(),
         _ptr(None if norm1 is None else norm1.weight),
         _ptr(None if norm1 is None else norm1.bias), qkv.weight.data_ptr(),
-        _ptr(qkv.bias), b, h, w, c, ph, pw, int(grid_kind), eps,
+        _ptr(qkv.bias), b, h, w, c, dh, ph, pw, int(grid_kind), eps,
         cluster or 0, _num_sms(x.device), plan, _stream(x)))
     return o, (plan[0], plan[1])
 
@@ -198,9 +206,10 @@ def _mlp_cuda(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
                   mlp.proj_in.weight, mlp.proj_in.bias, mlp.proj_out.weight,
                   mlp.proj_out.bias, blk.ls2)
     c = x.shape[-1]
-    if o.shape != x.shape or c not in MLP_DIMS or x.numel() == 0:
+    if o.shape != x.shape or c not in KERNEL_DIMS or x.numel() == 0:
         raise ValueError(f"block_mlp: x and o [..., C] of one shape, C in "
-                         f"{MLP_DIMS}; got {tuple(x.shape)}, {tuple(o.shape)}")
+                         f"{KERNEL_DIMS}; got {tuple(x.shape)}, "
+                         f"{tuple(o.shape)}")
     lib = _lib()
     rows, inner = x.numel() // c, mlp.proj_out.in_features
     if cluster is None:
@@ -235,8 +244,8 @@ def _lstm_cuda(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
         raise ValueError("lstm_update: x, h_prev and c_prev must share a "
                          "shape")
     c = x.shape[-1]
-    if c not in MLP_DIMS or x.numel() == 0:
-        raise ValueError(f"lstm_update: x [..., C] with C in {MLP_DIMS}; "
+    if c not in KERNEL_DIMS or x.numel() == 0:
+        raise ValueError(f"lstm_update: x [..., C] with C in {KERNEL_DIMS}; "
                          f"got {tuple(x.shape)}")
     h_out = torch.empty_like(x)
     c_out = torch.empty_like(c_prev)
@@ -283,7 +292,7 @@ def block_mlp(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
               act: str = "gelu", gated: bool = False, eps: float = 1e-5, *,
               cluster: Optional[int] = None) -> torch.Tensor:
     """The per-token half of a block (`block_mlp_plain`) on token rows
-    x, o [..., C]. On the card C is one of MLP_DIMS; `cluster` (1, 2, 4
+    x, o [..., C]. On the card C is one of KERNEL_DIMS; `cluster` (1, 2, 4
     or 8) forces how many CTAs share a 64-row tile (tests only; by
     default the kernel's heuristic picks); `block_mlp.plan` is the last
     launch's."""
@@ -308,7 +317,7 @@ def lstm_update(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ConvLSTM update (`lstm_update_plain`) on x, h_prev, c_prev of
     one shape [..., C]: h' in x's dtype, c' in c_prev's (bf16 or fp32 on
-    the card). On the card C is one of MLP_DIMS; `cluster` (1, 2, 4 or 8)
+    the card). On the card C is one of KERNEL_DIMS; `cluster` (1, 2, 4 or 8)
     forces how many CTAs split K for one tile of rows and channels (tests
     only; by default the kernel's plan picks); `lstm_update.plan` is the
     last launch's (rows a tile, channels a tile, CTAs a cluster)."""
@@ -337,9 +346,10 @@ def fused_block_pair(x: torch.Tensor, window_params: PartitionAttention,
     if x.device.type == "cpu":
         return fused_block_pair_plain(x, window_params, grid_params,
                                       partition_size)
-    if dim_head != DIM_HEAD or act not in _ACTS:
-        raise ValueError(f"the CUDA block takes dim_head {DIM_HEAD} and "
-                         f"act in {sorted(_ACTS)}")
+    if (x.shape[-1], dim_head) not in ATTN_SHAPES or act not in _ACTS:
+        raise ValueError(f"the CUDA block takes (C, dim_head) in "
+                         f"{sorted(ATTN_SHAPES)} and act in {sorted(_ACTS)}; "
+                         f"got ({x.shape[-1]}, {dim_head}), {act!r}")
     for blk, grid_kind in ((window_params, False), (grid_params, True)):
         x = block_mlp(x, block_attention(x, blk, grid_kind, eps), blk, act,
                       gated, eps)

@@ -1,7 +1,9 @@
 """Port of the Pallas kernel `nms_mask_pallas`
 (`leod_tpu/ops/nms_pallas.py:65`) to hand-written CUDA for Hopper
-(`csrc/nms.cu`): a suppression-mask build spread over 32-row tiles of
-every image, then one sweep CTA per image, in one call per batch.
+(`csrc/nms.cu`): a suppression-mask build, a warp for each 32-row by
+32-column word tile on or above the diagonal of every image (a lane a
+column, `__ballot_sync` forming each row's word), then one sweep CTA per
+image, in one call per batch.
 
 For a CPU tensor the wrapper runs the plain version (`ops/nms.py`
 `nms_mask`); for a CUDA tensor it launches the kernel or raises. It
@@ -19,16 +21,19 @@ from .nms import nms_mask as nms_mask_plain
 
 _P = ctypes.c_void_p
 _SIGS = {"leod_nms_mask": [_P, _P, _P, ctypes.c_float, ctypes.c_int,
-                           ctypes.c_int, _P, _P, _P]}
+                           ctypes.c_int, _P, _P, ctypes.c_int, _P]}
 MAX_K = 1024
 
 
 def nms_mask(boxes_xyxy: torch.Tensor, iou_threshold: float,
              valid: torch.Tensor,
-             class_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+             class_ids: Optional[torch.Tensor] = None, *,
+             rows_from_l2: bool = False) -> torch.Tensor:
     """Greedy NMS keep mask: boxes [B, K, 4] (or [K, 4]) sorted by score
     descending, valid [B, K] bool, class_ids [B, K] or None ->
-    keep [B, K] bool."""
+    keep [B, K] bool. `rows_from_l2` makes the mask build read its row
+    boxes from L2 instead of staging them in shared memory (to time the
+    two on the card; the keep mask is the same)."""
     if boxes_xyxy.device.type == "cpu":
         return nms_mask_plain(boxes_xyxy, iou_threshold, valid, class_ids)
     if not boxes_xyxy.is_cuda:
@@ -42,6 +47,8 @@ def nms_mask(boxes_xyxy: torch.Tensor, iou_threshold: float,
         raise ValueError(f"nms_mask: the CUDA kernel takes 1..{MAX_K} "
                          f"boxes an image, got {k}")
     boxes = boxes_xyxy.float().contiguous()
+    if boxes.data_ptr() % 16:         # the kernel reads a box as one float4
+        boxes = boxes.clone()
     valid_u8 = valid.to(torch.uint8).contiguous()
     ids = None if class_ids is None else class_ids.float().contiguous()
     for t in (valid_u8, ids):
@@ -57,7 +64,7 @@ def nms_mask(boxes_xyxy: torch.Tensor, iou_threshold: float,
     _build.check("leod_nms_mask", lib.leod_nms_mask(
         boxes.data_ptr(), valid_u8.data_ptr(),
         None if ids is None else ids.data_ptr(), float(iou_threshold), bsz,
-        k, mask.data_ptr(), keep.data_ptr(),
+        k, mask.data_ptr(), keep.data_ptr(), int(rows_from_l2),
         torch.cuda.current_stream(boxes.device).cuda_stream))
     nms_mask.launches += 1
     keep = keep.bool()

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, at small shapes that reach the kernels' edge cases: windows of T
+card, at small shapes that reach the kernels' edge cases, at every width
+the kernels take (RVT-T and RVT-B: C = 32-512 with heads of 32; RVT-S:
+C = 48-384 with heads of 24, K-blocks of 16 and 32 columns): windows of T
 tokens that are no multiple of 16, 1, 2, 4 and 16 heads, the attention
 half `block_attention` alone at every width, at T = 8, 20, 60 and 80,
 window and grid, with and without LN1, at B = 1 and 2 and with its
@@ -13,7 +15,9 @@ fp32 and a bf16 cell state, the ConvLSTM update `lstm_update` alone at
 every width, with a ragged last 128-row tile, at B = 1 and 2, with K
 split over clusters of 1 to 8 CTAs, and launched back to back at the
 stage shapes at B = 1 and 8 by its own plan, NMS with and without class ids at
-K = 1, 37, 1000 and 1024, and inputs the kernels refuse.
+K = 1, 37, 1000 and 1024, NMS at IoUs on the threshold and on the floats
+either side of it (identical and nested boxes), 40 NMS launches back to
+back, and inputs the kernels refuse.
 
 These tests need an NVIDIA Hopper card and `nvcc`; without a card they
 skip. They import no JAX. Run them on the card with
@@ -32,6 +36,7 @@ computed accurately, and only the products' order of summation differs
 (the SFU's tanh, which serves a bf16 c', misses it). The NMS keep mask
 must match exactly.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -46,6 +51,15 @@ pytestmark = pytest.mark.gpu
 REL_TOL = 2.0 ** -5
 FP32_C_TOL = 2.0 ** -18
 H, W = 16, 20
+DIM_HEAD = dict(maxvit_cuda.ATTN_SHAPES)   # C -> the head width it takes
+# the RVT-B and RVT-S Gen1 stage shapes: (C, (H, W)) at strides 4-32
+STAGES_B = [(64, (64, 80)), (128, (32, 40)), (256, (16, 20)), (512, (8, 10))]
+STAGES_S = [(48, (64, 80)), (96, (32, 40)), (192, (16, 20)), (384, (8, 10))]
+
+
+def _kblock(dim):
+    """The kernels' K-block: the largest of 64, 32, 16 dividing C."""
+    return 64 if dim % 64 == 0 else 32 if dim % 32 == 0 else 16
 
 
 @pytest.fixture
@@ -82,49 +96,65 @@ def _randomized(module, seed, dev):
 
 
 def _pair(dim, ps, gated, act, dev, seed=0, first=True):
-    """A (window, grid) block pair; the window block skips its first
-    LayerNorm only in a stage's first pair."""
+    """A (window, grid) block pair with the head width the kernels take
+    at this C; the window block skips its first LayerNorm only in a
+    stage's first pair."""
     return [_randomized(PartitionAttention(
         dim, ps, kind, skip_first_norm=first and kind == "window",
-        mlp_gated=gated, mlp_act=act), seed + i, dev)
+        dim_head=DIM_HEAD[dim], mlp_gated=gated, mlp_act=act), seed + i, dev)
         for i, kind in enumerate(("window", "grid"))]
 
 
 @pytest.mark.parametrize("dim,ps,gated,act", [
     (32, (4, 5), False, "gelu"), (64, (4, 5), True, "gelu"),
     (128, (8, 10), False, "gelu"), (64, (2, 4), False, "silu"),
-    (512, (8, 10), False, "gelu")])
+    (512, (8, 10), False, "gelu"), (48, (4, 5), False, "gelu"),
+    (96, (4, 5), True, "gelu"), (192, (8, 10), False, "silu"),
+    (384, (8, 10), False, "gelu")])
 def test_block_pair_kernel_matches_plain(cuda, dim, ps, gated, act):
     wb, gb = _pair(dim, ps, gated, act, cuda)
     g = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randn(2, H, W, dim, device=cuda, generator=g).to(torch.bfloat16)
     before = maxvit_cuda.fused_block_pair.launches
-    got = maxvit_cuda.fused_block_pair(x, wb, gb, ps, True, act=act,
+    got = maxvit_cuda.fused_block_pair(x, wb, gb, ps, True,
+                                       dim_head=DIM_HEAD[dim], act=act,
                                        gated=gated)
     torch.cuda.synchronize()
     assert maxvit_cuda.fused_block_pair.launches == before + 1
     _close(got, maxvit_cuda.fused_block_pair_plain(x, wb, gb, ps))
 
 
-@pytest.mark.parametrize("c_dtype", [torch.float32, torch.bfloat16])
-def test_stage_kernel_matches_plain(cuda, c_dtype):
-    dim, ps = 64, (4, 5)
-    pairs = [_pair(dim, ps, False, "gelu", cuda, seed=2 * i, first=i == 0)
+def _stage_matches_plain(dev, dim, c_dtype):
+    ps = (4, 5)
+    pairs = [_pair(dim, ps, False, "gelu", dev, seed=2 * i, first=i == 0)
              for i in range(2)]
-    gates = _randomized(_SplitGateConv(dim), 7, cuda)
-    g = torch.Generator(device=cuda).manual_seed(3)
-    x, h, c = (torch.randn(2, H, W, dim, device=cuda, generator=g)
+    gates = _randomized(_SplitGateConv(dim), 7, dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x, h, c = (torch.randn(2, H, W, dim, device=dev, generator=g)
                for _ in range(3))
     x, h, c = x.to(torch.bfloat16), (h * 0.5).to(torch.bfloat16), \
         (c * 0.5).to(c_dtype)
     before = maxvit_cuda.fused_stage.launches
-    hk, ck = maxvit_cuda.fused_stage(x, h, c, pairs, gates, ps, True)
+    hk, ck = maxvit_cuda.fused_stage(x, h, c, pairs, gates, ps, True,
+                                     dim_head=DIM_HEAD[dim])
     torch.cuda.synchronize()
     assert maxvit_cuda.fused_stage.launches == before + 1
     assert hk.dtype == torch.bfloat16 and ck.dtype == c_dtype
     hp, cp = maxvit_cuda.fused_stage_plain(x, h, c, pairs, gates, ps)
     _close(hk, hp)
     _close(ck, cp)
+
+
+@pytest.mark.parametrize("c_dtype", [torch.float32, torch.bfloat16])
+def test_stage_kernel_matches_plain(cuda, c_dtype):
+    _stage_matches_plain(cuda, 64, c_dtype)
+
+
+@pytest.mark.parametrize("c_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", [48, 96])
+def test_stage_kernel_matches_plain_dim_head_24(cuda, dim, c_dtype):
+    """RVT-S's first two stage widths, heads of 24."""
+    _stage_matches_plain(cuda, dim, c_dtype)
 
 
 @pytest.mark.parametrize("k", [1, 37, 1000, 1024])
@@ -146,6 +176,120 @@ def test_nms_kernel_matches_plain(cuda, k, with_ids):
     assert torch.equal(nms_cuda.nms_mask(boxes[0], 0.45, valid[0],
                                          None if ids is None else ids[0]),
                        got[0])
+    # the build with its row boxes read from L2: the same mask
+    assert torch.equal(nms_cuda.nms_mask(boxes, 0.45, valid, ids,
+                                         rows_from_l2=True), got)
+
+
+def _float32_neighbours(v):
+    """The float32 values just below and above float32(v)."""
+    v = np.float32(v)
+    return (np.nextafter(v, np.float32(-np.inf)),
+            np.nextafter(v, np.float32(np.inf)))
+
+
+def _threshold_pairs(n_pairs, thr, seed):
+    """n_pairs pairs of boxes whose IoU in float32 (`pairwise_iou`'s
+    operations, on the CPU) is exactly thr, the float just below it, the
+    float just above it, 1 (identical boxes), or thr with the second box
+    of another class. A pair is a box of random size and a box nested in
+    it (sharing its top-left corner), whose far corner is searched over
+    float32 steps until the IoU lands where the pair wants it. Every pair
+    lies near the origin, where float32 steps are fine enough to reach
+    each IoU, and has class ids of its own (2p, and 2p + 1 for the other
+    class), so that no pair suppresses another.
+    Returns boxes [2 n_pairs, 4], ids [2 n_pairs], and each pair's kind:
+    the later box of the pair is suppressed iff kind is "above" or
+    "identical"."""
+    from leod_tpu_torch.ops.boxes import pairwise_iou
+    rng = np.random.default_rng(seed)
+    t = np.float32(thr)
+    below, above = _float32_neighbours(t)
+    want = {"at": t, "below": below, "above": above, "other_class": t}
+    kinds = ["at", "below", "above", "identical", "other_class"]
+    steps = np.arange(-16, 17).astype(np.float32)
+    boxes, ids, kind_of = [], [], []
+    for p in range(n_pairs):
+        kind = kinds[p % len(kinds)]
+        for _ in range(1000):       # a new outer box until the IoU is hit
+            x0, y0 = rng.uniform(0, 4, 2).astype(np.float32)
+            w, h = rng.uniform(30, 50, 2).astype(np.float32)
+            outer = np.array([x0, y0, x0 + w, y0 + h], np.float32)
+            if kind == "identical":
+                inner = outer.copy()
+                break
+            # inner area = thr x outer area at 0.6 of the outer width
+            x1 = np.float32(x0 + np.float32(0.6) * w)
+            y1 = np.float32(y0 + np.float32(thr / 0.6) * h)
+            xx, yy = np.meshgrid(x1 + steps * np.spacing(x1),
+                                 y1 + steps * np.spacing(y1))
+            cand = np.stack([np.full(xx.size, x0), np.full(xx.size, y0),
+                             xx.ravel(), yy.ravel()], -1).astype(np.float32)
+            iou = pairwise_iou(torch.from_numpy(outer[None]),
+                               torch.from_numpy(cand))[0].numpy()
+            hit = np.flatnonzero(iou == want[kind])
+            if hit.size:
+                inner = cand[hit[0]]
+                break
+        else:
+            raise AssertionError(f"no pair of kind {kind} found")
+        boxes += [outer, inner]
+        ids += [2 * p, 2 * p + (kind == "other_class")]
+        kind_of.append(kind)
+    return (np.stack(boxes).astype(np.float32),
+            np.asarray(ids, np.float32), kind_of)
+
+
+@pytest.mark.parametrize("k", [1000, 1024])
+def test_nms_kernel_exact_at_the_threshold(cuda, k):
+    """B = 8 images of K boxes in isolated pairs whose IoU lies exactly
+    on the threshold (0.45 in float32), on the float just below or just
+    above it, at 1 (identical boxes), or on it with the classes unequal,
+    each image its own order of pairs: the kernel's keep mask equals the
+    plain version's, and the plain version keeps the later box of a pair
+    exactly where its IoU is not above the threshold."""
+    thr, b = 0.45, 8
+    rng = np.random.default_rng(k)
+    boxes, ids, kinds = [], [], []
+    for i in range(b):
+        bx, cl, kd = _threshold_pairs(k // 2, thr, seed=10 * k + i)
+        perm = rng.permutation(k // 2)
+        boxes.append(bx.reshape(-1, 2, 4)[perm].reshape(-1, 4))
+        ids.append(cl.reshape(-1, 2)[perm].reshape(-1))
+        kinds.append([kd[j] for j in perm])
+    boxes = torch.from_numpy(np.stack(boxes)).to(cuda)
+    ids = torch.from_numpy(np.stack(ids)).to(cuda)
+    valid = torch.ones(b, k, dtype=torch.bool, device=cuda)
+    got = nms_cuda.nms_mask(boxes, thr, valid, ids)
+    want = nms_plain(boxes, thr, valid, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    later = want[:, 1::2].cpu().numpy()
+    for i in range(b):
+        for j, kind in enumerate(kinds[i]):
+            assert later[i, j] == (kind not in ("above", "identical")), \
+                (i, j, kind)
+    assert bool(want[:, 0::2].all())
+    # the same boxes, class-agnostic: other-class pairs now suppress
+    assert torch.equal(nms_cuda.nms_mask(boxes, thr, valid),
+                       nms_plain(boxes, thr, valid))
+
+
+def test_nms_back_to_back_launches_agree(cuda):
+    """B = 8 images of K = 1000 boxes: 40 launches queued back to back
+    give the first launch's keep mask bit for bit, which is the plain
+    version's."""
+    g = torch.Generator().manual_seed(5)
+    b, k = 8, 1000
+    ctr = torch.rand(b, k, 2, generator=g) * torch.tensor([320.0, 256.0])
+    wh = torch.rand(b, k, 2, generator=g) * 70 + 6
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1).to(cuda)
+    valid = (torch.rand(b, k, generator=g) > 0.05).to(cuda)
+    ids = torch.randint(0, 2, (b, k), generator=g).float().to(cuda)
+    outs = [nms_cuda.nms_mask(boxes, 0.45, valid, ids) for _ in range(40)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert torch.equal(outs[0], nms_plain(boxes, 0.45, valid, ids))
 
 
 def _mlp_cases():
@@ -153,15 +297,17 @@ def _mlp_cases():
     tiles allow it: each CTA needs a hidden chunk (64 units; 32 of each
     half in the GLU) and 8 projection columns a warpgroup."""
     cases = []
-    for dim in maxvit_cuda.MLP_DIMS:
+    for dim in maxvit_cuda.KERNEL_DIMS:
+        nwg = 2 if dim > 256 else 1            # the kernel's warpgroups
         for rows in (80, 640, 1000):
             for act, gated in (("gelu", False), ("silu", False),
                                ("gelu", True)):
                 chunks = (PartitionAttention(dim, (4, 5), "window",
+                                             dim_head=DIM_HEAD[dim],
                                              mlp_gated=gated)
                           .mlp.proj_out.in_features // (32 if gated else 64))
                 for cluster in (1, 2, 4, 8):
-                    if cluster <= chunks and dim // cluster >= 8:
+                    if cluster <= chunks and dim % (nwg * 8 * cluster) == 0:
                         cases.append((dim, rows, act, gated, cluster))
     return cases
 
@@ -169,6 +315,7 @@ def _mlp_cases():
 @pytest.mark.parametrize("dim,rows,act,gated,cluster", _mlp_cases())
 def test_block_mlp_kernel_matches_plain(cuda, dim, rows, act, gated, cluster):
     blk = _randomized(PartitionAttention(dim, (4, 5), "window",
+                                         dim_head=DIM_HEAD[dim],
                                          mlp_gated=gated, mlp_act=act),
                       dim + rows, cuda)
     g = torch.Generator(device=cuda).manual_seed(rows)
@@ -185,16 +332,17 @@ def test_block_mlp_kernel_matches_plain(cuda, dim, rows, act, gated, cluster):
 
 
 def _attention_cases():
-    """C x partition (T = 8, 20, 60, 80) x window/grid x LN1 skipped or
-    not x B x every cluster size the width takes (a head group a CTA)."""
+    """C (with its head width) x partition (T = 8, 20, 60, 80) x
+    window/grid x LN1 skipped or not x B x every cluster size the width
+    takes (a head group a CTA)."""
     cases = []
-    for dim in maxvit_cuda.MLP_DIMS:
+    for dim in maxvit_cuda.KERNEL_DIMS:
         for ps in ((2, 4), (4, 5), (6, 10), (8, 10)):
             for grid_kind in (False, True):
                 for skip in (False, True):
                     for b in (1, 2):
                         for cluster in (1, 2, 4, 8, 16):
-                            if cluster <= dim // 32:
+                            if cluster <= dim // DIM_HEAD[dim]:
                                 cases.append((dim, ps, grid_kind, skip, b,
                                               cluster))
     return cases
@@ -205,7 +353,8 @@ def _attention_cases():
 def test_block_attention_kernel_matches_plain(cuda, dim, ps, grid_kind, skip,
                                               b, cluster):
     kind = "grid" if grid_kind else "window"
-    blk = _randomized(PartitionAttention(dim, ps, kind, skip_first_norm=skip),
+    blk = _randomized(PartitionAttention(dim, ps, kind, skip_first_norm=skip,
+                                         dim_head=DIM_HEAD[dim]),
                       dim + ps[0], cuda)
     g = torch.Generator(device=cuda).manual_seed(b + ps[1])
     x = torch.randn(b, 24, 20, dim, device=cuda, generator=g
@@ -224,17 +373,17 @@ def test_block_attention_kernel_matches_plain(cuda, dim, ps, grid_kind, skip,
 
 @pytest.mark.parametrize("b", [1, 8])
 @pytest.mark.parametrize("grid_kind", [False, True])
-@pytest.mark.parametrize("dim,hw", [(64, (64, 80)), (128, (32, 40)),
-                                    (256, (16, 20)), (512, (8, 10))])
+@pytest.mark.parametrize("dim,hw", STAGES_B + STAGES_S)
 def test_block_attention_back_to_back_launches_agree(cuda, dim, hw, grid_kind,
                                                      b):
-    """At the RVT-B Gen1 stage shapes, B = 8 and 1 (the kernel's own plan
+    """At the RVT-B and RVT-S Gen1 stage shapes, B = 8 and 1 (the kernel's own plan
     of windows, heads and clusters, which differs between them: B = 1
     splits heads over clusters up to 16 CTAs), 40 launches queued back to
     back all give the first launch's output bit for bit, which holds the
     plain version: no launch overlaps or races the next."""
     kind = "grid" if grid_kind else "window"
-    blk = _randomized(PartitionAttention(dim, (8, 10), kind), dim, cuda)
+    blk = _randomized(PartitionAttention(dim, (8, 10), kind,
+                                         dim_head=DIM_HEAD[dim]), dim, cuda)
     g = torch.Generator(device=cuda).manual_seed(dim)
     x = torch.randn(b, *hw, dim, device=cuda, generator=g).to(torch.bfloat16)
     outs = [maxvit_cuda.block_attention(x, blk, grid_kind) for _ in range(40)]
@@ -249,11 +398,10 @@ def test_block_attention_back_to_back_launches_agree(cuda, dim, hw, grid_kind,
 def _lstm_cases():
     """C x B x map (R = B * H * W: 320, 480, 640 and 960 rows, three of
     them with a ragged last 128-row tile) x c in bf16 or fp32 x every
-    cluster size the width takes (at most its 64-wide K chunks, 2C / 64;
-    2 at C = 32)."""
+    cluster size the width takes (at most its K chunks, 2C / K-block)."""
     cases = []
-    for dim in maxvit_cuda.MLP_DIMS:
-        chunks = max(2, 2 * dim // 64)
+    for dim in maxvit_cuda.KERNEL_DIMS:
+        chunks = 2 * dim // _kblock(dim)
         for b in (1, 2):
             for hw in ((16, 20), (24, 20)):
                 for c_f32 in (False, True):
@@ -296,10 +444,9 @@ def test_lstm_update_kernel_matches_plain(cuda, dim, b, hw, c_f32, cluster):
 
 
 @pytest.mark.parametrize("b", [1, 8])
-@pytest.mark.parametrize("dim,hw", [(64, (64, 80)), (128, (32, 40)),
-                                    (256, (16, 20)), (512, (8, 10))])
+@pytest.mark.parametrize("dim,hw", STAGES_B + STAGES_S)
 def test_lstm_update_back_to_back_launches_agree(cuda, dim, hw, b):
-    """At the RVT-B Gen1 stage shapes, B = 8 and 1, by the kernel's own
+    """At the RVT-B and RVT-S Gen1 stage shapes, B = 8 and 1, by the kernel's own
     plan (persistent CTAs, or clusters splitting K where rows are few),
     40 launches queued back to back all give the first launch's output
     bit for bit, which holds the plain version."""
@@ -322,16 +469,32 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
                      dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         maxvit_cuda.fused_block_pair(xt, wb, gb, (4, 5), True)
-    # 96 channels (3 heads) is no width the MLP kernel's tiles take
-    blk = _randomized(PartitionAttention(96, (4, 5), "window"), 0, cuda)
-    x96 = torch.zeros(80, 96, device=cuda, dtype=torch.bfloat16)
+    # 80 channels (5 heads of 16) is no width the MLP kernel is built for
+    blk = _randomized(PartitionAttention(80, (4, 5), "window", dim_head=16),
+                      0, cuda)
+    x80 = torch.zeros(80, 80, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="C in"):
-        maxvit_cuda.block_mlp(x96, x96, blk)
-    # nor the ConvLSTM kernel's
-    gates = _randomized(_SplitGateConv(96), 0, cuda)
-    x96 = torch.zeros(1, H, W, 96, device=cuda, dtype=torch.bfloat16)
+        maxvit_cuda.block_mlp(x80, x80, blk)
+    # nor the ConvLSTM kernel
+    gates = _randomized(_SplitGateConv(80), 0, cuda)
+    x80 = torch.zeros(1, H, W, 80, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="C in"):
-        maxvit_cuda.lstm_update(x96, x96, x96, gates)
+        maxvit_cuda.lstm_update(x80, x80, x80, gates)
+    # nor the attention kernel, at a width it takes with another head
+    # width: C = 64 in heads of 16, C = 96 in heads of 32
+    for dim, dh in ((64, 16), (96, 32)):
+        blk = _randomized(PartitionAttention(dim, (4, 5), "window",
+                                             dim_head=dh), 0, cuda)
+        xd = torch.zeros(1, H, W, dim, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="dim_head"):
+            maxvit_cuda.block_attention(xd, blk, False)
+    wb16, gb16 = (_randomized(PartitionAttention(
+        64, (4, 5), kind, skip_first_norm=kind == "window", dim_head=16),
+        0, cuda) for kind in ("window", "grid"))
+    x64 = torch.zeros(1, H, W, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="dim_head"):
+        maxvit_cuda.fused_block_pair(x64, wb16, gb16, (4, 5), True,
+                                     dim_head=16)
     # a partition of 100 tokens: more keys than a warp's S holds
     blk = _randomized(PartitionAttention(32, (10, 10), "window"), 0, cuda)
     x20 = torch.zeros(1, 20, 20, 32, device=cuda, dtype=torch.bfloat16)

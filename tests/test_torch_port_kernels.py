@@ -1,7 +1,8 @@
 """The port's kernel wrappers on the CPU, where they run their plain
 versions, against the JAX package's Pallas functions in interpret mode:
-`fused_block_pair` and `fused_stage` at 2e-5 in float32, the NMS keep
-mask and `postprocess` exactly. Inputs are made with numpy from a seed;
+`fused_block_pair` and `fused_stage` at 2e-5 in float32 (heads of 32 at
+RVT-T/B widths, heads of 24 at RVT-S widths), the NMS keep mask and
+`postprocess` exactly. Inputs are made with numpy from a seed;
 weights go through `load_jax_variables`."""
 import numpy as np
 import pytest
@@ -45,18 +46,18 @@ def _np_tree(tree, rng):
     return out
 
 
-def _pair_modules(dim, skip, gated, rng):
+def _pair_modules(dim, skip, gated, rng, dim_head=32):
     x = rng.normal(size=(2, H, W, dim)).astype(np.float32)
     params = {}
     for i, (kind, sk) in enumerate((("window", skip), ("grid", False))):
         jm = JPartitionAttention(dim, (PH, PW), kind, skip_first_norm=sk,
-                                 mlp_gated=gated)
+                                 dim_head=dim_head, mlp_gated=gated)
         params[kind] = _np_tree(
             jm.init(jax.random.PRNGKey(i), jnp.asarray(x))["params"], rng)
     mods = torch.nn.ModuleDict({
         kind: PartitionAttention(dim, (PH, PW), kind,
                                  skip_first_norm=skip and kind == "window",
-                                 mlp_gated=gated)
+                                 dim_head=dim_head, mlp_gated=gated)
         for kind in ("window", "grid")})
     load_jax_variables(mods, {"params": params})
     return x, params, mods
@@ -83,6 +84,26 @@ def test_fused_block_pair_matches_pallas(dim, skip, gated):
     assert maxvit_cuda.fused_block_pair.launches == before  # no kernel
 
 
+@pytest.mark.parametrize("dim,skip,gated", [
+    (48, True, False), (48, False, True), (96, False, False),
+    (96, True, True)])
+def test_fused_block_pair_matches_pallas_dim_head_24(dim, skip, gated):
+    """RVT-S's first two stage widths, in heads of 24 (2 and 4 heads)."""
+    rng = np.random.default_rng(dim + 2 * skip + gated)
+    x, params, mods = _pair_modules(dim, skip, gated, rng, dim_head=24)
+    want = jmp.fused_block_pair(jnp.asarray(x), params["window"],
+                                params["grid"], (PH, PW),
+                                skip_first_norm=skip, dim_head=24,
+                                gated=gated, interpret=True)
+    before = maxvit_cuda.fused_block_pair.launches
+    with torch.no_grad():
+        got = maxvit_cuda.fused_block_pair(
+            torch.from_numpy(x), mods["window"], mods["grid"], (PH, PW),
+            skip_first_norm=skip, dim_head=24, gated=gated)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert maxvit_cuda.fused_block_pair.launches == before  # no kernel
+
+
 def test_fused_block_pair_rejects_mismatched_modules():
     _, _, mods = _pair_modules(32, True, False, np.random.default_rng(0))
     x = torch.zeros(1, H, W, 32)
@@ -94,12 +115,11 @@ def test_fused_block_pair_rejects_mismatched_modules():
                                      (2, 5), skip_first_norm=True)
 
 
-def test_fused_stage_matches_pallas_from_warm_states():
+def _fused_stage_matches_pallas(**common):
     """The whole backbone through the port's `fused_stage` (its plain
     version on the CPU) against the JAX backbone with fused="stage" and
     the Pallas `fused_stage` in interpret mode, from warm states: the
     four stage features and every (h, c)."""
-    common = dict(embed_dim=32, in_res_hw=(64, 96), partition_size=(2, 3))
     jcfg, tcfg = JBackboneConfig(**common), BackboneConfig(**common)
     rng = np.random.default_rng(0)
     x = jnp.asarray(rng.normal(size=(2, 64, 96, 20)).astype(np.float32) * 3)
@@ -128,6 +148,18 @@ def test_fused_stage_matches_pallas_from_warm_states():
     for (th, tc), (jh, jc) in zip(tst, jst):
         np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
         np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **TOL)
+
+
+def test_fused_stage_matches_pallas_from_warm_states():
+    """RVT-T widths: stages 32/64/128/256, heads of 32."""
+    _fused_stage_matches_pallas(embed_dim=32, in_res_hw=(64, 96),
+                                partition_size=(2, 3))
+
+
+def test_fused_stage_matches_pallas_rvt_s_from_warm_states():
+    """RVT-S widths: stages 48/96/192/384, heads of 24 (2/4/8/16)."""
+    _fused_stage_matches_pallas(embed_dim=48, dim_head=24,
+                                in_res_hw=(64, 96), partition_size=(2, 3))
 
 
 def _sorted_boxes(rng, n, canvas=(320, 256)):

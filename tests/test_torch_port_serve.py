@@ -1,7 +1,7 @@
 """The port's serving path against the JAX package's on the CPU in
-float32: `make_serve_step` over three steps with reset and idle rows,
-`ServingEngine`, the weight bridge at RVT-B width, and the port's
-independence from JAX and from the card."""
+float32: `make_serve_step` over three steps with reset and idle rows at
+RVT-T and RVT-S widths, `ServingEngine`, the weight bridge at RVT-B and
+RVT-S width, and the port's independence from JAX and from the card."""
 import os
 import subprocess
 import sys
@@ -31,10 +31,11 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 B = 3
 
 
-def _tiny(preset):
-    """RVT-tiny widths (embed 32, FPN depth 0.33) at a 64 x 96 input with
-    a (2, 3) partition."""
-    cfg = preset("gen1", "tiny")
+def _tiny(preset, size="tiny"):
+    """RVT-tiny widths (embed 32, FPN depth 0.33), or with size="small"
+    RVT-S's (embed 48, heads of 24), at a 64 x 96 input with a (2, 3)
+    partition."""
+    cfg = preset("gen1", size)
     bb = replace(cfg.model.backbone, in_res_hw=(64, 96),
                  partition_size=(2, 3))
     return replace(cfg, model=replace(cfg.model, backbone=bb))
@@ -65,9 +66,9 @@ def _randomize(tree, rng):
     return out
 
 
-@pytest.fixture(scope="module")
-def tiny():
-    jcfg, tcfg = _tiny(j_experiment_preset), _tiny(experiment_preset)
+def _models(size):
+    jcfg = _tiny(j_experiment_preset, size)
+    tcfg = _tiny(experiment_preset, size)
     jdet = JDetector(jcfg.model, dtype=jnp.float32)
     v = _randomize(jax.tree.map(np.asarray,
                                 jdet.init(jax.random.PRNGKey(0))),
@@ -75,6 +76,16 @@ def tiny():
     tdet = Detector(tcfg.model, dtype=torch.float32, device="cpu")
     load_jax_variables(tdet, v)
     return jcfg, tcfg, jdet, v, tdet
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    return _models("tiny")
+
+
+@pytest.fixture(scope="module")
+def small():
+    return _models("small")
 
 
 def _frames(rng, cfg, n):
@@ -86,13 +97,13 @@ def _scores(preds):
     return preds[..., 4] * preds[..., 5:].max(-1)
 
 
-def test_serve_step_matches_jax(tiny):
+def _serve_step_matches_jax(models):
     """Three steps with resets and idle rows: states and decoded
     predictions at 1e-4, then dets and valid. The dets are compared only
     after the test has checked that no two candidate scores lie closer
     than the two packages' score difference, so that top-k and NMS must
     take the same boxes in the same order."""
-    jcfg, tcfg, jdet, v, tdet = tiny
+    jcfg, tcfg, jdet, v, tdet = models
     jstep = jax.jit(j_make_serve_step(jdet, v, conf_threshold=0.0))
     jdecode = jax.jit(lambda st, ev: jdet.forward_detect(
         v, jdet.forward_backbone(v, ev, st)[0])[0])
@@ -121,6 +132,17 @@ def test_serve_step_matches_jax(tiny):
         np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
         np.testing.assert_allclose(td.numpy(), np.asarray(jd), **TOL)
         assert not tv.numpy()[~active].any() and tv.numpy()[active].any()
+
+
+def test_serve_step_matches_jax(tiny):
+    _serve_step_matches_jax(tiny)
+
+
+def test_serve_step_matches_jax_rvt_s(small):
+    """RVT-S: stages 48/96/192/384 in heads of 24."""
+    assert small[3]["params"]["backbone"]["stage1"]["block0_window"][
+        "attn"]["qkv"]["kernel"].shape == (48, 144)
+    _serve_step_matches_jax(small)
 
 
 def test_serving_engine_answers_and_evicts(tiny):
@@ -172,11 +194,11 @@ def _eval_shape_tree(preset_dataset, size):
         lambda s: rng.normal(size=s.shape).astype(np.float32), shapes)
 
 
-def test_load_jax_variables_rvt_b_consumes_every_leaf():
-    """Every leaf of an RVT-B-width JAX tree lands in the port, in the
-    port's layout; a leftover or a missing leaf raises."""
-    _, tree = _eval_shape_tree("gen1", "base")
-    det = Detector(experiment_preset("gen1", "base").model,
+def _load_consumes_every_leaf(size):
+    """Every leaf of a JAX tree at a preset's width lands in the port, in
+    the port's layout; a leftover or a missing leaf raises."""
+    _, tree = _eval_shape_tree("gen1", size)
+    det = Detector(experiment_preset("gen1", size).model,
                    dtype=torch.float32, device="cpu")
     load_jax_variables(det, tree)
     p, bs = tree["params"], tree["batch_stats"]
@@ -206,6 +228,19 @@ def test_load_jax_variables_rvt_b_consumes_every_leaf():
     head.pop("obj_pred0")
     with pytest.raises(ValueError, match="did not fill"):
         load_jax_variables(det, {**tree, "params": {**p, "head": head}})
+    return det
+
+
+def test_load_jax_variables_rvt_b_consumes_every_leaf():
+    _load_consumes_every_leaf("base")
+
+
+def test_load_jax_variables_rvt_s_consumes_every_leaf():
+    """RVT-S: embed 48, heads of 24; the stage widths reach the port."""
+    det = _load_consumes_every_leaf("small")
+    assert [getattr(det.backbone, f"stage{k}").lstm.gates.dim
+            for k in range(1, 5)] == [48, 96, 192, 384]
+    assert det.backbone.stage4.block0_grid.attn.dim_head == 24
 
 
 def test_port_imports_neither_jax_nor_leod_tpu():
