@@ -9,10 +9,8 @@
 Phases 2-4 run for two paths in turn, each a seeded model at full width
 and depth: RVT-B Gen1 (`experiment_preset("gen1", "base")`: stages
 64/128/256/512, heads of 32) and RVT-S Gen1 (`experiment_preset("gen1",
-"small")`: stages 48/96/192/384, heads of 24). RVT-S's kernel phase
-leaves out what RVT-B's measures of the kernels' plans and variants
-(the forced cluster sizes, the fp32 cell state, the NMS build's row
-source, the shuffle probe), never a width or a shape.
+"small")`: stages 48/96/192/384, heads of 24). The first path alone
+also runs the variant phase (2b), never a width or a shape less.
 
 2. Kernel phase: each kernel's wrapper against its plain PyTorch version
    on the card, on the same inputs, at the Gen1 shapes the serving
@@ -22,25 +20,23 @@ source, the shuffle probe), never a width or a shape.
    half `block_attention`, window and grid, the per-token half
    `block_mlp` and the ConvLSTM update `lstm_update`, each also at
    B = 1, where their plans of windows, heads, row tiles and clusters
-   differ, with the plan the launch took; `lstm_update` also with every
-   cluster size its K takes, forced, and with c in fp32, by device
-   time), and the NMS keep
-   mask at K = 1000 (with the mask build's row boxes staged in shared
-   memory, and read from L2: its device time both ways, at B = 8 and 1).
-   Each row carries
+   differ, with the plan the launch took), and the NMS keep mask at
+   K = 1000, exact. Each row carries
    its bound (bytes or tensor-core operations). Timed with CUDA events
    (median of 20 runs after warm-up); "host_us" is the host time of one
-   wrapper call alone (what it costs the host to launch). Beside the NMS
-   sweep's bound, its design's latency floor: K steps of a dependent
-   warp-shuffle chain, at the latency a one-warp probe (built beside the
-   kernels) measures with clock64 and %globaltimer.
+   wrapper call alone (what it costs the host to launch).
+2b. Variant phase (first path): `lstm_update` at the stage shapes with
+   every cluster size its K takes, forced, and with c in fp32, by device
+   time, each against its plain version; and the NMS sweep's design
+   latency floor: K steps of a dependent warp-shuffle chain, at the
+   latency a one-warp probe (built beside the kernels) measures with
+   clock64 and %globaltimer.
 3. Slice phase: the path's seeded `Detector` behind `ServingEngine`
    answers requests from client threads, one of which forces an LRU
    eviction. Every kernel's launch count must rise by what the path
    implies per step. One step through the plain versions is held
-   against the kernel step, at B = 8 and at B = 1, the NMS keep mask of
-   the kernel step's own top-k candidates is held exactly against the
-   plain NMS on them, and the step is timed at B = 1 and B = 8.
+   against the kernel step, at B = 8 and at B = 1, and the step is
+   timed at B = 1 and B = 8.
 
 Tolerances, fixed before any run: the kernels compute in bf16 with fp32
 accumulation and round at other points than the plain bf16 version
@@ -388,11 +384,27 @@ def perturb_layerscale(det, seed: int) -> None:
                     p.copy_(torch.rand(p.shape, generator=g) * 0.4 + 0.1)
 
 
-def phase_kernels(det, probe_lib):
-    """Every kernel against its plain version at the model's stage shapes.
-    With probe_lib None (the second path) it leaves out the plan and
-    variant measurements: forced LSTM clusters, fp32 c, the NMS build's
-    row source, and the shuffle probe."""
+def stage_inputs(det, seed: int):
+    """(stage, NHWC shape, x, h, c) at each stage's B-slot Gen1 shape:
+    seeded bf16 input and warm non-zero (h, c)."""
+    import torch
+    bb = det.cfg.backbone
+    h_in, w_in = bb.in_res_hw
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for k, (dim, stride) in enumerate(zip(bb.stage_dims, bb.stage_strides)):
+        shape = (B, h_in // stride, w_in // stride, dim)
+        x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+        hs = (torch.randn(shape, device="cuda", generator=g) * 0.5
+              ).to(torch.bfloat16)
+        cs = (torch.randn(shape, device="cuda", generator=g) * 0.5
+              ).to(torch.bfloat16)
+        out.append((getattr(det.backbone, f"stage{k + 1}"), shape, x, hs, cs))
+    return out
+
+
+def phase_kernels(det):
+    """Every kernel against its plain version at the model's stage shapes."""
     import torch
     from leod_tpu_torch.ops import maxvit_cuda as mc
     from leod_tpu_torch.models import layers as lay
@@ -403,11 +415,10 @@ def phase_kernels(det, probe_lib):
     ps = bb.partition_size
     kw = dict(dim_head=bb.dim_head, act=bb.mlp_act, gated=bb.mlp_gated,
               eps=bb.norm_eps)
-    g = torch.Generator(device="cuda").manual_seed(1)
+    g = torch.Generator(device="cuda").manual_seed(3)
     h_in, w_in = bb.in_res_hw
     rows = {"fused_block_pair": [], "fused_stage": [], "block_attention": [],
-            "block_mlp": [], "lstm_update": [], "lstm_update_clusters": [],
-            "lstm_update_c_fp32": []}
+            "block_mlp": [], "lstm_update": []}
 
     def row(kern, plain, flops, nbytes, **extra):
         """One shape's entry: the kernel against its plain version."""
@@ -417,14 +428,8 @@ def phase_kernels(det, probe_lib):
                     plain_ms=cuda_ms(plain), host_us=enqueue_us(kern),
                     flops=flops, bytes=nbytes, bound_ms=bms, bound_by=by)
 
-    for k, (dim, stride) in enumerate(zip(bb.stage_dims, bb.stage_strides)):
-        stage = getattr(det.backbone, f"stage{k + 1}")
-        shape = (B, h_in // stride, w_in // stride, dim)
-        x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
-        hs = (torch.randn(shape, device="cuda", generator=g) * 0.5
-              ).to(torch.bfloat16)
-        cs = (torch.randn(shape, device="cuda", generator=g) * 0.5
-              ).to(torch.bfloat16)
+    for stage, shape, x, hs, cs in stage_inputs(det, seed=1):
+        dim = shape[3]
         pairs = stage.pairs()
         wb, gb = pairs[0]
 
@@ -472,9 +477,7 @@ def phase_kernels(det, probe_lib):
 
         # the ConvLSTM update alone, from warm (h, c), at B and at B = 1,
         # whose plans differ: "plan" is (rows a tile, channels a tile,
-        # CTAs a cluster splitting K). Then by its plan (cluster None) and
-        # with every cluster size its K chunks take, forced: the device
-        # time of a launch, the evidence for the plan's rule of splitting
+        # CTAs a cluster splitting K)
         gates = stage.lstm.gates
         for bsz in (B, 1):
             xb, hb, cb = x[:bsz], hs[:bsz], cs[:bsz]
@@ -486,38 +489,6 @@ def phase_kernels(det, probe_lib):
                     batch=bsz)
             r["plan"] = list(mc.lstm_update.plan)
             rows["lstm_update"].append(r)
-            if probe_lib is None:
-                continue
-            want = mc.lstm_update_plain(xb, hb, cb, gates)
-            for cl in (None, 1, 2, 4, 8):
-                if cl is not None and cl > max(2, 2 * dim // 64):
-                    continue
-
-                def kern(xb=xb, hb=hb, cb=cb, cl=cl):
-                    return mc.lstm_update(xb, hb, cb, gates, cluster=cl)
-
-                err, tol, ok = compare_all(kern(), want, KERNEL_TOL)
-                rows["lstm_update_clusters"].append(dict(
-                    shape=list(xb.shape), cluster=cl,
-                    plan=list(mc.lstm_update.plan),
-                    device_us=device_us(kern, "lstm_update_kernel"),
-                    max_abs_err=err, tol=tol, ok=ok))
-        # c in fp32 (off the serve path), at B: the kernel's accurate
-        # gates for c'; "c_rel_err" is |c' - plain| / max|plain|
-        cf = cs.float()
-
-        def kern_f(cf=cf):
-            return mc.lstm_update(x, hs, cf, gates)
-
-        if probe_lib is not None:
-            got, want = kern_f(), mc.lstm_update_plain(x, hs, cf, gates)
-            err, tol, ok = compare_all(got, want, KERNEL_TOL)
-            rows["lstm_update_c_fp32"].append(dict(
-                shape=list(x.shape), device_us=device_us(
-                    kern_f, "lstm_update_kernel"),
-                max_abs_err=err, tol=tol, ok=ok,
-                c_rel_err=float((got[1] - want[1]).abs().max()
-                                / want[1].abs().max())))
 
         rows["fused_stage"].append(row(
             lambda: mc.fused_stage(x, hs, cs, pairs, gates, ps, True, **kw),
@@ -543,19 +514,6 @@ def phase_kernels(det, probe_lib):
     keep_k, keep_p = nms_k(), nms_p()
     torch.cuda.synchronize()
     mismatches = int((keep_k != keep_p).sum())
-    # the mask build's row boxes staged in shared memory (the wrapper's
-    # way) or read from L2: device us of nms_build_kernel a launch, at
-    # B and at B = 1, and the keep mask of each (exact)
-    build_rows = []
-    for bsz in ((B, 1) if probe_lib is not None else ()):
-        for l2 in (False, True):
-            def fn(bsz=bsz, l2=l2):
-                return nms_cuda.nms_mask(boxes[:bsz], thr, valid[:bsz],
-                                         ids[:bsz], rows_from_l2=l2)
-            mismatches += int((fn() != keep_p[:bsz]).sum())
-            build_rows.append(dict(batch=bsz, rows_from_l2=l2,
-                                   device_us=device_us(fn,
-                                                       "nms_build_kernel")))
     # per image: K (K-1) / 2 IoU tests of ~13 fp32 operations each
     ops = B * kk * (kk - 1) / 2 * 13
     nbytes = B * kk * (16 + 1 + 4 + 1)
@@ -563,9 +521,7 @@ def phase_kernels(det, probe_lib):
     # each kernel alone: nms_build_kernel does the IoU tests, reads the
     # boxes and class ids and writes the K x ceil(K/32) mask words;
     # nms_sweep_kernel reads the mask and valid and writes keep, its
-    # bound. Beside it, that design's latency floor (not a bound of the
-    # function): its K steps are a dependent chain of warp shuffles, at
-    # the latency the probe measures on this card
+    # bound (its design's latency floor is the variant phase's)
     mask_bytes = B * kk * ((kk + 31) // 32) * 4
     build_ms, build_by = bound(ops, B * kk * (16 + 4) + mask_bytes, PEAK_FP32)
     sweep_ms = (mask_bytes + 2 * B * kk) / PEAK_BYTES * 1e3
@@ -574,13 +530,59 @@ def phase_kernels(det, probe_lib):
                    ms=cuda_ms(nms_k), plain_ms=cuda_ms(nms_p), flops=ops,
                    bytes=nbytes, bound_ms=bms, bound_by=by,
                    build_bound_ms=build_ms, build_bound_by=build_by,
-                   sweep_bound_ms=sweep_ms, sweep_bound_by="bytes",
-                   build_rows=build_rows)
-    if probe_lib is not None:
-        shfl_cycles, shfl_ns = shfl_latency(probe_lib)
-        nms_row.update(shfl_cycles=shfl_cycles, shfl_ns=shfl_ns,
-                       sweep_chain_floor_ms=kk * shfl_ns * 1e-6)
+                   sweep_bound_ms=sweep_ms, sweep_bound_by="bytes")
     return rows, nms_row
+
+
+def phase_variants(det, probe_lib: str):
+    """Measures of the kernels' plans and variants, off the serve path.
+    `lstm_update` at each stage shape by its plan (cluster None) and with
+    every cluster size its K chunks take, forced: the device time of a
+    launch, the evidence for the plan's rule of splitting; and with c in
+    fp32, the kernel's accurate gates for c' ("c_rel_err" is
+    |c' - plain| / max|plain|). Each against its plain version. Then the
+    NMS sweep's design latency floor (not a bound of the function): its
+    K steps are a dependent chain of warp shuffles, at the latency the
+    probe measures on this card."""
+    from leod_tpu_torch.ops import maxvit_cuda as mc
+
+    clusters, c_fp32 = [], []
+    for stage, shape, x, hs, cs in stage_inputs(det, seed=1):
+        gates, dim = stage.lstm.gates, shape[3]
+        for bsz in (B, 1):
+            xb, hb, cb = x[:bsz], hs[:bsz], cs[:bsz]
+            want = mc.lstm_update_plain(xb, hb, cb, gates)
+            for cl in (None, 1, 2, 4, 8):
+                if cl is not None and cl > max(2, 2 * dim // 64):
+                    continue
+
+                def kern(xb=xb, hb=hb, cb=cb, cl=cl):
+                    return mc.lstm_update(xb, hb, cb, gates, cluster=cl)
+
+                err, tol, ok = compare_all(kern(), want, KERNEL_TOL)
+                clusters.append(dict(
+                    shape=list(xb.shape), cluster=cl,
+                    plan=list(mc.lstm_update.plan),
+                    device_us=device_us(kern, "lstm_update_kernel"),
+                    max_abs_err=err, tol=tol, ok=ok))
+        cf = cs.float()
+
+        def kern_f(x=x, hs=hs, cf=cf, gates=gates):
+            return mc.lstm_update(x, hs, cf, gates)
+
+        got, want = kern_f(), mc.lstm_update_plain(x, hs, cf, gates)
+        err, tol, ok = compare_all(got, want, KERNEL_TOL)
+        c_fp32.append(dict(
+            shape=list(x.shape), device_us=device_us(kern_f,
+                                                     "lstm_update_kernel"),
+            max_abs_err=err, tol=tol, ok=ok,
+            c_rel_err=float((got[1] - want[1]).abs().max()
+                            / want[1].abs().max())))
+    kk = det.cfg.postprocess.pre_nms_topk
+    shfl_cycles, shfl_ns = shfl_latency(probe_lib)
+    return {"lstm_update_clusters": clusters, "lstm_update_c_fp32": c_fp32,
+            "shfl_cycles": shfl_cycles, "shfl_ns": shfl_ns,
+            "sweep_chain_floor_ms": kk * shfl_ns * 1e-6}
 
 
 def _summary(name, replaces, source, shape_rows, launches, peak_ops):
@@ -712,22 +714,6 @@ def phase_slice(det, cfg):
             if not ok:
                 fail(f"slice parity {tag + name}: |kernel - plain| {err} > "
                      f"{tol}")
-    # the NMS keep mask of the kernel step's own top-k candidates, kernel
-    # against the plain NMS on the same boxes: exact
-    from leod_tpu_torch.ops.nms import nms_mask as nms_plain
-    from leod_tpu_torch.ops.nms import topk_candidates
-    pp = cfg.model.postprocess
-    feats, _ = det.forward_backbone(ev, st0)
-    preds, _ = det.forward_detect(feats)
-    _, bx, ok_rows, ids, _ = topk_candidates(
-        preds, cfg.model.head.num_classes, 0.0, pp.pre_nms_topk)
-    keep_k = nms_cuda.nms_mask(bx, pp.nms_threshold, ok_rows, ids)
-    keep_p = nms_plain(bx, pp.nms_threshold, ok_rows, ids)
-    nms_check = {"shape": list(bx.shape), "kept": int(keep_p.sum()),
-                 "mismatches": int((keep_k != keep_p).sum())}
-    if nms_check["mismatches"]:
-        fail(f"the step's NMS keep mask differs from the plain NMS on "
-             f"its candidates: {nms_check}")
     k_step = step(st0, ev, reset, active)
     plain_step = make_serve_step(det, conf_threshold=0.0, plain=True)
     p_step = plain_step(st0, ev, reset, active)
@@ -756,7 +742,7 @@ def phase_slice(det, cfg):
     st = det.init_states(B)
     timing[f"plain_step_ms_b{B}"] = host_ms(
         lambda: plain_step(st, evb, flags, flags), reps=10)
-    return launches, steps, stats, parity, timing, nms_check
+    return launches, steps, stats, parity, timing
 
 
 def _busy_us(spans) -> float:
@@ -863,13 +849,14 @@ def phase_profile(det, cfg, timing):
     return out
 
 
-# (tag, experiment_preset size) of the paths driven, in order
-PATHS = (("RVT-B", "base"), ("RVT-S", "small"))
+# (tag, experiment_preset size, whether it runs the variant phase) of the
+# paths driven, in order
+PATHS = (("RVT-B", "base", True), ("RVT-S", "small", False))
 
 
-def drive_path(tag: str, size: str, probe_lib):
-    """Phases 2-4 for one Gen1 model at full width and depth; returns its
-    kernels' entries of the JSON line."""
+def drive_path(tag: str, size: str, variants: bool, probe_lib: str):
+    """Phases 2-4 for one Gen1 model at full width and depth, and phase 2b
+    where `variants`; returns its kernels' entries of the JSON line."""
     import torch
     from leod_tpu_torch.config import experiment_preset
     from leod_tpu_torch.models.detector import Detector
@@ -878,17 +865,22 @@ def drive_path(tag: str, size: str, probe_lib):
     name = f"{tag} gen1 (experiment_preset('gen1', '{size}'))"
     det = Detector(cfg.model, device="cuda", seed=0)
     perturb_layerscale(det, seed=0)
-    rows, nms_row = phase_kernels(det, probe_lib)
+    rows, nms_row = phase_kernels(det)
     emit({"kernel_phase": {"config": name, **rows, "nms_mask": [nms_row]}})
-    for kind in ("block_attention", "block_mlp", "lstm_update",
-                 "lstm_update_clusters", "lstm_update_c_fp32"):
-        if not all(r["ok"] for r in rows[kind]):
+    checked = dict(rows)
+    if variants:
+        var = phase_variants(det, probe_lib)
+        emit({"variants": {"config": name, **var}})
+        checked.update((k, var[k]) for k in ("lstm_update_clusters",
+                                             "lstm_update_c_fp32"))
+    for kind, kind_rows in checked.items():
+        if not all(r["ok"] for r in kind_rows):
             fail(f"{tag} {kind} disagrees with its plain version: "
-                 f"{[(r['shape'], r['max_abs_err'], r['tol']) for r in rows[kind]]}")
-    launches, steps, stats, parity, timing, nms_check = phase_slice(det, cfg)
+                 f"{[(r['shape'], r['max_abs_err'], r['tol']) for r in kind_rows]}")
+    launches, steps, stats, parity, timing = phase_slice(det, cfg)
     emit({"slice": {"config": name, "slots": B, "steps": steps,
                     "launches": launches, "parity": parity, **timing,
-                    "nms_keep_check": nms_check, "engine_stats": stats,
+                    "engine_stats": stats,
                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}})
     emit({"profile": {"config": name, **phase_profile(det, cfg, timing)}})
 
@@ -930,8 +922,8 @@ def main() -> int:
 
     probe_lib = phase_build()
     kernels = []
-    for tag, size in PATHS:
-        kernels += drive_path(tag, size, probe_lib if tag == "RVT-B" else None)
+    for tag, size, variants in PATHS:
+        kernels += drive_path(tag, size, variants, probe_lib)
         torch.cuda.empty_cache()
     emit({"kernels": kernels})
     bad = [k["name"] for k in kernels if not k["ok"]]

@@ -82,10 +82,6 @@ __device__ __forceinline__ void build_task(int t, int words, int& a, int& b) {
 }
 
 // grid (ceil(tasks / kBuildWarps), B), a warp a task of image blockIdx.y.
-// ROWS_L2: read each row's box, area and class straight from global
-// memory (L1/L2, one address a warp) instead of the warp's shared-memory
-// copy; `chip_smoke.py` times both, and the wrapper takes shared memory.
-template <bool ROWS_L2>
 __global__ void __launch_bounds__(kBuildWarps * 32) nms_build_kernel(
     const float4* __restrict__ boxes, const float* __restrict__ cls,
     float thr, int K, int words, uint32_t* __restrict__ mask) {
@@ -102,12 +98,10 @@ __global__ void __launch_bounds__(kBuildWarps * 32) nms_build_kernel(
   // into this lane's registers (zeros past K, never stored or set)
   const int i = 32 * a + lane, j = 32 * b + lane;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (!ROWS_L2) {
-    const float4 bi = i < K ? bimg[i] : zero;
-    rbox[warp][lane] = bi;
-    rac[warp][lane] = make_float2(area_of(bi), i < K && cimg ? cimg[i] : 0.f);
-    __syncwarp();
-  }
+  const float4 bi = i < K ? bimg[i] : zero;
+  rbox[warp][lane] = bi;
+  rac[warp][lane] = make_float2(area_of(bi), i < K && cimg ? cimg[i] : 0.f);
+  __syncwarp();
   const bool jin = j < K;
   const float4 bj = jin ? bimg[j] : zero;
   const float aj = area_of(bj), cj = jin && cimg ? cimg[j] : 0.f;
@@ -115,20 +109,9 @@ __global__ void __launch_bounds__(kBuildWarps * 32) nms_build_kernel(
   uint32_t mine = 0u;                           // the word of row 32 a + lane
 #pragma unroll 8
   for (int r = 0; r < 32; ++r) {
-    float4 br;
-    float ar, cr;
-    if (ROWS_L2) {
-      const int ir = min(32 * a + r, K - 1);    // rows past K are not stored
-      br = __ldg(bimg + ir);
-      ar = area_of(br);
-      cr = cimg ? __ldg(cimg + ir) : 0.f;
-    } else {
-      br = rbox[warp][r];
-      const float2 ac = rac[warp][r];
-      ar = ac.x;
-      cr = ac.y;
-    }
-    const bool hit = jin && cr == cj && iou_exceeds(br, ar, bj, aj, thr);
+    const float4 br = rbox[warp][r];
+    const float2 ac = rac[warp][r];              // (area, class) of row r
+    const bool hit = jin && ac.y == cj && iou_exceeds(br, ac.x, bj, aj, thr);
     const uint32_t word = __ballot_sync(0xffffffffu, hit);
     if (lane == r) mine = word;
   }
@@ -172,13 +155,11 @@ __global__ void __launch_bounds__(kSweepThreads) nms_sweep_kernel(
 
 // boxes [B, K, 4] f32 (16-byte aligned), valid [B, K] uint8, cls [B, K]
 // f32 or NULL (class-agnostic), mask [B, K, ceil(K/32)] uint32 scratch,
-// keep [B, K] uint8. rows_l2: the build reads its row boxes from L2
-// instead of shared memory (nms_build_kernel). Launches on `stream`,
-// allocates nothing, returns cudaGetLastError().
+// keep [B, K] uint8. Launches on `stream`, allocates nothing, returns
+// cudaGetLastError().
 extern "C" int leod_nms_mask(const void* boxes, const void* valid,
                              const void* cls, float thr, int B, int K,
-                             void* mask, void* keep, int rows_l2,
-                             void* stream) {
+                             void* mask, void* keep, void* stream) {
   if (K < 1 || K > kMaxK || B < 1 || B > 65535 ||
       reinterpret_cast<uintptr_t>(boxes) % 16)
     return cudaErrorInvalidValue;
@@ -186,13 +167,9 @@ extern "C" int leod_nms_mask(const void* boxes, const void* valid,
   const int tasks = words * (words + 1) / 2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((tasks + kBuildWarps - 1) / kBuildWarps, B);
-  const float4* bx = static_cast<const float4*>(boxes);
-  const float* cl = static_cast<const float*>(cls);
-  uint32_t* m = static_cast<uint32_t*>(mask);
-  if (rows_l2)
-    nms_build_kernel<true><<<grid, kBuildWarps * 32, 0, st>>>(bx, cl, thr, K, words, m);
-  else
-    nms_build_kernel<false><<<grid, kBuildWarps * 32, 0, st>>>(bx, cl, thr, K, words, m);
+  nms_build_kernel<<<grid, kBuildWarps * 32, 0, st>>>(
+      static_cast<const float4*>(boxes), static_cast<const float*>(cls), thr,
+      K, words, static_cast<uint32_t*>(mask));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const size_t sweep_smem = static_cast<size_t>(K) * words * 4;

@@ -35,31 +35,6 @@ def nms_mask(boxes_xyxy: torch.Tensor, iou_threshold: float,
     return keep
 
 
-def topk_candidates(predictions: torch.Tensor, num_classes: int,
-                    conf_threshold: float, pre_topk: int):
-    """The NMS input of `postprocess`: the top `pre_topk` boxes by score
-    (obj x class conf, below conf_threshold invalid), score-descending.
-    Returns the order [B, k] of the anchors taken, their boxes xyxy
-    [B, k, 4], valid [B, k] and class ids [B, k] (floats), and the class
-    conf [B, A] of every anchor."""
-    predictions = predictions.float()
-    bsz, a = predictions.shape[:2]
-    boxes = cxcywh_to_xyxy(predictions[..., :4])          # [B, A, 4]
-    # torch.max returns the first index of the maximum, as jnp.argmax
-    cls_conf, cls_id = predictions[..., 5:5 + num_classes].max(dim=-1)
-    score = predictions[..., 4] * cls_conf
-    sort_score = torch.where(score >= conf_threshold, score,
-                             torch.full_like(score, -float("inf")))
-    # jax.lax.top_k breaks ties by lower index: a stable descending sort
-    k = min(pre_topk, a)
-    order = torch.sort(sort_score, dim=1, descending=True,
-                       stable=True).indices[:, :k]
-    b = boxes.gather(1, order[..., None].expand(bsz, k, 4)).contiguous()
-    valid = torch.isfinite(sort_score.gather(1, order))
-    cls_sel = cls_id.float().gather(1, order).contiguous()
-    return order, b, valid, cls_sel, cls_conf
-
-
 def postprocess(predictions: torch.Tensor, num_classes: int,
                 conf_threshold: float = 0.1, nms_threshold: float = 0.45,
                 pre_topk: int = 1000, max_dets: int = 300,
@@ -75,10 +50,23 @@ def postprocess(predictions: torch.Tensor, num_classes: int,
     from .nms_cuda import nms_mask as nms_kernel
 
     predictions = predictions.float()
-    order, b, valid, cls_sel, cls_conf = topk_candidates(
-        predictions, num_classes, conf_threshold, pre_topk)
-    bsz, k = order.shape
+    bsz, a = predictions.shape[:2]
+    boxes = cxcywh_to_xyxy(predictions[..., :4])          # [B, A, 4]
     obj = predictions[..., 4]
+    # torch.max returns the first index of the maximum, as jnp.argmax
+    cls_conf, cls_id = predictions[..., 5:5 + num_classes].max(dim=-1)
+    cls_id = cls_id.float()
+    score = obj * cls_conf
+    sort_score = torch.where(score >= conf_threshold, score,
+                             torch.full_like(score, -float("inf")))
+    # jax.lax.top_k breaks ties by lower index: a stable descending sort
+    k = min(pre_topk, a)
+    order = torch.sort(sort_score, dim=1, descending=True,
+                       stable=True).indices[:, :k]
+    top_score = sort_score.gather(1, order)
+    b = boxes.gather(1, order[..., None].expand(bsz, k, 4)).contiguous()
+    valid = torch.isfinite(top_score)
+    cls_sel = cls_id.gather(1, order).contiguous()
     ids = None if class_agnostic else cls_sel
     keep = (nms_mask(b, nms_threshold, valid, ids) if plain
             else nms_kernel(b, nms_threshold, valid, ids))

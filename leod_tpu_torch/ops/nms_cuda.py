@@ -21,19 +21,16 @@ from .nms import nms_mask as nms_mask_plain
 
 _P = ctypes.c_void_p
 _SIGS = {"leod_nms_mask": [_P, _P, _P, ctypes.c_float, ctypes.c_int,
-                           ctypes.c_int, _P, _P, ctypes.c_int, _P]}
+                           ctypes.c_int, _P, _P, _P]}
 MAX_K = 1024
 
 
 def nms_mask(boxes_xyxy: torch.Tensor, iou_threshold: float,
              valid: torch.Tensor,
-             class_ids: Optional[torch.Tensor] = None, *,
-             rows_from_l2: bool = False) -> torch.Tensor:
+             class_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy NMS keep mask: boxes [B, K, 4] (or [K, 4]) sorted by score
     descending, valid [B, K] bool, class_ids [B, K] or None ->
-    keep [B, K] bool. `rows_from_l2` makes the mask build read its row
-    boxes from L2 instead of staging them in shared memory (to time the
-    two on the card; the keep mask is the same)."""
+    keep [B, K] bool."""
     if boxes_xyxy.device.type == "cpu":
         return nms_mask_plain(boxes_xyxy, iou_threshold, valid, class_ids)
     if not boxes_xyxy.is_cuda:
@@ -64,7 +61,7 @@ def nms_mask(boxes_xyxy: torch.Tensor, iou_threshold: float,
     _build.check("leod_nms_mask", lib.leod_nms_mask(
         boxes.data_ptr(), valid_u8.data_ptr(),
         None if ids is None else ids.data_ptr(), float(iou_threshold), bsz,
-        k, mask.data_ptr(), keep.data_ptr(), int(rows_from_l2),
+        k, mask.data_ptr(), keep.data_ptr(),
         torch.cuda.current_stream(boxes.device).cuda_stream))
     nms_mask.launches += 1
     keep = keep.bool()

@@ -176,9 +176,6 @@ def test_nms_kernel_matches_plain(cuda, k, with_ids):
     assert torch.equal(nms_cuda.nms_mask(boxes[0], 0.45, valid[0],
                                          None if ids is None else ids[0]),
                        got[0])
-    # the build with its row boxes read from L2: the same mask
-    assert torch.equal(nms_cuda.nms_mask(boxes, 0.45, valid, ids,
-                                         rows_from_l2=True), got)
 
 
 def _float32_neighbours(v):
