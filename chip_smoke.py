@@ -21,16 +21,21 @@ also runs the variant phase (2b), never a width or a shape less.
    `block_mlp` and the ConvLSTM update `lstm_update`, each also at
    B = 1, where their plans of windows, heads, row tiles and clusters
    differ, with the plan the launch took), and the NMS keep mask at
-   K = 1000, exact. Each row carries
+   K = 1000, exact, on random boxes and on staircases (box i suppresses
+   only i + 1, so kept and suppressed boxes alternate across every
+   32-box word), with the build's and the sweep's device time on each.
+   Each row carries
    its bound (bytes or tensor-core operations). Timed with CUDA events
    (median of 20 runs after warm-up); "host_us" is the host time of one
    wrapper call alone (what it costs the host to launch).
 2b. Variant phase (first path): `lstm_update` at the stage shapes with
    every cluster size its K takes, forced, and with c in fp32, by device
    time, each against its plain version; and the NMS sweep's design
-   latency floor: K steps of a dependent warp-shuffle chain, at the
-   latency a one-warp probe (built beside the kernels) measures with
-   clock64 and %globaltimer.
+   latency floor: ceil(K/32) dependent steps of its chain (`sweep_tile`
+   in csrc/nms.cu: a 32-box word resolved in registers, a shuffle, an
+   OR of the kept rows), at the latency a one-warp probe built beside
+   the kernels from that same source measures with clock64 and
+   %globaltimer.
 3. Slice phase: the path's seeded `Detector` behind `ServingEngine`
    answers requests from client threads, one of which forces an LRU
    eviction. Every kernel's launch count must rise by what the path
@@ -86,42 +91,53 @@ PROFILE_STEPS = 10
 # B = 1 window short of 7 events a step): a measurement is taken again
 # when its events are incomplete, at most this many times in all
 PROFILE_TRIES = 3
-SHFL_STEPS = 1 << 16
+SWEEP_STEPS = 1 << 14
 
-# One warp passes a value lane to lane through n dependent __shfl_sync,
-# each waiting on the one before, between two reads of clock64 and
-# %globaltimer: the latency of one step of the NMS sweep's shuffle chain.
-SHFL_PROBE = r"""
-#include <cuda_runtime.h>
+# One warp runs n dependent steps of the NMS sweep's chain, `sweep_tile`
+# of csrc/nms.cu (row tile i mod 32; each step takes the keep word the
+# one before left), on 32 rows in registers, between two reads of
+# clock64 and %globaltimer: the latency of one word step, loads aside.
+SWEEP_PROBE = r"""
+#include "nms.cu"
 
-__global__ void shfl_chain_kernel(int n, long long* out) {
-  const int src = (threadIdx.x + 1) & 31;
-  unsigned v = threadIdx.x;
+__global__ void sweep_chain_kernel(int n, const uint32_t* rows,
+                                   long long* out) {
+  const int lane = threadIdx.x;
+  uint32_t r[32];
+#pragma unroll
+  for (int q = 0; q < 32; ++q) r[q] = rows[32 * q + lane];
+  uint32_t kw = rows[32 * 32 + lane];
   unsigned long long t0, t1;
   __syncwarp();
   const long long c0 = clock64();
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
-  for (int i = 0; i < n; i += 32) {
-#pragma unroll
-    for (int s = 0; s < 32; ++s) v = __shfl_sync(0xffffffffu, v, src);
-  }
-  asm volatile("" ::"r"(v) : "memory");   // the chain ends before the clocks
+  for (int i = 0; i < n; ++i) kw = sweep_tile(kw, r, i & 31);
+  asm volatile("" ::"r"(kw) : "memory");  // the chain ends before the clocks
   const long long c1 = clock64();
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1));
-  if (threadIdx.x == 0) {
+  if (lane == 0) {
     out[0] = c1 - c0;
     out[1] = static_cast<long long>(t1 - t0);
-    out[2] = v;
+    out[2] = kw;
   }
 }
 
-// out: SM cycles, ns and the chain's last value, of a second launch
-extern "C" int shfl_chain(int n, long long* out) {
-  long long* d = nullptr;
-  cudaError_t e = cudaMalloc(&d, 3 * sizeof(long long));
+// out: SM cycles, ns and the chain's last keep word, of a second launch
+// on staircase rows (box q of every word suppresses box q + 1)
+extern "C" int sweep_chain(int n, long long* out) {
+  uint32_t h[33 * 32];
+  for (int q = 0; q < 32; ++q)
+    for (int l = 0; l < 32; ++l) h[32 * q + l] = q < 31 ? 2u << q : 0u;
+  for (int l = 0; l < 32; ++l) h[32 * 32 + l] = ~0u;
+  char* d = nullptr;
+  cudaError_t e = cudaMalloc(&d, sizeof h + 3 * sizeof(long long));
   if (e != cudaSuccess) return e;
-  for (int r = 0; r < 2; ++r) shfl_chain_kernel<<<1, 32>>>(n, d);
-  e = cudaMemcpy(out, d, 3 * sizeof(long long), cudaMemcpyDeviceToHost);
+  long long* o = reinterpret_cast<long long*>(d + sizeof h);
+  e = cudaMemcpy(d, h, sizeof h, cudaMemcpyHostToDevice);
+  for (int r = 0; r < 2 && e == cudaSuccess; ++r)
+    sweep_chain_kernel<<<1, 32>>>(n, reinterpret_cast<uint32_t*>(d), o);
+  if (e == cudaSuccess)
+    e = cudaMemcpy(out, o, 3 * sizeof(long long), cudaMemcpyDeviceToHost);
   cudaFree(d);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
@@ -139,16 +155,16 @@ def port_kernels():
     return tuple(sorted(names))
 
 
-def shfl_latency(lib_path: str):
-    """(SM cycles, ns) of one step of a dependent warp-shuffle chain, from
-    SHFL_STEPS steps of the probe on the card."""
+def sweep_step_latency(lib_path: str):
+    """(SM cycles, ns) of one word step of the NMS sweep's chain, from
+    SWEEP_STEPS steps of the probe on the card."""
     import ctypes
     lib = ctypes.CDLL(lib_path)
     out = (ctypes.c_longlong * 3)()
-    rc = lib.shfl_chain(ctypes.c_int(SHFL_STEPS), out)
+    rc = lib.sweep_chain(ctypes.c_int(SWEEP_STEPS), out)
     if rc != 0:
-        fail(f"the shuffle probe failed: CUDA error {rc}")
-    return out[0] / SHFL_STEPS, out[1] / SHFL_STEPS
+        fail(f"the sweep-chain probe failed: CUDA error {rc}")
+    return out[0] / SWEEP_STEPS, out[1] / SWEEP_STEPS
 
 
 def device_us(fn, kernel: str, reps: int = REPS) -> float:
@@ -342,23 +358,24 @@ def stage_work(pairs, gates, x, c_state):
 # ---------------------------------------------------------------------------
 
 def phase_build() -> str:
-    """Build the port's sources and, beside them, the shuffle probe;
+    """Build the port's sources and, beside them, the sweep-chain probe;
     returns the probe's library."""
     from leod_tpu_torch.ops import _build
     t0 = time.perf_counter()
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    probe = os.path.join(_build.BUILD_DIR, "shfl_chain.cu")
+    probe = os.path.join(_build.BUILD_DIR, "sweep_chain.cu")
     with open(probe, "w") as f:
-        f.write(SHFL_PROBE)
+        f.write(SWEEP_PROBE)
     probe_lib = probe[:-3] + ".so"
     nvcc = subprocess.Popen(
-        [_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-o", probe_lib, probe],
+        [_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+         "-I", _build.CSRC, "-o", probe_lib, probe],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     paths = _build.build_all()
     probe_log = nvcc.communicate(timeout=300)[0]
     if nvcc.returncode != 0:
-        fail(f"nvcc failed for the shuffle probe:\n{probe_log}")
+        fail(f"nvcc failed for the sweep-chain probe:\n{probe_log}")
     dt = time.perf_counter() - t0
     for p in paths:
         with open(p + ".log") as f:
@@ -495,7 +512,8 @@ def phase_kernels(det):
             lambda: mc.fused_stage_plain(x, hs, cs, pairs, gates, ps),
             *stage_work(pairs, gates, x, cs), shape=list(shape)))
 
-    # K3: B images of K = 1000 score-sorted boxes, two classes
+    # K3: B images of K = 1000 score-sorted boxes, two classes, and the
+    # staircases, whose chains run across every word of the sweep
     kk = det.cfg.postprocess.pre_nms_topk
     gc = torch.Generator().manual_seed(2)
     ctr = torch.rand(B, kk, 2, generator=gc) * torch.tensor([w_in, h_in])
@@ -504,6 +522,7 @@ def phase_kernels(det):
     valid = (torch.rand(B, kk, generator=gc) > 0.05).cuda()
     ids = torch.randint(0, 2, (B, kk), generator=gc).float().cuda()
     thr = det.cfg.postprocess.nms_threshold
+    inputs = {"random": (boxes, valid, ids), "staircase": staircases(B, kk)}
 
     def nms_k():
         return nms_cuda.nms_mask(boxes, thr, valid, ids)
@@ -511,27 +530,64 @@ def phase_kernels(det):
     def nms_p():
         return nms_plain(boxes, thr, valid, ids)
 
-    keep_k, keep_p = nms_k(), nms_p()
-    torch.cuda.synchronize()
-    mismatches = int((keep_k != keep_p).sum())
+    mismatches, kept, device = 0, {}, {}
+    for name, (bx, va, cl) in inputs.items():
+        keep_k, keep_p = (nms_cuda.nms_mask(bx, thr, va, cl),
+                          nms_plain(bx, thr, va, cl))
+        torch.cuda.synchronize()
+        mismatches += int((keep_k != keep_p).sum())
+        kept[name] = int(keep_p.sum())
+
+        def call(bx=bx, va=va, cl=cl):
+            return nms_cuda.nms_mask(bx, thr, va, cl)
+
+        device[name] = {k: device_us(call, f"nms_{k}_kernel")
+                        for k in ("build", "sweep")}
     # per image: K (K-1) / 2 IoU tests of ~13 fp32 operations each
     ops = B * kk * (kk - 1) / 2 * 13
     nbytes = B * kk * (16 + 1 + 4 + 1)
     bms, by = bound(ops, nbytes, PEAK_FP32)
     # each kernel alone: nms_build_kernel does the IoU tests, reads the
-    # boxes and class ids and writes the K x ceil(K/32) mask words;
-    # nms_sweep_kernel reads the mask and valid and writes keep, its
-    # bound (its design's latency floor is the variant phase's)
-    mask_bytes = B * kk * ((kk + 31) // 32) * 4
+    # boxes and class ids and writes the mask words on and above the
+    # diagonal; nms_sweep_kernel reads those and valid and writes keep,
+    # its bound (its design's latency floor is the variant phase's)
+    words = (kk + 31) // 32
+    mask_bytes = B * 4 * sum(min(32, kk - 32 * t) * (words - t)
+                             for t in range(words))
     build_ms, build_by = bound(ops, B * kk * (16 + 4) + mask_bytes, PEAK_FP32)
     sweep_ms = (mask_bytes + 2 * B * kk) / PEAK_BYTES * 1e3
     nms_row = dict(shape=[B, kk, 4], max_abs_err=float(mismatches), tol=0.0,
-                   ok=mismatches == 0, kept=int(keep_p.sum()),
+                   ok=mismatches == 0, kept=kept, device_us=device,
                    ms=cuda_ms(nms_k), plain_ms=cuda_ms(nms_p), flops=ops,
                    bytes=nbytes, bound_ms=bms, bound_by=by,
                    build_bound_ms=build_ms, build_bound_by=build_by,
                    sweep_bound_ms=sweep_ms, sweep_bound_by="bytes")
     return rows, nms_row
+
+
+def staircases(b: int, k: int):
+    """(boxes, valid, class ids) on the card: b images of k boxes 10 wide
+    in a staircase, box i 3 to the right of box i - 1, so that box i
+    overlaps box i + 1 above the threshold (IoU 7/13) and no other, and
+    kept and suppressed boxes alternate across every 32-box word. Image n
+    starts its staircase at box n (the boxes before lie apart), makes box
+    32 n + 16 invalid, and from image 4 on changes class every 31 + n
+    boxes: either suppresses nothing, and where it falls on a box that
+    would have been kept, turns the alternation over for the rest of the
+    chain."""
+    import torch
+    i = torch.arange(k, dtype=torch.float32)
+    boxes, valid, ids = [], [], []
+    for n in range(b):
+        apart = i < n
+        x0 = torch.where(apart, 20 * i, 3 * i)
+        y0 = torch.where(apart, torch.full_like(i, 500.0), torch.zeros_like(i))
+        boxes.append(torch.stack([x0, y0, x0 + 10, y0 + 10], -1))
+        valid.append(torch.arange(k) != (32 * n + 16) % k)
+        ids.append(((torch.arange(k) // (31 + n)) % 2).float() if n >= 4
+                   else torch.zeros(k))
+    return (torch.stack(boxes).cuda(), torch.stack(valid).cuda(),
+            torch.stack(ids).cuda())
 
 
 def phase_variants(det, probe_lib: str):
@@ -542,8 +598,8 @@ def phase_variants(det, probe_lib: str):
     fp32, the kernel's accurate gates for c' ("c_rel_err" is
     |c' - plain| / max|plain|). Each against its plain version. Then the
     NMS sweep's design latency floor (not a bound of the function): its
-    K steps are a dependent chain of warp shuffles, at the latency the
-    probe measures on this card."""
+    ceil(K/32) word steps are a dependent chain, at the latency a step
+    takes in the probe on this card."""
     from leod_tpu_torch.ops import maxvit_cuda as mc
 
     clusters, c_fp32 = [], []
@@ -578,11 +634,12 @@ def phase_variants(det, probe_lib: str):
             max_abs_err=err, tol=tol, ok=ok,
             c_rel_err=float((got[1] - want[1]).abs().max()
                             / want[1].abs().max())))
-    kk = det.cfg.postprocess.pre_nms_topk
-    shfl_cycles, shfl_ns = shfl_latency(probe_lib)
+    words = (det.cfg.postprocess.pre_nms_topk + 31) // 32
+    step_cycles, step_ns = sweep_step_latency(probe_lib)
     return {"lstm_update_clusters": clusters, "lstm_update_c_fp32": c_fp32,
-            "shfl_cycles": shfl_cycles, "shfl_ns": shfl_ns,
-            "sweep_chain_floor_ms": kk * shfl_ns * 1e-6}
+            "sweep_step_cycles": step_cycles, "sweep_step_ns": step_ns,
+            "sweep_chain_floor_cycles": words * step_cycles,
+            "sweep_chain_floor_ms": words * step_ns * 1e-6}
 
 
 def _summary(name, replaces, source, shape_rows, launches, peak_ops):

@@ -2,8 +2,10 @@
 (`leod_tpu/ops/nms_pallas.py:65`) to hand-written CUDA for Hopper
 (`csrc/nms.cu`): a suppression-mask build, a warp for each 32-row by
 32-column word tile on or above the diagonal of every image (a lane a
-column, `__ballot_sync` forming each row's word), then one sweep CTA per
-image, in one call per batch.
+column, `__ballot_sync` forming each row's word), then one sweep warp
+per image that resolves the greedy 32 boxes (one mask word) at a time,
+its row tiles streamed into shared memory by bulk copies, in one call
+per batch.
 
 For a CPU tensor the wrapper runs the plain version (`ops/nms.py`
 `nms_mask`); for a CUDA tensor it launches the kernel or raises. It
@@ -54,9 +56,10 @@ def nms_mask(boxes_xyxy: torch.Tensor, iou_threshold: float,
             raise ValueError("nms_mask: valid/class_ids must be [B, K] on "
                              "the boxes' device")
     keep = torch.empty((bsz, k), dtype=torch.uint8, device=boxes.device)
-    # the kernels' scratch: the suppression bitmask, ceil(K/32) words a row
-    mask = torch.empty((bsz, k, (k + 31) // 32), dtype=torch.int32,
-                       device=boxes.device)
+    # the kernels' scratch: the suppression bitmask, ceil(K/32) words a
+    # row in rows of 32 (the sweep's bulk copies move whole rows),
+    # written and read only on and above the diagonal
+    mask = torch.empty((bsz, k, 32), dtype=torch.int32, device=boxes.device)
     lib = _build.load("nms", _SIGS)
     _build.check("leod_nms_mask", lib.leod_nms_mask(
         boxes.data_ptr(), valid_u8.data_ptr(),

@@ -16,8 +16,11 @@ every width, with a ragged last 128-row tile, at B = 1 and 2, with K
 split over clusters of 1 to 8 CTAs, and launched back to back at the
 stage shapes at B = 1 and 8 by its own plan, NMS with and without class ids at
 K = 1, 37, 1000 and 1024, NMS at IoUs on the threshold and on the floats
-either side of it (identical and nested boxes), 40 NMS launches back to
-back, and inputs the kernels refuse.
+either side of it (identical and nested boxes), the NMS sweep's chains
+(staircases across 32-box words, box 0 suppressing all, no overlap, all
+invalid, an invalid box or a class change inside a chain) at K = 1 to
+1024 and B = 1 and 8, 40 NMS launches back to back, and inputs the
+kernels refuse.
 
 These tests need an NVIDIA Hopper card and `nvcc`; without a card they
 skip. They import no JAX. Run them on the card with
@@ -287,6 +290,71 @@ def test_nms_back_to_back_launches_agree(cuda):
     torch.cuda.synchronize()
     assert all(torch.equal(outs[0], o) for o in outs[1:])
     assert torch.equal(outs[0], nms_plain(boxes, 0.45, valid, ids))
+
+
+CHAIN_CASES = ["staircase", "box0_kills_all", "no_overlap", "all_invalid",
+               "invalid_in_chain", "class_break"]
+
+
+def _chain_case(case, b, k):
+    """b images of k boxes for one case of the sweep's dependency chains:
+    (boxes [b, k, 4], valid [b, k], class ids [b, k] or None, the keep
+    mask the case implies). In a staircase box i is 3 to the right of box
+    i - 1, 10 wide, so that it overlaps box i + 1 above the threshold
+    (IoU 7/13) and no other: kept and suppressed boxes alternate, and the
+    chain runs across every 32-box word (30 -> 31 -> 32 -> 33). Image n
+    starts its staircase at box n, the boxes before it lying apart, so
+    the images' alternations differ; where all boxes are one, image n's
+    first n are invalid and its box n suppresses the rest. An invalid
+    box, or a change of class between two neighbours, suppresses nothing
+    and turns the alternation over for the rest of the chain."""
+    i = np.arange(k)
+    boxes, valid, ids, want = [], [], [], []
+    for n in range(b):
+        apart = (i < n) | (case == "no_overlap")
+        x0 = np.where(apart, 20.0 * i, 3.0 * i)
+        v = np.full(k, case != "all_invalid")
+        if case == "box0_kills_all":      # image n's first n boxes invalid
+            apart, x0 = np.zeros(k, bool), np.zeros(k)
+            v = i >= n
+        y0 = np.where(apart, 500.0, 0.0)
+        boxes.append(np.stack([x0, y0, x0 + 10, y0 + 10], -1))
+        if case == "invalid_in_chain":
+            v[[p for p in (k // 2 + n, 31 + n) if p < k]] = False
+        breaks = [p for p in (n + 3, 31, 33 + n, 64 + 5 * n, 500 + n, 999)
+                  if 0 < p < k] if case == "class_break" else []
+        c = np.cumsum(np.isin(i, breaks)) % 2
+        kept = np.zeros(k, bool)
+        for j in range(k):
+            if case == "box0_kills_all":
+                kept[j] = v[j] and not kept[:j].any()
+            else:
+                prev = j - 1 >= 0 and not apart[j - 1] and not apart[j]
+                kept[j] = v[j] and not (prev and kept[j - 1]
+                                        and c[j - 1] == c[j])
+        valid.append(v)
+        ids.append(c)
+        want.append(kept)
+    return (torch.tensor(np.stack(boxes), dtype=torch.float32),
+            torch.tensor(np.stack(valid)),
+            torch.tensor(np.stack(ids), dtype=torch.float32)
+            if case == "class_break" else None,
+            torch.tensor(np.stack(want)))
+
+
+@pytest.mark.parametrize("case", CHAIN_CASES)
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 63, 64, 1000, 1024])
+def test_nms_sweep_chains_match_plain(cuda, k, b, case):
+    """The sweep's dependency chains, within a 32-box word and across
+    words: the kernel's keep mask equals the plain version's, and both
+    are the keep mask the case implies."""
+    boxes, valid, ids, want = _chain_case(case, b, k)
+    assert torch.equal(nms_plain(boxes, 0.45, valid, ids), want)
+    got = nms_cuda.nms_mask(boxes.to(cuda), 0.45, valid.to(cuda),
+                            None if ids is None else ids.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
 
 
 def _mlp_cases():

@@ -185,6 +185,32 @@ def test_nms_matches_pallas_kernel_all_ids_equal(seed):
     assert 0 < want.sum() < valid.sum()       # the sweep suppressed some
 
 
+@pytest.mark.parametrize("invalid", [(), (31, 50)])
+def test_nms_staircase_matches_pallas_kernel(invalid):
+    """A staircase of K = 100 boxes, box i 3 to the right of box i - 1
+    and 10 wide, so that each overlaps only its neighbours above the
+    threshold: kept and suppressed boxes alternate across the 32-box
+    words of the CUDA sweep, and an invalid box in the chain suppresses
+    nothing (at an even place it turns the alternation over). The port's
+    keep mask is the Pallas kernel's, exactly."""
+    k = 100
+    x = np.arange(k, dtype=np.float32) * 3
+    boxes = np.stack([x, np.zeros(k), x + 10, np.full(k, 10)], -1
+                     ).astype(np.float32)
+    valid = np.ones(k, bool)
+    valid[list(invalid)] = False
+    want = np.asarray(nms_mask_pallas(jnp.asarray(boxes), 0.45,
+                                      jnp.asarray(valid), interpret=True))
+    got = nms_cuda.nms_mask(torch.from_numpy(boxes), 0.45,
+                            torch.from_numpy(valid))
+    np.testing.assert_array_equal(got.numpy(), want)
+    kept = valid.copy()              # box i falls only to a kept box i - 1
+    for i in range(1, k):
+        kept[i] &= not kept[i - 1]
+    np.testing.assert_array_equal(want, kept)
+    assert invalid == () or (kept[51] and not kept[52])   # 50 invalid
+
+
 def test_nms_with_class_ids_matches_exact_class_mask():
     """Batched keep masks with two classes against the JAX `nms_mask`
     with its exact same-class mask, image by image."""
