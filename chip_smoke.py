@@ -10,7 +10,8 @@ Phases 2-4 run for two paths in turn, each a seeded model at full width
 and depth: RVT-B Gen1 (`experiment_preset("gen1", "base")`: stages
 64/128/256/512, heads of 32) and RVT-S Gen1 (`experiment_preset("gen1",
 "small")`: stages 48/96/192/384, heads of 24). The first path alone
-also runs the variant phase (2b), never a width or a shape less.
+also runs the variant phase (2b) and the eval phase (5), never a width
+or a shape less.
 
 2. Kernel phase: each kernel's wrapper against its plain PyTorch version
    on the card, on the same inputs, at the Gen1 shapes the serving
@@ -58,9 +59,35 @@ switched off for the fp32 products of the plain ConvLSTM update.
    unprofiled step time, and the kernels by device time. Every
    `__global__` kernel in leod_tpu_torch/csrc/ must show up in the
    profiled steps.
+5. Eval phase (first path): streaming evaluation through
+   `run_streaming_eval`, the port's second entry point. Data: 8 Gen1
+   val sequences of 42 reprs at 240 x 304 (labeled every 4 reprs from
+   repr 3), made in memory by `data/synthetic.py`'s renderer (seed 0)
+   as array-backed sequences; `harvest_frames` pads them to 256 x 320
+   and folds them to [64, 80, 320]. Shapes: B = `batch_size_eval` = 8
+   slots, L = `sequence_length` = 21, M = `default_frames_per_slot(21)`
+   = 6 frames a slot: two eval batches of 21 backbone steps, 5 labeled
+   frames a slot a window, and 48 images of K = 1000 candidates into the
+   NMS a batch (conf_threshold = 0). The eval runs once through the
+   kernels (their launches counted), once through the plain versions,
+   and once more through the kernels (timed only). The run fails unless
+   (a) each batch's preds is within 2^-4 * max|plain| of the plain
+   run's, (b) the NMS keep mask of the kernel on the kernel run's preds
+   at 48 images equals the plain mask exactly, (c) every kernel launched
+   exactly what the eval implies (21 steps a batch of a serve step's
+   block and ConvLSTM launches, one `nms_mask` of 48 images a batch),
+   and (d) the two runs' AP, AP_50 and AP_75 agree within 0.01
+   (absolute). Reports host ms a batch (harvest, eval step ending in a
+   synchronize, postprocess, the evaluator's bridging; the median over
+   the batches after the first) and of `evaluate()`, frames/s = B L /
+   step ms, the device-busy ms and idle share of one profiled eval step
+   and its NMS, the host-clock time of the step's host-to-device copy of
+   the folded window alone, the 48-image NMS's times, and the peak
+   memory.
 
 Prints the kernels' JSON line (each kernel wrapper of each path: its
-RVT-B entry under its own name, its RVT-S entry as "<name>[RVT-S]"),
+RVT-B entry under its own name, its RVT-S entry as "<name>[RVT-S]";
+an RVT-B entry's launches are the slice phase's and the eval phase's),
 the card's name and power limit, and the result JSON as the last line.
 Any failure exits non-zero; so does a machine without a CUDA device, or
 a directory without the package.
@@ -92,6 +119,15 @@ PROFILE_STEPS = 10
 # when its events are incomplete, at most this many times in all
 PROFILE_TRIES = 3
 SWEEP_STEPS = 1 << 14
+# the eval phase's rendered val split: EVAL_SEQS sequences of EVAL_REPRS
+# Gen1 reprs (two windows of L = 21), labeled every EVAL_LABEL_EVERY from
+# repr EVAL_FIRST_LABEL (5 frames a window); the kernel and plain runs'
+# AP may differ by EVAL_AP_TOL (absolute) in AP, AP_50 and AP_75
+EVAL_SEQS = 8
+EVAL_REPRS = 42
+EVAL_FIRST_LABEL = 3
+EVAL_LABEL_EVERY = 4
+EVAL_AP_TOL = 0.01
 
 # One warp runs n dependent steps of the NMS sweep's chain, `sweep_tile`
 # of csrc/nms.cu (row tile i mod 32; each step takes the keep word the
@@ -670,6 +706,16 @@ def frames(rng, n, shape):
             for _ in range(n)]
 
 
+def launches_per_step(cfg):
+    """Each wrapper's launches in one serve step of the model: the
+    backbone's per timestep, and one NMS."""
+    n_pairs = sum(cfg.model.backbone.num_blocks)
+    n_stages = len(cfg.model.backbone.num_blocks)
+    return {"fused_block_pair": n_pairs, "fused_stage": n_stages,
+            "block_attention": 2 * n_pairs, "block_mlp": 2 * n_pairs,
+            "lstm_update": n_stages, "nms_mask": 1}
+
+
 def phase_slice(det, cfg):
     import numpy as np
     import torch
@@ -678,11 +724,7 @@ def phase_slice(det, cfg):
                                       serve_input_shape)
 
     wrappers = maxvit_cuda.WRAPPERS + nms_cuda.WRAPPERS
-    n_pairs = sum(cfg.model.backbone.num_blocks)
-    n_stages = len(cfg.model.backbone.num_blocks)
-    per_step = {"fused_block_pair": n_pairs, "fused_stage": n_stages,
-                "block_attention": 2 * n_pairs, "block_mlp": 2 * n_pairs,
-                "lstm_update": n_stages, "nms_mask": 1}
+    per_step = launches_per_step(cfg)
     shape = serve_input_shape(cfg, B)[1:]
     step = make_serve_step(det, conf_threshold=0.0)
     rng = np.random.default_rng(0)
@@ -813,32 +855,98 @@ def _busy_us(spans) -> float:
     return busy
 
 
-def phase_profile(det, cfg, timing):
-    """Where a serve step's time goes: torch.profiler over PROFILE_STEPS
-    steps at B = 1 and B. The device-busy time per step is the union of
-    the device events' intervals; the idle share is measured against the
-    unprofiled step time of the slice phase. A window whose port-kernel
-    events fall short of the launches the wrappers counted in it (one a
-    call; two, build and sweep, a `nms_mask` call) lost events and is
-    profiled again (PROFILE_TRIES)."""
-    import numpy as np
+def profile_calls(fn, calls: int, what: str):
+    """(device events, tries) of `calls` calls of fn() under
+    torch.profiler, after a synchronize. A window whose port-kernel events
+    fall short of the launches the wrappers counted in it (one a call;
+    two, build and sweep, a `nms_mask` call) lost events and is profiled
+    again (PROFILE_TRIES)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
-    from leod_tpu_torch.serve import make_serve_step, serve_input_shape
-
+    kernels = port_kernels()
+    if not kernels:
+        fail("found no __global__ kernel in leod_tpu_torch/csrc/")
     kernels_a_call = [(w, 1) for w in (maxvit_cuda.block_attention,
                                        maxvit_cuda.block_mlp,
                                        maxvit_cuda.lstm_update)]
     kernels_a_call.append((nms_cuda.nms_mask, 2))
+    torch.cuda.synchronize()
+    for tries in range(1, PROFILE_TRIES + 1):
+        before = sum(w.launches * n for w, n in kernels_a_call)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        launched = sum(w.launches * n for w, n in kernels_a_call) - before
+        dev_events = [e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA]
+        seen = sum(1 for e in dev_events if any(
+            re.search(rf"\b{k}\b", e.name) for k in kernels))
+        if seen == launched:
+            return dev_events, tries
+    fail(f"the profiled {what} recorded {seen} port-kernel launches of "
+         f"{launched}, {PROFILE_TRIES} times")
+
+
+def device_summary(dev_events, calls: int, host_ms: float, what: str):
+    """Where the device time of `calls` profiled calls went, a call: the
+    device-busy time (the union of the events' intervals), its idle share
+    against the unprofiled host time of a call, the port's kernels by
+    name and by instantiation, and the largest events. Every port kernel
+    must show up."""
+    kernels = port_kernels()
+    by_name = {}
+    for e in dev_events:
+        tot = by_name.setdefault(e.name, [0.0, 0])
+        tot[0] += e.time_range.elapsed_us()
+        tot[1] += 1
+    busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
+                        for e in dev_events]) / 1e3 / calls
+    # a kernel's profiler name is its signature, e.g.
+    # "void (anonymous namespace)::block_mlp_kernel<512>(...)"
+    per_kernel = {k: sum(v[0] for n, v in by_name.items()
+                         if re.search(rf"\b{k}\b", n))
+                  for k in kernels}
+    missing = [k for k in kernels if not any(
+        re.search(rf"\b{k}\b", n) for n in by_name)]
+    if missing:
+        fail(f"port kernels absent from the profiled {what}: {missing}")
+    # and by instantiation, e.g. block_attention_kernel<64>: by width
+    by_inst = {}
+    for n, v in by_name.items():
+        m = re.search(r"\b(\w+(?:<[^>()]*>)?)\(", n)
+        if m and m.group(1).split("<")[0] in kernels:
+            by_inst[m.group(1)] = by_inst.get(m.group(1), 0.0) + v[0]
+    port_ms = sum(per_kernel.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {
+        "device_busy_ms_per_step": busy_ms if dev_events else None,
+        "idle_share": 1 - busy_ms / host_ms if dev_events else None,
+        "port_kernels_ms_per_step": port_ms / calls,
+        "port_kernel_ms_per_step": {
+            k: v / 1e3 / calls for k, v in per_kernel.items()},
+        "port_kernel_instances_ms_per_step": {
+            k: v / 1e3 / calls for k, v in sorted(by_inst.items())},
+        "device_events_per_step": len(dev_events) / calls,
+        "top": [{"name": n[:90], "ms_per_step": v[0] / 1e3 / calls,
+                 "per_step": v[1] / calls} for n, v in top]}
+
+
+def phase_profile(det, cfg, timing):
+    """Where a serve step's time goes: torch.profiler over PROFILE_STEPS
+    steps at B = 1 and B. The device-busy time per step is the union of
+    the device events' intervals; the idle share is measured against the
+    unprofiled step time of the slice phase."""
+    import numpy as np
+    import torch
+    from leod_tpu_torch.serve import make_serve_step, serve_input_shape
 
     step = make_serve_step(det, conf_threshold=0.0)
     shape = serve_input_shape(cfg, 1)[1:]
     rng = np.random.default_rng(5)
-    kernels = port_kernels()
-    if not kernels:
-        fail("found no __global__ kernel in leod_tpu_torch/csrc/")
     out = {}
     for bsz in (1, B):
         st = det.init_states(bsz)
@@ -846,74 +954,188 @@ def phase_profile(det, cfg, timing):
         flags = torch.ones(bsz, dtype=torch.bool, device="cuda")
         for _ in range(3):
             step(st, ev, flags, flags)
-        torch.cuda.synchronize()
-        for tries in range(1, PROFILE_TRIES + 1):
-            before = sum(w.launches * n for w, n in kernels_a_call)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(PROFILE_STEPS):
-                    step(st, ev, flags, flags)
-                torch.cuda.synchronize()
-            launched = sum(w.launches * n for w, n in kernels_a_call) - before
-            dev_events = [e for e in prof.events()
-                          if e.device_type == DeviceType.CUDA]
-            seen = sum(1 for e in dev_events if any(
-                re.search(rf"\b{k}\b", e.name) for k in kernels))
-            if seen == launched:
-                break
-        else:
-            fail(f"the profiled B = {bsz} steps recorded {seen} port-kernel "
-                 f"launches of {launched}, {PROFILE_TRIES} times")
-        by_name = {}
-        for e in dev_events:
-            tot = by_name.setdefault(e.name, [0.0, 0])
-            tot[0] += e.time_range.elapsed_us()
-            tot[1] += 1
-        busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
-                            for e in dev_events]) / 1e3 / PROFILE_STEPS
-        # a kernel's profiler name is its signature, e.g.
-        # "void (anonymous namespace)::block_mlp_kernel<512>(...)"
-        per_kernel = {k: sum(v[0] for n, v in by_name.items()
-                             if re.search(rf"\b{k}\b", n))
-                      for k in kernels}
-        missing = [k for k in kernels if not any(
-            re.search(rf"\b{k}\b", n) for n in by_name)]
-        if missing:
-            fail(f"port kernels absent from the profiled B = {bsz} steps: "
-                 f"{missing}")
-        # and by instantiation, e.g. block_attention_kernel<64>: by width
-        by_inst = {}
-        for n, v in by_name.items():
-            m = re.search(r"\b(\w+(?:<[^>()]*>)?)\(", n)
-            if m and m.group(1).split("<")[0] in kernels:
-                by_inst[m.group(1)] = by_inst.get(m.group(1), 0.0) + v[0]
-        port_ms = sum(per_kernel.values()) / 1e3
+        dev_events, tries = profile_calls(
+            lambda: step(st, ev, flags, flags), PROFILE_STEPS,
+            f"B = {bsz} steps")
         step_ms = timing[f"step_ms_b{bsz}"]
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-        out[f"b{bsz}"] = {
-            "step_ms": step_ms,
-            "profile_tries": tries,
-            "device_busy_ms_per_step": busy_ms if dev_events else None,
-            "idle_share": 1 - busy_ms / step_ms if dev_events else None,
-            "port_kernels_ms_per_step": port_ms / PROFILE_STEPS,
-            "port_kernel_ms_per_step": {
-                k: v / 1e3 / PROFILE_STEPS for k, v in per_kernel.items()},
-            "port_kernel_instances_ms_per_step": {
-                k: v / 1e3 / PROFILE_STEPS for k, v in sorted(by_inst.items())},
-            "device_events_per_step": len(dev_events) / PROFILE_STEPS,
-            "top": [{"name": n[:90], "ms_per_step": v[0] / 1e3 / PROFILE_STEPS,
-                     "per_step": v[1] / PROFILE_STEPS} for n, v in top]}
+        out[f"b{bsz}"] = {"step_ms": step_ms, "profile_tries": tries,
+                          **device_summary(dev_events, PROFILE_STEPS, step_ms,
+                                           f"B = {bsz} steps")}
     return out
 
 
-# (tag, experiment_preset size, whether it runs the variant phase) of the
-# paths driven, in order
+def _eval_preds_store(store):
+    """run_streaming_eval's on_batch hook that keeps each batch's preds."""
+    def on_batch(bi, hb, preds, dets, valid):
+        store.append((preds.detach().clone(), hb["num_frames"],
+                      int(valid.sum())))
+    return on_batch
+
+
+def phase_eval(det, cfg):
+    """Streaming evaluation of a rendered val split through
+    `run_streaming_eval`: with the kernels (launches counted), with the
+    plain versions, and with the kernels again (timed only); the 48-image
+    NMS keep mask against the plain one on the kernel run's preds; one
+    eval step profiled."""
+    import torch
+    from leod_tpu_torch.config import stem_fold_hw
+    from leod_tpu_torch.data.loader import EvalStreamLoader, harvest_frames
+    from leod_tpu_torch.data.synthetic import render_array_sequences
+    from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
+    from leod_tpu_torch.ops.nms import nms_candidates, postprocess
+    from leod_tpu_torch.ops.nms import nms_mask as nms_plain
+    from leod_tpu_torch.train.step import make_eval_step
+    from leod_tpu_torch.train.trainer import (default_frames_per_slot,
+                                              run_streaming_eval)
+
+    dst, pp = cfg.dataset, cfg.model.postprocess
+    L, bv = dst.sequence_length, cfg.training.batch_size_eval
+    m_slot = default_frames_per_slot(L)
+    n_cls = cfg.model.head.num_classes
+    t0 = time.perf_counter()
+    seqs = render_array_sequences(
+        dst, EVAL_SEQS, seed=0, num_reprs=EVAL_REPRS, hw=dst.resolution_hw,
+        first_label_repr=EVAL_FIRST_LABEL, label_every=EVAL_LABEL_EVERY)
+    render_s = time.perf_counter() - t0
+    kw = dict(sequences=seqs, batch_size=bv, conf_threshold=0.0)
+    wrappers = maxvit_cuda.WRAPPERS + nms_cuda.WRAPPERS
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kern, timings = [], {}
+    for w in wrappers:
+        w.launches = 0
+    ap_kernel = run_streaming_eval(det, cfg, on_batch=_eval_preds_store(kern),
+                                   timings=timings, **kw)
+    launches = {w.__name__: w.launches for w in wrappers}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    plain = []
+    ap_plain = run_streaming_eval(det, cfg, plain=True,
+                                  on_batch=_eval_preds_store(plain), **kw)
+    warm = {}
+    run_streaming_eval(det, cfg, timings=warm, **kw)
+    print(f"eval kernel AP {ap_kernel}", flush=True)
+    print(f"eval plain AP {ap_plain}", flush=True)
+
+    n_batches = len(kern)
+    if n_batches != EVAL_SEQS * EVAL_REPRS // (L * bv) or len(plain) != \
+            n_batches:
+        fail(f"the eval ran {n_batches} batches with labeled frames "
+             f"(plain: {len(plain)})")
+    # (c) every kernel launched what the eval implies: a serve step's
+    # backbone launches a timestep, one NMS a batch
+    want = {k: v * L * n_batches for k, v in launches_per_step(cfg).items()}
+    want["nms_mask"] = n_batches
+    if launches != want:
+        fail(f"eval launches {launches}; the eval implies {want}")
+    # (a) each batch's preds within the slice tolerance of the plain step's
+    parity = []
+    for (pk, nk, _), (pl, npl, _) in zip(kern, plain):
+        if pk.shape != (bv * m_slot,) + tuple(pl.shape[1:]) or nk != npl:
+            fail(f"eval preds {tuple(pk.shape)} ({nk} frames) against plain "
+                 f"{tuple(pl.shape)} ({npl} frames)")
+        err, tol, ok = compare(pk, pl, SLICE_TOL)
+        parts = {name: compare(pk[..., sl], pl[..., sl], SLICE_TOL)[:2]
+                 for name, sl in (("xy", slice(0, 2)), ("wh", slice(2, 4)),
+                                  ("scores", slice(4, None)))}
+        parity.append({"preds": [err, tol], **parts})
+        if not ok:
+            fail(f"eval preds: |kernel - plain| {err} > {tol}")
+    # (b) the NMS keep mask at the eval's B M images, exact
+    thr = pp.nms_threshold
+    mismatches, kept, nms = 0, 0, {}
+    for pk, _, _ in kern:
+        bx, va, ids, _, _ = nms_candidates(pk, n_cls, 0.0, pp.pre_nms_topk)
+        keep_k = nms_cuda.nms_mask(bx, thr, va, ids)
+        keep_p = nms_plain(bx, thr, va, ids)
+        mismatches += int((keep_k != keep_p).sum())
+        kept += int(keep_p.sum())
+    if mismatches:
+        fail(f"the eval's NMS keep mask differs from the plain one in "
+             f"{mismatches} boxes")
+    nb, nk_ = bx.shape[:2]
+
+    def nms_k():
+        return nms_cuda.nms_mask(bx, thr, va, ids)
+
+    nms["images"], nms["k"] = nb, nk_
+    nms["ms"] = cuda_ms(nms_k)
+    nms["plain_ms"] = cuda_ms(lambda: nms_plain(bx, thr, va, ids), reps=5)
+    nms["device_us"] = {k: device_us(nms_k, f"nms_{k}_kernel")
+                        for k in ("build", "sweep")}
+    ops = nb * nk_ * (nk_ - 1) / 2 * 13
+    nms["bound_ms"], nms["bound_by"] = bound(ops, nb * nk_ * (16 + 1 + 4 + 1),
+                                             PEAK_FP32)
+    # (d) the two AP dicts agree
+    ap_diff = {k: abs(ap_kernel[k] - ap_plain[k])
+               for k in ("AP", "AP_50", "AP_75")}
+    if not all(d <= EVAL_AP_TOL for d in ap_diff.values()):
+        fail(f"eval AP with the kernels {ap_kernel} against plain "
+             f"{ap_plain}: {ap_diff}")
+
+    # host ms a batch: the counted run's batches after its first, and the
+    # warm run's
+    def med(key):
+        return statistics.median(timings[key][1:] + warm[key])
+
+    per_batch = {k: med(k) for k in ("harvest_ms", "step_ms",
+                                     "postprocess_ms", "bridge_ms")}
+    evaluate_ms = [timings["evaluate_ms"], warm["evaluate_ms"]]
+
+    # one eval step and its NMS profiled, on the first batch harvested
+    # anew; the idle share is against their host ms in the runs above
+    loader = EvalStreamLoader(seqs, dst, bv)
+    hb = harvest_frames(next(iter(loader)), m_slot, cfg.model.head.max_gt,
+                        cfg.model.backbone.in_res_hw,
+                        fold_hw=stem_fold_hw(cfg.model))
+    step = make_eval_step(det)
+    st = det.init_states(bv)
+
+    def step_and_nms():
+        postprocess(step(st, hb)[1], num_classes=n_cls, conf_threshold=0.0,
+                    nms_threshold=thr, pre_topk=pp.pre_nms_topk,
+                    max_dets=pp.max_dets)
+
+    step_and_nms()
+    dev_events, tries = profile_calls(step_and_nms, 1, "eval step")
+    profile = {"profile_tries": tries, **device_summary(
+        dev_events, 1, per_batch["step_ms"] + per_batch["postprocess_ms"],
+        "eval step")}
+    # the window's host-to-device copy: what the trace holds of it, and
+    # the copy alone by the host clock (the step makes it from pageable
+    # memory)
+    profile["memcpy_ms_per_step"] = sum(
+        e.time_range.elapsed_us() for e in dev_events
+        if "memcpy" in e.name.lower()) / 1e3
+    profile["window_bytes"] = hb["ev"].nbytes
+    profile["window_h2d_ms"] = host_ms(
+        lambda: torch.from_numpy(hb["ev"]).to("cuda"), reps=5, warmup=1)
+    return {
+        "sequences": EVAL_SEQS, "reprs": EVAL_REPRS, "render_s": render_s,
+        "batch": bv, "window": L, "frames_per_slot": m_slot,
+        "batches": n_batches, "frames": sum(n for _, n, _ in kern),
+        "kept_dets": sum(k for _, _, k in kern),
+        "launches": launches, "parity": parity,
+        "nms_b48": dict(nms, mismatches=mismatches, kept=kept),
+        "ap_kernel": {k: ap_kernel[k] for k in ("AP", "AP_50", "AP_75")},
+        "ap_plain": {k: ap_plain[k] for k in ("AP", "AP_50", "AP_75")},
+        "ap_abs_diff": ap_diff,
+        "host_ms_per_batch": per_batch, "evaluate_ms": evaluate_ms,
+        "batch_ms": sum(per_batch.values()),
+        "frames_per_s": bv * L / per_batch["step_ms"] * 1e3,
+        "step": profile, "peak_mem_gib": peak_gib}
+
+
+# (tag, experiment_preset size, whether it runs the variant and the eval
+# phases) of the paths driven, in order
 PATHS = (("RVT-B", "base", True), ("RVT-S", "small", False))
 
 
-def drive_path(tag: str, size: str, variants: bool, probe_lib: str):
-    """Phases 2-4 for one Gen1 model at full width and depth, and phase 2b
-    where `variants`; returns its kernels' entries of the JSON line."""
+def drive_path(tag: str, size: str, first: bool, probe_lib: str):
+    """Phases 2-4 for one Gen1 model at full width and depth, and phases
+    2b and 5 where `first`; returns its kernels' entries of the JSON
+    line."""
     import torch
     from leod_tpu_torch.config import experiment_preset
     from leod_tpu_torch.models.detector import Detector
@@ -925,7 +1147,7 @@ def drive_path(tag: str, size: str, variants: bool, probe_lib: str):
     rows, nms_row = phase_kernels(det)
     emit({"kernel_phase": {"config": name, **rows, "nms_mask": [nms_row]}})
     checked = dict(rows)
-    if variants:
+    if first:
         var = phase_variants(det, probe_lib)
         emit({"variants": {"config": name, **var}})
         checked.update((k, var[k]) for k in ("lstm_update_clusters",
@@ -940,6 +1162,10 @@ def drive_path(tag: str, size: str, variants: bool, probe_lib: str):
                     "engine_stats": stats,
                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}})
     emit({"profile": {"config": name, **phase_profile(det, cfg, timing)}})
+    ev = {"launches": {}}
+    if first:
+        ev = phase_eval(det, cfg)
+        emit({"eval": {"config": name, **ev}})
 
     suffix = "" if tag == "RVT-B" else f"[{tag}]"
     src, pallas = "leod_tpu_torch/csrc/maxvit.cu", "leod_tpu/ops/maxvit_pallas.py"
@@ -956,8 +1182,12 @@ def drive_path(tag: str, size: str, variants: bool, probe_lib: str):
     out = []
     for kname, replaces, source, shape_rows, peak in entries:
         e = _summary(kname + suffix, replaces, source, shape_rows,
-                     launches[kname], peak)
+                     launches[kname] + ev["launches"].get(kname, 0), peak)
         e["config"] = name
+        e["launches_serve"] = launches[kname]
+        e["launches_eval"] = ev["launches"].get(kname, 0)
+        if kname == "nms_mask" and "nms_b48" in ev:
+            e["eval_b48"] = ev["nms_b48"]
         out.append(e)
     del det
     return out
@@ -979,8 +1209,8 @@ def main() -> int:
 
     probe_lib = phase_build()
     kernels = []
-    for tag, size, variants in PATHS:
-        kernels += drive_path(tag, size, variants, probe_lib)
+    for tag, size, first in PATHS:
+        kernels += drive_path(tag, size, first, probe_lib)
         torch.cuda.empty_cache()
     emit({"kernels": kernels})
     bad = [k["name"] for k in kernels if not k["ok"]]

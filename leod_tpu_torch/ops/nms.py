@@ -35,20 +35,12 @@ def nms_mask(boxes_xyxy: torch.Tensor, iou_threshold: float,
     return keep
 
 
-def postprocess(predictions: torch.Tensor, num_classes: int,
-                conf_threshold: float = 0.1, nms_threshold: float = 0.45,
-                pre_topk: int = 1000, max_dets: int = 300,
-                class_agnostic: bool = False, plain: bool = False
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """YOLOX postprocess with fixed output shapes.
-
-    predictions: [B, A, 4 + 1 + num_classes], (cx, cy, w, h) absolute,
-    obj and class probabilities. Returns dets [B, max_dets, 7] =
-    (x0, y0, x1, y1, obj_conf, cls_conf, cls_id) and valid [B, max_dets].
-    plain=True runs the plain NMS even for CUDA tensors (the reference
-    the kernel is held against)."""
-    from .nms_cuda import nms_mask as nms_kernel
-
+def nms_candidates(predictions: torch.Tensor, num_classes: int,
+                   conf_threshold: float = 0.1, pre_topk: int = 1000
+                   ) -> Tuple[torch.Tensor, ...]:
+    """The top-k candidates of each image that the NMS takes, in score
+    order: (boxes [B, k, 4] xyxy, valid [B, k], class ids [B, k] as
+    floats, obj [B, k], class confidence [B, k]); k = min(pre_topk, A)."""
     predictions = predictions.float()
     bsz, a = predictions.shape[:2]
     boxes = cxcywh_to_xyxy(predictions[..., :4])          # [B, A, 4]
@@ -65,13 +57,31 @@ def postprocess(predictions: torch.Tensor, num_classes: int,
                        stable=True).indices[:, :k]
     top_score = sort_score.gather(1, order)
     b = boxes.gather(1, order[..., None].expand(bsz, k, 4)).contiguous()
-    valid = torch.isfinite(top_score)
-    cls_sel = cls_id.gather(1, order).contiguous()
+    return (b, torch.isfinite(top_score), cls_id.gather(1, order).contiguous(),
+            obj.gather(1, order), cls_conf.gather(1, order))
+
+
+def postprocess(predictions: torch.Tensor, num_classes: int,
+                conf_threshold: float = 0.1, nms_threshold: float = 0.45,
+                pre_topk: int = 1000, max_dets: int = 300,
+                class_agnostic: bool = False, plain: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """YOLOX postprocess with fixed output shapes.
+
+    predictions: [B, A, 4 + 1 + num_classes], (cx, cy, w, h) absolute,
+    obj and class probabilities. Returns dets [B, max_dets, 7] =
+    (x0, y0, x1, y1, obj_conf, cls_conf, cls_id) and valid [B, max_dets].
+    plain=True runs the plain NMS even for CUDA tensors (the reference
+    the kernel is held against)."""
+    from .nms_cuda import nms_mask as nms_kernel
+
+    b, valid, cls_sel, obj, cls_conf = nms_candidates(
+        predictions, num_classes, conf_threshold, pre_topk)
+    bsz, k = valid.shape
     ids = None if class_agnostic else cls_sel
     keep = (nms_mask(b, nms_threshold, valid, ids) if plain
             else nms_kernel(b, nms_threshold, valid, ids))
-    det = torch.cat([b, obj.gather(1, order)[..., None],
-                     cls_conf.gather(1, order)[..., None],
+    det = torch.cat([b, obj[..., None], cls_conf[..., None],
                      cls_sel[..., None]], dim=-1)           # [B, k, 7]
     # kept rows to the front, in score order
     perm = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)

@@ -19,8 +19,10 @@ K = 1, 37, 1000 and 1024, NMS at IoUs on the threshold and on the floats
 either side of it (identical and nested boxes), the NMS sweep's chains
 (staircases across 32-box words, box 0 suppressing all, no overlap, all
 invalid, an invalid box or a class change inside a chain) at K = 1 to
-1024 and B = 1 and 8, 40 NMS launches back to back, and inputs the
-kernels refuse.
+1024 and B = 1 and 8, 40 NMS launches back to back, NMS at the 48
+images of an eval batch, the eval step through the kernels against its
+plain versions at RVT-T and RVT-S widths, and inputs the kernels
+refuse.
 
 These tests need an NVIDIA Hopper card and `nvcc`; without a card they
 skip. They import no JAX. Run them on the card with
@@ -569,3 +571,72 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     valid = torch.ones(1, 1025, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="1..1024"):
         nms_cuda.nms_mask(boxes, 0.45, valid)
+
+
+@pytest.mark.parametrize("with_ids", [False, True])
+def test_nms_kernel_matches_plain_at_the_eval_batch(cuda, with_ids):
+    """48 images of K = 1000: the B * M = 8 * 6 frames an RVT Gen1 eval
+    batch sends to the NMS."""
+    g = torch.Generator().manual_seed(48)
+    b, k = 48, 1000
+    ctr = torch.rand(b, k, 2, generator=g) * torch.tensor([320.0, 256.0])
+    wh = torch.rand(b, k, 2, generator=g) * 70 + 6
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1).to(cuda)
+    valid = (torch.rand(b, k, generator=g) > 0.05).to(cuda)
+    ids = (torch.randint(0, 2, (b, k), generator=g).float().to(cuda)
+           if with_ids else None)
+    before = nms_cuda.nms_mask.launches
+    got = nms_cuda.nms_mask(boxes, 0.45, valid, ids)
+    torch.cuda.synchronize()
+    assert nms_cuda.nms_mask.launches == before + 1
+    assert torch.equal(got, nms_plain(boxes, 0.45, valid, ids))
+
+
+@pytest.mark.parametrize("size", ["tiny", "small"])
+def test_eval_step_kernels_match_plain(cuda, size):
+    """`make_eval_step` through the kernels against its plain versions, at
+    RVT-T (C = 32-256, heads of 32) and RVT-S (C = 48-384, heads of 24)
+    widths on a 128 x 160 input: two windows of L = 3 at B = 2 (all rows
+    reset, then the second), M = 2 frames a slot; preds and the carried
+    states within 2^-4 * max|plain| per tensor (the slice tolerance of
+    `chip_smoke.py`), and one launch a stage and timestep of each kernel."""
+    from dataclasses import replace
+
+    from leod_tpu_torch.config import experiment_preset
+    from leod_tpu_torch.models.detector import Detector
+    from leod_tpu_torch.train.step import make_eval_step
+
+    cfg = experiment_preset("gen1", size).model
+    cfg = replace(cfg, backbone=replace(cfg.backbone, in_res_hw=(128, 160),
+                                        partition_size=(4, 5)))
+    det = Detector(cfg, device=cuda, seed=0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in det.modules():
+            if isinstance(m, PartitionAttention) and m.ls1 is not None:
+                for p in (m.ls1, m.ls2):
+                    p.copy_(torch.rand(p.shape, generator=g) * 0.4 + 0.1)
+    steps = {plain: make_eval_step(det, plain=plain, device=cuda)
+             for plain in (False, True)}
+    states = {plain: det.init_states(2) for plain in (False, True)}
+    c_in = cfg.backbone.input_channels
+    rng = np.random.default_rng(2)
+    for is_first in ([True, True], [False, True]):
+        batch = {"ev": np.minimum(rng.poisson(0.3, (3, 2, 32, 40, 16 * c_in)),
+                                  255).astype(np.uint8),
+                 "is_first": np.asarray(is_first),
+                 "frame_t": rng.integers(0, 3, (2, 2)).astype(np.int32)}
+        before = maxvit_cuda.lstm_update.launches
+        preds = {}
+        for plain, step in steps.items():
+            states[plain], preds[plain] = step(states[plain], batch)
+        torch.cuda.synchronize()
+        assert maxvit_cuda.lstm_update.launches == before + 3 * 4
+        assert preds[False].shape == (4, 420, 5 + cfg.head.num_classes)
+        for got, want in [(preds[False], preds[True])] + [
+                (a, b) for sk, sp in zip(states[False], states[True])
+                for a, b in zip(sk, sp)]:
+            got, want = got.float(), want.float()
+            assert bool(got.isfinite().all())
+            err = float((got - want).abs().max())
+            assert err <= 2.0 ** -4 * float(want.abs().max()), err
