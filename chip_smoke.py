@@ -85,9 +85,32 @@ switched off for the fp32 products of the plain ConvLSTM update.
    the folded window alone, the 48-image NMS's times, and the peak
    memory.
 
+6. Train phases, after both paths. (d) One fp32 train step of an
+   RVT-T-wide model at 64 x 96 (B 2, L 3, M 2; TF32 off) on the card
+   and on the CPU from one seed's weights and one batch: the loss within
+   1e-4 and each module's gradient norm within 1e-3, relative (the CPU
+   step is held against `leod_tpu` by the CPU tests). Then (a)
+   `Trainer.fit`, the port's third entry point: RVT-B Gen1 at full width
+   and depth, B = `batch_size_train` = 8 (4 stream slots and 4
+   random-access ones), L = 21, M = 6, remat "full", bf16 autocast over
+   fp32 parameters, TRAIN_STEPS = 6 steps on 8 train sequences rendered
+   in memory as the eval phase's (seed 0, with 8 val sequences after
+   them), validating once, at the last step, through
+   `run_streaming_eval` and the kernels. (b) It reports the host ms of
+   every step (ending in a synchronize; the median of steps 2..N),
+   frames/s = B L / step ms, the time the loop waited for the prefetch
+   thread, the validation's seconds, the peak memory, the losses at
+   every step, and one more step profiled (device busy ms, idle share
+   against that step's host ms, the top device operations). (c) It
+   fails unless every loss is finite, most parameters and BN running
+   statistics changed, the carried states are finite, the steps
+   launched no kernel and the validation launched every one, and
+   `restore_latest` gives back the checkpoint's step.
+
 Prints the kernels' JSON line (each kernel wrapper of each path: its
 RVT-B entry under its own name, its RVT-S entry as "<name>[RVT-S]";
-an RVT-B entry's launches are the slice phase's and the eval phase's),
+an RVT-B entry's launches are the slice phase's, the eval phase's and
+the train phase's validation's),
 the card's name and power limit, and the result JSON as the last line.
 Any failure exits non-zero; so does a machine without a CUDA device, or
 a directory without the package.
@@ -128,6 +151,19 @@ EVAL_REPRS = 42
 EVAL_FIRST_LABEL = 3
 EVAL_LABEL_EVERY = 4
 EVAL_AP_TOL = 0.01
+# the train phase: TRAIN_STEPS optimizer steps of RVT-B Gen1 at B 8, L 21,
+# M 6 through `Trainer.fit`, validating once, at the last step; the
+# rendered split holds TRAIN_SEQS train and as many val sequences, of
+# EVAL_REPRS reprs labeled as the eval phase's
+TRAIN_STEPS = 6
+TRAIN_SEQS = 8
+# the train check on the card against the CPU: one fp32 step of an
+# RVT-T-wide model at 64 x 96, B 2, L 3, M 2, G 6 from one seed and batch;
+# the loss within TRAIN_LOSS_RTOL and each module's grad norm within
+# TRAIN_NORM_RTOL, relative
+TRAIN_CHECK = dict(hw=(64, 96), partition=(2, 3), B=2, L=3, M=2, G=6)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_NORM_RTOL = 1e-3
 
 # One warp runs n dependent steps of the NMS sweep's chain, `sweep_tile`
 # of csrc/nms.cu (row tile i mod 32; each step takes the keep word the
@@ -881,8 +917,12 @@ def profile_calls(fn, calls: int, what: str):
                 fn()
             torch.cuda.synchronize()
         launched = sum(w.launches * n for w, n in kernels_a_call) - before
+        # device work only: a user annotation (the optimizer's step) is
+        # laid on the device timeline too, as one span over its kernels
+        # and the gaps between them
         dev_events = [e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA]
+                      if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)]
         seen = sum(1 for e in dev_events if any(
             re.search(rf"\b{k}\b", e.name) for k in kernels))
         if seen == launched:
@@ -891,12 +931,14 @@ def profile_calls(fn, calls: int, what: str):
          f"{launched}, {PROFILE_TRIES} times")
 
 
-def device_summary(dev_events, calls: int, host_ms: float, what: str):
+def device_summary(dev_events, calls: int, host_ms: float, what: str,
+                   kernels_expected: bool = True):
     """Where the device time of `calls` profiled calls went, a call: the
     device-busy time (the union of the events' intervals), its idle share
     against the unprofiled host time of a call, the port's kernels by
     name and by instantiation, and the largest events. Every port kernel
-    must show up."""
+    must show up, unless `kernels_expected` is false (a train step, which
+    runs the module forwards)."""
     kernels = port_kernels()
     by_name = {}
     for e in dev_events:
@@ -912,7 +954,7 @@ def device_summary(dev_events, calls: int, host_ms: float, what: str):
                   for k in kernels}
     missing = [k for k in kernels if not any(
         re.search(rf"\b{k}\b", n) for n in by_name)]
-    if missing:
+    if missing and kernels_expected:
         fail(f"port kernels absent from the profiled {what}: {missing}")
     # and by instantiation, e.g. block_attention_kernel<64>: by width
     by_inst = {}
@@ -1127,6 +1169,217 @@ def phase_eval(det, cfg):
         "step": profile, "peak_mem_gib": peak_gib}
 
 
+# ---------------------------------------------------------------------------
+# Train phase
+# ---------------------------------------------------------------------------
+
+def _train_batch(rng, cfg, b: int, L: int, m: int, g: int):
+    """A harvested-shape train batch: a prefolded uint8 window, up to g
+    boxes on each of m frames a slot, the last slot's last frame padded."""
+    import numpy as np
+    h, w = cfg.model.backbone.in_res_hw
+    c = cfg.model.backbone.input_channels
+    labels = np.zeros((b, m, g, 7), np.float32)
+    for i in range(b):
+        for j in range(m):
+            for k in range(int(rng.integers(1, g))):
+                bw, bh = rng.uniform(10, 40, 2)
+                labels[i, j, k] = [rng.integers(0, 2),
+                                   rng.uniform(bw / 2, w - bw / 2),
+                                   rng.uniform(bh / 2, h - bh / 2), bw, bh,
+                                   1.0, 1.0]
+    mask = np.ones((b, m), bool)
+    mask[-1, -1] = False
+    labels[~mask] = 0.0
+    return {"ev": np.minimum(rng.poisson(1.5, (L, b, h // 4, w // 4, 16 * c)),
+                             255).astype(np.uint8),
+            "is_first": np.ones(b, bool),
+            "frame_t": np.tile(np.linspace(0, L - 1, m).astype(np.int32),
+                               (b, 1)),
+            "frame_mask": mask, "labels": labels}
+
+
+def phase_train_parity():
+    """(d) One fp32 train step of a small model on the card and on the
+    CPU, from one seed's weights and one batch, TF32 off: the loss and
+    each module's gradient norm."""
+    from dataclasses import replace
+    import numpy as np
+    import torch
+    from leod_tpu_torch.config import experiment_preset
+    from leod_tpu_torch.models.detector import Detector
+    from leod_tpu_torch.train.optim import make_optimizer
+    from leod_tpu_torch.train.step import TrainState, make_train_step
+
+    tc = TRAIN_CHECK
+    cfg = experiment_preset("gen1", "tiny")
+    bb = replace(cfg.model.backbone, in_res_hw=tc["hw"],
+                 partition_size=tc["partition"])
+    cfg = replace(cfg, model=replace(cfg.model, backbone=bb))
+    batch = _train_batch(np.random.default_rng(3), cfg, tc["B"], tc["L"],
+                         tc["M"], tc["G"])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        det = Detector(cfg.model, dtype=torch.float32, device=dev, seed=0,
+                       trainable=True)
+        opt, _ = make_optimizer(cfg.training, det.parameters())
+        _, m = make_train_step(det, opt)(
+            TrainState(states=det.init_states(tc["B"]), step=0), batch)
+        out[dev] = {k: float(v) for k, v in m.items()}
+    rel = {k: abs(out["cuda"][k] - out["cpu"][k]) / max(abs(out["cpu"][k]),
+                                                        1e-30)
+           for k in out["cpu"]}
+    checks = {"loss": TRAIN_LOSS_RTOL, **{
+        f"grad_norm/{mod}": TRAIN_NORM_RTOL
+        for mod in ("backbone", "fpn", "head")}}
+    bad = {k: (out["cuda"][k], out["cpu"][k]) for k, tol in checks.items()
+           if not rel[k] <= tol}
+    if bad or not all(np.isfinite(v) for v in out["cuda"].values()):
+        fail(f"the fp32 train step on the card disagrees with the CPU's: "
+             f"{bad} (card, CPU)")
+    return {"config": f"RVT-T widths at {tc['hw']}, B {tc['B']}, "
+                      f"L {tc['L']}, M {tc['M']}, fp32, TF32 off",
+            "card": out["cuda"], "cpu": out["cpu"], "rel_diff": rel,
+            "tolerances": checks}
+
+
+def phase_train():
+    """(a) `Trainer.fit` for TRAIN_STEPS bf16 steps of RVT-B Gen1 at its
+    full width and depth (B 8, L 21, M 6, remat "full") on a rendered
+    train split, validating once through `run_streaming_eval` and the
+    kernels; (b) its step times, frames/s, peak memory, losses and one
+    profiled step; (c) its checks."""
+    import shutil
+    from dataclasses import replace
+    import numpy as np
+    import torch
+    from leod_tpu_torch.config import experiment_preset, stem_fold_hw
+    from leod_tpu_torch.data.loader import harvest_frames
+    from leod_tpu_torch.data.synthetic import render_array_dataset
+    from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
+    from leod_tpu_torch.train.step import make_train_step
+    from leod_tpu_torch.train.trainer import Trainer, default_frames_per_slot
+
+    cfg = experiment_preset("gen1", "base")
+    dst = cfg.dataset
+    L, bt = dst.sequence_length, cfg.training.batch_size_train
+    run_root = os.path.join(REPO, "runs", "chip_smoke_train")
+    shutil.rmtree(run_root, ignore_errors=True)
+    cfg = replace(cfg, save_dir=run_root, exp_name="rvt_b_gen1",
+                  training=replace(cfg.training,
+                                   val_check_interval=TRAIN_STEPS))
+    t0 = time.perf_counter()
+    splits = render_array_dataset(
+        dst, TRAIN_SEQS, TRAIN_SEQS, 0, seed=0, num_reprs=EVAL_REPRS,
+        hw=dst.resolution_hw, first_label_repr=EVAL_FIRST_LABEL,
+        label_every=EVAL_LABEL_EVERY)
+    render_s = time.perf_counter() - t0
+
+    trainer = Trainer(cfg)                        # bf16 compute, on the card
+    state = trainer.init_state(bt)
+    if any(p.dtype != torch.float32 for p in trainer.det.parameters()):
+        fail("the trainable model's parameters are not fp32")
+    params0 = [p.detach().clone() for p in trainer.det.parameters()]
+    stats0 = [b.detach().clone() for part in trainer.det.batch_stats().values()
+              for b in part.values()]
+    wrappers = maxvit_cuda.WRAPPERS + nms_cuda.WRAPPERS
+    records, before_val = [], {}
+
+    def sink(rec):
+        records.append(rec)
+        if rec.get("step") == TRAIN_STEPS and "loss" in rec:
+            before_val.update({w.__name__: w.launches for w in wrappers})
+
+    trainer.logger.add_sink(sink)
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    t0 = time.perf_counter()
+    state = trainer.fit(max_steps=TRAIN_STEPS, state=state, log_every=1,
+                        sequences=splits["train"],
+                        val_sequences=splits["val"], timings=timings)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # (c) the checks
+    steps = [r for r in records if "loss" in r]
+    vals = [r for r in records if "val/AP" in r]
+    keys = ("loss", "iou_loss", "conf_loss", "cls_loss", "num_fg",
+            "grad_norm")
+    if state.step != TRAIN_STEPS or len(steps) != TRAIN_STEPS or \
+            len(vals) != 1:
+        fail(f"fit took {state.step} steps, logged {len(steps)} and "
+             f"validated {len(vals)} times")
+    if not all(np.isfinite(r[k]) for r in steps for k in keys):
+        fail(f"a train loss is not finite: {steps}")
+    moved = sum(not torch.equal(a, b)
+                for a, b in zip(params0, trainer.det.parameters()))
+    stats = [b for part in trainer.det.batch_stats().values()
+             for b in part.values()]
+    stats_moved = sum(not torch.equal(a, b) for a, b in zip(stats0, stats))
+    n_params = len(params0)
+    if moved < n_params // 2 or stats_moved < len(stats) // 2:
+        fail(f"{moved} of {n_params} parameters and {stats_moved} of "
+             f"{len(stats)} BN statistics changed")
+    if not all(bool(t.isfinite().all()) for s_ in state.states for t in s_):
+        fail("a carried LSTM state is not finite")
+    if any(before_val.get(k) for k in launches) or not before_val:
+        fail(f"the train steps launched the kernels: {before_val}")
+    quiet = [k for k, n in launches.items() if n == 0]
+    if quiet:
+        fail(f"the validation launched no {quiet}: {launches}")
+    restored, path = trainer.restore_latest(trainer.init_state(bt))
+    if path is None or restored.step != TRAIN_STEPS:
+        fail(f"restore_latest gave step {restored.step} from {path}")
+
+    # one train step profiled, on a batch harvested anew
+    loader, _ = trainer.make_train_loader(1, splits["train"])
+    hb = harvest_frames(next(iter(loader)), default_frames_per_slot(L),
+                        cfg.model.head.max_gt, cfg.model.backbone.in_res_hw,
+                        fold_hw=stem_fold_hw(cfg.model))
+    dev = {k: torch.from_numpy(np.ascontiguousarray(hb[k])).cuda()
+           for k in ("ev", "is_first", "frame_t", "frame_mask", "labels")}
+    step = make_train_step(trainer.det, trainer.optimizer,
+                           remat=cfg.training.remat)
+    st = restored
+    st, _ = step(st, dev)
+    step_alone_ms = host_ms(lambda: step(st, dev), reps=2, warmup=0)
+    dev_events, tries = profile_calls(lambda: step(st, dev), 1, "train step")
+    profile = {"profile_tries": tries, "step_ms": step_alone_ms,
+               **device_summary(dev_events, 1, step_alone_ms, "train step",
+                                kernels_expected=False)}
+    trainer.close()
+    del trainer, step, st, restored, params0, stats0
+    shutil.rmtree(run_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    step_ms = timings["step_ms"][1:]
+    med = statistics.median(step_ms)
+    return {
+        "config": "RVT-B gen1 (experiment_preset('gen1', 'base'))",
+        "batch": bt, "window": L,
+        "frames_per_slot": default_frames_per_slot(L),
+        "remat": cfg.training.remat, "compute": "bf16, fp32 parameters",
+        "sampling": dst.train_sampling, "train_sequences": TRAIN_SEQS,
+        "val_sequences": TRAIN_SEQS, "reprs": EVAL_REPRS,
+        "render_s": render_s, "fit_s": fit_s, "steps": state.step,
+        "step_ms": timings["step_ms"], "step_ms_median_2_to_n": med,
+        "wait_ms": timings["wait_ms"], "val_s": timings["val_s"],
+        "frames_per_s": bt * L / med * 1e3, "peak_mem_gib": peak_gib,
+        "losses": [{k: r[k] for k in ("step",) + keys + (
+            "grad_norm/backbone", "grad_norm/fpn", "grad_norm/head", "lr")}
+            for r in steps],
+        "val": vals[0], "launches": launches,
+        "params_changed": [moved, n_params],
+        "bn_stats_changed": [stats_moved, len(stats)],
+        "restored_step": TRAIN_STEPS,
+        "profile": profile}
+
+
 # (tag, experiment_preset size, whether it runs the variant and the eval
 # phases) of the paths driven, in order
 PATHS = (("RVT-B", "base", True), ("RVT-S", "small", False))
@@ -1212,6 +1465,14 @@ def main() -> int:
     for tag, size, first in PATHS:
         kernels += drive_path(tag, size, first, probe_lib)
         torch.cuda.empty_cache()
+    emit({"train_check": phase_train_parity()})
+    train = phase_train()
+    emit({"train": train})
+    # the first path's kernels also ran in the train phase's validation
+    for e in kernels:
+        if e["config"].startswith("RVT-B"):
+            e["launches_train"] = train["launches"][e["name"]]
+            e["launches"] += e["launches_train"]
     emit({"kernels": kernels})
     bad = [k["name"] for k in kernels if not k["ok"]]
     if bad:

@@ -1,7 +1,8 @@
 """Weight bridge from the JAX package to the port: JAX tree -> port.
 
-`load_jax_variables(detector, variables)` fills the port's `Detector`
-from the variables of the JAX `Detector.init`
+`load_jax_variables(detector, variables)` fills the port's `Detector`,
+inference (weights in its compute dtype) or trainable (fp32 parameters
+and BN statistics), from the variables of the JAX `Detector.init`
 (`leod_tpu/models/detector.py:70-76`: `params/{backbone,fpn,head}` and
 `batch_stats/{fpn,head}`), given as nested dicts of numpy arrays. The
 port names its modules as the flax modules, so each leaf's path names

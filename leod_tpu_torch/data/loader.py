@@ -1,13 +1,16 @@
-"""Host-side eval loader with explicit stream-slot identity (the eval half
-of `leod_tpu/data/loader.py`, copied; the train loaders come with
-training).
+"""Host-side batched loaders with explicit stream-slot identity (copied
+from `leod_tpu/data/loader.py`, without the online-SSOD branch of the
+train stream).
 
 Stream-slot identity is explicit: batch row b IS stream slot b, the
 device keeps one LSTM-state table with one row per slot, and every batch
 carries an `is_first` reset flag per slot (reference:
-data/utils/stream_sharded_datapipe.py:27-117). A prefetch thread reads
-and collates the next batch while the card runs the current one; it does
-host work only and never touches CUDA.
+data/utils/stream_concat_datapipe.py:25-103,
+stream_sharded_datapipe.py:27-117). A prefetch thread reads and
+collates the next batch while the card runs the current one. The train
+loaders draw their random numbers from numpy generators seeded as the
+JAX package's are, in the same order, so a seed gives the same batches
+byte for byte.
 
 Batch dict layout (numpy, time-major):
     ev          [L, B, C, H, W] uint8/float — raw event reprs (unpadded HW)
@@ -27,8 +30,10 @@ import numpy as np
 
 from ..config import DatasetConfig
 from ..models.layers import fold_ev_hw
+from .augment import SpatialAugmentor
 from .labels import Boxes, pad_yolox_batch
-from .sequence import EventSequence, WindowedSequence, list_sequence_dirs
+from .sequence import (EventSequence, RandomAccessSequence, WindowedSequence,
+                       list_sequence_dirs, split_ranges_with_guaranteed_labels)
 
 
 def pyramid_indices(n: int) -> Iterator[int]:
@@ -65,6 +70,151 @@ def open_split_sequences(cfg: DatasetConfig, split: str,
                                  label_ratio=label_ratio))
     return out
 
+
+# ---------------------------------------------------------------------------
+# Train: infinite per-slot shuffled streaming
+# ---------------------------------------------------------------------------
+
+class _TrainSlot:
+    """One infinite stream: shuffled concatenation of all sequence parts,
+    per-part consistent augmentation (reference: stream_concat_datapipe.py
+    + RandAugmentIterDataPipe, sequence_streaming.py:280-318)."""
+
+    def __init__(self, sequences: List[EventSequence], window: int,
+                 cfg: DatasetConfig, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.window = window
+        self.cfg = cfg
+        self.parts: List[Tuple[EventSequence, Tuple[int, int]]] = []
+        for seq in sequences:
+            kept_reprs = seq.objframe_idx_2_repr_idx[list(seq.kept_objframe_idx)]
+            for rng_idx in split_ranges_with_guaranteed_labels(
+                    np.asarray(kept_reprs), window):
+                self.parts.append((seq, rng_idx))
+        assert self.parts, "no labeled stream parts found"
+        self.augmentor = SpatialAugmentor(cfg.loading_hw,
+                                          cfg.augment_stream, self.rng)
+        self._iter = self._generate()
+
+    def _generate(self):
+        while True:
+            order = self.rng.permutation(len(self.parts))
+            for pi in order:
+                seq, rng_idx = self.parts[int(pi)]
+                self.augmentor.randomize()
+                win = WindowedSequence(seq, self.window, range_indices=rng_idx,
+                                       time_flip=self.augmentor.params.tflip)
+                for i in range(len(win)):
+                    yield self.augmentor.apply(win[i])
+
+    def __next__(self):
+        return next(self._iter)
+
+
+class StreamTrainLoader:
+    """B parallel infinite slots; every `next()` yields one batch whose row b
+    continues slot b's stream (reference: stream_concat_datapipe.py:63-103)."""
+
+    def __init__(self, sequences: List[EventSequence], cfg: DatasetConfig,
+                 batch_size: int, seed: int = 0, slot_offset: int = 0):
+        """slot_offset: first GLOBAL slot id this loader feeds — a
+        process that feeds a slice of a global slot table gets stream
+        seeds no other process has."""
+        self.slots = [
+            _TrainSlot(sequences, cfg.sequence_length, cfg,
+                       seed * 1000 + slot_offset + b)
+            for b in range(batch_size)]
+
+    def __iter__(self):
+        while True:
+            yield collate([next(s) for s in self.slots])
+
+
+class RandomTrainLoader:
+    """Uniform (or class-frequency weighted) random-access samples; RNN
+    always resets (reference: dataset_rnd.py:95-152, weighted sampler
+    :230-264)."""
+
+    def __init__(self, sequences: List[EventSequence], cfg: DatasetConfig,
+                 batch_size: int, seed: int = 0, slot_offset: int = 0):
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.rng = np.random.default_rng(seed + 77 + 7919 * slot_offset)
+        self.datasets = [RandomAccessSequence(s, cfg.sequence_length)
+                         for s in sequences]
+        self.datasets = [d for d in self.datasets if len(d) > 0]
+        self.sizes = np.array([len(d) for d in self.datasets])
+        self.cum = np.cumsum(self.sizes)
+        # cumulative distribution once, searchsorted per draw
+        self.cum_probs = (np.cumsum(self._sample_weights())
+                          if cfg.weighted_sampling else None)
+        self.augmentor = SpatialAugmentor(cfg.loading_hw, cfg.augment_random,
+                                          self.rng)
+
+    def _sample_weights(self) -> np.ndarray:
+        """Per-sample probability ~ sum_c count_c(sample) / count_c(all):
+        rare classes and box-dense windows are sampled more often
+        (reference: dataset_rnd.py:228-264). Label-only reads."""
+        per_sample = []
+        class2count: dict = {}
+        for d in self.datasets:
+            for i in range(len(d)):
+                ids, counts = d.window_class_counts(i)
+                per_sample.append((ids, counts))
+                for c, n in zip(ids, counts):
+                    class2count[int(c)] = class2count.get(int(c), 0) + int(n)
+        w = np.array([
+            sum(n / max(class2count[int(c)], 1) for c, n in zip(ids, counts))
+            for ids, counts in per_sample], np.float64)
+        total = w.sum()
+        if total <= 0:
+            return np.full(len(w), 1.0 / max(len(w), 1))
+        return w / total
+
+    def _sample_one(self) -> dict:
+        for _ in range(32):
+            if self.cum_probs is not None:
+                gidx = int(np.searchsorted(self.cum_probs,
+                                           self.rng.random(), side="right"))
+                gidx = min(gidx, len(self.cum_probs) - 1)
+            else:
+                gidx = int(self.rng.integers(0, self.cum[-1]))
+            di = int(np.searchsorted(self.cum, gidx, side="right"))
+            li = gidx - (self.cum[di - 1] if di > 0 else 0)
+            self.augmentor.randomize()
+            tflip = self.augmentor.params.tflip
+            try:
+                s = self.datasets[di].__getitem__(int(li), time_flip=tflip)
+            except ValueError:
+                continue    # rand-another on label-less windows
+            out = self.augmentor.apply(s)
+            if any(l is not None for l in out["labels"]):
+                return out
+        raise RuntimeError("could not sample a labeled random-access window")
+
+    def __iter__(self):
+        while True:
+            yield collate([self._sample_one() for _ in range(self.batch_size)])
+
+
+class MixedTrainLoader:
+    """Concat stream + random batches along the batch axis each step
+    (reference: modules/utils/detection.py:226-240, modules/data/genx.py:120-144).
+    Stream rows occupy slots [0, B_stream); random rows always reset."""
+
+    def __init__(self, stream_loader: StreamTrainLoader,
+                 random_loader: RandomTrainLoader):
+        self.stream_loader = stream_loader
+        self.random_loader = random_loader
+
+    def __iter__(self):
+        for bs, br in zip(iter(self.stream_loader), iter(self.random_loader)):
+            yield concat_batches([bs, br])
+
+
+# ---------------------------------------------------------------------------
+# Eval: deterministic full-coverage streaming
+# ---------------------------------------------------------------------------
 
 class EvalStreamLoader:
     """Deal full sequences (long -> short, pyramid order) over
@@ -150,6 +300,24 @@ def collate(samples: List[dict]) -> dict:
         "is_reversed": np.array([s.get("is_reversed", False)
                                  for s in samples], bool),
     }
+
+
+def concat_batches(batches: List[dict]) -> dict:
+    L = len(batches[0]["labels"])
+    out = {
+        "ev": np.concatenate([b["ev"] for b in batches], axis=1),
+        "is_first": np.concatenate([b["is_first"] for b in batches]),
+        "is_last": np.concatenate([b["is_last"] for b in batches]),
+        "is_padded": np.concatenate([b["is_padded"] for b in batches]),
+        "labels": [sum((b["labels"][t] for b in batches), [])
+                   for t in range(L)],
+        "skipped": [sum((b["skipped"][t] for b in batches), [])
+                    for t in range(L)],
+        "paths": sum((b["paths"] for b in batches), []),
+        "ev_idx": np.concatenate([b["ev_idx"] for b in batches]),
+        "is_reversed": np.concatenate([b["is_reversed"] for b in batches]),
+    }
+    return out
 
 
 def harvest_frames(batch: dict, frames_per_slot: int, max_gt: int,
@@ -280,8 +448,9 @@ class Prefetcher:
 
     def close(self):
         """Stop the producer and JOIN the thread. Consumers that break
-        out of the iteration early (max_batches) must call this, so that
-        no reader thread outlives the loop that started it."""
+        out of the iteration early (max_batches, fit() at max_steps)
+        must call this, so that no reader thread outlives the loop that
+        started it."""
         self._stop = True
         # unblock a producer stuck in q.put (queue full), then wait for
         # it to finish any in-flight item and exit via the _done put

@@ -1,5 +1,5 @@
 """Event-sequence reading: one directory in the Gen1/Gen4 on-disk format
-(the streaming half of `leod_tpu/data/sequence.py`, copied).
+(a copy of `leod_tpu/data/sequence.py`, plus `ArrayEventSequence`).
 
 Disk layout (documented in reference: data/genx_utils/sequence_base.py:32-48):
 
@@ -11,9 +11,10 @@ Disk layout (documented in reference: data/genx_utils/sequence_base.py:32-48):
                                                  # 'objframe_idx_2_label_idx'
 
 This module covers sequence opening, h5 range reads, WSOD label
-subsampling, window cutting for streaming iteration and time-flip
-(reference: sequence_base.py, sequence_streaming.py) as plain-numpy host
-code. `h5py` is imported only where an h5 file is opened, and
+subsampling, window cutting for streaming iteration, label-guaranteed
+stream parts and random-access windows for training, and time-flip
+(reference: sequence_base.py, sequence_streaming.py, sequence_rnd.py)
+as plain-numpy host code. `h5py` is imported only where an h5 file is opened, and
 `ArrayEventSequence` serves the same sequence from arrays in memory
 (see its docstring).
 """
@@ -195,6 +196,24 @@ class ArrayEventSequence(EventSequence):
         return self.frames[start:stop]
 
 
+def split_ranges_with_guaranteed_labels(
+        label_repr_indices: np.ndarray, window: int) -> List[Tuple[int, int]]:
+    """Split a sequence around label gaps > window so every window of a
+    training stream contains at least one label
+    (reference: sequence_streaming.py:22-51)."""
+    if len(label_repr_indices) == 0:
+        return []
+    gaps = np.flatnonzero(np.diff(label_repr_indices) > window)
+    starts = np.concatenate([[0], gaps + 1])
+    stops = np.concatenate([gaps, [len(label_repr_indices) - 1]])
+    out = []
+    for a, b in zip(starts, stops):
+        lo = max(int(label_repr_indices[a]) - window + 1, 0)
+        hi = int(label_repr_indices[b]) + 1
+        out.append((lo, hi))
+    return out
+
+
 class WindowedSequence:
     """Cuts [repr_start, repr_stop) of a sequence into consecutive
     `window`-sized samples for stateful streaming
@@ -299,3 +318,83 @@ def time_flip_sample(sample: dict) -> dict:
     sample["ev_idx"] = sample["ev_idx"][::-1].copy()
     sample["is_padded"] = sample["is_padded"][::-1].copy()
     return sample
+
+
+class RandomAccessSequence:
+    """Random-access samples: one kept labeled frame + the `window` event
+    reprs ending at it; RNN warm-starts from zero state
+    (reference: sequence_rnd.py:16-148)."""
+
+    def __init__(self, seq: EventSequence, window: int,
+                 time_flip_allowed: bool = True):
+        self.seq = seq
+        self.window = window
+        # drop leading labeled frames too close to the sequence start:
+        # we need `window` reprs ending at the label
+        # (reference: sequence_rnd.py:40-59)
+        self.usable = [i for i in seq.kept_objframe_idx
+                       if int(seq.objframe_idx_2_repr_idx[i]) >= window - 1]
+        if not self.usable and len(seq.kept_objframe_idx):
+            # keep at least one sample; clamp the window start at 0
+            self.usable = [seq.kept_objframe_idx[-1]]
+
+    def __len__(self):
+        return len(self.usable)
+
+    def window_range(self, index: int, time_flip: bool = False
+                     ) -> Tuple[int, int]:
+        """(start, stop) repr range of sample `index`'s window."""
+        obj_idx = self.usable[index]
+        repr_idx = int(self.seq.objframe_idx_2_repr_idx[obj_idx])
+        L = self.window
+        if time_flip:
+            # place the labeled frame as early as possible so that after
+            # reversal it sits at the end (reference: sequence_rnd.py:67-78)
+            off = self.seq.cfg.tflip_offset
+            start = repr_idx - off
+            stop = min(start + L, self.seq.num_ev_repr)
+            start = max(stop - L, 0)
+        else:
+            stop = repr_idx + 1
+            start = max(stop - L, 0)
+        return start, stop
+
+    def window_class_counts(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(class_ids, counts) of the kept labels inside sample `index`'s
+        window — label-only reads, no event IO (for the weighted sampler,
+        reference: dataset_rnd.py:230-264)."""
+        start, stop = self.window_range(index)
+        labels, _ = self.seq.range_labels(start, stop)
+        ids = [lab.class_id.astype(np.int32) for lab in labels
+               if lab is not None and len(lab)]
+        if not ids:
+            return np.zeros(0, np.int32), np.zeros(0, np.int64)
+        return np.unique(np.concatenate(ids), return_counts=True)
+
+    def __getitem__(self, index: int, time_flip: bool = False) -> dict:
+        L = self.window
+        start, stop = self.window_range(index, time_flip)
+        ev = self.seq.read_ev_repr(start, stop)
+        labels, skipped = self.seq.range_labels(start, stop, time_flip)
+        n = stop - start
+        if n < L:   # short head: pad in front (zero state anyway)
+            ev = np.concatenate([np.stack([self.seq.zero_frame()] * (L - n)), ev])
+            labels = [None] * (L - n) + labels
+            skipped = [None] * (L - n) + skipped
+        out = {
+            "path": self.seq.seq_dir,
+            "ev_repr": ev,
+            "labels": labels,
+            "skipped_labels": skipped,
+            "ev_idx": np.arange(stop - L, stop, dtype=np.int64),
+            "is_first_sample": True,     # always reset RNN state
+            "is_last_sample": True,
+            "is_reversed": time_flip,
+            "is_padded": np.concatenate(
+                [np.ones(L - n, bool), np.zeros(n, bool)]),
+        }
+        if time_flip:
+            out = time_flip_sample(out)
+        if not any(l is not None for l in out["labels"]):
+            raise ValueError("window contains no kept labels")
+        return out

@@ -12,7 +12,9 @@ random draws, in the same order, as the JAX package's
 `generate_sequence`, so a seed gives the same bytes; `write_sequence`
 puts them on disk in the real datasets' layout (reference:
 data/genx_utils/sequence_base.py:32-48) and imports `h5py` only then.
-`render_array_sequences` makes sequences that never touch the disk.
+`render_array_sequences` makes sequences that never touch the disk, and
+`render_array_dataset` a train/val/test dataset of them, drawn as
+`generate_dataset` draws the splits it writes.
 """
 from __future__ import annotations
 
@@ -169,7 +171,8 @@ def generate_dataset(root: str, num_train: int = 4, num_val: int = 2,
                      num_test: int = 2, seed: int = 0, **kwargs) -> str:
     """Create a tiny synthetic dataset at `root` with train/val/test splits."""
     rng = np.random.default_rng(seed)
-    for split, n in (("train", num_train), ("val", num_val), ("test", num_test)):
+    for split, n in (("train", num_train), ("val", num_val),
+                     ("test", num_test)):
         for i in range(n):
             generate_sequence(os.path.join(root, split, f"seq_{i:03d}"),
                               rng, **kwargs)
@@ -187,4 +190,27 @@ def render_array_sequences(cfg: DatasetConfig, num: int, seed: int = 0,
         out.append(ArrayEventSequence(
             s["frames"], s["labels"], s["objframe_idx_2_label_idx"],
             s["objframe_idx_2_repr_idx"], cfg, seq_dir=f"seq_{i:03d}"))
+    return out
+
+
+def render_array_dataset(cfg: DatasetConfig, num_train: int = 4,
+                         num_val: int = 2, num_test: int = 2, seed: int = 0,
+                         **kwargs) -> Dict[str, List[ArrayEventSequence]]:
+    """{"train": [...], "val": [...], "test": [...]} of array-backed
+    sequences, rendered in the order and from the one seeded generator
+    `generate_dataset` writes them with, so a seed gives the bytes of the
+    dataset it writes (and the JAX package's generator writes), held in
+    memory. The sequences are named as `generate_dataset`'s
+    directories ("train/seq_000", ...)."""
+    rng = np.random.default_rng(seed)
+    out: Dict[str, List[ArrayEventSequence]] = {}
+    for split, n in (("train", num_train), ("val", num_val),
+                     ("test", num_test)):
+        out[split] = []
+        for i in range(n):
+            s = render_sequence(rng, **kwargs)
+            out[split].append(ArrayEventSequence(
+                s["frames"], s["labels"], s["objframe_idx_2_label_idx"],
+                s["objframe_idx_2_repr_idx"], cfg,
+                seq_dir=os.path.join(split, f"seq_{i:03d}")))
     return out

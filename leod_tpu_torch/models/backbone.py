@@ -3,6 +3,12 @@
 4 stages; each = strided-conv downsample -> N x (window-attn ->
 grid-attn) -> ConvLSTM. The (h, c) state per stage is passed in and
 returned explicitly, one row per stream.
+
+Two routes through a stage: `forward` goes through the kernel wrappers
+(`ops/maxvit_cuda.py`: on a CUDA tensor the hand-written kernels, which
+define no backward; on the CPU their plain versions), and
+`forward_modules` through the module forwards under autograd, the
+port's counterpart of the flax/XLA path that `leod_tpu` trains through.
 """
 from __future__ import annotations
 
@@ -13,7 +19,8 @@ from torch import nn
 
 from ..config import BackboneConfig
 from ..ops import maxvit_cuda
-from .layers import ConvDownsample, ConvLSTMCell, PartitionAttention
+from .layers import (ConvDownsample, ConvLSTMCell, PartitionAttention,
+                     block_pair_tokens)
 
 StageState = Tuple[torch.Tensor, torch.Tensor]
 BackboneStates = Tuple[StageState, ...]
@@ -93,6 +100,25 @@ class RVTStage(nn.Module):
         h, cc = self.lstm(x, state)
         return h, (h, cc)
 
+    def forward_modules(self, x: torch.Tensor, state: StageState,
+                        token_mask: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, StageState]:
+        """The stage through its module forwards, differentiable: the
+        downsample, the mask token, each block pair in token layout
+        (`layers.block_pair_tokens`), then `ConvLSTMCell`, as the flax
+        stage computes it (`leod_tpu/models/backbone.py:89-107,136-139`).
+        (h, c) come back in the dtypes of the state that went in (the
+        compute dtype, as JAX carries them)."""
+        x = self.down(x)
+        if self.mask_token is not None and token_mask is not None:
+            x = torch.where(token_mask[..., None],
+                            self.mask_token.to(x.dtype), x)
+        for wb, gb in self.pairs():
+            x = block_pair_tokens(x, wb, gb, self.cfg.partition_size)
+        h, cc = self.lstm(x, state)
+        h, cc = h.to(state[0].dtype), cc.to(state[1].dtype)
+        return h, (h, cc)
+
 
 class RVTBackbone(nn.Module):
     """Full recurrent backbone; one timestep per call."""
@@ -121,6 +147,21 @@ class RVTBackbone(nn.Module):
             new_states.append(st)
         return features, tuple(new_states)
 
+    def forward_modules(self, x: torch.Tensor, states: BackboneStates,
+                        token_mask: Optional[torch.Tensor] = None
+                        ) -> Tuple[BackboneFeatures, BackboneStates]:
+        """One timestep through every stage's `forward_modules`: the
+        differentiable route a train step records (and recomputes, under
+        `torch.utils.checkpoint`)."""
+        features: BackboneFeatures = {}
+        new_states: List[StageState] = []
+        for k in range(self.num_stages):
+            x, st = getattr(self, f"stage{k + 1}").forward_modules(
+                x, states[k], token_mask if k == 0 else None)
+            features[k + 1] = x
+            new_states.append(st)
+        return features, tuple(new_states)
+
 
 def init_states(cfg: BackboneConfig, batch_size: int,
                 dtype=torch.float32, device="cpu") -> BackboneStates:
@@ -138,7 +179,8 @@ def reset_states(states: BackboneStates,
                  reset: torch.Tensor) -> BackboneStates:
     """Zero the states of batch rows where `reset` is True. By SELECTION,
     not multiplication: 0 * NaN is NaN, so a poisoned slot would survive
-    a multiplicative reset; torch.where clears it."""
+    a multiplicative reset; torch.where clears it. Differentiable: the
+    gradient reaches the rows kept, and none the rows reset."""
     def apply(s):
         r = reset.reshape((-1,) + (1,) * (s.dim() - 1))
         return torch.where(r, torch.zeros((), dtype=s.dtype,

@@ -1,15 +1,23 @@
 """Detector: recurrent backbone + PAFPN + YOLOX head (port of
-`leod_tpu/models/detector.py:25-128`, inference paths).
+`leod_tpu/models/detector.py:25-133`).
 
-The model holds its weights as modules, in the compute dtype: bf16 on
-the card, as `Detector(dtype=jnp.bfloat16)` computes (the kernels
-accumulate in fp32). Weights are made from a seed with an explicit
-`torch.Generator` in flax's initializers' distributions, or loaded from
-the JAX package's variables with `convert.load_jax_variables`.
+An inference detector holds its weights as modules in the compute
+dtype: bf16 on the card, as `Detector(dtype=jnp.bfloat16)` computes (the
+kernels accumulate in fp32). A trainable one (`trainable=True`) keeps
+fp32 master parameters and BN statistics, as flax does, and computes in
+`dtype` by `torch.autocast`, entered once per region it runs (a
+backbone timestep, the FPN and head): each region casts a parameter to
+bf16 at its use, so the gradients of a timestep's casts reach the fp32
+parameter one by one and are summed there in fp32, as `jax.grad`
+sums the cotangents of flax's per-use casts. Weights are made from a
+seed with an explicit `torch.Generator` in flax's initializers'
+distributions, or loaded from the JAX package's variables with
+`convert.load_jax_variables`.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -18,27 +26,38 @@ from .. import resolve_device
 from ..config import ModelConfig
 from .backbone import BackboneStates, RVTBackbone, init_states
 from .fpn import PAFPN
-from .head import PRIOR_BIAS, Anchors, YOLOXHead, decode_outputs, make_anchors
+from .head import (PRIOR_BIAS, Anchors, YOLOXHead, decode_outputs,
+                   make_anchors, yolox_loss)
 from .layers import _S2DStemConv, _SplitGateConv, lecun_normal_
 
 
 class Detector(nn.Module):
-    """Inference-mode detector on one device (`cuda` unless the caller
-    asks for `cpu`; without a card, `cuda` raises)."""
+    """The detector on one device (`cuda` unless the caller asks for
+    `cpu`; without a card, `cuda` raises).
+
+    trainable=False: inference only, weights in `dtype`, no gradients;
+    `forward_backbone` and `forward_detect` run through the kernels.
+    trainable=True: fp32 parameters that take gradients, computing in
+    `dtype` (`compute`); the train route is `forward_backbone_modules`
+    and `forward_detect(train=True)`."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16,
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0, trainable: bool = False):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         self.dtype = dtype
+        self.trainable = trainable
         self.backbone = RVTBackbone(cfg.backbone)
         self.fpn = PAFPN(cfg.fpn, cfg.fpn_in_channels)
         self.head = YOLOXHead(cfg.head, cfg.fpn_in_channels)
         self.init_weights(torch.Generator().manual_seed(seed))
-        self.to(device=dev, dtype=dtype)
-        self.eval()
-        self.requires_grad_(False)
+        if trainable:
+            self.to(device=dev)
+        else:
+            self.to(device=dev, dtype=dtype)
+            self.eval()
+            self.requires_grad_(False)
         self.anchors: Anchors = make_anchors(cfg.backbone.in_res_hw,
                                              cfg.head.strides, device=dev)
 
@@ -84,11 +103,54 @@ class Detector(nn.Module):
         ({stage: feature}, new_states)."""
         return self.backbone(x.to(self.dtype), states, token_mask, plain)
 
-    @torch.no_grad()
+    def compute(self):
+        """The region a trainable detector computes in: `torch.autocast`
+        to `dtype` where that is not fp32, else nothing."""
+        if self.dtype == torch.float32:
+            return contextlib.nullcontext()
+        return torch.autocast(self.device.type, dtype=self.dtype)
+
+    def forward_backbone_modules(self, x: torch.Tensor,
+                                 states: BackboneStates,
+                                 token_mask: Optional[torch.Tensor] = None):
+        """One timestep through the module forwards, differentiable (the
+        train route; `RVTBackbone.forward_modules`), in `compute()`:
+        x [B, H, W, C] (or the stem's fold of it) -> ({stage: feature},
+        new_states)."""
+        with self.compute():
+            return self.backbone.forward_modules(x, states, token_mask)
+
     def forward_detect(self, feats, train: bool = False):
-        """FPN + head + decode: ([B, A, 5+C] with sigmoided obj/cls, None)."""
-        if train:
-            raise NotImplementedError(
-                "the training forward (batch-stat BN, loss) is not ported yet")
-        raw = self.head(self.fpn(feats))
-        return decode_outputs(raw, self.anchors, apply_sigmoid=True), None
+        """FPN + head + decode over harvested frames.
+
+        train=False: ([B, A, 5+C] with sigmoided obj/cls, None), no
+        gradients, through the kernels' inference modules.
+        train=True: ([B, A, 5+C] decoded boxes with obj/cls logits, the
+        updated BN statistics `batch_stats()`), differentiable, every BN
+        on batch statistics (`layers.batch_norm_train`), in
+        `compute()`."""
+        if not train:
+            with torch.no_grad():
+                raw = self.head(self.fpn(feats))
+                return decode_outputs(raw, self.anchors,
+                                      apply_sigmoid=True), None
+        if not self.trainable:
+            raise ValueError("forward_detect(train=True) needs a detector "
+                             "built with trainable=True")
+        with self.compute():
+            raw = self.head(self.fpn(feats, train=True), train=True)
+            out = decode_outputs(raw, self.anchors, apply_sigmoid=False)
+        return out, self.batch_stats()
+
+    def batch_stats(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The BN running statistics, {"fpn": {...}, "head": {...}} by
+        buffer name (the JAX tree's `batch_stats`)."""
+        return {part: {n: b for n, b in getattr(self, part).named_buffers()
+                       if n.endswith(("running_mean", "running_var"))}
+                for part in ("fpn", "head")}
+
+    def loss(self, train_out: torch.Tensor, labels: torch.Tensor,
+             frame_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """`head.yolox_loss` with this model's anchors and head config."""
+        return yolox_loss(train_out, labels, frame_mask, self.anchors,
+                          self.cfg.head)

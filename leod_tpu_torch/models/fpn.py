@@ -28,16 +28,18 @@ class PAFPN(nn.Module):
         self.bu_conv1 = conv(c1, c1, 3, 2, act=cfg.act)
         self.C3_n4 = CSPLayer(2 * c1, c0, n, False, **kw)
 
-    def forward(self, feats: Dict[int, torch.Tensor]):
-        """feats {stage_id: [B, h, w, C]} -> (/8, /16, /32) maps."""
+    def forward(self, feats: Dict[int, torch.Tensor], train: bool = False):
+        """feats {stage_id: [B, h, w, C]} -> (/8, /16, /32) maps.
+        train=True runs every BN on batch statistics (`ConvBNAct`)."""
         x2, x1, x0 = (feats[s] for s in self.cfg.in_stages)
-        fpn_out0 = self.lateral_conv0(x0)                              # /32
-        f_out0 = self.C3_p4(torch.cat([upsample2x_nearest(fpn_out0), x1], -1))
-        fpn_out1 = self.reduce_conv1(f_out0)                           # /16
+        fpn_out0 = self.lateral_conv0(x0, train)                       # /32
+        f_out0 = self.C3_p4(torch.cat([upsample2x_nearest(fpn_out0), x1], -1),
+                            train)
+        fpn_out1 = self.reduce_conv1(f_out0, train)                    # /16
         pan_out2 = self.C3_p3(torch.cat([upsample2x_nearest(fpn_out1), x2],
-                                        -1))                            # /8
-        p_out1 = torch.cat([self.bu_conv2(pan_out2), fpn_out1], -1)
-        pan_out1 = self.C3_n3(p_out1)                                  # /16
-        p_out0 = torch.cat([self.bu_conv1(pan_out1), fpn_out0], -1)
-        pan_out0 = self.C3_n4(p_out0)                                  # /32
+                                        -1), train)                     # /8
+        p_out1 = torch.cat([self.bu_conv2(pan_out2, train), fpn_out1], -1)
+        pan_out1 = self.C3_n3(p_out1, train)                           # /16
+        p_out0 = torch.cat([self.bu_conv1(pan_out1, train), fpn_out0], -1)
+        pan_out0 = self.C3_n4(p_out0, train)                           # /32
         return (pan_out2, pan_out1, pan_out0)

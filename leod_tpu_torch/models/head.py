@@ -1,15 +1,24 @@
-"""YOLOX decoupled head and box decoding (port of
-`leod_tpu/models/head.py:34-101`; the loss waits for the training slice).
+"""YOLOX decoupled head, box decoding and the SimOTA training loss (port
+of `leod_tpu/models/head.py:34-236`).
+
+The loss is one batched masked computation over [M, A] (M = harvested
+frames, A = anchors), with LEOD's ignore-region variant (reference:
+yolo_head.py:776-972) folded in as an anchor mask; the plain path is the
+special case with no ignore boxes.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import HeadConfig
+from ..ops.boxes import maximum
+from ..ops.losses import bce_with_logits, iou_loss, sigmoid_focal_loss
+from ..ops.simota import mark_low_conf_as_ignore, simota_assign
 from .layers import ConvBNAct, DWConvBlock, _nchw, _nhwc
 
 PRIOR_PROB = 0.01
@@ -61,14 +70,16 @@ class YOLOXHead(nn.Module):
             setattr(self, f"reg_pred{k}", nn.Conv2d(hidden, 4, 1))
             setattr(self, f"obj_pred{k}", nn.Conv2d(hidden, 1, 1))
 
-    def forward(self, fpn_feats):
+    def forward(self, fpn_feats, train: bool = False):
+        """train=True normalizes with batch statistics and updates the
+        BNs' running statistics (`ConvBNAct`)."""
         outs = []
         for k, x in enumerate(fpn_feats):
-            x = getattr(self, f"stem{k}")(x)
+            x = getattr(self, f"stem{k}")(x, train)
             cls_f = reg_f = x
             for j in range(2):
-                cls_f = getattr(self, f"cls_conv{k}_{j}")(cls_f)
-                reg_f = getattr(self, f"reg_conv{k}_{j}")(reg_f)
+                cls_f = getattr(self, f"cls_conv{k}_{j}")(cls_f, train)
+                reg_f = getattr(self, f"reg_conv{k}_{j}")(reg_f, train)
             cls_out = getattr(self, f"cls_pred{k}")(_nchw(cls_f))
             reg_f = _nchw(reg_f)
             reg_out = getattr(self, f"reg_pred{k}")(reg_f)
@@ -91,3 +102,138 @@ def decode_outputs(raw_levels, anchors: Anchors,
     if apply_sigmoid:
         rest = torch.sigmoid(rest)
     return torch.cat([xy, wh, rest.float()], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [M, G] gathered at idx [M, A] along G -> [M, A]."""
+    return torch.gather(x, 1, idx.long())
+
+
+def _bbox_loss_weights(cfg: HeadConfig, labels: torch.Tensor,
+                       matched_gt: torch.Tensor,
+                       fg: torch.Tensor) -> torch.Tensor:
+    """Teacher-confidence bbox loss weights, mean-normalized over all fg
+    (reference: yolo_head.py:358-380,550-555). Returns [M, A]."""
+    spec = cfg.bbox_loss_weighting
+    if not spec:
+        return torch.ones(fg.shape, device=fg.device)
+    val, _, expr = spec.partition("-")
+    obj_c = _take(labels[..., 5], matched_gt)
+    cls_c = _take(labels[..., 6], matched_gt)
+    w = {"obj": obj_c, "cls": cls_c, "objxcls": obj_c * cls_c}[val]
+    if expr == "w**2":
+        w = w ** 2
+    fg_f = fg.float()
+    mean = (w * fg_f).sum() / maximum(fg_f.sum(), 1.0)
+    return w / maximum(mean, 1e-12)
+
+
+def _top_bg_ignore_mask(cfg: HeadConfig, obj_logits: torch.Tensor,
+                        fg: torch.Tensor) -> torch.Tensor:
+    """Exclude the top-k%-scoring background anchors of each frame from
+    the objectness loss (reference: yolo_head.py:334-356), ranked by a
+    stable double argsort, ties to the lower anchor index. Applied
+    whether or not the batch holds ignore boxes, as `leod_tpu` does
+    (`leod_tpu/models/head.py:125-133`)."""
+    if cfg.ignore_bg_k <= 0:
+        return torch.zeros(fg.shape, dtype=torch.bool, device=fg.device)
+    bg = ~fg
+    n = (bg.sum(1).float() * cfg.ignore_bg_k).to(torch.int32)      # [M]
+    score = torch.where(bg, obj_logits.detach(),
+                        obj_logits.new_tensor(-float("inf")))
+    order = torch.argsort(-score, dim=1, stable=True)
+    rank = torch.argsort(order, dim=1, stable=True)
+    return bg & (rank < n[:, None])
+
+
+def yolox_loss(train_out: torch.Tensor, labels: torch.Tensor,
+               frame_mask: torch.Tensor, anchors: Anchors,
+               cfg: HeadConfig) -> Dict[str, torch.Tensor]:
+    """SimOTA-assigned detection loss over M harvested frames, in fp32.
+
+    train_out [M, A, 5+C] decoded boxes + obj/cls logits
+    labels    [M, G, 7] yolox layout, zero rows = padding
+    frame_mask[M] bool — padded frame slots contribute nothing
+
+    total = 5 * iou + 1 * obj + 1 * cls (+ l1), each summed over the
+    batch and divided by max(total_fg, 1); the obj BCE skips
+    ignore-region anchors (reference: yolo_head.py:563-597, :940-972).
+    The gradient reaches the boxes through the cls target's IoU as well
+    (`ops/simota.py`)."""
+    f32 = torch.float32
+    train_out = train_out.to(f32)
+    labels = labels.to(f32)
+    if cfg.ignore_bbox_thresh is not None:
+        labels = mark_low_conf_as_ignore(
+            labels, labels.new_tensor(cfg.ignore_bbox_thresh),
+            cfg.ignore_label)
+
+    boxes = train_out[..., :4]
+    obj_logits = train_out[..., 4]
+    cls_logits = train_out[..., 5:]
+    num_classes = cls_logits.shape[-1]
+    assign = simota_assign(labels, boxes, obj_logits, cls_logits,
+                           anchors.centers, anchors.strides,
+                           num_classes=num_classes,
+                           ignore_label=cfg.ignore_label)
+
+    fm = frame_mask.bool()
+    fg = assign.fg & fm[:, None]                                 # [M, A]
+    fg_f = fg.to(f32)
+    num_fg = fg_f.sum()
+    num_gt = (assign.num_gt * fm).sum()
+    denom = maximum(num_fg, 1.0)
+
+    # regression: 1 - IoU^2 on matched pairs
+    idx = assign.matched_gt.long()[..., None]
+    gt_boxes = torch.gather(labels[..., 1:5], 1,
+                            idx.expand(-1, -1, 4))               # [M, A, 4]
+    bbox_w = _bbox_loss_weights(cfg, labels, assign.matched_gt, fg)
+    loss_iou = (iou_loss(boxes, gt_boxes) * bbox_w * fg_f).sum() / denom
+
+    # objectness: BCE against the fg indicator, skipping ignore anchors,
+    # padded frames, and optionally the top-k% confident background
+    bg_ignore = _top_bg_ignore_mask(cfg, obj_logits, fg)
+    obj_valid = fm[:, None] & ~assign.ignore & ~bg_ignore
+    obj_fn = sigmoid_focal_loss if cfg.obj_focal_loss else bce_with_logits
+    loss_obj = (obj_fn(obj_logits, fg_f) * obj_valid).sum() / denom
+
+    # classification: BCE against the IoU-scaled one-hot on fg anchors
+    cls_idx = torch.clamp(_take(labels[..., 0], assign.matched_gt).long(),
+                          0, num_classes - 1)
+    cls_target = (F.one_hot(cls_idx, num_classes).to(f32)
+                  * assign.pred_iou[..., None])
+    loss_cls = (bce_with_logits(cls_logits, cls_target)
+                * (bbox_w * fg_f)[..., None]).sum() / denom
+
+    # optional L1 on the raw reg outputs against grid-space targets
+    # (reference: yolo_head.py:560-580,599-605); decoding inverts
+    # exactly, so the raw residual is |xy - gt_xy| / stride and
+    # |log(wh / stride) - log(gt_wh / stride + eps)|
+    loss_l1 = train_out.new_zeros(())
+    if cfg.use_l1:
+        st = anchors.strides[None, :, None]
+        l1 = torch.cat([
+            torch.abs(boxes[..., 0:2] - gt_boxes[..., 0:2]) / st,
+            torch.abs(torch.log(maximum(boxes[..., 2:4], 1e-20) / st)
+                      - torch.log(gt_boxes[..., 2:4] / st + 1e-8)),
+        ], dim=-1)
+        loss_l1 = (l1 * (bbox_w * fg_f)[..., None]).sum() / denom
+
+    loss_iou = cfg.reg_weight * loss_iou
+    loss_obj = cfg.obj_weight * loss_obj
+    loss_cls = cfg.cls_weight * loss_cls
+    out = {
+        "loss": loss_iou + loss_obj + loss_cls + loss_l1,
+        "iou_loss": loss_iou,
+        "conf_loss": loss_obj,
+        "cls_loss": loss_cls,
+        "num_fg": num_fg / maximum(num_gt.to(f32), 1.0),
+    }
+    if cfg.use_l1:
+        out["l1_loss"] = loss_l1
+    return out

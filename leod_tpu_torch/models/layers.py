@@ -171,6 +171,21 @@ class PartitionAttention(nn.Module):
         return x + (y if self.ls2 is None else y * self.ls2)
 
 
+def block_pair_tokens(x: torch.Tensor, window_block: PartitionAttention,
+                      grid_block: PartitionAttention,
+                      partition_size: Tuple[int, int]) -> torch.Tensor:
+    """A window block then a grid block on an NHWC map, each run whole on
+    its partitioned tokens [N, T, C] (the flax token layout,
+    `leod_tpu/models/backbone.py:89-107`): the module forwards, under
+    autograd when the caller records it."""
+    ph, pw = partition_size
+    _, h, w, _ = x.shape
+    t = window_block(window_partition(x, ph, pw))
+    y = window_reverse(t, ph, pw, h, w)
+    t = grid_block(grid_partition(y, ph, pw))
+    return grid_reverse(t, ph, pw, h, w)
+
+
 def _stem_kernel_4c(w_hwio: torch.Tensor) -> torch.Tensor:
     """[7, 7, ci, co] -> HWIO [7, 2, 4ci, co] for the width-folded input:
     output col j covers width blocks j-1 and j, in-block tap 4*bw + s - 1
@@ -336,8 +351,33 @@ class ConvLSTMCell(nn.Module):
 # YOLO conv blocks (conv + BN + act)
 # ---------------------------------------------------------------------------
 
+# flax nn.BatchNorm(momentum=0.9), leod_tpu/models/layers.py:454
+BN_MOMENTUM = 0.9
+
+
+def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """flax `nn.BatchNorm(use_running_average=False, momentum=0.9,
+    epsilon=1e-5)` on y [N, C, H, W]: normalize with the batch's mean and
+    BIASED variance, and move the running statistics by
+    `0.9 * running + 0.1 * batch`, both in fp32 whatever y's dtype.
+    torch's own training-mode BN would move `running_var` by the
+    unbiased variance instead, so the statistics are taken here and the
+    normalization is `F.batch_norm` without running buffers. Every frame
+    of y counts, padded ones included, as in the JAX step."""
+    with torch.no_grad():
+        var, mean = torch.var_mean(y.float(), dim=(0, 2, 3), correction=0)
+        for buf, stat in ((bn.running_mean, mean), (bn.running_var, var)):
+            buf.copy_(BN_MOMENTUM * buf.float()
+                      + (1.0 - BN_MOMENTUM) * stat)
+    return F.batch_norm(y, None, None, bn.weight, bn.bias, True, 0.0,
+                        bn.eps)
+
+
 class ConvBNAct(nn.Module):
-    """conv -> BN -> act, NHWC. BN uses running stats in eval mode."""
+    """conv -> BN -> act, NHWC. `train=False` normalizes with the running
+    statistics; `train=True` with the batch's (`batch_norm_train`),
+    updating the running ones, as flax's `use_running_average=not
+    train`. The module's own train/eval mode plays no part."""
 
     def __init__(self, in_channels: int, features: int, kernel: int,
                  stride: int = 1, groups: int = 1, act: str = "silu"):
@@ -346,11 +386,17 @@ class ConvBNAct(nn.Module):
         self.conv = nn.Conv2d(in_channels, features, kernel, stride=stride,
                               padding=(kernel - 1) // 2, groups=groups,
                               bias=False)
-        # flax BatchNorm momentum 0.9 is torch momentum 0.1
-        self.bn = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+        self.bn = nn.BatchNorm2d(features, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _nhwc(get_act(self.act)(self.bn(self.conv(_nchw(x)))))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = self.conv(_nchw(x))
+        bn = self.bn
+        if train:
+            y = batch_norm_train(y, bn)
+        else:
+            y = F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight,
+                             bn.bias, False, 0.0, bn.eps)
+        return _nhwc(get_act(self.act)(y))
 
 
 class DWConvBlock(nn.Module):
@@ -363,8 +409,8 @@ class DWConvBlock(nn.Module):
                                groups=in_channels, act=act)
         self.pconv = ConvBNAct(in_channels, features, 1, 1, act=act)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.pconv(self.dconv(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.pconv(self.dconv(x, train), train)
 
 
 class Bottleneck(nn.Module):
@@ -378,8 +424,8 @@ class Bottleneck(nn.Module):
         self.conv2 = conv2(hidden, features, 3, act=act)
         self.use_add = shortcut and in_channels == features
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv2(self.conv1(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = self.conv2(self.conv1(x, train), train)
         return y + x if self.use_add else y
 
 
@@ -399,12 +445,12 @@ class CSPLayer(nn.Module):
                                               depthwise, act))
         self.conv3 = ConvBNAct(2 * hidden, features, 1, act=act)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1 = self.conv1(x)
-        x2 = self.conv2(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x1 = self.conv1(x, train)
+        x2 = self.conv2(x, train)
         for i in range(self.n):
-            x1 = getattr(self, f"m{i}")(x1)
-        return self.conv3(torch.cat([x1, x2], dim=-1))
+            x1 = getattr(self, f"m{i}")(x1, train)
+        return self.conv3(torch.cat([x1, x2], dim=-1), train)
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:

@@ -35,8 +35,8 @@ import torch.nn.functional as F
 
 from . import _build
 from ..models.layers import (PartitionAttention, _SplitGateConv,
-                             grid_partition, grid_reverse, window_partition,
-                             window_reverse)
+                             block_pair_tokens, grid_partition, grid_reverse,
+                             window_partition, window_reverse)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
@@ -126,13 +126,9 @@ def block_mlp_plain(x: torch.Tensor, o: torch.Tensor,
 def fused_block_pair_plain(x: torch.Tensor, window_block: PartitionAttention,
                            grid_block: PartitionAttention,
                            partition_size: Tuple[int, int]) -> torch.Tensor:
-    """Window block then grid block in token layout (backbone.py:100-106)."""
-    ph, pw = partition_size
-    _, h, w, _ = x.shape
-    t = window_block(window_partition(x, ph, pw))
-    y = window_reverse(t, ph, pw, h, w)
-    t = grid_block(grid_partition(y, ph, pw))
-    return grid_reverse(t, ph, pw, h, w)
+    """Window block then grid block in token layout (backbone.py:100-106),
+    as the modules run them (`layers.block_pair_tokens`)."""
+    return block_pair_tokens(x, window_block, grid_block, partition_size)
 
 
 def lstm_update_plain(x: torch.Tensor, h_prev: torch.Tensor,

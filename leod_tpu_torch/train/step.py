@@ -1,5 +1,5 @@
-"""The streaming eval step (port of `leod_tpu/train/step.py:60-135,217-234`,
-inference branch; the train step comes with training).
+"""The train and streaming eval steps (port of
+`leod_tpu/train/step.py:28-234`).
 
 The L-timestep backbone loop runs in Python, one backbone step a
 timestep, with the stream-slot LSTM states carried in and out of the
@@ -7,17 +7,43 @@ step. Labeled frames are harvested on the host into a static budget of
 (t, b) pairs; the features of the FPN's stages are gathered along time
 only, with the batch axis outermost, and the FPN + head run once over
 the gathered frames.
+
+Training is truncated backprop through time (TBPTT): the gradient flows
+across the L timesteps of a window through (h, c), and the states that
+leave the step are detached, so it never crosses windows. The train
+step runs the module forwards under autograd (`Detector.
+forward_backbone_modules`, `forward_detect(train=True)`), the
+counterpart of the JAX package's flax/XLA train path: the hand-written
+kernels define no backward, as the Pallas kernels define no VJP. The
+eval step runs the kernels.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..models.backbone import BackboneStates, reset_states
 from ..models.detector import Detector
+from .optim import ClipAdamW
+
+
+class TrainState(NamedTuple):
+    """What a train step carries from one step to the next besides the
+    model and the optimizer, which it updates in place (the parameters,
+    the BN statistics, the AdamW moments and count)."""
+    states: BackboneStates     # stream-slot LSTM table [B_slots, ...]
+    step: int                  # optimizer steps taken
+
+
+# TBPTT rematerialization: "full" recomputes every timestep's forward in
+# the backward pass (torch.utils.checkpoint around each timestep), "none"
+# stores every activation. The JAX package's "dots" and "stage1"
+# policies are not ported (ROADMAP.md A.2).
+REMAT_POLICIES = ("full", "none")
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
@@ -37,6 +63,88 @@ def _gather_frames(feats_seq: Dict[int, torch.Tensor],
         g = f[frame_t, rows]                       # [B, M, h, w, c]
         return g.reshape((-1,) + g.shape[2:])
     return {s: one(f) for s, f in feats_seq.items()}
+
+
+def _check_remat(remat: str) -> None:
+    if remat in ("dots", "stage1"):
+        raise NotImplementedError(
+            f"remat={remat!r} is not ported yet (ROADMAP.md A.2); the port "
+            f"takes {REMAT_POLICIES}")
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat={remat!r}; the port takes {REMAT_POLICIES}")
+
+
+def _global_norm(grads) -> torch.Tensor:
+    """optax.global_norm: the l2 norm of all the tensors together."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.float()) for g in grads]))
+
+
+def make_train_step(det: Detector, optimizer: ClipAdamW,
+                    remat: str = "full") -> Callable:
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    batch: ev [L, B, H, W, C] (or the stem's fold of it), is_first [B],
+    frame_t [B, M], frame_mask [B, M], labels [B, M, G, 7], as numpy
+    arrays or tensors. One call: reset the states of the rows that
+    start a sequence, run the backbone over the window through the
+    module forwards (each timestep under `torch.utils.checkpoint` where
+    remat="full"), gather the labeled frames, run the FPN and head once
+    over the B·M frames in train mode (BN on batch statistics, padded
+    frames included), `yolox_loss`, backward, clip, AdamW.
+
+    metrics (tensors on the model's device): loss, iou_loss, conf_loss,
+    cls_loss, num_fg (l1_loss where the head uses it), grad_norm and
+    grad_norm/{backbone,fpn,head}, of the UNCLIPPED gradients, as
+    `optax.global_norm(grads)` is taken."""
+    if not det.trainable:
+        raise ValueError("make_train_step needs a Detector built with "
+                         "trainable=True")
+    _check_remat(remat)
+    stages = det.cfg.fpn.in_stages
+    groups = {mod: [p for p in getattr(det, mod).parameters()
+                    if p.requires_grad] for mod in ("backbone", "fpn", "head")}
+
+    def timestep(x_t, states):
+        feats, new_states = det.forward_backbone_modules(x_t, states)
+        return tuple(feats[s] for s in stages), new_states
+
+    def train_step(state: TrainState, batch) -> tuple:
+        dev = det.device
+        ev = _as_tensor(batch["ev"], dev)
+        frame_t = _as_tensor(batch["frame_t"], dev).long()
+        frame_mask = _as_tensor(batch["frame_mask"], dev)
+        labels = _as_tensor(batch["labels"], dev)
+        states = reset_states(state.states,
+                              _as_tensor(batch["is_first"], dev))
+        optimizer.zero_grad()
+        feats_seq = {s: [] for s in stages}
+        for t in range(ev.shape[0]):
+            if remat == "full":
+                feats, states = checkpoint(timestep, ev[t], states,
+                                           use_reentrant=False)
+            else:
+                feats, states = timestep(ev[t], states)
+            for s, f in zip(stages, feats):
+                feats_seq[s].append(f)
+        feats = _gather_frames(
+            {s: torch.stack(f) for s, f in feats_seq.items()}, frame_t)
+        out, _ = det.forward_detect(feats, train=True)
+        losses = det.loss(out, labels.reshape((-1,) + labels.shape[2:]),
+                          frame_mask.reshape(-1))
+        losses["loss"].backward()
+        grads = optimizer.grads()
+        metrics = {k: v.detach() for k, v in losses.items()}
+        with torch.no_grad():
+            metrics["grad_norm"] = _global_norm(grads)
+            for mod, params in groups.items():
+                metrics[f"grad_norm/{mod}"] = _global_norm(
+                    [p.grad for p in params])
+        optimizer.step()
+        new_states = tuple((h.detach(), c.detach()) for h, c in states)
+        return TrainState(states=new_states, step=state.step + 1), metrics
+
+    return train_step
 
 
 def make_eval_step(det: Detector, plain: bool = False,

@@ -1,29 +1,47 @@
-"""Streaming evaluation of a split (port of
-`leod_tpu/train/trainer.py:68-82,155-293`; the `Trainer` comes with
-training).
+"""Training orchestration and streaming evaluation (port of
+`leod_tpu/train/trainer.py:68-731`, single device).
 
-A host prefetch thread reads and collates windows; each batch's labeled
-frames are harvested into a static budget, the eval step runs the
-backbone over the L-frame window on the card, the fixed-shape NMS runs
-over the harvested frames, and the Prophesee/COCO evaluator scores them.
+`Trainer.fit` is a plain loop: a host prefetch thread reads, augments,
+collates and harvests train windows and copies them to the device; one
+train step (`train/step.py`) carries the stream-state table; streaming
+evaluation (`run_streaming_eval`) with the Prophesee/COCO metrics runs
+at `val_check_interval` through the kernels, on a bf16 inference copy of
+the trained weights; checkpoints are written on a timer, at the end and
+on best AP (reference: callbacks/custom.py:9-29), and a SIGTERM makes
+fit() checkpoint and return at the next step boundary.
+
+`run_streaming_eval`: a host prefetch thread reads and collates windows;
+each batch's labeled frames are harvested into a static budget, the eval
+step runs the backbone over the L-frame window on the card, the
+fixed-shape NMS runs over the harvested frames, and the Prophesee/COCO
+evaluator scores them.
+
+Checkpoints are the port's own (`torch.save` of the model's and the
+optimizer's state dicts); reading the JAX package's orbax checkpoints is
+not ported (ROADMAP.md A.6).
 """
 from __future__ import annotations
 
+import json
+import os
+import signal
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .. import resolve_device
 from ..config import ExperimentConfig, stem_fold_hw
-from ..data.loader import (EvalStreamLoader, Prefetcher, harvest_frames,
-                           open_split_sequences)
+from ..data.loader import (EvalStreamLoader, MixedTrainLoader, Prefetcher,
+                           RandomTrainLoader, StreamTrainLoader,
+                           harvest_frames, open_split_sequences)
 from ..data.sequence import EventSequence
 from ..eval.prophesee import PropheseeEvaluator, boxes_to_prophesee
 from ..models.detector import Detector
 from ..ops.nms import postprocess
-from .step import make_eval_step
-
+from .optim import make_optimizer
+from .step import TrainState, make_eval_step, make_train_step
 
 def default_frames_per_slot(seq_len: int, use_label_every: int = 1) -> int:
     """Static per-slot harvest budget.
@@ -157,3 +175,364 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
     if timings is not None:
         timings["evaluate_ms"] = (time.perf_counter() - t0) * 1e3
     return metrics
+
+
+class MetricLogger:
+    """JSONL + stdout metrics with pluggable sinks
+    (`leod_tpu/train/trainer.py:84-153`, one process). Each sink is
+    called with the plain-float record of every log call; a sink's
+    exception is reported and never stops training."""
+
+    def __init__(self, path: Optional[str]):
+        self._sinks: list = []
+        self._f = None
+        if path:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            self._f = open(path, "a")
+
+    def add_sink(self, sink: Callable[[Dict[str, Any]], None]
+                 ) -> "MetricLogger":
+        self._sinks.append(sink)
+        return self
+
+    def close(self):
+        """Release the JSONL handle (idempotent)."""
+        if self._f:
+            self._f.close()
+            self._f = None
+
+    def log(self, record: Dict[str, Any]):
+        rec = {k: (float(v) if isinstance(v, (torch.Tensor, np.ndarray,
+                                              np.floating)) else v)
+               for k, v in record.items()}
+        line = json.dumps(rec)
+        if self._f:
+            self._f.write(line + "\n")
+            self._f.flush()
+        print(line, flush=True)
+        for sink in self._sinks:
+            try:
+                sink(rec)
+            except Exception as e:                   # noqa: BLE001
+                print(f"metric sink error ({sink}): {e}", flush=True)
+
+
+_DEVICE_KEYS = ("ev", "is_first", "frame_t", "frame_mask", "labels")
+
+
+class _Uploader:
+    """Copies a harvested batch to the device from the prefetch thread:
+    on a card, from pinned memory on a side stream, with an event the
+    consuming step waits on; on the CPU, a view of the arrays."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+
+    def __call__(self, hb: Dict[str, Any]):
+        host = {k: torch.from_numpy(np.ascontiguousarray(hb[k]))
+                for k in _DEVICE_KEYS}
+        if self.stream is None:
+            return host, None
+        with torch.cuda.stream(self.stream):
+            dev = {k: v.pin_memory().to(self.device, non_blocking=True)
+                   for k, v in host.items()}
+            done = self.stream.record_event()
+        return dev, done
+
+    def ready(self, dev: Dict[str, torch.Tensor], done) -> None:
+        """Make the current stream wait for the copy, and keep the
+        tensors' memory from reuse until the current stream is done."""
+        if done is None:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(done)
+        for t in dev.values():
+            t.record_stream(cur)
+
+
+class Trainer:
+    """Single-device training of `cfg` (the JAX package's `Trainer`
+    without a mesh). The trainable model (`self.det`, fp32 parameters
+    computing in `dtype`) and the optimizer are built by `init_state`
+    (which `fit` calls when given no state), and updated in place by
+    every step and by a restore."""
+
+    def __init__(self, cfg: ExperimentConfig, dtype=torch.bfloat16,
+                 device="cuda"):
+        self.cfg = cfg
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.run_dir = os.path.join(cfg.save_dir, cfg.exp_name)
+        os.makedirs(self.run_dir, exist_ok=True)
+        self.logger = MetricLogger(os.path.join(self.run_dir,
+                                                "metrics.jsonl"))
+        self._stop_requested = False
+        # top-2 best-AP retention (reference: callbacks/custom.py:9-29,
+        # save_top_k=2): ckpt_best = argmax val/AP, ckpt_best2 = runner-up
+        self._best_aps = [-1.0, -1.0]
+        self._eval_det: Optional[Detector] = None
+        self.det: Optional[Detector] = None
+        self.optimizer = self.schedule = None
+
+    def close(self):
+        """Release the metrics JSONL handle (idempotent)."""
+        self.logger.close()
+
+    def request_stop(self):
+        """Ask fit() to checkpoint and return at the next step boundary
+        (the SIGTERM handler fit() installs calls it; safe from any
+        thread)."""
+        self._stop_requested = True
+
+    # -- state -------------------------------------------------------------
+    def init_state(self, batch_size: int, seed: int = 0) -> TrainState:
+        """A fresh model from `seed`, a fresh optimizer, and zero states
+        for `batch_size` slots."""
+        self.det = Detector(self.cfg.model, dtype=self.dtype,
+                            device=self.device, seed=seed, trainable=True)
+        self.optimizer, self.schedule = make_optimizer(
+            self.cfg.training, self.det.parameters())
+        return TrainState(states=self.det.init_states(batch_size), step=0)
+
+    def _ckpt_path(self, name: str) -> str:
+        return os.path.join(self.run_dir, f"ckpt_{name}.pt")
+
+    def save_checkpoint(self, state: TrainState, name: str = "last"):
+        """Write ckpt_<name>.pt: the model's parameters and BN statistics,
+        the optimizer's moments and count, the step and the best-AP
+        retention state. Written to a temporary file and renamed, so a
+        checkpoint on disk is never half written."""
+        path = self._ckpt_path(name)
+        payload = {"model": self.det.state_dict(),
+                   "optimizer": self.optimizer.state_dict(),
+                   "step": int(state.step),
+                   "best_aps": list(self._best_aps)}
+        torch.save(payload, path + ".tmp")
+        os.replace(path + ".tmp", path)
+
+    def _checkpoint_candidates(self) -> List[str]:
+        """All checkpoint files in the run dir, newest first."""
+        cands = [os.path.join(self.run_dir, f)
+                 for f in os.listdir(self.run_dir)
+                 if f.startswith("ckpt_") and f.endswith(".pt")]
+        return sorted(cands, key=os.path.getmtime, reverse=True)
+
+    def _load(self, path: str) -> Dict[str, Any]:
+        return torch.load(path, map_location=self.device, weights_only=True)
+
+    def latest_checkpoint(self) -> Optional[str]:
+        """Newest checkpoint in the run dir that loads; unreadable ones
+        are skipped (reference: train.py:71-95)."""
+        for path in self._checkpoint_candidates():
+            try:
+                self._load(path)
+                return path
+            except Exception as e:                     # noqa: BLE001
+                print(f"skipping corrupted checkpoint {path}: {e}")
+        return None
+
+    def restore_latest(self, state: TrainState):
+        """Full resume from the newest RESTORABLE checkpoint, falling back
+        past ones that do not load (reference: train.py:85-92). Returns
+        (state, path-or-None)."""
+        for path in self._checkpoint_candidates():
+            try:
+                return self.restore_checkpoint(path, state), path
+            except Exception as e:                     # noqa: BLE001
+                print(f"restore failed for {path}, falling back: {e}")
+        return state, None
+
+    def restore_checkpoint(self, path: str, state: TrainState) -> TrainState:
+        """Full resume: weights, BN statistics, optimizer, step and the
+        best-AP retention state; the stream states stay `state`'s."""
+        payload = self._load(path)
+        self.det.load_state_dict(payload["model"])
+        self.optimizer.load_state_dict(payload["optimizer"])
+        self._best_aps = [float(v) for v in payload["best_aps"]]
+        return TrainState(states=state.states, step=int(payload["step"]))
+
+    def load_weights(self, path: str, state: TrainState) -> TrainState:
+        """Weight-only resume (reference: modules/detection.py:583-594)."""
+        self.det.load_state_dict(self._load(path)["model"])
+        return state
+
+    def _save_best(self, ap: float, state: TrainState) -> None:
+        """Keep the TWO best-AP checkpoints: a new best demotes
+        ckpt_best -> ckpt_best2; an AP beating only the runner-up
+        overwrites ckpt_best2."""
+        if ap > self._best_aps[0]:
+            best = self._ckpt_path("best")
+            if self._best_aps[0] >= 0 and os.path.exists(best):
+                os.replace(best, self._ckpt_path("best2"))
+            self._best_aps = [ap, self._best_aps[0]]
+            self.save_checkpoint(state, "best")
+        elif ap > self._best_aps[1]:
+            self._best_aps[1] = ap
+            self.save_checkpoint(state, "best2")
+
+    # -- data ---------------------------------------------------------------
+    def make_train_loader(self, seed: int = 0,
+                          sequences: Optional[List[EventSequence]] = None):
+        """Returns (loader, batch size). `sequences` (already open, e.g.
+        `ArrayEventSequence`s) replaces the train split's directory."""
+        cfg = self.cfg
+        dst = cfg.dataset
+        B = cfg.training.batch_size_train
+        if cfg.training.ssod_online.enabled:
+            raise NotImplementedError("online SSOD is not ported yet "
+                                      "(ROADMAP.md A.2)")
+        seqs = sequences if sequences is not None else open_split_sequences(
+            dst, "train", seq_ratio=dst.train_ratio)
+        mode = dst.train_sampling
+        if mode == "stream":
+            return StreamTrainLoader(seqs, dst, B, seed), B
+        if mode == "random":
+            return RandomTrainLoader(seqs, dst, B, seed), B
+        if mode != "mixed":
+            raise ValueError(f"train_sampling {mode!r}: 'stream', 'random' "
+                             f"or 'mixed'")
+        b_stream = max(B // 2, 1)
+        b_rand = max(B - b_stream, 1)
+        return MixedTrainLoader(
+            StreamTrainLoader(seqs, dst, b_stream, seed),
+            RandomTrainLoader(seqs, dst, b_rand, seed)), b_stream + b_rand
+
+    # -- validation ----------------------------------------------------------
+    def eval_detector(self) -> Detector:
+        """The inference `Detector` (weights in the compute dtype, kernels
+        on the card) holding the trained weights and BN statistics."""
+        if self._eval_det is None:
+            self._eval_det = Detector(self.cfg.model, dtype=self.dtype,
+                                      device=self.device)
+        self._eval_det.load_state_dict(self.det.state_dict())
+        return self._eval_det
+
+    def validate(self, split: str = "val",
+                 sequences: Optional[List[EventSequence]] = None
+                 ) -> Optional[Dict[str, float]]:
+        return run_streaming_eval(self.eval_detector(), self.cfg, split,
+                                  sequences=sequences, device=self.device)
+
+    # -- loop ---------------------------------------------------------------
+    def fit(self, max_steps: Optional[int] = None, seed: int = 0,
+            eval_split: str = "val", state: Optional[TrainState] = None,
+            log_every: int = 50, *,
+            sequences: Optional[List[EventSequence]] = None,
+            val_sequences: Optional[List[EventSequence]] = None,
+            timings: Optional[Dict[str, list]] = None) -> TrainState:
+        """Train to `max_steps` (default `training.max_steps`) from
+        `state` (default: `init_state`). `sequences` / `val_sequences`
+        replace the train / `eval_split` directories. `timings`, where
+        given, collects host ms a step under "step_ms" (the step, ending
+        in a device synchronize) and "wait_ms" (waiting for the
+        prefetch thread), and seconds a validation under "val_s"."""
+        cfg = self.cfg
+        total = max_steps or cfg.training.max_steps
+        loader, B = self.make_train_loader(seed, sequences)
+        if state is None:
+            state = self.init_state(B, seed)
+        train_step = make_train_step(self.det, self.optimizer,
+                                     remat=cfg.training.remat)
+        M = (cfg.training.max_det_frames or
+             default_frames_per_slot(cfg.dataset.sequence_length,
+                                     cfg.model.use_label_every))
+        upload = _Uploader(self.device)
+        last_ckpt_time = time.time()
+        prev_handler = None
+        try:
+            prev_handler = signal.signal(
+                signal.SIGTERM, lambda sig, frame: self.request_stop())
+        except ValueError:                          # not the main thread
+            pass
+        t0 = time.time()
+        frames_seen = 0
+        dropped_total = 0
+        step = int(state.step)
+
+        def device_batches():
+            """Harvest and the host-to-device copy, in the prefetch
+            thread, so that they overlap the steps."""
+            for batch in loader:
+                hb = harvest_frames(batch, M, cfg.model.head.max_gt,
+                                    cfg.model.backbone.in_res_hw,
+                                    use_label_every=cfg.model.use_label_every,
+                                    ignore_label=cfg.model.head.ignore_label,
+                                    ignore_image=cfg.model.ignore_image,
+                                    fold_hw=stem_fold_hw(cfg.model))
+                dev, done = upload(hb)
+                meta = {"frames": batch["ev"].shape[0] * batch["ev"].shape[1],
+                        "dropped_frames": hb["dropped_frames"]}
+                yield dev, done, meta
+
+        def lap(key: str, t_start: float, sync: bool = False) -> float:
+            if timings is not None:
+                if sync and self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                timings.setdefault(key, []).append(
+                    (time.perf_counter() - t_start) * 1e3)
+            return time.perf_counter()
+
+        stopped = False
+        prefetcher = Prefetcher(device_batches(), depth=3)
+        try:
+            it = iter(prefetcher)
+            while step < total:
+                tw = time.perf_counter()
+                item = next(it, None)
+                if item is None:
+                    break
+                dev, done, meta = item
+                upload.ready(dev, done)
+                ts = lap("wait_ms", tw)
+                state, metrics = train_step(state, dev)
+                lap("step_ms", ts, sync=True)
+                step += 1
+                frames_seen += meta["frames"]
+                dropped_total += meta["dropped_frames"]
+                if step % log_every == 0 or step == 1:
+                    dt = time.time() - t0
+                    rec = {"step": step,
+                           "lr": (self.schedule(step - 1)
+                                  if callable(self.schedule)
+                                  else self.schedule),
+                           "frames_per_s": frames_seen / max(dt, 1e-6),
+                           **{k: float(v) for k, v in metrics.items()}}
+                    if dropped_total:
+                        rec["dropped_frames_total"] = dropped_total
+                    self.logger.log(rec)
+                ckpt_due = ((time.time() - last_ckpt_time) / 60
+                            >= cfg.training.ckpt_every_min)
+                stop = self._stop_requested
+                if ckpt_due or stop:
+                    self.save_checkpoint(state, "last")
+                    last_ckpt_time = time.time()
+                if stop:
+                    print(f"stop requested: checkpointed at step {step}, "
+                          f"exiting fit()", flush=True)
+                    stopped = True
+                    break
+                if (cfg.training.val_check_interval and step %
+                        cfg.training.val_check_interval == 0):
+                    tv = time.perf_counter()
+                    m = self.validate(eval_split, val_sequences)
+                    if timings is not None:
+                        timings.setdefault("val_s", []).append(
+                            time.perf_counter() - tv)
+                    if m:
+                        self.logger.log(
+                            {"step": step,
+                             **{f"val/{k}": v for k, v in m.items()}})
+                        self._save_best(float(m["AP"]), state)
+            # the stop path already wrote ckpt_last
+            if not stopped:
+                self.save_checkpoint(state, "last")
+        finally:
+            prefetcher.close()
+            # consume the stop request and restore the handler, so that
+            # a stale flag or a leaked handler cannot touch the NEXT fit()
+            self._stop_requested = False
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
+        return state

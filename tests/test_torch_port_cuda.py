@@ -21,8 +21,11 @@ either side of it (identical and nested boxes), the NMS sweep's chains
 invalid, an invalid box or a class change inside a chain) at K = 1 to
 1024 and B = 1 and 8, 40 NMS launches back to back, NMS at the 48
 images of an eval batch, the eval step through the kernels against its
-plain versions at RVT-T and RVT-S widths, and inputs the kernels
-refuse.
+plain versions at RVT-T and RVT-S widths, inputs the kernels refuse,
+and training: an fp32 train step on the card against the same step on
+the CPU (loss 1e-4, each module's grad norm 1e-3, relative), a bf16
+step that keeps fp32 parameters and moves them, and `Trainer.fit`,
+whose validation launches every kernel while its steps launch none.
 
 These tests need an NVIDIA Hopper card and `nvcc`; without a card they
 skip. They import no JAX. Run them on the card with
@@ -640,3 +643,113 @@ def test_eval_step_kernels_match_plain(cuda, size):
             assert bool(got.isfinite().all())
             err = float((got - want).abs().max())
             assert err <= 2.0 ** -4 * float(want.abs().max()), err
+
+
+def _train_model_cfg(hw=(64, 96), partition=(2, 3), size="tiny"):
+    from dataclasses import replace
+
+    from leod_tpu_torch.config import experiment_preset
+
+    cfg = experiment_preset("gen1", size)
+    bb = replace(cfg.model.backbone, in_res_hw=hw, partition_size=partition)
+    return replace(cfg, model=replace(cfg.model, backbone=bb))
+
+
+def _train_batch(cfg, b, L, m, g, seed):
+    rng = np.random.default_rng(seed)
+    h, w = cfg.model.backbone.in_res_hw
+    c = cfg.model.backbone.input_channels
+    labels = np.zeros((b, m, g, 7), np.float32)
+    for i in range(b):
+        for j in range(m):
+            for k in range(int(rng.integers(1, g))):
+                bw, bh = rng.uniform(10, 40, 2)
+                labels[i, j, k] = [rng.integers(0, 2),
+                                   rng.uniform(bw / 2, w - bw / 2),
+                                   rng.uniform(bh / 2, h - bh / 2), bw, bh,
+                                   1.0, 1.0]
+    return {"ev": np.minimum(rng.poisson(1.5, (L, b, h // 4, w // 4, 16 * c)),
+                             255).astype(np.uint8),
+            "is_first": np.ones(b, bool),
+            "frame_t": np.tile(np.arange(m, dtype=np.int32), (b, 1)),
+            "frame_mask": np.ones((b, m), bool), "labels": labels}
+
+
+def _one_train_step(cfg, dev, dtype, batch, b):
+    from leod_tpu_torch.models.detector import Detector
+    from leod_tpu_torch.train.optim import make_optimizer
+    from leod_tpu_torch.train.step import TrainState, make_train_step
+
+    det = Detector(cfg.model, dtype=dtype, device=dev, seed=0,
+                   trainable=True)
+    before = [p.detach().clone() for p in det.parameters()]
+    opt, _ = make_optimizer(cfg.training, det.parameters())
+    st, m = make_train_step(det, opt)(
+        TrainState(states=det.init_states(b), step=0), batch)
+    return det, before, st, {k: float(v) for k, v in m.items()}
+
+
+def test_fp32_train_step_on_the_card_matches_the_cpu(cuda):
+    """One fp32 step (TF32 off) from one seed's weights and one batch:
+    the card's loss within 1e-4 and each module's gradient norm within
+    1e-3 of the CPU's, relative. The CPU step is held against the JAX
+    package's in tests/test_torch_port_train_step.py."""
+    cfg = _train_model_cfg()
+    batch = _train_batch(cfg, 2, 3, 2, 6, seed=3)
+    got = _one_train_step(cfg, cuda, torch.float32, batch, 2)[3]
+    want = _one_train_step(cfg, "cpu", torch.float32, batch, 2)[3]
+    assert got["num_fg"] == want["num_fg"] > 0
+    assert got["loss"] == pytest.approx(want["loss"], rel=1e-4)
+    for mod in ("backbone", "fpn", "head"):
+        k = f"grad_norm/{mod}"
+        assert got[k] == pytest.approx(want[k], rel=1e-3), k
+
+
+def test_bf16_train_step_keeps_fp32_parameters_and_moves_them(cuda):
+    cfg = _train_model_cfg()
+    batch = _train_batch(cfg, 2, 3, 2, 6, seed=4)
+    det, before, st, m = _one_train_step(cfg, cuda, torch.bfloat16, batch, 2)
+    assert all(np.isfinite(v) for v in m.values()), m
+    params = list(det.parameters())
+    assert all(p.dtype == torch.float32 for p in params)
+    assert sum(not torch.equal(a, p) for a, p in zip(before, params)) > \
+        len(params) // 2
+    for h, c in st.states:
+        assert h.dtype == c.dtype == torch.bfloat16
+        assert bool(h.isfinite().all()) and bool(c.isfinite().all())
+
+
+def test_fit_validates_through_every_kernel(cuda, tmp_path):
+    """`Trainer.fit` on the card: two bf16 steps through the module
+    forwards (no kernel launch), then a validation whose streaming eval
+    launches every kernel wrapper; a checkpoint restores its step."""
+    from dataclasses import replace
+
+    from leod_tpu_torch.data.synthetic import render_array_dataset
+    from leod_tpu_torch.train.trainer import Trainer
+
+    cfg = _train_model_cfg(hw=(128, 160), partition=(4, 5))
+    dst = replace(cfg.dataset, resolution_hw=(120, 152), sequence_length=3)
+    cfg = replace(cfg, dataset=dst, save_dir=str(tmp_path), exp_name="t",
+                  training=replace(cfg.training, batch_size_train=2,
+                                   batch_size_eval=2, val_check_interval=2,
+                                   max_det_frames=2))
+    splits = render_array_dataset(dst, 2, 2, 0, seed=0, num_reprs=12,
+                                  hw=dst.resolution_hw, first_label_repr=2,
+                                  label_every=2)
+    wrappers = maxvit_cuda.WRAPPERS + nms_cuda.WRAPPERS
+    trainer = Trainer(cfg, device=cuda)
+    seen = {}
+    trainer.logger.add_sink(lambda rec: seen.update(
+        {w.__name__: w.launches for w in wrappers})
+        if rec.get("step") == 2 and "loss" in rec else None)
+    for w in wrappers:
+        w.launches = 0
+    state = trainer.fit(max_steps=2, log_every=1, sequences=splits["train"],
+                        val_sequences=splits["val"])
+    assert state.step == 2
+    assert seen and not any(seen.values()), seen       # the steps: none
+    assert all(w.launches > 0 for w in wrappers), \
+        {w.__name__: w.launches for w in wrappers}
+    st, path = trainer.restore_latest(trainer.init_state(2))
+    assert path is not None and st.step == 2
