@@ -107,10 +107,68 @@ switched off for the fp32 products of the plain ConvLSTM update.
    launched no kernel and the validation launched every one, and
    `restore_latest` gives back the checkpoint's step.
 
+7. Self-training phase, after the train phases: LEOD's cycle at RVT-B
+   Gen1 full width and depth (B 8, L 21), on phase 6's rendered split
+   with the WSOD label ratio ST_RATIO = 0.25 on the train sequences (so
+   withheld GT exists; the val ones keep every label). Thresholds, the
+   low ones of the JAX package's shard test: obj and class 0.01 per
+   class, the postprocess's obj * cls confidence 0.005, tracklets
+   shorter than 2 frames ignored. The teacher is phase 6's model
+   (`Trainer.load_weights` of its checkpoint, `eval_detector()`): six
+   warmup steps leave it at its initialization, every score at the
+   YOLOX prior (about 0.0101 for obj and class, 1.0e-4 for their
+   product), so no box passes; `perturb_teacher` sets its LayerScale
+   from seed 0, as the serving phases do, and scales its obj and class
+   prediction kernels so that each kind's logits have a standard
+   deviation of 1 over the first train window (a trained detector's
+   spread); both maxima are reported. Its checkpoint is written as the
+   student's starting point.
+   (a) `PseudoLabelRunner` with h-flip and t-flip over the 8 train
+   sequences of 42 reprs: 2 passes x 2 batches of 16 slots x 21
+   backbone steps, 336 images into the NMS a batch; once through the
+   kernels (launches counted, timed), once through the plain versions.
+   Fails unless each batch's preds are within 2^-4 * max|plain| of the
+   plain run's; the NMS keep mask of the kernel on the kernel run's
+   preds (336 images, K = 1000 at conf 0) equals the plain one exactly;
+   every kernel launched what the runs imply (21 steps a batch of a
+   serve step's launches, one NMS a batch); the written dataset holds
+   at least one pseudo box, one tracker-ignored box (the ignore label
+   with the teacher's scores) and one inpainted box (the ignore label,
+   zero scores); `verify_pseudo_dataset` passes on every sequence; and
+   the kernel and plain runs' datasets agree: at least ST_MATCH_FRAC =
+   90 % of either run's boxes matched one to one, greedily by IoU, at
+   IoU >= 0.5 with the same class id (the ignore label a class of its
+   own). (The bound allows for bf16 box coordinates, 2 px apart above
+   256, and for boxes at a threshold whose flip the tracker carries on.)
+   Reports frames/s = views x frames / wall s, host ms a batch
+   (harvest, step, postprocess, routing), `save`'s seconds (aggregation,
+   tracker, writer), the boxes by kind, the peak memory.
+   (b) The soft student: `experiment_preset("gen1", "base", soft=True)`
+   from the teacher's checkpoint, `Trainer.fit` for 4 steps on the
+   pseudo split (`load_pseudo_sequences`) with `max_det_frames` = 21,
+   validating once through the kernels. Fails unless every loss is
+   finite, ignore boxes reach a step (the same loader's batches,
+   harvested alike: the ignore label, or a pseudo box under the soft
+   head's thresholds), most parameters moved, and the validation
+   launched every kernel. Reports step ms, wait ms and peak memory.
+   (c) `run_tta_eval` of the student on the 8 val sequences with h-flip
+   and t-flip, through the kernels and the plain versions: preds within
+   2^-4 * max|plain| a batch, the NMS mask exact (96 images), AP, AP_50
+   and AP_75 within 0.01, the launches as implied; frames/s.
+   (d) Online SSOD: `Trainer.fit` of RVT-B Gen1, B 8, L 21 from the
+   teacher's checkpoint with `ssod_online` on (burn-in 1, thresholds
+   0.01), 3 steps. Fails unless the losses are finite, the teacher moved
+   by the EMA formula at every step on `head.obj_pred0.weight` (within
+   1e-6 of its largest), pseudo boxes merged into every step after the
+   burn-in and none before, and the teacher's eval launched a batch's
+   kernels for every batch it labelled (at least one a step). Reports
+   step ms, the wait for the prefetch thread that runs the teacher, the
+   teacher's ms a batch and its update's ms.
+
 Prints the kernels' JSON line (each kernel wrapper of each path: its
 RVT-B entry under its own name, its RVT-S entry as "<name>[RVT-S]";
-an RVT-B entry's launches are the slice phase's, the eval phase's and
-the train phase's validation's),
+an RVT-B entry's launches are the slice phase's, the eval phase's, the
+train phase's validation's and the self-training phase's),
 the card's name and power limit, and the result JSON as the last line.
 Any failure exits non-zero; so does a machine without a CUDA device, or
 a directory without the package.
@@ -121,6 +179,7 @@ import glob
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -164,6 +223,23 @@ TRAIN_SEQS = 8
 TRAIN_CHECK = dict(hw=(64, 96), partition=(2, 3), B=2, L=3, M=2, G=6)
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_NORM_RTOL = 1e-3
+# the self-training phase (7): WSOD label ratio of the train split; the
+# pseudo-label thresholds (obj and class per class, the postprocess's
+# obj * cls confidence, the tracker's shortest kept tracklet); the
+# teacher's logit spread (`perturb_teacher`); the kernel and plain runs'
+# pseudo datasets must match ST_MATCH_FRAC of either run's boxes one to
+# one at IoU >= ST_MATCH_IOU with the same class; soft-student and
+# online-SSOD steps; the EMA's relative tolerance on one checked leaf
+ST_RATIO = 0.25
+ST_OBJ = ST_CLS = 0.01
+ST_CONF = 0.005
+ST_MIN_TRACK = 2
+ST_LOGIT_STD = 1.0
+ST_MATCH_IOU = 0.5
+ST_MATCH_FRAC = 0.9
+STUDENT_STEPS = 4
+SSOD_STEPS = 3
+SSOD_EMA_RTOL = 1e-6
 
 # One warp runs n dependent steps of the NMS sweep's chain, `sweep_tile`
 # of csrc/nms.cu (row tile i mod 32; each step takes the keep word the
@@ -1354,7 +1430,6 @@ def phase_train():
                                 kernels_expected=False)}
     trainer.close()
     del trainer, step, st, restored, params0, stats0
-    shutil.rmtree(run_root, ignore_errors=True)
     torch.cuda.empty_cache()
 
     step_ms = timings["step_ms"][1:]
@@ -1377,7 +1452,532 @@ def phase_train():
         "params_changed": [moved, n_params],
         "bn_stats_changed": [stats_moved, len(stats)],
         "restored_step": TRAIN_STEPS,
-        "profile": profile}
+        "profile": profile, "checkpoint": path}
+
+
+# ---------------------------------------------------------------------------
+# Self-training phase
+# ---------------------------------------------------------------------------
+
+def _count(wrappers):
+    return {w.__name__: w.launches for w in wrappers}
+
+
+def _zero(wrappers):
+    for w in wrappers:
+        w.launches = 0
+
+
+def _implied(cfg, steps: int, nms: int):
+    """Launches of `steps` backbone steps of the model (one a block, one
+    a ConvLSTM, whatever the slot count) and `nms` NMS calls."""
+    want = {k: v * steps for k, v in launches_per_step(cfg).items()}
+    want["nms_mask"] = nms
+    return want
+
+
+def _logits(p):
+    import torch
+    p = p.float().clamp(1e-7, 1 - 1e-7)
+    return torch.log(p) - torch.log1p(-p)
+
+
+def perturb_teacher(trainer, seqs, cfg):
+    """The phase-6 model barely leaves its initialization in six warmup
+    steps: LayerScale at 1e-5 and the YOLOX prior put every score at
+    about 0.0101 (obj and class), so no box passes a threshold. As the
+    serving phases do, the LayerScale is set from a seed (0); then the
+    obj and class prediction kernels are scaled so that each kind's
+    logits have a standard deviation of ST_LOGIT_STD over the first
+    train window (B slots, L frames), as a trained detector's scores
+    spread. Returns the unperturbed and perturbed max obj * cls score of
+    that window."""
+    import torch
+    from leod_tpu_torch.data.loader import EvalStreamLoader
+    from leod_tpu_torch.selftrain.runner import harvest_all_frames
+    from leod_tpu_torch.train.step import make_eval_step
+
+    dst = cfg.dataset
+    hb = harvest_all_frames(next(iter(EvalStreamLoader(
+        seqs, dst, cfg.training.batch_size_eval, start_from_zero=True))), cfg)
+
+    def window_preds():
+        det = trainer.eval_detector()
+        return make_eval_step(det)(det.init_states(hb["ev"].shape[1]), hb)[1]
+
+    def max_score(p):
+        return float((p[..., 4].float() * p[..., 5:].float().max(-1).values
+                      ).max())
+
+    before = max_score(window_preds())
+    perturb_layerscale(trainer.det, seed=0)
+    p = window_preds()
+    scale = {"obj_pred": ST_LOGIT_STD / float(_logits(p[..., 4]).std()),
+             "cls_pred": ST_LOGIT_STD / float(_logits(p[..., 5:]).std())}
+    with torch.no_grad():
+        for name, prm in trainer.det.head.named_parameters():
+            kind = name[:8]
+            if kind in scale and name.endswith("weight"):
+                prm.mul_(scale[kind])
+    return before, max_score(window_preds()), scale
+
+
+def _dataset_counts(root, dst):
+    """Boxes of a written pseudo split: pseudo (a class id), tracker-
+    ignored (the ignore label with the teacher's scores kept) and
+    inpainted (the ignore label with zero scores), and the GT ones."""
+    import numpy as np
+    from leod_tpu_torch.data.sequence import list_sequence_dirs
+    from leod_tpu_torch.selftrain.pseudo_labeler import PseudoLabelConfig
+    ign = PseudoLabelConfig().ignore_label
+    n = dict(pseudo=0, ignored=0, inpainted=0, gt=0, frames=0)
+    for d in list_sequence_dirs(root, "train"):
+        z = np.load(os.path.join(d, "labels_v2", "labels.npz"))
+        lab = z["labels"]
+        n["frames"] += len(z["objframe_idx_2_label_idx"])
+        is_ign = lab["class_id"] == ign
+        scored = lab["objectness"] > 0
+        n["gt"] += int(((lab["t"] != 0) & ~is_ign).sum())
+        n["pseudo"] += int(((lab["t"] == 0) & ~is_ign).sum())
+        n["ignored"] += int((is_ign & scored).sum())
+        n["inpainted"] += int((is_ign & ~scored).sum())
+    return n
+
+
+def _frame_boxes(root, dst):
+    """{(sequence, repr index): [n, 5] (x, y, w, h, class id)} of a
+    written pseudo split."""
+    import numpy as np
+    from leod_tpu_torch.data.sequence import ev_repr_dir, list_sequence_dirs
+    out = {}
+    for d in list_sequence_dirs(root, "train"):
+        z = np.load(os.path.join(d, "labels_v2", "labels.npz"))
+        lab, f2l = z["labels"], z["objframe_idx_2_label_idx"]
+        f2r = np.load(os.path.join(ev_repr_dir(d, dst.ev_repr_name),
+                                   "objframe_idx_2_repr_idx.npy"))
+        ends = list(f2l[1:]) + [len(lab)]
+        for r, a, b in zip(f2r, f2l, ends):
+            rows = lab[a:b]
+            out[(os.path.basename(d), int(r))] = np.stack(
+                [rows["x"], rows["y"], rows["w"], rows["h"],
+                 rows["class_id"]], -1).astype(np.float64)
+    return out
+
+
+def _matched(a, b):
+    """Boxes of `a` matched one to one to `b`'s, greedily by IoU in
+    descending order, at IoU >= ST_MATCH_IOU with the same class id."""
+    import numpy as np
+    if len(a) == 0 or len(b) == 0:
+        return 0
+    ax0, ay0 = a[:, 0], a[:, 1]
+    ax1, ay1 = a[:, 0] + a[:, 2], a[:, 1] + a[:, 3]
+    bx0, by0 = b[:, 0], b[:, 1]
+    bx1, by1 = b[:, 0] + b[:, 2], b[:, 1] + b[:, 3]
+    iw = np.clip(np.minimum(ax1[:, None], bx1) - np.maximum(ax0[:, None],
+                                                             bx0), 0, None)
+    ih = np.clip(np.minimum(ay1[:, None], by1) - np.maximum(ay0[:, None],
+                                                             by0), 0, None)
+    inter = iw * ih
+    iou = inter / (a[:, 2:3] * a[:, 3:4] + (b[:, 2] * b[:, 3])[None] - inter)
+    iou[a[:, 4][:, None] != b[:, 4][None]] = 0.0
+    n = 0
+    while iou.size and iou.max() >= ST_MATCH_IOU:
+        i, j = np.unravel_index(np.argmax(iou), iou.shape)
+        iou[i, :] = 0.0
+        iou[:, j] = 0.0
+        n += 1
+    return n
+
+
+def _compare_datasets(root_a, root_b, dst):
+    fa, fb = _frame_boxes(root_a, dst), _frame_boxes(root_b, dst)
+    import numpy as np
+    empty = np.zeros((0, 5))
+    matched = sum(_matched(fa.get(k, empty), fb.get(k, empty))
+                  for k in set(fa) | set(fb))
+    na = sum(len(v) for v in fa.values())
+    nb = sum(len(v) for v in fb.values())
+    return {"boxes_kernel": na, "boxes_plain": nb, "matched": matched,
+            "frac_kernel": matched / max(na, 1),
+            "frac_plain": matched / max(nb, 1)}
+
+
+def _preds_hook(store):
+    """The runners' and TTA eval's on_batch hook that keeps each batch's
+    preds and its kept detections."""
+    def on_batch(pi, bi, hb, preds, dets, valid):
+        store.append((preds.detach().clone(), int(valid.sum())))
+    return on_batch
+
+
+def _parity(kern, plain, what):
+    rows = []
+    if len(kern) != len(plain) or not kern:
+        fail(f"{what}: {len(kern)} kernel batches against {len(plain)} "
+             f"plain ones")
+    for (pk, _), (pl, _) in zip(kern, plain):
+        if pk.shape != pl.shape:
+            fail(f"{what} preds {tuple(pk.shape)} against plain "
+                 f"{tuple(pl.shape)}")
+        err, tol, ok = compare(pk, pl, SLICE_TOL)
+        rows.append([err, tol])
+        if not ok:
+            fail(f"{what} preds: |kernel - plain| {err} > {tol}")
+    return rows
+
+
+def _nms_exact(kern, cfg, what):
+    """The NMS keep mask of the kernel on the kernel run's preds (every
+    image of a batch, K = pre_nms_topk candidates at conf 0) against the
+    plain one; the last batch's NMS timed."""
+    from leod_tpu_torch.ops import nms_cuda
+    from leod_tpu_torch.ops.nms import nms_candidates
+    from leod_tpu_torch.ops.nms import nms_mask as nms_plain
+    pp, n_cls = cfg.model.postprocess, cfg.model.head.num_classes
+    thr = pp.nms_threshold
+    mismatches = kept = 0
+    for pk, _ in kern:
+        bx, va, ids, _, _ = nms_candidates(pk, n_cls, 0.0, pp.pre_nms_topk)
+        keep_k = nms_cuda.nms_mask(bx, thr, va, ids)
+        keep_p = nms_plain(bx, thr, va, ids)
+        mismatches += int((keep_k != keep_p).sum())
+        kept += int(keep_p.sum())
+    if mismatches:
+        fail(f"{what}: the NMS keep mask differs from the plain one in "
+             f"{mismatches} boxes")
+    nb, nk = bx.shape[:2]
+    ops = nb * nk * (nk - 1) / 2 * 13
+    bms, by = bound(ops, nb * nk * (16 + 1 + 4 + 1), PEAK_FP32)
+    return {"images": nb, "k": nk, "mismatches": 0, "kept": kept,
+            "ms": cuda_ms(lambda: nms_cuda.nms_mask(bx, thr, va, ids)),
+            "plain_ms": cuda_ms(lambda: nms_plain(bx, thr, va, ids), reps=3),
+            "bound_ms": bms, "bound_by": by}
+
+
+def _med(xs):
+    return statistics.median(xs) if xs else None
+
+
+def phase_selftrain(checkpoint: str):
+    """Phase 7: LEOD's self-training cycle at RVT-B Gen1 full width and
+    depth (B 8, L 21) on the rendered train and val splits of phase 6
+    (seed 0), label ratio ST_RATIO: (a) pseudo-labels, (b) the soft
+    student, (c) TTA eval, (d) online SSOD. Returns its report and the
+    launches of (a)-(d) together."""
+    import shutil
+    from dataclasses import replace
+    import numpy as np
+    import torch
+    from leod_tpu_torch.config import experiment_preset
+    from leod_tpu_torch.data.synthetic import render_array_dataset
+    from leod_tpu_torch.eval.tta import run_tta_eval
+    from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
+    from leod_tpu_torch.selftrain import online
+    from leod_tpu_torch.selftrain.pseudo_labeler import (
+        PseudoLabelConfig, load_pseudo_sequences, pseudo_dataset_config)
+    from leod_tpu_torch.selftrain.runner import PseudoLabelRunner
+    from leod_tpu_torch.selftrain.verify import (score_pseudo_dataset,
+                                                 verify_pseudo_dataset)
+    from leod_tpu_torch.train.trainer import Trainer, default_frames_per_slot
+
+    wrappers = maxvit_cuda.WRAPPERS + nms_cuda.WRAPPERS
+    root = os.path.join(REPO, "runs", "chip_smoke_selftrain")
+    shutil.rmtree(root, ignore_errors=True)
+    t_phase = time.perf_counter()
+
+    def cfg_of(soft=False, **training):
+        cfg = experiment_preset("gen1", "base", soft=soft)
+        pp = replace(cfg.model.postprocess, confidence_threshold=ST_CONF)
+        return replace(cfg, dataset=replace(cfg.dataset, ratio=ST_RATIO),
+                       model=replace(cfg.model, postprocess=pp),
+                       save_dir=root, training=replace(
+                           cfg.training, **{"val_check_interval": 0,
+                                            **training}))
+
+    cfg = cfg_of()
+    dst = cfg.dataset
+    L, bt = dst.sequence_length, cfg.training.batch_size_train
+    n_cls = cfg.model.head.num_classes
+    # phase 6's split: the train sequences with the WSOD ratio applied,
+    # the val ones with every label
+    render = dict(num_train=TRAIN_SEQS, num_val=TRAIN_SEQS, num_test=0,
+                  seed=0, num_reprs=EVAL_REPRS, hw=dst.resolution_hw,
+                  first_label_repr=EVAL_FIRST_LABEL,
+                  label_every=EVAL_LABEL_EVERY)
+    splits = {"train": render_array_dataset(dst, **render)["train"],
+              "val": render_array_dataset(replace(dst, ratio=-1.0),
+                                          **render)["val"]}
+    total = {w.__name__: 0 for w in wrappers}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    # the teacher: phase 6's model, perturbed from a seed
+    teacher_tr = Trainer(replace(cfg, exp_name="teacher"))
+    st0 = teacher_tr.init_state(bt)
+    teacher_tr.load_weights(checkpoint, st0)
+    score0, score1, scale = perturb_teacher(teacher_tr, splits["train"], cfg)
+    teacher_tr.save_checkpoint(st0, "teacher")
+    teacher_ckpt = teacher_tr._ckpt_path("teacher")
+    teacher = teacher_tr.eval_detector()
+
+    # (a) pseudo-labels through the kernels, then the plain versions
+    pl = PseudoLabelConfig(obj_thresh=(ST_OBJ, ST_OBJ),
+                           cls_thresh=(ST_CLS, ST_CLS),
+                           min_track_len=ST_MIN_TRACK, tta_hflip=True,
+                           tta_tflip=True)
+    pse = {k: os.path.join(root, f"pseudo_{k}") for k in ("kernel", "plain")}
+    kern, plain, tim = [], [], {}
+    _zero(wrappers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = PseudoLabelRunner(teacher, cfg, pl, pse["kernel"],
+                                sequences=splits["train"],
+                                on_batch=_preds_hook(kern),
+                                timings=tim).run()
+    wall = time.perf_counter() - t0
+    launches_a = _count(wrappers)
+    peak_a = torch.cuda.max_memory_allocated() / 2**30
+    PseudoLabelRunner(teacher, cfg, pl, pse["plain"],
+                      sequences=splits["train"], plain=True,
+                      on_batch=_preds_hook(plain)).run()
+    n_batches = len(kern)
+    want = _implied(cfg, L * n_batches, n_batches)
+    if n_batches != 2 * TRAIN_SEQS * EVAL_REPRS // (L * bt) or \
+            launches_a != want:
+        fail(f"pseudo-labelling: {n_batches} batches, launches "
+             f"{launches_a}; the runs imply {want}")
+    add(launches_a)
+    parity_a = _parity(kern, plain, "pseudo-labels")
+    if kern[0][0].shape[0] != 2 * bt * L:
+        fail(f"pseudo-label preds {tuple(kern[0][0].shape)}: not "
+             f"{2 * bt} slots x {L} frames")
+    nms_a = _nms_exact(kern, cfg, "pseudo-labels")
+    counts = {k: _dataset_counts(v, dst) for k, v in pse.items()}
+    c = counts["kernel"]
+    if min(c["pseudo"], c["ignored"], c["inpainted"]) < 1:
+        fail(f"the pseudo dataset lacks pseudo, tracker-ignored or "
+             f"inpainted boxes: {c}")
+    checked = verify_pseudo_dataset(pse["kernel"], dst, sample_frac=1.0,
+                                    sequences=splits["train"])
+    score = score_pseudo_dataset(pse["kernel"], dst, pl, n_cls, dst.classes,
+                                 sequences=splits["train"])
+    agree = _compare_datasets(pse["kernel"], pse["plain"], dst)
+    if min(agree["frac_kernel"], agree["frac_plain"]) < ST_MATCH_FRAC:
+        fail(f"the kernel and plain runs' pseudo datasets disagree: {agree}")
+    views_frames = sum(2 * bt * L for _ in kern)
+    report_a = {
+        "teacher_max_score_unperturbed": score0,
+        "teacher_max_score": score1, "pred_kernel_scale": scale,
+        "thresholds": {"obj": ST_OBJ, "cls": ST_CLS, "conf": ST_CONF,
+                       "min_track_len": ST_MIN_TRACK},
+        "batches": n_batches, "slots": 2 * bt, "window": L,
+        "nms_images_a_batch": 2 * bt * L, "launches": launches_a,
+        "parity": parity_a, "nms": nms_a, "boxes": counts,
+        "verified_sequences": checked, "agreement": agree,
+        "metrics": {k: v for k, v in metrics.items()
+                    if k.startswith(("ssod/teacher_AP", "ssod/teacher_AR"))},
+        "score": {k: v for k, v in score.items() if "AR@50" in k},
+        "wall_s": wall, "frames_per_s": views_frames / wall,
+        "host_ms_per_batch": {k: _med(tim[k][1:]) for k in (
+            "harvest_ms", "step_ms", "postprocess_ms", "consume_ms")},
+        "pass_s": tim["pass_s"], "save_s": tim["save_s"],
+        "peak_mem_gib": peak_a}
+    emit({"selftrain_pseudo": report_a})
+    del kern, plain
+
+    # (b) the soft student on the pseudo split, from the teacher's weights
+    scfg = cfg_of(soft=True, max_det_frames=L,
+                  val_check_interval=STUDENT_STEPS)
+    scfg = replace(scfg, dataset=pseudo_dataset_config(dst, pse["kernel"]),
+                   exp_name="student")
+    pseudo_seqs = load_pseudo_sequences(pse["kernel"], splits["train"], dst)
+    student = Trainer(scfg)
+    sst = student.init_state(bt)
+    student.load_weights(teacher_ckpt, sst)
+    params0 = [p.detach().clone() for p in student.det.parameters()]
+    # the batches fit draws (the loader is deterministic from its seed),
+    # harvested alike: do ignore boxes reach the steps?
+    loader, _ = student.make_train_loader(0, pseudo_seqs)
+    it = iter(loader)
+    from leod_tpu_torch.data.loader import harvest_frames
+    from leod_tpu_torch.config import stem_fold_hw
+    hc = scfg.model.head
+    ignored_a_step = []
+    for _ in range(STUDENT_STEPS):
+        lab = harvest_frames(next(it), L, hc.max_gt,
+                             scfg.model.backbone.in_res_hw,
+                             ignore_label=hc.ignore_label,
+                             fold_hw=stem_fold_hw(scfg.model))["labels"]
+        # ignore-labelled, or a pseudo box under the soft head's
+        # per-class thresholds (`ops/simota.py` mark_low_conf_as_ignore)
+        thr = np.asarray(hc.ignore_bbox_thresh, np.float32)
+        per_box = thr[np.clip(lab[..., 0].astype(np.int64), 0,
+                              len(thr) - 1)]
+        ignored = (lab.sum(-1) > 0) & ((lab[..., 0] == hc.ignore_label)
+                                       | (lab[..., 5] < per_box)
+                                       | (lab[..., 6] < per_box))
+        ignored_a_step.append(int(ignored.sum()))
+    records = []
+    student.logger.add_sink(records.append)
+    _zero(wrappers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stim = {}
+    t0 = time.perf_counter()
+    sst = student.fit(max_steps=STUDENT_STEPS, state=sst, log_every=1,
+                      sequences=pseudo_seqs, val_sequences=splits["val"],
+                      timings=stim)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches_b = _count(wrappers)
+    peak_b = torch.cuda.max_memory_allocated() / 2**30
+    steps = [r for r in records if "loss" in r]
+    keys = ("loss", "iou_loss", "conf_loss", "cls_loss", "grad_norm")
+    if len(steps) != STUDENT_STEPS or not all(
+            np.isfinite(r[k]) for r in steps for k in keys):
+        fail(f"soft student losses: {steps}")
+    if not any(ignored_a_step):
+        fail("no ignore box reached the soft student's steps")
+    moved = sum(not torch.equal(a, b)
+                for a, b in zip(params0, student.det.parameters()))
+    if moved < len(params0) // 2:
+        fail(f"{moved} of {len(params0)} student parameters moved")
+    quiet = [k for k, n in launches_b.items() if n == 0]
+    if quiet:
+        fail(f"the student's validation launched no {quiet}")
+    add(launches_b)
+    report_b = {
+        "config": "experiment_preset('gen1', 'base', soft=True), "
+                  "max_det_frames = L", "steps": STUDENT_STEPS,
+        "frames_per_slot": L, "fit_s": fit_s,
+        "step_ms": stim["step_ms"], "wait_ms": stim["wait_ms"],
+        "val_s": stim["val_s"], "peak_mem_gib": peak_b,
+        "ignore_boxes_a_step": ignored_a_step,
+        "losses": [{k: r[k] for k in ("step",) + keys} for r in steps],
+        "val": [r for r in records if "val/AP" in r],
+        "params_changed": [moved, len(params0)], "launches": launches_b}
+    emit({"selftrain_student": report_b})
+    del params0
+
+    # (c) TTA eval of the student, through the kernels and the plain ones
+    sdet = student.eval_detector()
+    kern, plain, ttim = [], [], {}
+    kw = dict(split="val", hflip=True, tflip=True, sequences=splits["val"])
+    _zero(wrappers)
+    t0 = time.perf_counter()
+    ap_k = run_tta_eval(sdet, scfg, on_batch=_preds_hook(kern), timings=ttim,
+                        **kw)
+    tta_s = time.perf_counter() - t0
+    launches_c = _count(wrappers)
+    ap_p = run_tta_eval(sdet, scfg, plain=True, on_batch=_preds_hook(plain),
+                        **kw)
+    nb = len(kern)
+    want = _implied(scfg, L * 2 * (TRAIN_SEQS * EVAL_REPRS // (L * bt)), nb)
+    if nb != 2 * TRAIN_SEQS * EVAL_REPRS // (L * bt) or launches_c != want:
+        fail(f"TTA eval: {nb} batches with frames, launches {launches_c}; "
+             f"the eval implies {want}")
+    add(launches_c)
+    parity_c = _parity(kern, plain, "TTA eval")
+    nms_c = _nms_exact(kern, scfg, "TTA eval")
+    ap_diff = {k: abs(ap_k[k] - ap_p[k]) for k in ("AP", "AP_50", "AP_75")}
+    if not all(d <= EVAL_AP_TOL for d in ap_diff.values()):
+        fail(f"TTA AP with the kernels {ap_k} against plain {ap_p}")
+    m_slot = default_frames_per_slot(L)
+    report_c = {
+        "batches": nb, "slots": 2 * bt, "frames_per_slot": m_slot,
+        "launches": launches_c, "parity": parity_c, "nms": nms_c,
+        "ap_kernel": {k: ap_k[k] for k in ("AP", "AP_50", "AP_75")},
+        "ap_plain": {k: ap_p[k] for k in ("AP", "AP_50", "AP_75")},
+        "ap_abs_diff": ap_diff, "wall_s": tta_s,
+        "frames_per_s": nb * 2 * bt * L / tta_s,
+        "host_ms_per_batch": {k: _med(ttim[k][1:]) for k in (
+            "harvest_ms", "step_ms", "postprocess_ms", "bridge_ms")},
+        "evaluate_ms": ttim["evaluate_ms"]}
+    emit({"selftrain_tta": report_c})
+    del kern, plain, sdet
+    student.close()
+    del student
+    torch.cuda.empty_cache()
+
+    # (d) online SSOD: an EMA teacher inside Trainer.fit
+    ocfg = cfg_of(ssod_online=replace(
+        cfg.training.ssod_online, enabled=True, burn_in_steps=1,
+        obj_thresh=ST_OBJ, cls_thresh=ST_CLS))
+    ocfg = replace(ocfg, exp_name="ssod")
+    ssod_tr = Trainer(ocfg)
+    ost = ssod_tr.init_state(bt)
+    ssod_tr.load_weights(teacher_ckpt, ost)
+    ema_checks = []
+    orig_update = online.OnlineSSODBatcher.update_teacher
+
+    def checked_update(self, student_det, step):
+        name = "head.obj_pred0.weight"
+        t_before = self.teacher[name].clone()
+        s = student_det.state_dict()[name].float().clone()
+        orig_update(self, student_det, step)
+        a = min(1.0 - 1.0 / (step + 1.0), ocfg.training.ssod_online.alpha)
+        want_t = a * t_before.double() + (1 - a) * s.double()
+        rel = float((self.teacher[name].double() - want_t).abs().max()
+                    / want_t.abs().max())
+        ema_checks.append({"step": step, "alpha_t": a, "rel_err": rel,
+                           "moved": not torch.equal(t_before,
+                                                    self.teacher[name])})
+
+    online.OnlineSSODBatcher.update_teacher = checked_update
+    records = []
+    ssod_tr.logger.add_sink(records.append)
+    _zero(wrappers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    otim = {}
+    t0 = time.perf_counter()
+    try:
+        ost = ssod_tr.fit(max_steps=SSOD_STEPS, state=ost, log_every=1,
+                          sequences=splits["train"], timings=otim)
+    finally:
+        online.OnlineSSODBatcher.update_teacher = orig_update
+    torch.cuda.synchronize()
+    ssod_s = time.perf_counter() - t0
+    launches_d = _count(wrappers)
+    batcher = ssod_tr.ssod_batcher
+    steps = [r for r in records if "loss" in r]
+    if len(steps) != SSOD_STEPS or not all(
+            np.isfinite(r[k]) for r in steps for k in keys):
+        fail(f"online SSOD losses: {steps}")
+    if len(ema_checks) != SSOD_STEPS or not all(
+            e["rel_err"] <= SSOD_EMA_RTOL and e["moved"] for e in ema_checks):
+        fail(f"the EMA teacher did not move by the formula: {ema_checks}")
+    merged = batcher.merged[:SSOD_STEPS]
+    if merged[0] != 0 or not all(merged[1:]):
+        fail(f"pseudo boxes merged into the steps: {merged} (burn-in 1)")
+    n_teacher = batcher.batches_out
+    want = _implied(ocfg, L * n_teacher, n_teacher)
+    if n_teacher < SSOD_STEPS or launches_d != want:
+        fail(f"online SSOD: {n_teacher} teacher batches, launches "
+             f"{launches_d}; they imply {want}")
+    add(launches_d)
+    report_d = {
+        "steps": SSOD_STEPS, "burn_in": 1, "teacher_batches": n_teacher,
+        "merged_pseudo_boxes": batcher.merged, "ema": ema_checks,
+        "fit_s": ssod_s, "step_ms": otim["step_ms"],
+        "wait_ms": otim["wait_ms"],
+        "teacher_update_ms": otim["teacher_update_ms"],
+        "teacher_ms": batcher.teacher_ms,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "losses": [{k: r[k] for k in ("step",) + keys} for r in steps],
+        "launches": launches_d}
+    emit({"selftrain_ssod": report_d})
+    ssod_tr.close()
+    teacher_tr.close()
+    del ssod_tr, teacher_tr, teacher, batcher
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"phase_s": time.perf_counter() - t_phase,
+            "launches": total}
 
 
 # (tag, experiment_preset size, whether it runs the variant and the eval
@@ -1468,11 +2068,17 @@ def main() -> int:
     emit({"train_check": phase_train_parity()})
     train = phase_train()
     emit({"train": train})
+    selftrain = phase_selftrain(train["checkpoint"])
+    shutil.rmtree(os.path.dirname(os.path.dirname(train["checkpoint"])),
+                  ignore_errors=True)
+    emit({"selftrain": selftrain})
     # the first path's kernels also ran in the train phase's validation
+    # and in the self-training phase
     for e in kernels:
         if e["config"].startswith("RVT-B"):
             e["launches_train"] = train["launches"][e["name"]]
-            e["launches"] += e["launches_train"]
+            e["launches_selftrain"] = selftrain["launches"][e["name"]]
+            e["launches"] += e["launches_train"] + e["launches_selftrain"]
     emit({"kernels": kernels})
     bad = [k["name"] for k in kernels if not k["ok"]]
     if bad:

@@ -206,7 +206,7 @@ class SpatialAugmentor:
 class SSODAugmentor:
     """Weak + strong views of the same window for online SSOD training
     (reference: data/utils/ssod_augmentor.py:21-61 — shipped but never
-    wired there; live in `leod_tpu/selftrain/online.py`, not ported yet).
+    wired there; live in `selftrain/online.py`).
 
     Weak = h-flip only at p=0.5; strong = the full augment config.
     Both views share the base timeline (no t-flip: it reorders windows

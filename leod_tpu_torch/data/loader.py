@@ -1,6 +1,5 @@
 """Host-side batched loaders with explicit stream-slot identity (copied
-from `leod_tpu/data/loader.py`, without the online-SSOD branch of the
-train stream).
+from `leod_tpu/data/loader.py`).
 
 Stream-slot identity is explicit: batch row b IS stream slot b, the
 device keeps one LSTM-state table with one row per slot, and every batch
@@ -24,13 +23,14 @@ from __future__ import annotations
 
 import queue
 import threading
+from dataclasses import replace
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from ..config import DatasetConfig
 from ..models.layers import fold_ev_hw
-from .augment import SpatialAugmentor
+from .augment import SpatialAugmentor, SSODAugmentor
 from .labels import Boxes, pad_yolox_batch
 from .sequence import (EventSequence, RandomAccessSequence, WindowedSequence,
                        list_sequence_dirs, split_ranges_with_guaranteed_labels)
@@ -81,10 +81,11 @@ class _TrainSlot:
     + RandAugmentIterDataPipe, sequence_streaming.py:280-318)."""
 
     def __init__(self, sequences: List[EventSequence], window: int,
-                 cfg: DatasetConfig, seed: int):
+                 cfg: DatasetConfig, seed: int, ssod: bool = False):
         self.rng = np.random.default_rng(seed)
         self.window = window
         self.cfg = cfg
+        self.ssod = ssod
         self.parts: List[Tuple[EventSequence, Tuple[int, int]]] = []
         for seq in sequences:
             kept_reprs = seq.objframe_idx_2_repr_idx[list(seq.kept_objframe_idx)]
@@ -92,8 +93,15 @@ class _TrainSlot:
                     np.asarray(kept_reprs), window):
                 self.parts.append((seq, rng_idx))
         assert self.parts, "no labeled stream parts found"
-        self.augmentor = SpatialAugmentor(cfg.loading_hw,
-                                          cfg.augment_stream, self.rng)
+        if ssod:
+            # weak/strong paired views for online SSOD
+            # (selftrain/online.py); randomized per part like the plain
+            # augmentor, no t-flip (it reorders windows)
+            self.augmentor = SSODAugmentor(cfg.loading_hw,
+                                           cfg.augment_stream, self.rng)
+        else:
+            self.augmentor = SpatialAugmentor(cfg.loading_hw,
+                                              cfg.augment_stream, self.rng)
         self._iter = self._generate()
 
     def _generate(self):
@@ -102,10 +110,19 @@ class _TrainSlot:
             for pi in order:
                 seq, rng_idx = self.parts[int(pi)]
                 self.augmentor.randomize()
+                tflip = (False if self.ssod
+                         else self.augmentor.params.tflip)
                 win = WindowedSequence(seq, self.window, range_indices=rng_idx,
-                                       time_flip=self.augmentor.params.tflip)
+                                       time_flip=tflip)
                 for i in range(len(win)):
-                    yield self.augmentor.apply(win[i])
+                    if not self.ssod:
+                        yield self.augmentor.apply(win[i])
+                        continue
+                    weak, strong = self.augmentor(win[i])
+                    yield {"weak": weak, "strong": strong,
+                           "weak_params": replace(self.augmentor.weak.params),
+                           "strong_applied": replace(
+                               self.augmentor.strong.last_applied)}
 
     def __next__(self):
         return next(self._iter)
@@ -116,18 +133,31 @@ class StreamTrainLoader:
     continues slot b's stream (reference: stream_concat_datapipe.py:63-103)."""
 
     def __init__(self, sequences: List[EventSequence], cfg: DatasetConfig,
-                 batch_size: int, seed: int = 0, slot_offset: int = 0):
+                 batch_size: int, seed: int = 0, slot_offset: int = 0,
+                 ssod: bool = False):
         """slot_offset: first GLOBAL slot id this loader feeds — a
         process that feeds a slice of a global slot table gets stream
-        seeds no other process has."""
+        seeds no other process has.
+
+        ssod=True yields paired batches {"weak", "strong", "weak_params",
+        "strong_applied"} — two collated views of the same windows plus
+        the per-slot transform records (see selftrain/online.py)."""
+        self.ssod = ssod
         self.slots = [
             _TrainSlot(sequences, cfg.sequence_length, cfg,
-                       seed * 1000 + slot_offset + b)
+                       seed * 1000 + slot_offset + b, ssod=ssod)
             for b in range(batch_size)]
 
     def __iter__(self):
         while True:
-            yield collate([next(s) for s in self.slots])
+            pairs = [next(s) for s in self.slots]
+            if not self.ssod:
+                yield collate(pairs)
+                continue
+            yield {"weak": collate([p["weak"] for p in pairs]),
+                   "strong": collate([p["strong"] for p in pairs]),
+                   "weak_params": [p["weak_params"] for p in pairs],
+                   "strong_applied": [p["strong_applied"] for p in pairs]}
 
 
 class RandomTrainLoader:
@@ -317,6 +347,18 @@ def concat_batches(batches: List[dict]) -> dict:
         "ev_idx": np.concatenate([b["ev_idx"] for b in batches]),
         "is_reversed": np.concatenate([b["is_reversed"] for b in batches]),
     }
+    return out
+
+
+def hflip_batch(batch: dict) -> dict:
+    """The batch with its h-flipped copy as B more slots (h-flip TTA):
+    ev [L, 2B, ...], is_first, labels and is_padded doubled; the rest as
+    the batch's (reference: modules/utils/tta.py)."""
+    out = dict(batch)
+    out["ev"] = np.concatenate([batch["ev"], batch["ev"][..., ::-1]], axis=1)
+    out["is_first"] = np.concatenate([batch["is_first"]] * 2)
+    out["labels"] = [row * 2 for row in batch["labels"]]
+    out["is_padded"] = np.concatenate([batch["is_padded"]] * 2)
     return out
 
 

@@ -4,12 +4,14 @@
 `nms_mask` here is the plain PyTorch version of the keep mask; the CUDA
 kernel that replaces the Pallas `nms_mask_pallas` is `ops/nms_cuda.py`.
 `postprocess` goes through the kernel's wrapper, which runs this plain
-version for CPU tensors.
+version for CPU tensors. `nms_numpy` and `batched_nms_numpy` are the
+host NMS the TTA merge and the pseudo-labeller run on numpy rows.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .boxes import cxcywh_to_xyxy, pairwise_iou
@@ -95,3 +97,69 @@ def postprocess(predictions: torch.Tensor, num_classes: int,
                  < n_kept[:, None])
     out = torch.where(out_valid[..., None], out, torch.zeros_like(out))
     return out, out_valid
+
+
+# ---------------------------------------------------------------------------
+# Host NMS (numpy), for merging TTA views and pseudo labels
+# ---------------------------------------------------------------------------
+
+_CLASS_OFFSET = 1.0e5  # larger than any canvas coordinate
+
+
+def nms_numpy(boxes_xyxy: np.ndarray, scores: np.ndarray,
+              iou_threshold: float,
+              class_ids: Optional[np.ndarray] = None) -> np.ndarray:
+    """Host greedy NMS -> kept indices in score-descending order
+    (`leod_tpu/ops/nms.py:120-146`).
+
+    The arithmetic is the JAX package's native `leod_nms`
+    (`leod_tpu/native/host_ops.cpp`), which it prefers: float32 boxes and
+    areas, a stable descending score sort, IoU = inter / max(area_i +
+    area_j - inter, 1e-16), suppression where IoU > threshold and only
+    between boxes of equal `class_ids` where given. float32 numpy
+    rounds each operation as that C++ does, so the kept indices are the
+    same."""
+    n = len(boxes_xyxy)
+    if n == 0:
+        return np.zeros((0,), np.int64)
+    b = np.asarray(boxes_xyxy, np.float32)
+    s = np.asarray(scores, np.float32)
+    order = np.argsort(-s, kind="stable")
+    x0, y0, x1, y1 = b[order].T
+    zero = np.float32(0.0)
+    areas = np.maximum(zero, x1 - x0) * np.maximum(zero, y1 - y0)
+    ids = (None if class_ids is None
+           else np.asarray(class_ids, np.float32)[order])
+    thr = np.float32(iou_threshold)
+    alive = np.ones(n, bool)
+    keep = []
+    for i in range(n):
+        if not alive[i]:
+            continue
+        keep.append(order[i])
+        xx0 = np.maximum(x0[i], x0[i + 1:])
+        yy0 = np.maximum(y0[i], y0[i + 1:])
+        xx1 = np.minimum(x1[i], x1[i + 1:])
+        yy1 = np.minimum(y1[i], y1[i + 1:])
+        overlap = (xx0 < xx1) & (yy0 < yy1)
+        inter = (xx1 - xx0) * (yy1 - yy0)
+        iou = inter / np.maximum(areas[i] + areas[i + 1:] - inter,
+                                 np.float32(1e-16))
+        hit = overlap & (iou > thr)
+        if ids is not None:
+            hit &= ids[i + 1:] == ids[i]
+        alive[i + 1:] &= ~hit
+    return np.asarray(keep, np.int64)
+
+
+def batched_nms_numpy(boxes_xyxy: np.ndarray, scores: np.ndarray,
+                      class_ids: np.ndarray,
+                      iou_threshold: float) -> np.ndarray:
+    """Class-aware host NMS (`leod_tpu/ops/nms.py:149-161`). The JAX
+    package's numpy fallback separates the classes by `_CLASS_OFFSET`
+    in float64; its preferred native path, which this matches index for
+    index, compares the class ids instead (an offset of 1e5 in float32
+    would round the boxes' coordinates)."""
+    if len(boxes_xyxy) == 0:
+        return np.zeros((0,), np.int64)
+    return nms_numpy(boxes_xyxy, scores, iou_threshold, class_ids)

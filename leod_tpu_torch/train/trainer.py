@@ -274,6 +274,7 @@ class Trainer:
         self._best_aps = [-1.0, -1.0]
         self._eval_det: Optional[Detector] = None
         self.det: Optional[Detector] = None
+        self.ssod_batcher = None
         self.optimizer = self.schedule = None
 
     def close(self):
@@ -380,11 +381,12 @@ class Trainer:
         cfg = self.cfg
         dst = cfg.dataset
         B = cfg.training.batch_size_train
-        if cfg.training.ssod_online.enabled:
-            raise NotImplementedError("online SSOD is not ported yet "
-                                      "(ROADMAP.md A.2)")
         seqs = sequences if sequences is not None else open_split_sequences(
             dst, "train", seq_ratio=dst.train_ratio)
+        if cfg.training.ssod_online.enabled:
+            # online SSOD needs continuous streams (the EMA teacher's
+            # LSTM state tracks the weak view across windows)
+            return StreamTrainLoader(seqs, dst, B, seed, ssod=True), B
         mode = dst.train_sampling
         if mode == "stream":
             return StreamTrainLoader(seqs, dst, B, seed), B
@@ -427,17 +429,39 @@ class Trainer:
         replace the train / `eval_split` directories. `timings`, where
         given, collects host ms a step under "step_ms" (the step, ending
         in a device synchronize) and "wait_ms" (waiting for the
-        prefetch thread), and seconds a validation under "val_s"."""
+        prefetch thread), and seconds a validation under "val_s"; under
+        online SSOD also "teacher_update_ms" (the EMA update and the
+        refresh of the teacher's inference weights, ending in a device
+        synchronize).
+
+        With `training.ssod_online.enabled`, an EMA teacher
+        (`selftrain/online.py`, `self.ssod_batcher`) pseudo-labels the
+        weak view of every batch in the prefetch thread, the student
+        trains on the strong view, the harvest budget defaults to the
+        whole window, and the teacher is updated after every step; its
+        burn-in counter starts at the restored step."""
         cfg = self.cfg
         total = max_steps or cfg.training.max_steps
         loader, B = self.make_train_loader(seed, sequences)
         if state is None:
             state = self.init_state(B, seed)
+        ssod_batcher = None
+        if cfg.training.ssod_online.enabled:
+            # the teacher starts as a copy of the student; on resume it
+            # re-initializes from the restored student (the EMA catches
+            # up within ~1/(1-alpha) steps, so teacher state is not
+            # checkpointed separately)
+            from ..selftrain.online import OnlineSSODBatcher
+            ssod_batcher = OnlineSSODBatcher(loader, self.det, cfg, B,
+                                             start_step=int(state.step))
+            loader = ssod_batcher
+        self.ssod_batcher = ssod_batcher
         train_step = make_train_step(self.det, self.optimizer,
                                      remat=cfg.training.remat)
         M = (cfg.training.max_det_frames or
-             default_frames_per_slot(cfg.dataset.sequence_length,
-                                     cfg.model.use_label_every))
+             (cfg.dataset.sequence_length if ssod_batcher is not None else
+              default_frames_per_slot(cfg.dataset.sequence_length,
+                                      cfg.model.use_label_every)))
         upload = _Uploader(self.device)
         last_ckpt_time = time.time()
         prev_handler = None
@@ -487,8 +511,11 @@ class Trainer:
                 upload.ready(dev, done)
                 ts = lap("wait_ms", tw)
                 state, metrics = train_step(state, dev)
-                lap("step_ms", ts, sync=True)
+                ts = lap("step_ms", ts, sync=True)
                 step += 1
+                if ssod_batcher is not None:
+                    ssod_batcher.update_teacher(self.det, step)
+                    lap("teacher_update_ms", ts, sync=True)
                 frames_seen += meta["frames"]
                 dropped_total += meta["dropped_frames"]
                 if step % log_every == 0 or step == 1:

@@ -20,7 +20,9 @@ either side of it (identical and nested boxes), the NMS sweep's chains
 (staircases across 32-box words, box 0 suppressing all, no overlap, all
 invalid, an invalid box or a class change inside a chain) at K = 1 to
 1024 and B = 1 and 8, 40 NMS launches back to back, NMS at the 48
-images of an eval batch, the eval step through the kernels against its
+images of an eval batch and at the 336 of a pseudo-label batch, the
+pseudo-labeller's eval step at RVT-B width over 16 slots (8 and their
+h-flipped copies), the eval step through the kernels against its
 plain versions at RVT-T and RVT-S widths, inputs the kernels refuse,
 and training: an fp32 train step on the card against the same step on
 the CPU (loss 1e-4, each module's grad norm 1e-3, relative), a bf16
@@ -639,6 +641,77 @@ def test_eval_step_kernels_match_plain(cuda, size):
         for got, want in [(preds[False], preds[True])] + [
                 (a, b) for sk, sp in zip(states[False], states[True])
                 for a, b in zip(sk, sp)]:
+            got, want = got.float(), want.float()
+            assert bool(got.isfinite().all())
+            err = float((got - want).abs().max())
+            assert err <= 2.0 ** -4 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("with_ids", [False, True])
+def test_nms_kernel_matches_plain_at_the_pseudo_label_batch(cuda, with_ids):
+    """336 images of K = 1000: the 2B * L = 16 * 21 frames a pseudo-label
+    batch with h-flip sends to the NMS (a 43 MB suppression mask)."""
+    g = torch.Generator().manual_seed(336)
+    b, k = 336, 1000
+    ctr = torch.rand(b, k, 2, generator=g) * torch.tensor([320.0, 256.0])
+    wh = torch.rand(b, k, 2, generator=g) * 70 + 6
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1).to(cuda)
+    valid = (torch.rand(b, k, generator=g) > 0.05).to(cuda)
+    ids = (torch.randint(0, 2, (b, k), generator=g).float().to(cuda)
+           if with_ids else None)
+    before = nms_cuda.nms_mask.launches
+    got = nms_cuda.nms_mask(boxes, 0.45, valid, ids)
+    torch.cuda.synchronize()
+    assert nms_cuda.nms_mask.launches == before + 1
+    assert torch.equal(got, nms_plain(boxes, 0.45, valid, ids))
+
+
+def test_eval_step_at_16_slots_matches_plain(cuda):
+    """The pseudo-labeller's eval step: RVT-B Gen1 at full width (256 x
+    320 input), 8 slots and their h-flipped copies as 16
+    (`data/loader.py` `hflip_batch`), every frame of an L = 3 window
+    predicted (`harvest_all_frames`), two windows (all rows reset, then
+    none): the kernels' preds and carried states within 2^-4 *
+    max|plain| of the plain versions', and a launch a stage and timestep
+    of each kernel."""
+    from leod_tpu_torch.config import experiment_preset
+    from leod_tpu_torch.models.detector import Detector
+    from leod_tpu_torch.data.loader import hflip_batch
+    from leod_tpu_torch.selftrain.runner import harvest_all_frames
+    from leod_tpu_torch.train.step import make_eval_step
+
+    cfg = experiment_preset("gen1", "base")
+    det = Detector(cfg.model, device=cuda, seed=0)
+    g = torch.Generator().manual_seed(16)
+    with torch.no_grad():
+        for m in det.modules():
+            if isinstance(m, PartitionAttention) and m.ls1 is not None:
+                for p in (m.ls1, m.ls2):
+                    p.copy_(torch.rand(p.shape, generator=g) * 0.4 + 0.1)
+    steps = {plain: make_eval_step(det, plain=plain, device=cuda)
+             for plain in (False, True)}
+    states = {plain: det.init_states(16) for plain in (False, True)}
+    rng = np.random.default_rng(16)
+    L, b = 3, 8
+    for first in (True, False):
+        batch = {"ev": np.minimum(rng.poisson(0.3, (L, b, 20, 240, 304)),
+                                  255).astype(np.uint8),
+                 "is_first": np.full(b, first),
+                 "is_padded": np.zeros((b, L), bool),
+                 "labels": [[None] * b for _ in range(L)]}
+        hb = harvest_all_frames(hflip_batch(batch), cfg)
+        before = maxvit_cuda.block_attention.launches
+        preds = {}
+        for plain, step in steps.items():
+            states[plain], preds[plain] = step(states[plain], hb)
+        torch.cuda.synchronize()
+        n_pairs = sum(cfg.model.backbone.num_blocks)
+        assert maxvit_cuda.block_attention.launches == before + 2 * n_pairs * L
+        assert preds[False].shape == (2 * b * L, 1680,
+                                      5 + cfg.model.head.num_classes)
+        for got, want in [(preds[False], preds[True])] + [
+                (x, y) for sk, sp in zip(states[False], states[True])
+                for x, y in zip(sk, sp)]:
             got, want = got.float(), want.float()
             assert bool(got.isfinite().all())
             err = float((got - want).abs().max())
