@@ -1,4 +1,4 @@
-"""Pseudo-label generation driver (port of `leod_tpu/selftrain/runner.py`).
+"""Pseudo-label generation runner (port of `leod_tpu/selftrain/runner.py`).
 
 Streams the training split through the teacher (optionally with h-flip
 TTA in-batch and a second time-flipped pass), converts filtered
