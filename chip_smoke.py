@@ -128,7 +128,8 @@ switched off for the fp32 products of the plain ConvLSTM update.
    backbone steps, 336 images into the NMS a batch; once through the
    kernels (launches counted, timed), once through the plain versions.
    Fails unless each batch's preds are within 2^-4 * max|plain| of the
-   plain run's; the NMS keep mask of the kernel on the kernel run's
+   plain run's, the box columns and the score columns each against
+   their own largest plain value; the NMS keep mask of the kernel on the kernel run's
    preds (336 images, K = 1000 at conf 0) equals the plain one exactly;
    every kernel launched what the runs imply (21 steps a batch of a
    serve step's launches, one NMS a batch); the written dataset holds
@@ -147,13 +148,15 @@ switched off for the fp32 products of the plain ConvLSTM update.
    from the teacher's checkpoint, `Trainer.fit` for 4 steps on the
    pseudo split (`load_pseudo_sequences`) with `max_det_frames` = 21,
    validating once through the kernels. Fails unless every loss is
-   finite, ignore boxes reach a step (the same loader's batches,
-   harvested alike: the ignore label, or a pseudo box under the soft
-   head's thresholds), most parameters moved, and the validation
-   launched every kernel. Reports step ms, wait ms and peak memory.
+   finite, a box with the ignore label reached one of the steps (the
+   labels of the batches fit harvested for its steps, read as fit
+   harvests them), most parameters moved, and the validation launched
+   every kernel. Reports step ms, wait ms, peak memory, and per step
+   the ignore-labelled boxes and the other pseudo boxes under the soft
+   head's per-class thresholds.
    (c) `run_tta_eval` of the student on the 8 val sequences with h-flip
    and t-flip, through the kernels and the plain versions: preds within
-   2^-4 * max|plain| a batch, the NMS mask exact (96 images), AP, AP_50
+   2^-4 * max|plain| a batch (boxes and scores apart), the NMS mask exact (96 images), AP, AP_50
    and AP_75 within 0.01, the launches as implied; frames/s.
    (d) Online SSOD: `Trainer.fit` of RVT-B Gen1, B 8, L 21 from the
    teacher's checkpoint with `ssod_online` on (burn-in 1, thresholds
@@ -1620,10 +1623,16 @@ def _parity(kern, plain, what):
         if pk.shape != pl.shape:
             fail(f"{what} preds {tuple(pk.shape)} against plain "
                  f"{tuple(pl.shape)}")
-        err, tol, ok = compare(pk, pl, SLICE_TOL)
-        rows.append([err, tol])
-        if not ok:
-            fail(f"{what} preds: |kernel - plain| {err} > {tol}")
+        # the box columns (pixels) and the score columns ([0, 1]) each
+        # against their own largest plain value
+        row = []
+        for cols, k, p in (("boxes", pk[..., :4], pl[..., :4]),
+                           ("scores", pk[..., 4:], pl[..., 4:])):
+            err, tol, ok = compare(k, p, SLICE_TOL)
+            row += [err, tol]
+            if not ok:
+                fail(f"{what} preds, {cols}: |kernel - plain| {err} > {tol}")
+        rows.append(row)
     return rows
 
 
@@ -1799,28 +1808,19 @@ def phase_selftrain(checkpoint: str):
     sst = student.init_state(bt)
     student.load_weights(teacher_ckpt, sst)
     params0 = [p.detach().clone() for p in student.det.parameters()]
-    # the batches fit draws (the loader is deterministic from its seed),
-    # harvested alike: do ignore boxes reach the steps?
-    loader, _ = student.make_train_loader(0, pseudo_seqs)
-    it = iter(loader)
-    from leod_tpu_torch.data.loader import harvest_frames
-    from leod_tpu_torch.config import stem_fold_hw
-    hc = scfg.model.head
-    ignored_a_step = []
-    for _ in range(STUDENT_STEPS):
-        lab = harvest_frames(next(it), L, hc.max_gt,
-                             scfg.model.backbone.in_res_hw,
-                             ignore_label=hc.ignore_label,
-                             fold_hw=stem_fold_hw(scfg.model))["labels"]
-        # ignore-labelled, or a pseudo box under the soft head's
-        # per-class thresholds (`ops/simota.py` mark_low_conf_as_ignore)
-        thr = np.asarray(hc.ignore_bbox_thresh, np.float32)
-        per_box = thr[np.clip(lab[..., 0].astype(np.int64), 0,
-                              len(thr) - 1)]
-        ignored = (lab.sum(-1) > 0) & ((lab[..., 0] == hc.ignore_label)
-                                       | (lab[..., 5] < per_box)
-                                       | (lab[..., 6] < per_box))
-        ignored_a_step.append(int(ignored.sum()))
+    # the labels of the batches that fit harvests for its steps: the
+    # train harvest alone passes `ignore_label`, and the prefetch queue
+    # hands the batches to the steps in the order they were harvested
+    from leod_tpu_torch.train import trainer as trainer_mod
+    harvested = []
+    orig_harvest = trainer_mod.harvest_frames
+
+    def recording_harvest(*args, **kw):
+        hb = orig_harvest(*args, **kw)
+        if "ignore_label" in kw:
+            harvested.append(hb["labels"].copy())
+        return hb
+
     records = []
     student.logger.add_sink(records.append)
     _zero(wrappers)
@@ -1828,9 +1828,13 @@ def phase_selftrain(checkpoint: str):
     torch.cuda.reset_peak_memory_stats()
     stim = {}
     t0 = time.perf_counter()
-    sst = student.fit(max_steps=STUDENT_STEPS, state=sst, log_every=1,
-                      sequences=pseudo_seqs, val_sequences=splits["val"],
-                      timings=stim)
+    trainer_mod.harvest_frames = recording_harvest
+    try:
+        sst = student.fit(max_steps=STUDENT_STEPS, state=sst, log_every=1,
+                          sequences=pseudo_seqs, val_sequences=splits["val"],
+                          timings=stim)
+    finally:
+        trainer_mod.harvest_frames = orig_harvest
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches_b = _count(wrappers)
@@ -1840,8 +1844,24 @@ def phase_selftrain(checkpoint: str):
     if len(steps) != STUDENT_STEPS or not all(
             np.isfinite(r[k]) for r in steps for k in keys):
         fail(f"soft student losses: {steps}")
-    if not any(ignored_a_step):
-        fail("no ignore box reached the soft student's steps")
+    # per step: boxes with the ignore label, and the other pseudo boxes
+    # under the soft head's per-class thresholds (`ops/simota.py`
+    # mark_low_conf_as_ignore)
+    hc = scfg.model.head
+    thr = np.asarray(hc.ignore_bbox_thresh, np.float32)
+    ignore_a_step, soft_a_step = [], []
+    for lab in harvested[:STUDENT_STEPS]:
+        real = lab.sum(-1) > 0
+        ign = real & (lab[..., 0] == hc.ignore_label)
+        per_box = thr[np.clip(lab[..., 0].astype(np.int64), 0,
+                              len(thr) - 1)]
+        soft = real & ~ign & ((lab[..., 5] < per_box)
+                              | (lab[..., 6] < per_box))
+        ignore_a_step.append(int(ign.sum()))
+        soft_a_step.append(int(soft.sum()))
+    if len(harvested) < STUDENT_STEPS or not any(ignore_a_step):
+        fail(f"no ignore-labelled box reached the soft student's steps: "
+             f"{ignore_a_step} in {len(harvested)} harvested batches")
     moved = sum(not torch.equal(a, b)
                 for a, b in zip(params0, student.det.parameters()))
     if moved < len(params0) // 2:
@@ -1856,7 +1876,8 @@ def phase_selftrain(checkpoint: str):
         "frames_per_slot": L, "fit_s": fit_s,
         "step_ms": stim["step_ms"], "wait_ms": stim["wait_ms"],
         "val_s": stim["val_s"], "peak_mem_gib": peak_b,
-        "ignore_boxes_a_step": ignored_a_step,
+        "ignore_label_boxes_a_step": ignore_a_step,
+        "soft_ignored_boxes_a_step": soft_a_step,
         "losses": [{k: r[k] for k in ("step",) + keys} for r in steps],
         "val": [r for r in records if "val/AP" in r],
         "params_changed": [moved, len(params0)], "launches": launches_b}

@@ -16,7 +16,6 @@ import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
-import torch
 
 from .. import resolve_device
 from ..config import ExperimentConfig, PostprocessConfig, stem_fold_hw
@@ -26,6 +25,7 @@ from ..data.loader import (EvalStreamLoader, Prefetcher, harvest_frames,
 from ..data.sequence import EventSequence
 from ..models.detector import Detector
 from ..ops.nms import batched_nms_numpy, postprocess
+from ..timing import lap
 from ..train.step import make_eval_step
 from .prophesee import PropheseeEvaluator, boxes_to_prophesee
 
@@ -125,14 +125,6 @@ def run_tta_eval(det: Detector, cfg: ExperimentConfig,
     eval_step = make_eval_step(det, plain=plain, device=dev)
     results: Dict[str, _SeqResult] = {}
 
-    def lap(key: str, t0: float) -> float:
-        if timings is not None:
-            if key == "step_ms" and det.device.type == "cuda":
-                torch.cuda.synchronize(det.device)
-            timings.setdefault(key, []).append(
-                (time.perf_counter() - t0) * 1e3)
-        return time.perf_counter()
-
     passes = [False] + ([True] if tflip else [])
     for pass_index, time_flip in enumerate(passes):
         seqs = sequences if sequences is not None else open_split_sequences(
@@ -160,9 +152,9 @@ def run_tta_eval(det: Detector, cfg: ExperimentConfig,
                         M = int(hb["max_slot_frames"])
                         print(f"tta harvest budget grown to {M}/slot",
                               flush=True)
-                    t0 = lap("harvest_ms", t0)
+                    t0 = lap(timings, "harvest_ms", t0)
                     states, preds = eval_step(states, hb)
-                    t0 = lap("step_ms", t0)
+                    t0 = lap(timings, "step_ms", t0, det.device)
                     if not time_flip:
                         # end-of-stream bookkeeping must run even for
                         # steps with ZERO harvested frames: a sequence
@@ -184,7 +176,7 @@ def run_tta_eval(det: Detector, cfg: ExperimentConfig,
                         plain=plain)
                     dets = dets.cpu().numpy()
                     valid = valid.cpu().numpy()
-                    t0 = lap("postprocess_ms", t0)
+                    t0 = lap(timings, "postprocess_ms", t0)
                     Mslot = hb["frame_t"].shape[1]
                     for brow in range(len(hb["boxes"])):
                         b = brow % B_eff
@@ -207,7 +199,7 @@ def run_tta_eval(det: Detector, cfg: ExperimentConfig,
                             rec.add(ev_i, gt if not is_h else None, d,
                                     is_hflip=is_h, is_tflip=time_flip,
                                     tflip_offset=dst.tflip_offset)
-                    lap("bridge_ms", t0)
+                    lap(timings, "bridge_ms", t0)
                     if on_batch is not None:
                         on_batch(pass_index, bi, hb, preds, dets, valid)
         finally:

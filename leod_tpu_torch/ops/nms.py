@@ -103,8 +103,6 @@ def postprocess(predictions: torch.Tensor, num_classes: int,
 # Host NMS (numpy), for merging TTA views and pseudo labels
 # ---------------------------------------------------------------------------
 
-_CLASS_OFFSET = 1.0e5  # larger than any canvas coordinate
-
 
 def nms_numpy(boxes_xyxy: np.ndarray, scores: np.ndarray,
               iou_threshold: float,
@@ -156,10 +154,10 @@ def batched_nms_numpy(boxes_xyxy: np.ndarray, scores: np.ndarray,
                       class_ids: np.ndarray,
                       iou_threshold: float) -> np.ndarray:
     """Class-aware host NMS (`leod_tpu/ops/nms.py:149-161`). The JAX
-    package's numpy fallback separates the classes by `_CLASS_OFFSET`
-    in float64; its preferred native path, which this matches index for
-    index, compares the class ids instead (an offset of 1e5 in float32
-    would round the boxes' coordinates)."""
+    package's numpy fallback separates the classes by a coordinate
+    offset of 1e5 in float64; its preferred native path, which this
+    matches index for index, compares the class ids instead (that offset
+    in float32 would round the boxes' coordinates)."""
     if len(boxes_xyxy) == 0:
         return np.zeros((0,), np.int64)
     return nms_numpy(boxes_xyxy, scores, iou_threshold, class_ids)

@@ -56,16 +56,25 @@ def make_teacher_update(method: str = "ema", alpha: float = 0.999):
             one = np.float32(1.0)
             a = np.minimum(one - one / (np.float32(step) + one),
                            np.float32(alpha))
+            floats = []
             for k, t in teacher.items():
-                s = student[k]
-                if not t.is_floating_point():
-                    t.copy_(s)
-                    continue
-                # a * t + (1 - a) * s rounded as XLA's fused multiply-add
-                # rounds it: (1 - a) * s to fp32, then a * t exactly (an
-                # fp32 product fits a double), one rounding of the sum
-                t.copy_((t.double() * float(a) + (s.float() * float(one - a))
-                         .double()).float())
+                if t.is_floating_point():
+                    floats.append(k)
+                else:
+                    t.copy_(student[k])
+            if not floats:
+                return teacher
+            # every leaf at once, in a few launches: a * t + (1 - a) * s
+            # rounded as XLA's fused multiply-add rounds it: (1 - a) * s
+            # to fp32, then a * t exactly (an fp32 product fits a
+            # double), one rounding of the sum
+            ts = [teacher[k] for k in floats]
+            t_all = torch.cat([t.reshape(-1) for t in ts])
+            s_all = torch.cat([student[k].reshape(-1).float() for k in floats])
+            new = (t_all.double() * float(a)
+                   + (s_all * float(one - a)).double()).float()
+            torch._foreach_copy_(ts, [v.view_as(t) for v, t in zip(
+                new.split([t.numel() for t in ts]), ts)])
             return teacher
         return update
     if method.startswith("every-"):

@@ -19,7 +19,6 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from .. import resolve_device
 from ..config import ExperimentConfig, stem_fold_hw
@@ -29,6 +28,7 @@ from ..data.sequence import EventSequence, list_sequence_dirs
 from ..eval.prophesee import PropheseeEvaluator, boxes_to_prophesee
 from ..models.detector import Detector
 from ..ops.nms import postprocess
+from ..timing import lap
 from ..train.step import make_eval_step
 from .filters import evaluate_pseudo_labels, pred_to_label
 from .pseudo_labeler import PseudoLabelConfig, SequenceRecorder
@@ -108,14 +108,6 @@ class PseudoLabelRunner:
         self._gt_pairs: Tuple[List, List] = ([], [])
         self._sources: Dict[str, EventSequence] = {}
 
-    def _lap(self, key: str, t0: float, sync: bool = False) -> float:
-        if self.timings is not None:
-            if sync and self.det.device.type == "cuda":
-                torch.cuda.synchronize(self.det.device)
-            self.timings.setdefault(key, []).append(
-                (time.perf_counter() - t0) * 1e3)
-        return time.perf_counter()
-
     # -- one streaming pass ---------------------------------------------------
     def _run_pass(self, time_flip: bool, pass_index: int):
         cfg, dst, pl = self.cfg, self.cfg.dataset, self.pl
@@ -151,9 +143,9 @@ class PseudoLabelRunner:
                     lens.reset(batch["is_first"])
                     hb = harvest_all_frames(
                         hflip_batch(batch) if hflip else batch, cfg)
-                    t0 = self._lap("harvest_ms", t0)
+                    t0 = lap(self.timings, "harvest_ms", t0)
                     states, preds = eval_step(states, hb)
-                    t0 = self._lap("step_ms", t0, sync=True)
+                    t0 = lap(self.timings, "step_ms", t0, self.det.device)
                     dets, valid = postprocess(
                         preds, num_classes=n_cls,
                         conf_threshold=pp.confidence_threshold,
@@ -162,10 +154,10 @@ class PseudoLabelRunner:
                         plain=self.plain)
                     dets = dets.cpu().numpy()
                     valid = valid.cpu().numpy()
-                    t0 = self._lap("postprocess_ms", t0)
+                    t0 = lap(self.timings, "postprocess_ms", t0)
                     self._consume(batch, dets, valid, L, B, hflip, time_flip,
                                   hw, lens.lens.copy())
-                    self._lap("consume_ms", t0)
+                    lap(self.timings, "consume_ms", t0)
                     lens.add(L)
                     if self.on_batch is not None:
                         self.on_batch(pass_index, bi, hb, preds, dets, valid)

@@ -40,6 +40,7 @@ from ..data.sequence import EventSequence
 from ..eval.prophesee import PropheseeEvaluator, boxes_to_prophesee
 from ..models.detector import Detector
 from ..ops.nms import postprocess
+from ..timing import lap
 from .optim import make_optimizer
 from .step import TrainState, make_eval_step, make_train_step
 
@@ -110,14 +111,6 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
     states = det.init_states(B)
     n_cls = cfg.model.head.num_classes
 
-    def lap(key: str, t0: float) -> float:
-        if timings is not None:
-            if key == "step_ms" and det.device.type == "cuda":
-                torch.cuda.synchronize(det.device)
-            timings.setdefault(key, []).append(
-                (time.perf_counter() - t0) * 1e3)
-        return time.perf_counter()
-
     prefetcher = Prefetcher(iter(loader))
     try:
         for bi, batch in enumerate(prefetcher):
@@ -136,9 +129,9 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
                 # budget to this batch's demand and re-harvest
                 M = int(hb["max_slot_frames"])
                 print(f"eval harvest budget grown to {M}/slot", flush=True)
-            t0 = lap("harvest_ms", t0)
+            t0 = lap(timings, "harvest_ms", t0)
             states, preds = eval_step(states, hb)
-            t0 = lap("step_ms", t0)
+            t0 = lap(timings, "step_ms", t0, det.device)
             if hb["num_frames"] == 0:
                 continue
             dets, valid = postprocess(preds, num_classes=n_cls,
@@ -148,7 +141,7 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
                                       max_dets=pp.max_dets, plain=plain)
             dets = dets.cpu().numpy()
             valid = valid.cpu().numpy()
-            t0 = lap("postprocess_ms", t0)
+            t0 = lap(timings, "postprocess_ms", t0)
             # rows are (b, m) flattened with b outer
             Mslot = hb["frame_t"].shape[1]
             for b in range(len(hb["boxes"])):
@@ -161,7 +154,7 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
                     gt, dt = boxes_to_prophesee(lab, d if len(d) else None)
                     evaluator.add_labels([gt])
                     evaluator.add_predictions([dt])
-            lap("bridge_ms", t0)
+            lap(timings, "bridge_ms", t0)
             if on_batch is not None:
                 on_batch(bi, hb, preds, dets, valid)
     finally:
@@ -490,14 +483,6 @@ class Trainer:
                         "dropped_frames": hb["dropped_frames"]}
                 yield dev, done, meta
 
-        def lap(key: str, t_start: float, sync: bool = False) -> float:
-            if timings is not None:
-                if sync and self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                timings.setdefault(key, []).append(
-                    (time.perf_counter() - t_start) * 1e3)
-            return time.perf_counter()
-
         stopped = False
         prefetcher = Prefetcher(device_batches(), depth=3)
         try:
@@ -509,13 +494,13 @@ class Trainer:
                     break
                 dev, done, meta = item
                 upload.ready(dev, done)
-                ts = lap("wait_ms", tw)
+                ts = lap(timings, "wait_ms", tw)
                 state, metrics = train_step(state, dev)
-                ts = lap("step_ms", ts, sync=True)
+                ts = lap(timings, "step_ms", ts, self.device)
                 step += 1
                 if ssod_batcher is not None:
                     ssod_batcher.update_teacher(self.det, step)
-                    lap("teacher_update_ms", ts, sync=True)
+                    lap(timings, "teacher_update_ms", ts, self.device)
                 frames_seen += meta["frames"]
                 dropped_total += meta["dropped_frames"]
                 if step % log_every == 0 or step == 1:

@@ -17,8 +17,9 @@ the NMS and the tracker do work): the runner's per-batch preds within
 cut, and the failure names which); the shard union equals a full run;
 `verify_pseudo_dataset` / `score_pseudo_dataset` within 1e-6 of the JAX
 package's, from a directory and from array-backed sequences; and
-`run_tta_eval`'s AP within 1e-4, with h-flip and t-flip. Sizes: embed
-32, 64 x 96 input, L 4, B 2, float32."""
+`run_tta_eval` with h-flip and t-flip: each frame's GT and merged
+detections as handed to the evaluator within 1e-4, and AP within 1e-4.
+Sizes: embed 32, 64 x 96 input, L 4, B 2, float32."""
 import dataclasses
 import os
 
@@ -585,18 +586,59 @@ def test_verify_and_score_match_jax(setup, jax_run):
             assert got[k] == pytest.approx(want[k], abs=1e-6), k
 
 
-def test_tta_eval_matches_jax(setup):
-    """`run_tta_eval` with h-flip and t-flip on the val split: AP within
-    1e-4 of the JAX package's; and with explicit shards the merged
-    evaluators equal the full run."""
+def _capture_frames(monkeypatch, mod):
+    """Record what `mod.run_tta_eval` hands its evaluator: each frame's
+    GT (Prophesee rows) and merged detections, in the order added."""
+    frames = []
+    orig = mod.boxes_to_prophesee
+
+    def capture(gt, merged, *a, **kw):
+        gt_p, dt_p = orig(gt, merged, *a, **kw)
+        rows = (np.zeros((0, 7), np.float32) if merged is None
+                else np.array(merged, np.float32))
+        frames.append((gt_p, rows))
+        return gt_p, dt_p
+
+    monkeypatch.setattr(mod, "boxes_to_prophesee", capture)
+    return frames
+
+
+def _by_score(rows):
+    return rows[np.lexsort((rows[:, 0], -rows[:, 4] * rows[:, 5]))]
+
+
+def test_tta_eval_matches_jax(setup, monkeypatch):
+    """`run_tta_eval` with h-flip and t-flip on the val split. What each
+    package hands its evaluator is held frame by frame: the same GT
+    frames in the same order (so GT comes from the unflipped pass at the
+    same `ev_idx`), and each frame's merged detections, h-flipped and
+    t-flipped views mapped back and NMS-merged, row for row within 1e-4
+    (a row left over must sit within 1e-4 of the confidence cut). Then
+    AP within 1e-4 of the JAX package's; and with explicit shards the
+    merged evaluators equal the full run."""
     _, jcfg, tcfg, jdet, v, det = setup
     from leod_tpu_torch.eval.prophesee import PropheseeEvaluator
     kw = dict(split="val", hflip=True, tflip=True, batch_size=2)
+    jframes = _capture_frames(monkeypatch, jtta)
+    tframes = _capture_frames(monkeypatch, ttta)
     want = jtta.run_tta_eval(jdet, v, jcfg, **kw)
     kept = []
     got = ttta.run_tta_eval(det, tcfg, device="cpu",
                             on_batch=lambda pi, bi, hb, p, d, va:
                             kept.append((pi, int(va.sum()))), **kw)
+    assert len(tframes) == len(jframes) > 0
+    n_rows = 0
+    for (tgt, trows), (jgt, jrows) in zip(tframes, jframes):
+        assert tgt.tolist() == jgt.tolist()
+        g, w = _by_score(trows), _by_score(jrows)
+        n = min(len(g), len(w))
+        np.testing.assert_allclose(g[:n], w[:n], rtol=0, atol=TOL)
+        for r in (g[n:] if len(g) > n else w[n:]):
+            assert abs(float(r[4] * r[5]) - CONF) <= TOL, (
+                f"a merged row at t={jgt['t'][0]} matched nowhere: {r}")
+        n_rows += len(w)
+    assert n_rows > 50
+    monkeypatch.undo()
     assert sorted(got) == sorted(want)
     for k in want:
         assert got[k] == pytest.approx(want[k], abs=1e-4), k
