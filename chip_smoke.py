@@ -168,10 +168,34 @@ switched off for the fp32 products of the plain ConvLSTM update.
    step ms, the wait for the prefetch thread that runs the teacher, the
    teacher's ms a batch and its update's ms.
 
+8. CLI phase, after phase 7: the CLIs as users start them, through
+   their `main` functions, at RVT-B Gen1 full width and depth (B 8,
+   L 21). (a) `leod_tpu_torch.cli.selftrain_cycle` at a short schedule:
+   its synthetic split (6 train and 4 val sequences of 64 reprs, labels
+   every 2 from repr 11, the label files on disk and the frames in
+   memory), CLI_TEACHER_STEPS = 4 WSOD teacher steps at ratio 0.25 with
+   gradflow on and a panel every CLI_VIZ_EVERY = 2 steps, the teacher's
+   `cli.val`, 2 `cli.predict` shards with h-flip TTA, `cli.val_dst
+   --verify`, CLI_STUDENT_STEPS = 2 soft-student steps and the student's
+   `cli.val`. Fails unless every stage finished and wrote its outputs
+   (checkpoints, eval and score JSON, the 6 pseudo sequences), the
+   logged `gradflow/*` keys are exactly the JAX names of the model's
+   parameters (`convert.jax_paths`), a panel's payload was built and
+   postprocessed at steps 2 and 4 of the teacher and 2 of the student
+   (and its PNG written where cv2 imports), and every block and
+   ConvLSTM kernel launched a whole number of L-step windows' worth.
+   (b) `cli.val --tta` of the student: finite AP, the kernels launched.
+   (c) `cli.train --torch-weight` from a reference-layout Lightning
+   checkpoint (`reference_state_dict` of a seed-7 model): after one
+   step every parameter is within CLI_TORCH_WEIGHT_TOL = 1e-3 of that
+   model's, and further from a seed-0 model's. Reports each stage's
+   seconds, the AP, the pseudo score, the panels and the launches.
+
 Prints the kernels' JSON line (each kernel wrapper of each path: its
 RVT-B entry under its own name, its RVT-S entry as "<name>[RVT-S]";
 an RVT-B entry's launches are the slice phase's, the eval phase's, the
-train phase's validation's and the self-training phase's),
+train phase's validation's, the self-training phase's and the CLI
+phase's),
 the card's name and power limit, and the result JSON as the last line.
 Any failure exits non-zero; so does a machine without a CUDA device, or
 a directory without the package.
@@ -243,6 +267,14 @@ ST_MATCH_FRAC = 0.9
 STUDENT_STEPS = 4
 SSOD_STEPS = 3
 SSOD_EMA_RTOL = 1e-6
+# the CLI phase (8): the cycle driver's teacher and student steps and the
+# panel cadence; `cli.train --torch-weight` takes one step from a
+# reference checkpoint, after which each parameter is within
+# CLI_TORCH_WEIGHT_TOL of it (one AdamW step at the warmup learning rate)
+CLI_TEACHER_STEPS = 4
+CLI_STUDENT_STEPS = 2
+CLI_VIZ_EVERY = 2
+CLI_TORCH_WEIGHT_TOL = 1e-3
 
 # One warp runs n dependent steps of the NMS sweep's chain, `sweep_tile`
 # of csrc/nms.cu (row tile i mod 32; each step takes the keep word the
@@ -2001,6 +2033,236 @@ def phase_selftrain(checkpoint: str):
             "launches": total}
 
 
+# ---------------------------------------------------------------------------
+# CLI phase
+# ---------------------------------------------------------------------------
+
+_REF_LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
+             "var": "running_var"}
+
+
+def reference_key(path, gated: bool = False) -> str:
+    """The reference LEOD/RVT state-dict key of a JAX tree path (under
+    "params" or "batch_stats", leaf included): the layout
+    `leod_tpu_torch/convert.py` `convert_torch_state_dict` reads, written
+    backwards. `gated`: the backbone's MLPs are gated."""
+    top, *rest = path
+    *mods, leaf = rest
+    tail = [_REF_LEAF.get(leaf, leaf)]
+    if top == "backbone":
+        out = ["backbone", "stages", str(int(mods[0][5:]) - 1)]
+        sub = mods[1:]
+        if leaf == "mask_token":
+            return ".".join(out + ["mask_token"])
+        if leaf in ("ls1", "ls2"):
+            tail = ["gamma"]
+            sub = sub + [leaf]
+        if sub[0] == "down":
+            out += ["downsample_cf2cl"] + sub[1:]
+        elif sub[0] == "lstm":
+            out += ["lstm", {"gates": "conv1x1", "dws": "conv3x3_dws"}[sub[1]]]
+        else:
+            i, kind = re.fullmatch(r"block(\d+)_(\w+)", sub[0]).groups()
+            out += ["att_blocks", i, f"att_{kind}"]
+            if sub[1] == "attn":
+                out += ["self_attn"] + sub[2:]
+            elif sub[1] == "mlp":
+                inner = ["net", "0", "proj"] if gated else ["net", "0", "0"]
+                out += ["mlp"] + {"proj_in": inner,
+                                  "proj_out": ["net", "2"]}[sub[2]]
+            else:
+                out += sub[1:]
+        return ".".join(out + tail)
+    if top == "fpn":
+        out = ["fpn"]
+        for name in mods:
+            m = re.fullmatch(r"m(\d+)", name)
+            out += ["m", m.group(1)] if m else [name]
+        return ".".join(out + tail)
+    name, *sub = mods
+    kind, k, j = re.fullmatch(
+        r"(stem|cls_conv|reg_conv|cls_pred|reg_pred|obj_pred)(\d+)(?:_(\d))?",
+        name).groups()
+    out = ["yolox_head", f"{kind}s", k] + ([j] if j is not None else [])
+    return ".".join(out + sub + tail)
+
+
+def reference_state_dict(det):
+    """The port detector's weights as a reference LEOD/RVT state dict:
+    the port keeps the reference's torch layouts (OIHW convs, [out, in]
+    linears), so each tensor goes over as it is, under its key."""
+    from leod_tpu_torch.convert import jax_paths
+    gated = det.cfg.backbone.mlp_gated
+    sd = det.state_dict()
+    return {reference_key(path, gated): sd[name].detach().float().cpu()
+            for name, (_, path, _) in jax_paths(det).items()}
+
+
+def _steps_of(cfg, launches):
+    """The backbone steps `launches` imply, and whether every block and
+    ConvLSTM kernel's count is that many steps' worth."""
+    per = launches_per_step(cfg)
+    steps = launches["lstm_update"] // per["lstm_update"]
+    want = _implied(cfg, steps, launches["nms_mask"])
+    return steps, launches == want
+
+
+def phase_cli():
+    """Phase 8: the CLIs on the card, through their `main` functions, at
+    RVT-B Gen1 full width and depth (B 8, L 21): the self-training cycle
+    driver at a short schedule, then `cli.val --tta` and `cli.train
+    --torch-weight`. Returns its report and its launches."""
+    import numpy as np
+    import torch
+    from leod_tpu_torch.cli import selftrain_cycle, train, val
+    from leod_tpu_torch.config import experiment_preset
+    from leod_tpu_torch.convert import jax_paths
+    from leod_tpu_torch.data.synthetic import render_dataset_frames
+    from leod_tpu_torch.models.detector import Detector
+    from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
+    from leod_tpu_torch.train.trainer import Trainer
+
+    wrappers = maxvit_cuda.WRAPPERS + nms_cuda.WRAPPERS
+    root = os.path.join(REPO, "runs", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    work = os.path.join(root, "cycle")
+    data = os.path.join(work, "data")
+    cfg = experiment_preset("gen1", "base")
+    L = cfg.dataset.sequence_length
+    t_phase = time.perf_counter()
+
+    # the panels fit writes: each call's run and step
+    panels = []
+    orig_panel = Trainer._write_viz_panel
+
+    def record_panel(self, step, viz, preds):
+        panels.append((self.cfg.exp_name, step, tuple(preds.shape)))
+        return orig_panel(self, step, viz, preds)
+
+    Trainer._write_viz_panel = record_panel
+    _zero(wrappers)
+    try:
+        out = selftrain_cycle.main([
+            work, "--size", "base", "--steps-teacher", str(CLI_TEACHER_STEPS),
+            "--steps-student", str(CLI_STUDENT_STEPS), "--batch", str(B),
+            "--seq-len", str(L), "--gradflow", "--viz-every",
+            str(CLI_VIZ_EVERY)])
+    finally:
+        Trainer._write_viz_panel = orig_panel
+    torch.cuda.synchronize()
+    cycle_s = time.perf_counter() - t_phase
+    launches_cycle = _count(wrappers)
+
+    for n in range(7):
+        if not os.path.exists(os.path.join(work, f".done_{n}")):
+            fail(f"cycle stage {n} did not finish")
+    runs = os.path.join(work, "runs")
+    for run in ("teacher", "student"):
+        if not os.path.exists(os.path.join(runs, run, "ckpt_last.pt")):
+            fail(f"the {run} wrote no checkpoint")
+    for name in ("teacher_eval", "student_eval"):
+        m = out[name]
+        if not m or not all(np.isfinite(m[k]) for k in ("AP", "AP_50",
+                                                          "AP_75")):
+            fail(f"{name}: {m}")
+    pse_train = os.path.join(work, "pseudo", "train")
+    if len(os.listdir(pse_train)) != 6 or not out["pseudo_score"]:
+        fail(f"pseudo dataset: {os.listdir(pse_train)}, score "
+             f"{out['pseudo_score']}")
+    with open(os.path.join(runs, "teacher", "metrics.jsonl")) as f:
+        rec = json.loads(f.readline())
+    want_flow = {"gradflow/" + ".".join(path) for coll, path, _ in
+                 jax_paths(Detector(cfg.model, device="cuda")).values()
+                 if coll == "params"}
+    got_flow = {k for k in rec if k.startswith("gradflow/")}
+    if got_flow != want_flow or not all(np.isfinite(rec[k])
+                                        for k in got_flow):
+        fail(f"gradflow keys: {len(got_flow)} logged, {len(want_flow)} "
+             f"JAX names; missing {sorted(want_flow - got_flow)[:3]}, extra "
+             f"{sorted(got_flow - want_flow)[:3]}")
+    want_panels = ([("teacher", s) for s in range(
+        CLI_VIZ_EVERY, CLI_TEACHER_STEPS + 1, CLI_VIZ_EVERY)]
+        + [("student", s) for s in range(
+            CLI_VIZ_EVERY, CLI_STUDENT_STEPS + 1, CLI_VIZ_EVERY)])
+    if [p[:2] for p in panels] != want_panels:
+        fail(f"viz panels at {panels}; want {want_panels}")
+    try:
+        import cv2  # noqa: F401
+        have_cv2 = True
+    except ImportError:
+        have_cv2 = False
+    pngs = {run: sorted(os.listdir(os.path.join(runs, run, "viz")))
+            if os.path.isdir(os.path.join(runs, run, "viz")) else []
+            for run in ("teacher", "student")}
+    if have_cv2 and [(r, int(f[4:12])) for r in ("teacher", "student")
+                     for f in pngs[r]] != want_panels:
+        fail(f"viz PNGs: {pngs}")
+    steps, consistent = _steps_of(cfg, launches_cycle)
+    if not consistent or steps == 0 or steps % L:
+        fail(f"the cycle's launches {launches_cycle} are not a whole "
+             f"number of L = {L} backbone steps")
+    report = {"cycle_s": cycle_s, "stage_s": out["seconds"],
+              "teacher_eval": out["teacher_eval"],
+              "student_eval": out["student_eval"],
+              "pseudo_score": out["pseudo_score"],
+              "gradflow_keys": len(got_flow), "panels": panels,
+              "panel_pngs": pngs, "cv2": have_cv2,
+              "backbone_steps": steps, "launches_cycle": launches_cycle}
+
+    # val --tta on the cycle's split, with the student
+    frames = render_dataset_frames(data, num_train=6, num_val=4, num_test=0,
+                                   num_reprs=64, label_every=2,
+                                   first_label_repr=11)
+    _zero(wrappers)
+    t0 = time.perf_counter()
+    m = val.main(["--size", "base", "--path", data, "--split", "val",
+                  "--seq-len", str(L), "--tta", "--ckpt",
+                  os.path.join(runs, "student", "ckpt_last")], frames=frames)
+    torch.cuda.synchronize()
+    launches_tta = _count(wrappers)
+    steps, consistent = _steps_of(cfg, launches_tta)
+    if not m or not all(np.isfinite(m[k]) for k in ("AP", "AP_50", "AP_75")):
+        fail(f"val --tta: {m}")
+    if not consistent or steps == 0:
+        fail(f"val --tta launches {launches_tta}")
+    report.update(tta_s=time.perf_counter() - t0, tta_eval=m,
+                  launches_tta=launches_tta)
+
+    # train --torch-weight from a reference-layout Lightning checkpoint of
+    # a seeded model: one step later the weights are still that model's
+    ref = Detector(cfg.model, dtype=torch.float32, device="cpu", seed=7,
+                   trainable=True)
+    ref_path = os.path.join(root, "reference.ckpt")
+    torch.save({"state_dict": {"mdl." + k: v for k, v in
+                               reference_state_dict(ref).items()}},
+               ref_path)
+    t0 = time.perf_counter()
+    train.main(["--size", "base", "--path", data, "--ratio", "0.25",
+                "--steps", "1", "--batch-size", str(B), "--seq-len", str(L),
+                "--torch-weight", ref_path, "--save-dir",
+                os.path.join(root, "runs"), "--exp-name", "torch_weight",
+                "--val-every", "0"], frames=frames)
+    got = torch.load(os.path.join(root, "runs", "torch_weight",
+                                  "ckpt_last.pt"), weights_only=True)["model"]
+    fresh = Detector(cfg.model, dtype=torch.float32, device="cpu", seed=0,
+                     trainable=True).state_dict()
+    moved = max(float((got[n].cpu() - p.detach()).abs().max())
+                for n, p in ref.named_parameters())
+    apart = max(float((fresh[n] - p.detach()).abs().max())
+                for n, p in ref.named_parameters())
+    if not moved <= CLI_TORCH_WEIGHT_TOL < apart:
+        fail(f"train --torch-weight: the trained weights are {moved} from "
+             f"the reference checkpoint's (a seed-0 model is {apart} away)")
+    report.update(torch_weight_s=time.perf_counter() - t0,
+                  torch_weight_max_delta=moved,
+                  torch_weight_seed0_delta=apart)
+    total = {k: launches_cycle[k] + launches_tta[k] for k in launches_cycle}
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    report.update(phase_s=time.perf_counter() - t_phase, launches=total)
+    return report
+
+
 # (tag, experiment_preset size, whether it runs the variant and the eval
 # phases) of the paths driven, in order
 PATHS = (("RVT-B", "base", True), ("RVT-S", "small", False))
@@ -2093,13 +2355,17 @@ def main() -> int:
     shutil.rmtree(os.path.dirname(os.path.dirname(train["checkpoint"])),
                   ignore_errors=True)
     emit({"selftrain": selftrain})
-    # the first path's kernels also ran in the train phase's validation
-    # and in the self-training phase
+    cli = phase_cli()
+    emit({"cli": cli})
+    # the first path's kernels also ran in the train phase's validation,
+    # in the self-training phase and in the CLI phase
     for e in kernels:
         if e["config"].startswith("RVT-B"):
             e["launches_train"] = train["launches"][e["name"]]
             e["launches_selftrain"] = selftrain["launches"][e["name"]]
-            e["launches"] += e["launches_train"] + e["launches_selftrain"]
+            e["launches_cli"] = cli["launches"][e["name"]]
+            e["launches"] += (e["launches_train"] + e["launches_selftrain"]
+                              + e["launches_cli"])
     emit({"kernels": kernels})
     bad = [k["name"] for k in kernels if not k["ok"]]
     if bad:

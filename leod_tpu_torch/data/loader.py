@@ -24,7 +24,7 @@ from __future__ import annotations
 import queue
 import threading
 from dataclasses import replace
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -33,6 +33,7 @@ from ..models.layers import fold_ev_hw
 from .augment import SpatialAugmentor, SSODAugmentor
 from .labels import Boxes, pad_yolox_batch
 from .sequence import (EventSequence, RandomAccessSequence, WindowedSequence,
+                       frame_key, open_array_sequence,
                        list_sequence_dirs, split_ranges_with_guaranteed_labels)
 
 
@@ -47,13 +48,20 @@ def open_split_sequences(cfg: DatasetConfig, split: str,
                          seq_ratio: float = -1.0,
                          label_ratio: Optional[float] = None,
                          keep_objframe_map: Optional[dict] = None,
-                         pseudo_mode: bool = False) -> List[EventSequence]:
+                         pseudo_mode: bool = False,
+                         frames: Optional[Mapping[str, np.ndarray]] = None
+                         ) -> List[EventSequence]:
     """Open all sequences of a split; optional SSOD sequence subsampling
     (every k-th, reference: utils/preprocessing.py:18-28).
 
     pseudo_mode: keep ALL sequences, but SSOD-skipped ones get an empty
     kept-label list so every frame is pseudo-labeled
-    (reference: dataset_streaming.py:71-79)."""
+    (reference: dataset_streaming.py:71-79).
+
+    frames: an in-memory frame store (`data/synthetic.py`
+    `render_dataset_frames`): each sequence's labels are read from its
+    directory and its event frames from `frames[frame_key(dir)]`, as
+    `ArrayEventSequence`s, instead of its h5."""
     dirs = list_sequence_dirs(cfg.path, split)
     kept_dirs = set(dirs)
     if 0.0 < seq_ratio < 1.0:
@@ -66,8 +74,13 @@ def open_split_sequences(cfg: DatasetConfig, split: str,
         keep = keep_objframe_map.get(d) if keep_objframe_map else None
         if pseudo_mode and d not in kept_dirs:
             keep = []
-        out.append(EventSequence(d, cfg, keep_objframe_idx=keep,
-                                 label_ratio=label_ratio))
+        if frames is not None:
+            out.append(open_array_sequence(d, frames[frame_key(d)], cfg,
+                                           keep_objframe_idx=keep,
+                                           label_ratio=label_ratio))
+        else:
+            out.append(EventSequence(d, cfg, keep_objframe_idx=keep,
+                                     label_ratio=label_ratio))
     return out
 
 

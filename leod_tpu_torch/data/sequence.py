@@ -196,6 +196,31 @@ class ArrayEventSequence(EventSequence):
         return self.frames[start:stop]
 
 
+def frame_key(seq_dir: str) -> str:
+    """"<split>/<sequence name>" of a sequence directory: the key of its
+    event frames in an in-memory frame store (`render_dataset_frames`).
+    A pseudo dataset's train/<name> keys the frames of the train/<name>
+    it was made from."""
+    d = os.path.normpath(seq_dir)
+    return f"{os.path.basename(os.path.dirname(d))}/{os.path.basename(d)}"
+
+
+def open_array_sequence(seq_dir: str, frames: np.ndarray, cfg: DatasetConfig,
+                        keep_objframe_idx: Optional[Sequence[int]] = None,
+                        label_ratio: Optional[float] = None
+                        ) -> ArrayEventSequence:
+    """The sequence directory `seq_dir` whose labels and index map are on
+    disk and whose event frames are `frames` (in memory, not its h5)."""
+    data = np.load(labels_npz_path(seq_dir))
+    f2r = np.load(os.path.join(ev_repr_dir(seq_dir, cfg.ev_repr_name),
+                               "objframe_idx_2_repr_idx.npy"))
+    return ArrayEventSequence(frames, data["labels"],
+                              data["objframe_idx_2_label_idx"], f2r, cfg,
+                              seq_dir=seq_dir,
+                              keep_objframe_idx=keep_objframe_idx,
+                              label_ratio=label_ratio)
+
+
 def split_ranges_with_guaranteed_labels(
         label_repr_indices: np.ndarray, window: int) -> List[Tuple[int, int]]:
     """Split a sequence around label gaps > window so every window of a

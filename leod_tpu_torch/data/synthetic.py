@@ -14,7 +14,9 @@ puts them on disk in the real datasets' layout (reference:
 data/genx_utils/sequence_base.py:32-48) and imports `h5py` only then.
 `render_array_sequences` makes sequences that never touch the disk, and
 `render_array_dataset` a train/val/test dataset of them, drawn as
-`generate_dataset` draws the splits it writes.
+`generate_dataset` draws the splits it writes. `render_dataset_frames`
+writes a dataset's label and index files and keeps its event frames in
+memory (no `h5py`), for the CLIs.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import numpy as np
 
 from ..config import DatasetConfig
 from .labels import BBOX_DTYPE
-from .sequence import ArrayEventSequence
+from .sequence import ArrayEventSequence, frame_key
 
 DT_US = 50_000  # 50 ms per event repr (stacked_histogram_dt=50)
 
@@ -137,26 +139,36 @@ def render_sequence(rng: np.random.Generator, num_reprs: int = 64,
                                                   np.int64)}
 
 
+def write_labels(seq_dir: str, seq: Dict[str, np.ndarray],
+                 ev_repr_name: str = "stacked_histogram_dt=50_nbins=10"
+                 ) -> None:
+    """Write the label and index files of one sequence directory
+    (labels_v2/labels.npz and the repr index map): everything of it but
+    the event h5, and nothing that needs `h5py`."""
+    ev_dir = os.path.join(seq_dir, "event_representations_v2", ev_repr_name)
+    lab_dir = os.path.join(seq_dir, "labels_v2")
+    os.makedirs(ev_dir, exist_ok=True)
+    os.makedirs(lab_dir, exist_ok=True)
+    np.save(os.path.join(ev_dir, "objframe_idx_2_repr_idx.npy"),
+            seq["objframe_idx_2_repr_idx"])
+    np.savez(os.path.join(lab_dir, "labels.npz"), labels=seq["labels"],
+             objframe_idx_2_label_idx=seq["objframe_idx_2_label_idx"])
+
+
 def write_sequence(seq_dir: str, seq: Dict[str, np.ndarray],
                    ds2: bool = False,
                    ev_repr_name: str = "stacked_histogram_dt=50_nbins=10"
                    ) -> None:
     """Write `render_sequence`'s arrays as one sequence directory."""
     import h5py
+    write_labels(seq_dir, seq, ev_repr_name)
     ev_dir = os.path.join(seq_dir, "event_representations_v2", ev_repr_name)
-    lab_dir = os.path.join(seq_dir, "labels_v2")
-    os.makedirs(ev_dir, exist_ok=True)
-    os.makedirs(lab_dir, exist_ok=True)
     frames = seq["frames"]
     h5_name = ("event_representations_ds2_nearest.h5" if ds2
                else "event_representations.h5")
     with h5py.File(os.path.join(ev_dir, h5_name), "w") as f:
         f.create_dataset("data", data=frames, chunks=(1,) + frames.shape[1:],
                          compression="gzip", compression_opts=1)
-    np.save(os.path.join(ev_dir, "objframe_idx_2_repr_idx.npy"),
-            seq["objframe_idx_2_repr_idx"])
-    np.savez(os.path.join(lab_dir, "labels.npz"), labels=seq["labels"],
-             objframe_idx_2_label_idx=seq["objframe_idx_2_label_idx"])
 
 
 def generate_sequence(seq_dir: str, rng: np.random.Generator,
@@ -214,3 +226,34 @@ def render_array_dataset(cfg: DatasetConfig, num_train: int = 4,
                 s["objframe_idx_2_repr_idx"], cfg,
                 seq_dir=os.path.join(split, f"seq_{i:03d}")))
     return out
+
+
+def render_dataset_frames(root: str, num_train: int = 4, num_val: int = 2,
+                          num_test: int = 2, seed: int = 0,
+                          ev_repr_name: str = "stacked_histogram_dt=50_nbins=10",
+                          **kwargs) -> Dict[str, np.ndarray]:
+    """The dataset `generate_dataset(root, ...)` writes, split in two:
+    the label and index files are written under `root` (`write_labels`;
+    where a sequence's labels are there already, they must be the ones
+    rendered), and the event frames are returned in memory,
+    {"<split>/<sequence>": [T, C, H, W] uint8} (`frame_key`), for the
+    CLIs' `frames=` and `open_split_sequences(frames=)`. The same seed
+    and arguments give the bytes `generate_dataset` writes."""
+    rng = np.random.default_rng(seed)
+    frames: Dict[str, np.ndarray] = {}
+    for split, n in (("train", num_train), ("val", num_val),
+                     ("test", num_test)):
+        for i in range(n):
+            s = render_sequence(rng, **kwargs)
+            seq_dir = os.path.join(root, split, f"seq_{i:03d}")
+            npz = os.path.join(seq_dir, "labels_v2", "labels.npz")
+            if os.path.exists(npz):
+                with np.load(npz) as have:
+                    if not np.array_equal(have["labels"], s["labels"]):
+                        raise ValueError(
+                            f"{seq_dir} holds labels of another synthetic "
+                            f"split (seed or arguments differ)")
+            else:
+                write_labels(seq_dir, s, ev_repr_name)
+            frames[frame_key(seq_dir)] = s["frames"]
+    return frames

@@ -258,6 +258,24 @@ def fold_ev_hw(ev):
     return x.reshape(*lead, h // 4, w // 4, 16 * c)
 
 
+def unfold_ev_width(ev):
+    """[..., H, W/4, 4*C] -> [..., H, W, C]."""
+    *lead, h, w4, c4 = ev.shape
+    assert c4 % 4 == 0, ev.shape
+    return ev.reshape(*lead, h, w4 * 4, c4 // 4)
+
+
+def unfold_ev_hw(ev):
+    """[..., H/4, W/4, 16*C] -> [..., H, W, C] (numpy or torch)."""
+    *lead, h4, w4, c16 = ev.shape
+    assert c16 % 16 == 0, ev.shape
+    c = c16 // 16
+    x = ev.reshape(*lead, h4, w4, 4, 4 * c)
+    x = np.moveaxis(x, -2, -3) if isinstance(ev, np.ndarray) else \
+        torch.movedim(x, -2, -3)
+    return x.reshape(*lead, h4 * 4, w4 * 4, c)
+
+
 class ConvDownsample(nn.Module):
     """Overlapped strided patch embed + LayerNorm. NHWC in and out."""
 

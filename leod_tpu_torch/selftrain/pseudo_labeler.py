@@ -13,10 +13,12 @@ native format so the student re-trains on it unchanged.
 One seam against the JAX package: a recorder takes its source sequence
 (`source=`), and `save` counts the frames by the source's `num_ev_repr`
 instead of opening the h5 (a machine may lack `h5py`). The h5 is
-symlinked, and the split's val/test linked at the root, only where the
-source has a file; an array-backed source (`ArrayEventSequence`) gets
-the same `labels.npz` and `objframe_idx_2_repr_idx.npy`, and
-`load_pseudo_sequences` pairs them with its frames again.
+symlinked only where the source has a file, and the split's val/test
+linked at the root where the source is a directory on disk; an
+array-backed source (`ArrayEventSequence`) gets the same `labels.npz`
+and `objframe_idx_2_repr_idx.npy`, and `load_pseudo_sequences` (or a
+frame store, `open_split_sequences(frames=)`) pairs them with its
+frames again.
 """
 from __future__ import annotations
 
@@ -24,14 +26,15 @@ import dataclasses
 import os
 import os.path as osp
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..config import DatasetConfig, PostprocessConfig
 from ..data.labels import BBOX_DTYPE, Boxes
 from ..data.sequence import (ArrayEventSequence, EventSequence, ev_h5_path,
-                             ev_repr_dir, labels_npz_path, list_sequence_dirs)
+                             ev_repr_dir, frame_key, labels_npz_path,
+                             list_sequence_dirs, open_array_sequence)
 from ..ops.nms import batched_nms_numpy
 from .tracker import LinearTracker
 
@@ -262,7 +265,7 @@ class SequenceRecorder:
         np.save(osp.join(new_ev_dir, "objframe_idx_2_repr_idx.npy"), f2r)
         np.savez(new_npz, labels=labels, objframe_idx_2_label_idx=f2l)
 
-        if not src_h5:
+        if not (src_h5 or osp.isdir(self.seq_dir)):
             return
         # link val/test splits once at the dataset root
         base = osp.dirname(self.seq_dir.rstrip("/"))
@@ -279,20 +282,25 @@ class SequenceRecorder:
 
 def rerun_track_filter(src_root: str, save_dir: str, dst: DatasetConfig,
                        pl_cfg: PseudoLabelConfig,
-                       postproc: Optional[PostprocessConfig] = None):
+                       postproc: Optional[PostprocessConfig] = None, *,
+                       frames: Optional[Mapping[str, np.ndarray]] = None):
     """Tracking-only post-processing: re-run the track filter over an
     EXISTING pseudo dataset's labels without any model inference
     (reference: predict.py:129-162 tracking-only mode with
     dataset.only_load_labels=True).
 
-    Labels are processed at their stored (full) resolution."""
+    Labels are processed at their stored (full) resolution. `frames`:
+    the in-memory frame store the source's event frames are in
+    (`open_split_sequences(frames=)`), instead of its h5 files."""
     postproc = postproc or PostprocessConfig()
     src_dst = dataclasses.replace(dst, path=src_root, ratio=-1.0,
                                   train_ratio=-1.0)
     os.makedirs(osp.join(save_dir, "train"), exist_ok=True)
     n = 0
     for seq_dir in list_sequence_dirs(src_root, "train"):
-        seq = EventSequence(seq_dir, src_dst)
+        seq = (EventSequence(seq_dir, src_dst) if frames is None else
+               open_array_sequence(seq_dir, frames[frame_key(seq_dir)],
+                                   src_dst))
         rec = SequenceRecorder(seq_dir, 1.0, pl_cfg, postproc, source=seq)
         labels = []
         for obj_idx in range(len(seq.frame_labels)):
@@ -333,13 +341,7 @@ def load_pseudo_sequences(save_dir: str, sources: Sequence[EventSequence],
                            osp.basename(src.seq_dir.rstrip("/")))
         if not osp.isdir(seq_dir):
             continue
-        if not isinstance(src, ArrayEventSequence):
-            out.append(EventSequence(seq_dir, pse_dst))
-            continue
-        lab = np.load(labels_npz_path(seq_dir))
-        f2r = np.load(osp.join(ev_repr_dir(seq_dir, dst.ev_repr_name),
-                               "objframe_idx_2_repr_idx.npy"))
-        out.append(ArrayEventSequence(
-            src.frames, lab["labels"], lab["objframe_idx_2_label_idx"], f2r,
-            pse_dst, seq_dir=seq_dir))
+        out.append(open_array_sequence(seq_dir, src.frames, pse_dst)
+                   if isinstance(src, ArrayEventSequence) else
+                   EventSequence(seq_dir, pse_dst))
     return out

@@ -26,6 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..convert import jax_paths
 from ..models.backbone import BackboneStates, reset_states
 from ..models.detector import Detector
 from .optim import ClipAdamW
@@ -42,7 +43,7 @@ class TrainState(NamedTuple):
 # TBPTT rematerialization: "full" recomputes every timestep's forward in
 # the backward pass (torch.utils.checkpoint around each timestep), "none"
 # stores every activation. The JAX package's "dots" and "stage1"
-# policies are not ported (ROADMAP.md A.2).
+# policies are not ported (ROADMAP.md A.4).
 REMAT_POLICIES = ("full", "none")
 
 
@@ -68,7 +69,7 @@ def _gather_frames(feats_seq: Dict[int, torch.Tensor],
 def _check_remat(remat: str) -> None:
     if remat in ("dots", "stage1"):
         raise NotImplementedError(
-            f"remat={remat!r} is not ported yet (ROADMAP.md A.2); the port "
+            f"remat={remat!r} is not ported yet (ROADMAP.md A.4); the port "
             f"takes {REMAT_POLICIES}")
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat={remat!r}; the port takes {REMAT_POLICIES}")
@@ -81,7 +82,8 @@ def _global_norm(grads) -> torch.Tensor:
 
 
 def make_train_step(det: Detector, optimizer: ClipAdamW,
-                    remat: str = "full") -> Callable:
+                    remat: str = "full", with_preds: bool = False,
+                    gradflow: bool = False) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     batch: ev [L, B, H, W, C] (or the stem's fold of it), is_first [B],
@@ -96,7 +98,15 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
     metrics (tensors on the model's device): loss, iou_loss, conf_loss,
     cls_loss, num_fg (l1_loss where the head uses it), grad_norm and
     grad_norm/{backbone,fpn,head}, of the UNCLIPPED gradients, as
-    `optax.global_norm(grads)` is taken."""
+    `optax.global_norm(grads)` is taken.
+
+    with_preds: metrics also carry "preds" [B*M, A, 5+C], the head's
+    decoded boxes with sigmoided obj/cls, detached, for the train-time
+    pred-vs-GT panel (reference: callbacks/detection.py:20-107).
+    gradflow: metrics also carry the mean |grad| of every parameter,
+    unclipped, under "gradflow/<JAX path>" (the JAX package's dotted
+    flax path, e.g. "backbone.stage1.down.conv.kernel"; reference:
+    callbacks/gradflow.py:10-27)."""
     if not det.trainable:
         raise ValueError("make_train_step needs a Detector built with "
                          "trainable=True")
@@ -104,6 +114,11 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
     stages = det.cfg.fpn.in_stages
     groups = {mod: [p for p in getattr(det, mod).parameters()
                     if p.requires_grad] for mod in ("backbone", "fpn", "head")}
+    flow = []
+    if gradflow:
+        paths = jax_paths(det)
+        flow = [("gradflow/" + ".".join(paths[n][1]), p)
+                for n, p in det.named_parameters() if p.requires_grad]
 
     def timestep(x_t, states):
         feats, new_states = det.forward_backbone_modules(x_t, states)
@@ -140,6 +155,12 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
             for mod, params in groups.items():
                 metrics[f"grad_norm/{mod}"] = _global_norm(
                     [p.grad for p in params])
+            for key, p in flow:
+                metrics[key] = p.grad.abs().mean()
+            if with_preds:
+                out = out.detach()
+                metrics["preds"] = torch.cat(
+                    [out[..., :4], torch.sigmoid(out[..., 4:])], dim=-1)
         optimizer.step()
         new_states = tuple((h.detach(), c.detach()) for h, c in states)
         return TrainState(states=new_states, step=state.step + 1), metrics

@@ -16,9 +16,17 @@ step runs the backbone over the L-frame window on the card, the
 fixed-shape NMS runs over the harvested frames, and the Prophesee/COCO
 evaluator scores them.
 
+Every `viz_every_steps` steps `fit` writes a pred-vs-GT panel of the
+step's first labeled frame to <run_dir>/viz/ (reference:
+callbacks/detection.py:20-107); with `training.gradflow` the logged
+metrics carry every parameter's mean |grad| (`train/step.py`);
+`fit(profile_steps=n)` traces n steps from step 5 with `torch.profiler`
+into <run_dir>/profile.
+
 Checkpoints are the port's own (`torch.save` of the model's and the
-optimizer's state dicts); reading the JAX package's orbax checkpoints is
-not ported (ROADMAP.md A.6).
+optimizer's state dicts, ckpt_<name>.pt); the JAX package's orbax
+checkpoint directories are not read (`resolve_checkpoint` raises on
+one).
 """
 from __future__ import annotations
 
@@ -39,10 +47,36 @@ from ..data.loader import (EvalStreamLoader, MixedTrainLoader, Prefetcher,
 from ..data.sequence import EventSequence
 from ..eval.prophesee import PropheseeEvaluator, boxes_to_prophesee
 from ..models.detector import Detector
+from ..models.layers import unfold_ev_hw, unfold_ev_width
 from ..ops.nms import postprocess
 from ..timing import lap
+from ..utils.viz import save_pred_vs_gt_panel
 from .optim import make_optimizer
 from .step import TrainState, make_eval_step, make_train_step
+
+def resolve_checkpoint(path: str) -> str:
+    """The port's checkpoint file for `path`: the file itself, or
+    `path` + ".pt" (so the JAX CLIs' `runs/<exp>/ckpt_last` names
+    `ckpt_last.pt`). An orbax checkpoint directory raises."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (an orbax checkpoint of the JAX "
+            f"package?); the port reads its own ckpt_<name>.pt files, or a "
+            f"reference PyTorch .ckpt/.pth through --torch-weight / "
+            f"--torch-ckpt")
+    if not os.path.exists(path) and os.path.exists(path + ".pt"):
+        return path + ".pt"
+    return path
+
+
+def load_variables(path: str, device="cpu") -> Dict[str, torch.Tensor]:
+    """Checkpoint -> the model's state dict (parameters and BN
+    statistics), for `Detector.load_state_dict` (the counterpart of
+    `leod_tpu/train/trainer.py:56` `load_variables`; the payload also
+    carries the optimizer, the step and the best-AP state)."""
+    return torch.load(resolve_checkpoint(path), map_location=device,
+                      weights_only=True)["model"]
+
 
 def default_frames_per_slot(seq_len: int, use_label_every: int = 1) -> int:
     """Static per-slot harvest budget.
@@ -188,6 +222,22 @@ class MetricLogger:
         self._sinks.append(sink)
         return self
 
+    @staticmethod
+    def wandb_sink(project: str, run_name: Optional[str] = None,
+                   config: Optional[Dict[str, Any]] = None):
+        """WandB adapter (reference: loggers/utils.py:5-24). Raises
+        ImportError when wandb is not installed."""
+        import wandb
+
+        run = wandb.init(project=project, name=run_name, config=config,
+                         resume="allow")
+
+        def sink(record: Dict[str, Any]):
+            step = record.get("step")
+            run.log({k: v for k, v in record.items() if k != "step"},
+                    step=int(step) if step is not None else None)
+        return sink
+
     def close(self):
         """Release the JSONL handle (idempotent)."""
         if self._f:
@@ -211,6 +261,24 @@ class MetricLogger:
 
 
 _DEVICE_KEYS = ("ev", "is_first", "frame_t", "frame_mask", "labels")
+
+
+def _start_profile(device: torch.device):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.__enter__()
+    return prof
+
+
+def _stop_profile(prof, run_dir: str) -> None:
+    """End the trace and write it to <run_dir>/profile/trace.json."""
+    prof.__exit__(None, None, None)
+    out = os.path.join(run_dir, "profile")
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))
+    print(f"profile trace -> {out}", flush=True)
 
 
 class _Uploader:
@@ -314,7 +382,8 @@ class Trainer:
         return sorted(cands, key=os.path.getmtime, reverse=True)
 
     def _load(self, path: str) -> Dict[str, Any]:
-        return torch.load(path, map_location=self.device, weights_only=True)
+        return torch.load(resolve_checkpoint(path), map_location=self.device,
+                          weights_only=True)
 
     def latest_checkpoint(self) -> Optional[str]:
         """Newest checkpoint in the run dir that loads; unreadable ones
@@ -349,7 +418,7 @@ class Trainer:
 
     def load_weights(self, path: str, state: TrainState) -> TrainState:
         """Weight-only resume (reference: modules/detection.py:583-594)."""
-        self.det.load_state_dict(self._load(path)["model"])
+        self.det.load_state_dict(load_variables(path, self.device))
         return state
 
     def _save_best(self, ap: float, state: TrainState) -> None:
@@ -410,15 +479,56 @@ class Trainer:
         return run_streaming_eval(self.eval_detector(), self.cfg, split,
                                   sequences=sequences, device=self.device)
 
+    # -- visualization -------------------------------------------------------
+    def _viz_payload(self, hb: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        """Host-side data for one pred-vs-GT panel: the first harvested
+        labeled frame of the batch (its event frame unfolded to
+        [H, W, C], its GT boxes, and its row in the train step's
+        preds)."""
+        mask = hb["frame_mask"]
+        rows = np.argwhere(mask)
+        if len(rows) == 0:
+            return None
+        b, m = (int(v) for v in rows[0])
+        t = int(hb["frame_t"][b, m])
+        ev = np.asarray(hb["ev"][t, b])
+        c = self.cfg.model.backbone.input_channels
+        if ev.shape[-1] == 16 * c:             # stem-folded (harvest fold_hw)
+            ev = unfold_ev_hw(ev)
+        elif ev.shape[-1] != c:
+            ev = unfold_ev_width(ev)
+        return {"ev": ev.copy(), "gt": hb["boxes"][b][m],
+                "row": b * mask.shape[1] + m}
+
+    def _write_viz_panel(self, step: int, viz: Dict[str, Any],
+                         preds: torch.Tensor) -> None:
+        """Render pred (green) vs GT (black) boxes on the event frame
+        into <run_dir>/viz/step<step>.png (reference:
+        callbacks/detection.py:20-107); the postprocess runs on the
+        model's device."""
+        pp = self.cfg.model.postprocess
+        dets, valid = postprocess(
+            preds[viz["row"]][None].float(),
+            num_classes=self.cfg.model.head.num_classes,
+            conf_threshold=pp.confidence_threshold,
+            nms_threshold=pp.nms_threshold,
+            pre_topk=pp.pre_nms_topk, max_dets=pp.max_dets)
+        d = dets[0][valid[0]].cpu().numpy()
+        path = os.path.join(self.run_dir, "viz", f"step{step:08d}.png")
+        if save_pred_vs_gt_panel(path, viz["ev"], d, viz["gt"]):
+            print(f"viz panel -> {path}", flush=True)
+
     # -- loop ---------------------------------------------------------------
     def fit(self, max_steps: Optional[int] = None, seed: int = 0,
             eval_split: str = "val", state: Optional[TrainState] = None,
-            log_every: int = 50, *,
+            log_every: int = 50, profile_steps: int = 0, *,
             sequences: Optional[List[EventSequence]] = None,
             val_sequences: Optional[List[EventSequence]] = None,
             timings: Optional[Dict[str, list]] = None) -> TrainState:
         """Train to `max_steps` (default `training.max_steps`) from
-        `state` (default: `init_state`). `sequences` / `val_sequences`
+        `state` (default: `init_state`). profile_steps > 0 traces that
+        many steps, from step 5, with `torch.profiler` into
+        <run_dir>/profile (a Chrome trace). `sequences` / `val_sequences`
         replace the train / `eval_split` directories. `timings`, where
         given, collects host ms a step under "step_ms" (the step, ending
         in a device synchronize) and "wait_ms" (waiting for the
@@ -449,8 +559,11 @@ class Trainer:
                                              start_step=int(state.step))
             loader = ssod_batcher
         self.ssod_batcher = ssod_batcher
+        viz_every = cfg.training.viz_every_steps
         train_step = make_train_step(self.det, self.optimizer,
-                                     remat=cfg.training.remat)
+                                     remat=cfg.training.remat,
+                                     with_preds=viz_every > 0,
+                                     gradflow=cfg.training.gradflow)
         M = (cfg.training.max_det_frames or
              (cfg.dataset.sequence_length if ssod_batcher is not None else
               default_frames_per_slot(cfg.dataset.sequence_length,
@@ -467,11 +580,13 @@ class Trainer:
         frames_seen = 0
         dropped_total = 0
         step = int(state.step)
+        step0 = step
+        profiler = None
 
         def device_batches():
             """Harvest and the host-to-device copy, in the prefetch
             thread, so that they overlap the steps."""
-            for batch in loader:
+            for i, batch in enumerate(loader):
                 hb = harvest_frames(batch, M, cfg.model.head.max_gt,
                                     cfg.model.backbone.in_res_hw,
                                     use_label_every=cfg.model.use_label_every,
@@ -481,6 +596,9 @@ class Trainer:
                 dev, done = upload(hb)
                 meta = {"frames": batch["ev"].shape[0] * batch["ev"].shape[1],
                         "dropped_frames": hb["dropped_frames"]}
+                # batch i is consumed by step (step0 + i + 1)
+                if viz_every and (step0 + i + 1) % viz_every == 0:
+                    meta["viz"] = self._viz_payload(hb)
                 yield dev, done, meta
 
         stopped = False
@@ -494,6 +612,8 @@ class Trainer:
                     break
                 dev, done, meta = item
                 upload.ready(dev, done)
+                if profile_steps and step == 5:
+                    profiler = _start_profile(self.device)
                 ts = lap(timings, "wait_ms", tw)
                 state, metrics = train_step(state, dev)
                 ts = lap(timings, "step_ms", ts, self.device)
@@ -501,6 +621,11 @@ class Trainer:
                 if ssod_batcher is not None:
                     ssod_batcher.update_teacher(self.det, step)
                     lap(timings, "teacher_update_ms", ts, self.device)
+                preds = metrics.pop("preds", None)
+                if meta.get("viz") is not None and preds is not None:
+                    self._write_viz_panel(step, meta["viz"], preds)
+                if profiler is not None and step == 5 + profile_steps:
+                    profiler = _stop_profile(profiler, self.run_dir)
                 frames_seen += meta["frames"]
                 dropped_total += meta["dropped_frames"]
                 if step % log_every == 0 or step == 1:
@@ -542,6 +667,8 @@ class Trainer:
                 self.save_checkpoint(state, "last")
         finally:
             prefetcher.close()
+            if profiler is not None:
+                _stop_profile(profiler, self.run_dir)
             # consume the stop request and restore the handler, so that
             # a stale flag or a leaked handler cannot touch the NEXT fit()
             self._stop_requested = False

@@ -1,10 +1,11 @@
 """The port's training loop against the JAX package's on the CPU: the
 train loaders' batches from one seed (stream, random access and mixed,
 with the augmentations on, byte for byte), the augmentor, the in-memory
-train split, `Trainer.fit` as a whole (the logged losses and the final
-weights of three steps, 1e-4), and the loop's own duties: the metrics
-JSONL, validation, checkpoints, resume, `request_stop` and SIGTERM, and
-the fallback past a corrupt checkpoint."""
+train split, `Trainer.fit` as a whole (the logged losses, the gradflow
+metrics, the panels' steps and the final weights of three steps, 1e-4),
+and the loop's own duties: the metrics JSONL, validation, checkpoints,
+resume, `request_stop` and SIGTERM, the fallback past a corrupt
+checkpoint, the profiler trace and the WandB sink."""
 import json
 import os
 import signal
@@ -180,12 +181,16 @@ def _records(trainer):
 
 
 def test_fit_matches_jax_trainer(root, tmp_path):
-    """Three steps of `Trainer.fit` from one set of weights: the losses
-    logged at every step and the final weights and BN statistics are the
-    JAX `Trainer.fit`'s (1e-4; the preset's first learning rates, as in
-    `test_torch_port_train_step.py`)."""
-    jcfg = _cfg(j_experiment_preset, root, tmp_path / "j")
-    tcfg = _cfg(experiment_preset, root, tmp_path / "t")
+    """Three steps of `Trainer.fit` from one set of weights, with gradflow
+    on and a panel every 2 steps: the losses logged at every step, the
+    `gradflow/*` metrics (the same keys; values within 1e-4, and 1e-3
+    relative: SimOTA's regression head sums many rounded terms), the
+    panels' step numbers (<run_dir>/viz/step*.png) and the final weights and BN
+    statistics are the JAX `Trainer.fit`'s (1e-4; the preset's first
+    learning rates, as in `test_torch_port_train_step.py`)."""
+    flags = dict(gradflow=True, viz_every_steps=2)
+    jcfg = _cfg(j_experiment_preset, root, tmp_path / "j", **flags)
+    tcfg = _cfg(experiment_preset, root, tmp_path / "t", **flags)
     jtr = JTrainer(jcfg, dtype=jnp.float32)
     jstate = jtr.init_state(3)
     v = jax.tree.map(np.asarray, jstate.variables)
@@ -204,6 +209,15 @@ def test_fit_matches_jax_trainer(root, tmp_path):
         for k in ("loss", "iou_loss", "conf_loss", "cls_loss", "num_fg",
                   "grad_norm"):
             assert g[k] == pytest.approx(w[k], rel=1e-4), k
+        flow = sorted(k for k in w if k.startswith("gradflow/"))
+        assert len(flow) == len(jax.tree.leaves(v["params"]))
+        assert sorted(k for k in g if k.startswith("gradflow/")) == flow
+        for k in flow:
+            assert abs(g[k] - w[k]) <= 1e-4, k
+            assert g[k] == pytest.approx(w[k], rel=1e-3, abs=1e-7), k
+    panels = [sorted(os.listdir(os.path.join(t.run_dir, "viz")))
+              for t in (ttr, jtr)]
+    assert panels[0] == panels[1] == ["step00000002.png"]
     var = jax.tree.map(np.asarray, jstate.variables)
     for coll in ("params", "batch_stats"):
         for path, arr in _leaves(var[coll]):
@@ -294,6 +308,28 @@ def test_restore_latest_falls_back_past_a_corrupt_checkpoint(root, tmp_path):
     assert trainer.latest_checkpoint().endswith("ckpt_a.pt")
     st, path = trainer.restore_latest(state)
     assert st.step == 3 and path.endswith("ckpt_a.pt")
+
+
+def test_fit_profile_steps_writes_a_trace(root, tmp_path):
+    """fit(profile_steps=1) traces step 6 (from step 5) with
+    torch.profiler into <run_dir>/profile."""
+    cfg = _cfg(experiment_preset, root, tmp_path)
+    trainer = Trainer(cfg, dtype=torch.float32, device="cpu")
+    assert trainer.fit(max_steps=6, profile_steps=1).step == 6
+    with open(os.path.join(trainer.run_dir, "profile", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+    trainer.close()
+
+
+def test_wandb_sink_needs_wandb():
+    try:
+        import wandb  # noqa: F401
+    except ImportError:
+        with pytest.raises(ImportError):
+            MetricLogger.wandb_sink("p")
+    else:
+        assert callable(MetricLogger.wandb_sink)
 
 
 def test_metric_logger_sinks(tmp_path):
