@@ -20,8 +20,9 @@ or a shape less.
    each kernel of a stage alone at the same four shapes (the attention
    half `block_attention`, window and grid, the per-token half
    `block_mlp` and the ConvLSTM update `lstm_update`, each also at
-   B = 1, where their plans of windows, heads, row tiles and clusters
-   differ, with the plan the launch took), and the NMS keep mask at
+   B = 6 (the cycle's pseudo-label batch) and B = 1, where their plans
+   of windows, heads, row tiles and clusters differ, with the plan the
+   launch took), and the NMS keep mask at
    K = 1000, exact, on random boxes and on staircases (box i suppresses
    only i + 1, so kept and suppressed boxes alternate across every
    32-box word), with the build's and the sweep's device time on each.
@@ -174,7 +175,8 @@ switched off for the fp32 products of the plain ConvLSTM update.
    its synthetic split (6 train and 4 val sequences of 64 reprs, labels
    every 2 from repr 11, the label files on disk and the frames in
    memory), CLI_TEACHER_STEPS = 4 WSOD teacher steps at ratio 0.25 with
-   gradflow on and a panel every CLI_VIZ_EVERY = 2 steps, the teacher's
+   gradflow on and a panel every CLI_VIZ_EVERY = 2 steps (set by wrapping
+   `cli.train.build_config`: no CLI flag sets them), the teacher's
    `cli.val`, 2 `cli.predict` shards with h-flip TTA, `cli.val_dst
    --verify`, CLI_STUDENT_STEPS = 2 soft-student steps and the student's
    `cli.val`. Fails unless every stage finished and wrote its outputs
@@ -184,6 +186,14 @@ switched off for the fp32 products of the plain ConvLSTM update.
    postprocessed at steps 2 and 4 of the teacher and 2 of the student
    (and its PNG written where cv2 imports), and every block and
    ConvLSTM kernel launched a whole number of L-step windows' worth.
+   Then the kernels at the cycle's own shapes: predict shard 0 runs
+   again through the plain versions (`PseudoLabelRunner(plain=True)`),
+   and its preds (6 slots x L frames a batch) must agree with the
+   kernel run's batch by batch, box and score columns each within
+   2^-4 * max|plain|; the NMS keep mask must be exact on every batch of
+   the kernel run (6 x L images, K = 1000 at conf 0) and on each panel's
+   image (at the panel's confidence and at conf 0). These comparisons'
+   launches are made after the counts are read.
    (b) `cli.val --tta` of the student: finite AP, the kernels launched.
    (c) `cli.train --torch-weight` from a reference-layout Lightning
    checkpoint (`reference_state_dict` of a seed-7 model): after one
@@ -215,6 +225,10 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 B = 8                       # serving slots
+# the batches each kernel of a stage is held at alone: the serving slots,
+# the cycle's pseudo-label batch (3 sequences doubled by h-flip, phase 8)
+# and one stream; their plans differ
+KERNEL_BATCHES = (B, 6, 1)
 PEAK_BF16 = 989e12          # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12           # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bytes/s
@@ -641,12 +655,12 @@ def phase_kernels(det):
 
         o = torch.randn((n_tok, dim), device="cuda", generator=g
                         ).to(torch.bfloat16)
-        # each half alone at B and at B = 1, whose plans differ: the
-        # attention half, window block (LN1 skipped, as in a stage's
+        # each half alone at each of KERNEL_BATCHES, whose plans differ:
+        # the attention half, window block (LN1 skipped, as in a stage's
         # first pair) and grid block, on the NHWC map; the per-token half
         # on x and an attention output o as rows. "plan" is what the
         # launch took: (windows a CTA, CTAs a cluster), CTAs a row tile.
-        for bsz in (B, 1):
+        for bsz in KERNEL_BATCHES:
             xb = x[:bsz]
             for blk, grid_kind in ((wb, False), (gb, True)):
                 part, rev = ((lay.grid_partition, lay.grid_reverse)
@@ -675,11 +689,11 @@ def phase_kernels(det):
             r["plan"] = mc.block_mlp.plan
             rows["block_mlp"].append(r)
 
-        # the ConvLSTM update alone, from warm (h, c), at B and at B = 1,
-        # whose plans differ: "plan" is (rows a tile, channels a tile,
-        # CTAs a cluster splitting K)
+        # the ConvLSTM update alone, from warm (h, c), at each of
+        # KERNEL_BATCHES, whose plans differ: "plan" is (rows a tile,
+        # channels a tile, CTAs a cluster splitting K)
         gates = stage.lstm.gates
-        for bsz in (B, 1):
+        for bsz in KERNEL_BATCHES:
             xb, hb, cb = x[:bsz], hs[:bsz], cs[:bsz]
             r = row(lambda xb=xb, hb=hb, cb=cb: mc.lstm_update(xb, hb, cb,
                                                                gates),
@@ -1668,10 +1682,10 @@ def _parity(kern, plain, what):
     return rows
 
 
-def _nms_exact(kern, cfg, what):
+def _nms_exact(kern, cfg, what, conf: float = 0.0):
     """The NMS keep mask of the kernel on the kernel run's preds (every
-    image of a batch, K = pre_nms_topk candidates at conf 0) against the
-    plain one; the last batch's NMS timed."""
+    image of a batch, K = pre_nms_topk candidates at confidence `conf`)
+    against the plain one; the last batch's NMS timed."""
     from leod_tpu_torch.ops import nms_cuda
     from leod_tpu_torch.ops.nms import nms_candidates
     from leod_tpu_torch.ops.nms import nms_mask as nms_plain
@@ -1679,7 +1693,7 @@ def _nms_exact(kern, cfg, what):
     thr = pp.nms_threshold
     mismatches = kept = 0
     for pk, _ in kern:
-        bx, va, ids, _, _ = nms_candidates(pk, n_cls, 0.0, pp.pre_nms_topk)
+        bx, va, ids, _, _ = nms_candidates(pk, n_cls, conf, pp.pre_nms_topk)
         keep_k = nms_cuda.nms_mask(bx, thr, va, ids)
         keep_p = nms_plain(bx, thr, va, ids)
         mismatches += int((keep_k != keep_p).sum())
@@ -2112,14 +2126,16 @@ def phase_cli():
     RVT-B Gen1 full width and depth (B 8, L 21): the self-training cycle
     driver at a short schedule, then `cli.val --tta` and `cli.train
     --torch-weight`. Returns its report and its launches."""
+    from dataclasses import replace
     import numpy as np
     import torch
-    from leod_tpu_torch.cli import selftrain_cycle, train, val
+    from leod_tpu_torch.cli import predict, selftrain_cycle, train, val
     from leod_tpu_torch.config import experiment_preset
     from leod_tpu_torch.convert import jax_paths
     from leod_tpu_torch.data.synthetic import render_dataset_frames
     from leod_tpu_torch.models.detector import Detector
     from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
+    from leod_tpu_torch.selftrain.runner import PseudoLabelRunner
     from leod_tpu_torch.train.trainer import Trainer
 
     wrappers = maxvit_cuda.WRAPPERS + nms_cuda.WRAPPERS
@@ -2131,24 +2147,47 @@ def phase_cli():
     L = cfg.dataset.sequence_length
     t_phase = time.perf_counter()
 
-    # the panels fit writes: each call's run and step
-    panels = []
+    # both train stages with a panel every CLI_VIZ_EVERY steps and
+    # gradflow on, which no flag of the CLIs sets
+    orig_build = train.build_config
+
+    def build_config(args, path):
+        cfg = orig_build(args, path)
+        return replace(cfg, training=replace(
+            cfg.training, viz_every_steps=CLI_VIZ_EVERY, gradflow=True))
+
+    # the panels fit writes: each call's run and step, and the train
+    # step's preds row that its postprocess takes
+    panels, panel_rows = [], []
     orig_panel = Trainer._write_viz_panel
 
     def record_panel(self, step, viz, preds):
         panels.append((self.cfg.exp_name, step, tuple(preds.shape)))
+        panel_rows.append((self.cfg, preds[viz["row"]][None].float()))
         return orig_panel(self, step, viz, preds)
 
+    # the runners the predict stage builds: their arguments, and each
+    # shard's preds a batch
+    runners, shard_preds = [], {}
+
+    def recording_runner(*args, **kw):
+        runners.append((args, kw))
+        return PseudoLabelRunner(*args, on_batch=_preds_hook(
+            shard_preds.setdefault(kw["shard_index"], [])), **kw)
+
+    train.build_config = build_config
     Trainer._write_viz_panel = record_panel
+    predict.PseudoLabelRunner = recording_runner
     _zero(wrappers)
     try:
         out = selftrain_cycle.main([
             work, "--size", "base", "--steps-teacher", str(CLI_TEACHER_STEPS),
             "--steps-student", str(CLI_STUDENT_STEPS), "--batch", str(B),
-            "--seq-len", str(L), "--gradflow", "--viz-every",
-            str(CLI_VIZ_EVERY)])
+            "--seq-len", str(L)])
     finally:
+        train.build_config = orig_build
         Trainer._write_viz_panel = orig_panel
+        predict.PseudoLabelRunner = PseudoLabelRunner
     torch.cuda.synchronize()
     cycle_s = time.perf_counter() - t_phase
     launches_cycle = _count(wrappers)
@@ -2201,13 +2240,43 @@ def phase_cli():
     if not consistent or steps == 0 or steps % L:
         fail(f"the cycle's launches {launches_cycle} are not a whole "
              f"number of L = {L} backbone steps")
+    # the predict stage's kernels against their plain versions at its
+    # shapes (B 6 slots under h-flip, NMS over 6 x L images): shard 0
+    # again through the plain versions, its preds held as phase 7 holds
+    # them, and the NMS keep mask exact on every batch of the kernel
+    # run; each panel's NMS (one image) exact at the panel's confidence
+    # and at 0 (all K candidates)
+    if not runners:
+        fail("the predict stage built no pseudo-label runner")
+    args, kw = runners[0]
+    plain = []
+    PseudoLabelRunner(*args[:3], os.path.join(root, "pseudo_plain"),
+                      plain=True, on_batch=_preds_hook(plain), **kw).run()
+    kern = shard_preds.get(0, [])
+    if kw["shard_index"] != 0 or not kern or \
+            kern[0][0].shape[0] != 2 * 3 * L:
+        fail(f"predict shard 0: {len(kern)} batches of "
+             f"{[tuple(p.shape) for p, _ in kern[:1]]}, not 6 slots x {L}")
+    predict_parity = _parity(kern, plain, "cli.predict shard 0")
+    predict_nms = _nms_exact(kern, args[1], "cli.predict shard 0")
+    panel_nms = []
+    for pcfg, row in panel_rows:
+        for conf in (pcfg.model.postprocess.confidence_threshold, 0.0):
+            r = _nms_exact([(row, 0)], pcfg, "a panel's postprocess", conf)
+            panel_nms.append({"conf": conf, "kept": r["kept"]})
+    del kern, plain
+    shard_preds.clear()
+    panel_rows.clear()
     report = {"cycle_s": cycle_s, "stage_s": out["seconds"],
               "teacher_eval": out["teacher_eval"],
               "student_eval": out["student_eval"],
               "pseudo_score": out["pseudo_score"],
               "gradflow_keys": len(got_flow), "panels": panels,
               "panel_pngs": pngs, "cv2": have_cv2,
-              "backbone_steps": steps, "launches_cycle": launches_cycle}
+              "backbone_steps": steps, "launches_cycle": launches_cycle,
+              "predict_batches": len(predict_parity),
+              "predict_parity": predict_parity, "predict_nms": predict_nms,
+              "panel_nms": panel_nms}
 
     # val --tta on the cycle's split, with the student
     frames = render_dataset_frames(data, num_train=6, num_val=4, num_test=0,

@@ -25,7 +25,7 @@ Stages, each through a CLI's `main` in this one process:
 skipped, and an interrupted train stage continues from its newest
 checkpoint (`--auto-resume`). Each stage's wall seconds go to
 stage_seconds.json. `--cpu` and `--fp32` pass on to every stage that
-runs the model, `--gradflow` and `--viz-every N` to both train stages.
+runs the model.
 """
 from __future__ import annotations
 
@@ -67,8 +67,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     ap.add_argument("--fp32", action="store_true",
                     help="compute in fp32 (bf16 is slow on the CPU)")
-    ap.add_argument("--gradflow", action="store_true")
-    ap.add_argument("--viz-every", type=int, default=None)
     return ap
 
 
@@ -90,10 +88,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     cpu = (["--cpu"] if args.cpu else []) + (["--fp32"] if args.fp32 else [])
     shape = ["--batch-size", str(args.batch), "--seq-len", str(args.seq_len)]
     train_extra = (["--ckpt-every-min", str(args.ckpt_min), "--auto-resume",
-                    "--save-dir", runs, "--val-every", "0"] + cpu
-                   + (["--gradflow"] if args.gradflow else [])
-                   + (["--viz-every", str(args.viz_every)]
-                      if args.viz_every is not None else []))
+                    "--save-dir", runs, "--val-every", "0"] + cpu)
     teacher_ckpt = os.path.join(runs, "teacher", "ckpt_last")
     student_ckpt = os.path.join(runs, "student", "ckpt_last")
     secs_path = os.path.join(work, "stage_seconds.json")

@@ -4,9 +4,8 @@
     python -m leod_tpu_torch.cli.train --synthetic --size tiny --steps 50 --cpu
 
 Every flag of the JAX CLI maps to the same `ExperimentConfig`; `--mesh`
-raises (multi-device, ROADMAP.md A.5). `--viz-every N` is the port's
-own: it sets `training.viz_every_steps` (pred-vs-GT panels into
-<run_dir>/viz/), which the JAX CLI leaves at the preset's value.
+raises (multi-device, ROADMAP.md A.5). Pred-vs-GT panels go into
+<run_dir>/viz/ every `training.viz_every_steps` (the preset's 5000).
 Checkpoints are the port's `ckpt_<name>.pt` files (`--checkpoint` and
 `--weight` take `runs/<exp>/ckpt_last` or the file itself); an orbax
 directory raises. `--torch-weight` takes a reference LEOD/RVT PyTorch
@@ -95,9 +94,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gradflow", action="store_true",
                     help="log every parameter's mean |grad| at each log "
                          "step")
-    ap.add_argument("--viz-every", type=int, default=None,
-                    help="pred-vs-GT panel every N steps (the port's own "
-                         "flag: training.viz_every_steps)")
     return ap
 
 
@@ -138,8 +134,6 @@ def build_config(args, path: Optional[str]) -> ExperimentConfig:
         tr = dataclasses.replace(tr, ckpt_every_min=args.ckpt_every_min)
     if args.gradflow:
         tr = dataclasses.replace(tr, gradflow=True)
-    if args.viz_every is not None:
-        tr = dataclasses.replace(tr, viz_every_steps=args.viz_every)
     if args.max_det_frames is not None:
         tr = dataclasses.replace(tr, max_det_frames=args.max_det_frames)
     elif args.soft and cfg.model.use_label_every <= 1:

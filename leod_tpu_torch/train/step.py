@@ -119,6 +119,8 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
         paths = jax_paths(det)
         flow = [("gradflow/" + ".".join(paths[n][1]), p)
                 for n, p in det.named_parameters() if p.requires_grad]
+        flow_numel = torch.tensor([float(p.numel()) for _, p in flow],
+                                  device=det.device)
 
     def timestep(x_t, states):
         feats, new_states = det.forward_backbone_modules(x_t, states)
@@ -155,8 +157,12 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
             for mod, params in groups.items():
                 metrics[f"grad_norm/{mod}"] = _global_norm(
                     [p.grad for p in params])
-            for key, p in flow:
-                metrics[key] = p.grad.abs().mean()
+            if flow:
+                # sum |grad| of every tensor in a few multi-tensor
+                # launches, over its size: the mean |grad|
+                l1 = torch._foreach_norm([p.grad for _, p in flow], 1)
+                metrics.update(zip((k for k, _ in flow),
+                                   (torch.stack(l1) / flow_numel).unbind()))
             if with_preds:
                 out = out.detach()
                 metrics["preds"] = torch.cat(

@@ -291,6 +291,16 @@ def test_reference_checkpoint_leftovers_and_mismatch_raise(reference,
 CYCLE = dict(num_train=6, num_reprs=16, seq_len=4, batch=2)
 
 
+def with_panels_and_gradflow(build_config, viz_every: int):
+    """`cli.train.build_config` that also sets a panel every `viz_every`
+    steps and gradflow on, which no flag of the CLIs does."""
+    def build(args, path):
+        cfg = build_config(args, path)
+        return replace(cfg, training=replace(
+            cfg.training, viz_every_steps=viz_every, gradflow=True))
+    return build
+
+
 @pytest.fixture(scope="module")
 def cycle(tmp_path_factory):
     work = str(tmp_path_factory.mktemp("cycle") / "work")
@@ -298,9 +308,12 @@ def cycle(tmp_path_factory):
             "--steps-teacher", "2", "--steps-student", "2",
             "--seq-len", str(CYCLE["seq_len"]),
             "--num-reprs", str(CYCLE["num_reprs"]),
-            "--batch", str(CYCLE["batch"]),
-            "--gradflow", "--viz-every", "2"]
-    return work, argv, tcycle.main(argv)
+            "--batch", str(CYCLE["batch"])]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ttrain, "build_config",
+                   with_panels_and_gradflow(ttrain.build_config, 2))
+        out = tcycle.main(argv)
+    return work, argv, out
 
 
 def test_cycle_writes_every_stage(cycle):
