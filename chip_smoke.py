@@ -4,7 +4,9 @@
     python3 chip_smoke.py          # from the repository root, one card
 
 1. Build: every CUDA source under leod_tpu_torch/csrc/ is compiled with
-   nvcc for sm_90a, one nvcc per source, all started together.
+   nvcc for sm_90a, one nvcc per source, all started together, and the
+   C++ host library (leod_tpu_torch/native/host_ops.cpp) with g++ beside
+   them; a build that fails fails the run.
 
 Phases 2-4 run for two paths in turn, each a seeded model at full width
 and depth: RVT-B Gen1 (`experiment_preset("gen1", "base")`: stages
@@ -201,14 +203,50 @@ switched off for the fp32 products of the plain ConvLSTM update.
    model's, and further from a seed-0 model's. Reports each stage's
    seconds, the AP, the pseudo score, the panels and the launches.
 
+9. Deploy phase, after phase 8, at RVT-B Gen1, B 8, bf16: the path that
+   deploys the system. (a) DEPLOY_RECS = 4 raw `.dat` recordings of
+   DEPLOY_SECONDS = 2 s of seeded events at 240 x 304, 0.5-1 M events/s,
+   with `_bbox.npy` labels, written by the port's `write_dat`, are
+   imported by `cli.import_raw` into a frame store on the card (the
+   voxelizer's `index_add_`) and again with `--cpu`: every window's
+   histogram must be equal; events/s and ms a window. (b) The C++ host
+   library (built with g++ in phase 1, which fails if it does not load):
+   the TTA merge's class-aware NMS on 80 seeded frames of 1200 pooled
+   rows (phase 7c's size) and the COCO matcher on 80 seeded images,
+   native against numpy, index for index and exactly, both timed; phase
+   7c's `evaluate()` ms (now with the native library) beside them. (c)
+   `cli.export --ckpt` of a seed-0 checkpoint (LayerScale from seed 0)
+   at conf 0: the artifact loaded (`load_artifact_exported`,
+   `program_module`) and run for DEPLOY_STEPS = 10 steps of (a)'s frames
+   (8 slots: recording i % 4 from window 20 (i // 4); all reset at step
+   0; at step 5 slots 2 and 6 reset and slots 3 and 7 idle) from
+   `zero_states_like`, against the live `make_serve_step` of the same
+   checkpoint: dets and states within rtol 1e-5, atol 1e-6 (the JAX
+   package's export round trip), valid exactly, and each artifact step
+   launching the live step's `block_attention`, `block_mlp`,
+   `lstm_update` and `nms_mask` count; export s, load s, the `.pt2`'s MB.
+   (d) `cli.serve.make_server` over the artifact on an ephemeral port of
+   127.0.0.1: 16 client streams of (a)'s frames over the 8 slots from a
+   thread each (6 streams x 3 requests, then all 16 x 2, so that slots
+   are evicted, then the 6 x 2 again); every answer must equal, to the
+   4-decimal rounding, a replay of its stream alone through the step in
+   the slot and with the resets the engine gave it; the server's steps
+   must launch each op's count a step; request latency p50/p99 (the
+   engine's and the client's), steps.
+
 Prints the kernels' JSON line (each kernel wrapper of each path: its
 RVT-B entry under its own name, its RVT-S entry as "<name>[RVT-S]";
 an RVT-B entry's launches are the slice phase's, the eval phase's, the
-train phase's validation's, the self-training phase's and the CLI
-phase's),
+train phase's validation's, the self-training phase's, the CLI
+phase's and the deploy phase's artifact and server steps'),
 the card's name and power limit, and the result JSON as the last line.
 Any failure exits non-zero; so does a machine without a CUDA device, or
 a directory without the package.
+
+    python3 chip_smoke.py --serve-timing ROOT
+
+times only the live RVT-B serve step of the package under ROOT (see
+`serve_timing`), for an A/B of two trees in one call.
 """
 from __future__ import annotations
 
@@ -289,6 +327,27 @@ CLI_TEACHER_STEPS = 4
 CLI_STUDENT_STEPS = 2
 CLI_VIZ_EVERY = 2
 CLI_TORCH_WEIGHT_TOL = 1e-3
+# the deploy phase (9): DEPLOY_RECS raw recordings of DEPLOY_SECONDS at
+# a Gen1 sensor's 240 x 304 and DEPLOY_RATE events/s (uniform in the
+# range, a recording each), made from DEPLOY_SEED; the exported artifact
+# and the live step over DEPLOY_STEPS steps, held to the JAX package's
+# export round-trip tolerance (tests/test_serve.py:126-129); then
+# DEPLOY_STREAMS HTTP client streams over the B slots
+DEPLOY_SEED = 0
+DEPLOY_RECS = 4
+DEPLOY_SECONDS = 2.0
+DEPLOY_RATE = (0.5e6, 1.0e6)
+DEPLOY_STEPS = 10
+DEPLOY_RTOL, DEPLOY_ATOL = 1e-5, 1e-6
+DEPLOY_STREAMS = 16
+# HTTP boxes are rounded to 4 decimals: a replayed box may sit one
+# rounding step away
+DEPLOY_HTTP_ATOL = 1e-4
+# seeded TTA-merge inputs of phase 7c's size: 80 labelled frames, 4
+# views of 300 dets each
+MERGE_FRAMES, MERGE_ROWS = 80, 4 * 300
+# `--serve-timing`: host-clock runs of the live serve step a batch size
+SERVE_TIMING_REPS = 50
 
 # One warp runs n dependent steps of the NMS sweep's chain, `sweep_tile`
 # of csrc/nms.cu (row tile i mod 32; each step takes the keep word the
@@ -557,6 +616,7 @@ def stage_work(pairs, gates, x, c_state):
 def phase_build() -> str:
     """Build the port's sources and, beside them, the sweep-chain probe;
     returns the probe's library."""
+    from leod_tpu_torch import native
     from leod_tpu_torch.ops import _build
     t0 = time.perf_counter()
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
@@ -569,8 +629,15 @@ def phase_build() -> str:
          "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-I", _build.CSRC, "-o", probe_lib, probe],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # the C++ host library builds with g++ beside the nvcc builds
+    host = {}
+    gxx = threading.Thread(target=lambda: host.update(lib=native.get_lib()))
+    gxx.start()
     paths = _build.build_all()
     probe_log = nvcc.communicate(timeout=300)[0]
+    gxx.join()
+    if host["lib"] is None:
+        fail("the C++ host library (leod_tpu_torch/native) did not build")
     if nvcc.returncode != 0:
         fail(f"nvcc failed for the sweep-chain probe:\n{probe_log}")
     dt = time.perf_counter() - t0
@@ -2044,7 +2111,7 @@ def phase_selftrain(checkpoint: str):
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     return {"phase_s": time.perf_counter() - t_phase,
-            "launches": total}
+            "tta_evaluate_ms": report_c["evaluate_ms"], "launches": total}
 
 
 # ---------------------------------------------------------------------------
@@ -2334,6 +2401,407 @@ def phase_cli():
 
 # (tag, experiment_preset size, whether it runs the variant and the eval
 # phases) of the paths driven, in order
+
+
+# ---------------------------------------------------------------------------
+# Deploy phase
+# ---------------------------------------------------------------------------
+
+DEPLOY_OPS = ("block_attention", "block_mlp", "lstm_update", "nms_mask")
+
+
+def write_recordings(raw_dir: str, seed: int):
+    """DEPLOY_RECS .dat recordings of seeded events at 240 x 304 with the
+    Gen1 release's `_bbox.npy` labels (a box of class 0 or 1 every
+    100 ms); returns the events a recording."""
+    import numpy as np
+    from leod_tpu_torch.data.psee import EVENT_DTYPE, write_dat
+    rng = np.random.default_rng(seed)
+    os.makedirs(raw_dir, exist_ok=True)
+    span = int(DEPLOY_SECONDS * 1e6)
+    counts = []
+    for i in range(DEPLOY_RECS):
+        n = int(rng.uniform(*DEPLOY_RATE) * DEPLOY_SECONDS)
+        ev = np.empty(n, dtype=EVENT_DTYPE)
+        ev["t"] = np.sort(rng.integers(0, span, n)).astype(np.uint32)
+        ev["x"] = rng.integers(0, 304, n)
+        ev["y"] = rng.integers(0, 240, n)
+        ev["p"] = rng.integers(0, 2, n)
+        write_dat(os.path.join(raw_dir, f"rec_{i:03d}.dat"), ev, height=240,
+                  width=304)
+        k = span // 100_000 - 1
+        boxes = np.zeros(k, dtype=[("t", "<i8"), ("x", "<f4"), ("y", "<f4"),
+                                   ("w", "<f4"), ("h", "<f4"),
+                                   ("class_id", "<u4"),
+                                   ("class_confidence", "<f4")])
+        boxes["t"] = 100_000 * np.arange(1, k + 1)
+        boxes["x"], boxes["y"] = (rng.uniform(0, 200, k) for _ in range(2))
+        boxes["w"], boxes["h"] = (rng.uniform(10, 90, k) for _ in range(2))
+        boxes["class_id"] = rng.integers(0, 2, k)
+        boxes["class_confidence"] = 1.0
+        np.save(os.path.join(raw_dir, f"rec_{i:03d}_bbox.npy"), boxes)
+        counts.append(n)
+    return counts
+
+
+def serve_frame(chw, cfg):
+    """A [2*bins, H, W] histogram as the serve step's input: NHWC, padded
+    at the bottom and right to the model's input and folded for the
+    stem (`harvest_frames`' layout)."""
+    import numpy as np
+    from leod_tpu_torch.config import stem_fold_hw
+    from leod_tpu_torch.models.layers import fold_ev_hw
+    h, w = cfg.model.backbone.in_res_hw
+    hwc = np.zeros((h, w, chw.shape[0]), np.uint8)
+    hwc[:chw.shape[1], :chw.shape[2]] = chw.transpose(1, 2, 0)
+    assert stem_fold_hw(cfg.model) == (4, 4)
+    return fold_ev_hw(hwc)
+
+
+def _merge_inputs(rng):
+    """MERGE_FRAMES frames of MERGE_ROWS pooled (x0, y0, x1, y1, obj,
+    cls_conf, cls_id) rows: 4 views' jittered copies of 300 boxes, so
+    that most rows overlap another."""
+    import numpy as np
+    out = []
+    for _ in range(MERGE_FRAMES):
+        xy = rng.uniform(0, 280, (300, 2))
+        wh = rng.uniform(4, 80, (300, 2))
+        base = np.concatenate([xy, xy + wh], 1)
+        rows = np.concatenate([base + rng.normal(0, 3, base.shape)
+                               for _ in range(MERGE_ROWS // 300)])
+        out.append(np.concatenate(
+            [rows, rng.uniform(0, 1, (MERGE_ROWS, 2)),
+             rng.integers(0, 2, (MERGE_ROWS, 1))], 1).astype(np.float32))
+    return out
+
+
+def _coco_cases(rng, n: int):
+    import numpy as np
+    cases = []
+    for _ in range(n):
+        g, d = int(rng.integers(1, 20)), int(rng.integers(1, 100))
+        gt = np.abs(rng.normal(30, 40, (g, 4))) + 1
+        gt[:, :2] = rng.uniform(0, 250, (g, 2))
+        dt = np.abs(gt[rng.integers(0, g, d)] + rng.normal(0, 6, (d, 4)))
+        dt[:, 2:] += 1
+        cases.append((gt, rng.uniform(size=g) < 0.2, dt,
+                      rng.uniform(0, 1, d)))
+    return cases
+
+
+def phase_host_ops():
+    """(b): the C++ host library, held index for index (NMS) and exactly
+    (the COCO matcher) against the numpy versions, both timed."""
+    import numpy as np
+    from leod_tpu_torch import native
+    from leod_tpu_torch.eval.coco import _evaluate_image_all_areas
+    from leod_tpu_torch.ops.nms import batched_nms_numpy
+
+    if native.get_lib() is None:
+        fail("the C++ host library did not build or load")
+    rng = np.random.default_rng(DEPLOY_SEED)
+    frames_ = _merge_inputs(rng)
+    cases = _coco_cases(rng, MERGE_FRAMES)
+
+    def run():
+        t0 = time.perf_counter()
+        kept = [batched_nms_numpy(r[:, :4], r[:, 4] * r[:, 5], r[:, 6], 0.45)
+                for r in frames_]
+        t1 = time.perf_counter()
+        matched = [_evaluate_image_all_areas(*c, 100) for c in cases]
+        t2 = time.perf_counter()
+        return kept, matched, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    kept_n, matched_n, nms_ms, coco_ms = run()
+    lib = native._lib
+    native._lib = None                      # the numpy versions alone
+    try:
+        kept_p, matched_p, nms_ms_p, coco_ms_p = run()
+    finally:
+        native._lib = lib
+    for a, b in zip(kept_n, kept_p):
+        if not np.array_equal(a, b):
+            fail("the native NMS disagrees with the numpy NMS")
+    for a, b in zip(matched_n, matched_p):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            fail("the native COCO matcher disagrees with the numpy one")
+    return {"library": os.path.relpath(native.lib_path(), REPO),
+            "merge_frames": MERGE_FRAMES, "merge_rows": MERGE_ROWS,
+            "kept_mean": float(np.mean([len(k) for k in kept_n])),
+            "nms_ms": nms_ms, "nms_numpy_ms": nms_ms_p,
+            "coco_images": len(cases), "coco_ms": coco_ms,
+            "coco_numpy_ms": coco_ms_p}
+
+
+def phase_deploy(tta_evaluate_ms):
+    """Phase 9: the deployed path at RVT-B Gen1, B 8, bf16: (a) raw
+    recordings imported on the card, exactly as on the CPU; (b) the host
+    ops; (c) `cli.export` of a checkpoint, the artifact loaded and held
+    to the live step, its steps counted; (d) the HTTP server over the
+    artifact, every answer held to a replay of its stream through the
+    step. Returns its report and its launches (the artifact's steps and
+    the server's)."""
+    import base64
+    import urllib.request
+    import numpy as np
+    import torch
+    from leod_tpu_torch.cli import export as cli_export
+    from leod_tpu_torch.cli import import_raw as cli_import
+    from leod_tpu_torch.cli import serve as cli_serve
+    from leod_tpu_torch.cli._common import load_detector
+    from leod_tpu_torch.config import experiment_preset
+    from leod_tpu_torch.models.detector import Detector
+    from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
+    from leod_tpu_torch.serve import (ServingEngine, load_artifact_exported,
+                                      make_serve_step, program_module,
+                                      zero_states_like)
+
+    t_phase = time.perf_counter()
+    root = os.path.join(REPO, "runs", "chip_smoke_deploy")
+    shutil.rmtree(root, ignore_errors=True)
+    wrappers = maxvit_cuda.WRAPPERS + nms_cuda.WRAPPERS
+    cfg = experiment_preset("gen1", "base")
+    dev = torch.device("cuda")
+    report = {"config": "RVT-B gen1 (experiment_preset('gen1', 'base')), "
+                        f"B {B}, bf16"}
+
+    # (a) ingest on the card, and on the CPU for the reference
+    raw = os.path.join(root, "raw")
+    events = write_recordings(raw, DEPLOY_SEED)
+    argv = ["--raw-dir", raw, "--split", "train", "--height", "240",
+            "--width", "304"]
+    store, store_cpu = {}, {}
+    t0 = time.perf_counter()
+    cli_import.main(argv + ["--out", os.path.join(root, "ds")], frames=store)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli_import.main(argv + ["--out", os.path.join(root, "ds_cpu"), "--cpu"],
+                    frames=store_cpu)
+    cpu_s = time.perf_counter() - t0
+    if sorted(store) != sorted(store_cpu) or len(store) != DEPLOY_RECS:
+        fail(f"ingest: {sorted(store)} on the card, {sorted(store_cpu)} on "
+             f"the CPU")
+    windows = 0
+    for key, hist in store.items():
+        windows += len(hist)
+        if not np.array_equal(hist, store_cpu[key]):
+            bad = int((hist != store_cpu[key]).sum())
+            fail(f"ingest {key}: {bad} histogram counts differ from the "
+                 f"CPU's")
+        if hist.shape[1:] != (20, 240, 304) or not hist.any():
+            fail(f"ingest {key}: frames {hist.shape}, all zero "
+                 f"{not hist.any()}")
+    report["ingest"] = {
+        "recordings": DEPLOY_RECS, "events": int(sum(events)),
+        "windows": windows, "card_s": card_s, "cpu_s": cpu_s,
+        "events_per_s": sum(events) / card_s,
+        "ms_per_window": card_s * 1e3 / windows,
+        "cpu_events_per_s": sum(events) / cpu_s}
+    emit({"deploy_ingest": report["ingest"]})
+
+    # (b) the host ops
+    report["host_ops"] = {**phase_host_ops(),
+                          "tta_evaluate_ms_phase7": tta_evaluate_ms}
+    emit({"deploy_host_ops": report["host_ops"]})
+
+    # (c) export a checkpoint, load the artifact, hold it to the live step
+    det = Detector(cfg.model, device=dev, seed=0)
+    perturb_layerscale(det, seed=0)
+    ckpt = os.path.join(root, "ckpt_deploy.pt")
+    torch.save({"model": det.state_dict()}, ckpt)
+    del det
+    art = os.path.join(root, f"rvt_b_gen1_b{B}.pt2")
+    t0 = time.perf_counter()
+    cli_export.main(["--ckpt", ckpt, "--size", "base", "--batch-size",
+                     str(B), "--conf", "0.0", "--out", art])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exported, meta = load_artifact_exported(art)
+    step_fn = program_module(exported, dev)
+    load_s = time.perf_counter() - t0
+    live_det = load_detector(cfg.model, torch.bfloat16, dev, ckpt=ckpt)
+    live = make_serve_step(live_det, conf_threshold=0.0, device=dev)
+    keys = sorted(store)
+    seqs = {k: [serve_frame(f, cfg) for f in store[k]] for k in keys}
+
+    def batch_at(t):
+        # slot i: recording i % 4 from window (i // 4) * 20 + t
+        return torch.from_numpy(np.stack([
+            seqs[keys[i % len(keys)]][(i // len(keys)) * 20 + t]
+            for i in range(B)])).to(dev)
+
+    flags = []
+    for t in range(DEPLOY_STEPS):
+        reset = [t == 0 or (t == 5 and i % 4 == 2) for i in range(B)]
+        active = [not (t == 5 and i % 4 == 3) for i in range(B)]
+        flags.append((torch.tensor(reset, device=dev),
+                      torch.tensor(active, device=dev)))
+    st = live_det.init_states(B)
+    want = []
+    for t, (reset, active) in enumerate(flags):
+        st, d, v = live(st, batch_at(t), reset, active)
+        want.append((st, d, v))
+    torch.cuda.synchronize()
+    per_step = {k: v for k, v in launches_per_step(cfg).items()
+                if k in DEPLOY_OPS}
+    _zero(wrappers)
+    st = zero_states_like(exported, device=dev)
+    worst = 0.0
+    for t, (reset, active) in enumerate(flags):
+        before = _count(wrappers)
+        st, d, v = step_fn(st, batch_at(t), reset, active)
+        torch.cuda.synchronize()
+        delta = {k: _count(wrappers)[k] - before[k] for k in per_step}
+        if delta != per_step:
+            fail(f"artifact step {t} launched {delta}; the live step "
+                 f"launches {per_step}")
+        w_st, w_d, w_v = want[t]
+        if not torch.equal(v, w_v):
+            fail(f"artifact step {t}: valid differs from the live step's")
+        pairs = [(d, w_d)] + [(a, b) for sa, sb in zip(st, w_st)
+                              for a, b in zip(sa, sb)]
+        for a, b in pairs:
+            a, b = a.float(), b.float()
+            err = (a - b).abs() - DEPLOY_RTOL * b.abs()
+            worst = max(worst, float(err.max()))
+        if worst > DEPLOY_ATOL or not bool(d.isfinite().all()):
+            fail(f"artifact step {t}: |artifact - live| - rtol |live| = "
+                 f"{worst} > {DEPLOY_ATOL}")
+    if not bool(want[-1][2].any()):
+        fail("the live step kept no detection to compare")
+    artifact_launches = _count(wrappers)
+    report["export"] = {
+        "export_s": export_s, "load_s": load_s,
+        "artifact_mb": os.path.getsize(art) / 1e6,
+        "platforms": meta["platforms"], "steps": DEPLOY_STEPS,
+        "worst_excess_over_rtol": worst,
+        "dets_valid_last_step": int(want[-1][2].sum()),
+        "launches_a_step": per_step}
+    emit({"deploy_export": report["export"]})
+    del want, live, live_det
+
+    # (d) the HTTP server over the artifact: 16 client streams, 8 slots
+    record = []
+    engine_box = []
+
+    def recording_step(states, ev, reset, active):
+        # the worker thread alone assigns slots, and it is here
+        slots = {s: sid for sid, s in engine_box[0]._slots.items()}
+        record.append((slots, reset.cpu().numpy(), active.cpu().numpy()))
+        return step_fn(states, ev, reset, active)
+
+    engine = ServingEngine(recording_step,
+                           zero_states_like(exported, device=dev),
+                           meta["frame_shape"], device=dev)
+    engine_box.append(engine)
+    server = cli_serve.make_server(engine, meta, "127.0.0.1", 0)
+    srv = threading.Thread(target=server.serve_forever, daemon=True)
+    srv.start()
+    port = server.server_address[1]
+    streams = {f"s{i:02d}": seqs[keys[i % len(keys)]][(i // len(keys)) * 8:]
+               for i in range(DEPLOY_STREAMS)}
+    sent = {sid: 0 for sid in streams}
+    answers, client_ms, errors = [], [], []
+
+    def client(sid, n):
+        try:
+            for _ in range(n):
+                k = sent[sid]
+                sent[sid] += 1
+                body = json.dumps({"stream": sid, "frame_b64": base64.b64encode(
+                    streams[sid][k].tobytes()).decode()}).encode()
+                t0 = time.perf_counter()
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/v1/detect", data=body)
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    out = json.loads(r.read())
+                client_ms.append((time.perf_counter() - t0) * 1e3)
+                answers.append((sid, k, np.asarray(out["boxes"],
+                                                   np.float64).reshape(-1, 7)))
+        except Exception as e:  # reported below, fails the run
+            errors.append(f"{sid}: {e!r}")
+
+    def run_clients(specs):
+        ts = [threading.Thread(target=client, args=s) for s in specs]
+        for th in ts:
+            th.start()
+        for th in ts:
+            th.join(timeout=600)
+        if any(th.is_alive() for th in ts):
+            fail("a client thread did not finish")
+
+    ids = sorted(streams)
+    try:
+        run_clients([(sid, 3) for sid in ids[:6]])      # 6 resident streams
+        run_clients([(sid, 2) for sid in ids])          # 16: evictions
+        run_clients([(sid, 2) for sid in ids[:6]])      # back, some reset
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/health",
+                                    timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        server.shutdown()
+        engine.close()
+    launches = _count(wrappers)
+    if errors:
+        fail(f"requests failed: {errors}")
+    if health["steps"] != len(record) or health["slots"] != B:
+        fail(f"health {health}, {len(record)} steps recorded")
+    served = {k: launches[k] - artifact_launches[k] for k in per_step}
+    if served != {k: v * len(record) for k, v in per_step.items()}:
+        fail(f"the server's {len(record)} steps launched {served}")
+
+    # replay each stream alone through the step, in the slot and with the
+    # resets the engine gave it, and hold every answer to it
+    history = {sid: [] for sid in streams}
+    for slots, reset, active in record:
+        for slot in np.flatnonzero(active):
+            history[slots[int(slot)]].append((int(slot), bool(reset[slot])))
+    got = {(sid, k): a for sid, k, a in answers}
+    resets = sum(r for h in history.values() for _, r in h)
+    if len(got) != sum(sent.values()) or not 0 < resets < len(got):
+        fail(f"{len(got)} answers to {sum(sent.values())} requests, "
+             f"{resets} of them after a reset")
+    worst_http = 0.0
+    for sid, hist in history.items():
+        st = zero_states_like(exported, device=dev)
+        for k, (slot, was_reset) in enumerate(hist):
+            ev = np.zeros((B,) + tuple(meta["frame_shape"]), np.uint8)
+            ev[slot] = streams[sid][k]
+            one = torch.zeros(B, dtype=torch.bool, device=dev)
+            one[slot] = True
+            st, d, v = step_fn(st, torch.from_numpy(ev).to(dev),
+                               one & was_reset, one)
+            want_k = np.round(d[slot][v[slot]].cpu().numpy().astype(
+                np.float64), 4)
+            have = got[(sid, k)]
+            if have.shape != want_k.shape:
+                fail(f"stream {sid} request {k}: {len(have)} boxes, the "
+                     f"replay {len(want_k)}")
+            if len(have):
+                worst_http = max(worst_http,
+                                 float(np.abs(have - want_k).max()))
+    if worst_http > DEPLOY_HTTP_ATOL:
+        fail(f"HTTP answers differ from the replay by {worst_http}")
+    stats = {k: health[k] for k in ("steps", "streams", "slots",
+                                    "latency_ms_p50", "latency_ms_p95",
+                                    "latency_ms_p99", "latency_n")}
+    report["serve"] = {
+        "streams": DEPLOY_STREAMS, "requests": len(got),
+        "after_reset": resets, "worst_abs_diff": worst_http,
+        "engine": stats,
+        "client_ms_p50": float(np.percentile(client_ms, 50)),
+        "client_ms_p99": float(np.percentile(client_ms, 99)),
+        "boxes_mean": float(np.mean([len(a) for a in got.values()]))}
+    emit({"deploy_serve": report["serve"]})
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    report["launches"] = launches
+    return report
+
+
 PATHS = (("RVT-B", "base", True), ("RVT-S", "small", False))
 
 
@@ -2398,6 +2866,58 @@ def drive_path(tag: str, size: str, first: bool, probe_lib: str):
     return out
 
 
+def serve_timing(root: str) -> None:
+    """`--serve-timing ROOT`: the live serve step of RVT-B Gen1 (seed 0,
+    LayerScale from seed 0, conf 0) of the package under ROOT, by host
+    clock at B = 1 and B = 8 (median of SERVE_TIMING_REPS, each ending in
+    a synchronize) and its enqueue time (the host's share alone); where
+    the package has the custom ops, one op call's host time against the
+    launch it wraps, called directly. One JSON line; compare two trees
+    in one call, in the order A, B, B, A."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    import leod_tpu_torch
+    if not os.path.abspath(leod_tpu_torch.__file__).startswith(root):
+        fail(f"imported {leod_tpu_torch.__file__}, not the package under "
+             f"{root}")
+    from leod_tpu_torch.config import experiment_preset
+    from leod_tpu_torch.models.detector import Detector
+    from leod_tpu_torch.ops import _build, maxvit_cuda
+    from leod_tpu_torch.serve import make_serve_step, serve_input_shape
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    cfg = experiment_preset("gen1", "base")
+    det = Detector(cfg.model, device="cuda", seed=0)
+    perturb_layerscale(det, seed=0)
+    step = make_serve_step(det, conf_threshold=0.0)
+    rng = np.random.default_rng(0)
+    out = {"root": os.path.relpath(root, REPO),
+           "ops": hasattr(torch.ops.leod_tpu_torch, "block_attention")}
+    for bsz in (1, B):
+        st = det.init_states(bsz)
+        ev = torch.from_numpy(np.stack(frames(
+            rng, bsz, serve_input_shape(cfg, bsz)[1:]))).cuda()
+        on = torch.ones(bsz, dtype=torch.bool, device="cuda")
+        out[f"step_ms_b{bsz}"] = host_ms(lambda: step(st, ev, on, on),
+                                         reps=SERVE_TIMING_REPS)
+        out[f"enqueue_ms_b{bsz}"] = enqueue_us(
+            lambda: step(st, ev, on, on), reps=SERVE_TIMING_REPS) / 1e3
+    if out["ops"]:
+        blk = det.backbone.stage4.block0_grid
+        x = torch.randn(B, 8, 10, 512, device="cuda").bfloat16()
+        args = (x, *maxvit_cuda._norm1(blk), blk.attn.qkv.weight,
+                blk.attn.qkv.bias, 32, 8, 10, True, 1e-5, 0)
+        op = torch.ops.leod_tpu_torch.block_attention.default
+        out["op_call_us"] = enqueue_us(lambda: op(*args), reps=200)
+        out["direct_launch_us"] = enqueue_us(
+            lambda: maxvit_cuda._attention_cuda(*args), reps=200)
+    emit({"serve_timing": out})
+
+
 def main() -> int:
     try:
         import torch
@@ -2408,6 +2928,9 @@ def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "leod_tpu_torch", "csrc")):
         fail("leod_tpu_torch/ is not beside this script; run it from the "
              "repository root")
+    if sys.argv[1:2] == ["--serve-timing"] and len(sys.argv) == 3:
+        serve_timing(sys.argv[2])
+        return 0
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2426,15 +2949,19 @@ def main() -> int:
     emit({"selftrain": selftrain})
     cli = phase_cli()
     emit({"cli": cli})
+    deploy = phase_deploy(selftrain["tta_evaluate_ms"])
+    emit({"deploy": deploy})
     # the first path's kernels also ran in the train phase's validation,
-    # in the self-training phase and in the CLI phase
+    # in the self-training phase, in the CLI phase and in the deploy
+    # phase (the artifact's and the server's steps)
     for e in kernels:
         if e["config"].startswith("RVT-B"):
             e["launches_train"] = train["launches"][e["name"]]
             e["launches_selftrain"] = selftrain["launches"][e["name"]]
             e["launches_cli"] = cli["launches"][e["name"]]
+            e["launches_deploy"] = deploy["launches"][e["name"]]
             e["launches"] += (e["launches_train"] + e["launches_selftrain"]
-                              + e["launches_cli"])
+                              + e["launches_cli"] + e["launches_deploy"])
     emit({"kernels": kernels})
     bad = [k["name"] for k in kernels if not k["ok"]]
     if bad:

@@ -1,6 +1,6 @@
-"""COCO-style detection AP in pure numpy (a copy of `leod_tpu/eval/coco.py`
-without its call into the C++ matcher of `leod_tpu/native/`: the port
-matches in numpy, which the JAX package falls back to as well).
+"""COCO-style detection AP in numpy (a copy of `leod_tpu/eval/coco.py`):
+the per-image matching runs in the C++ of `native/host_ops.cpp` where the
+host library builds, and else in numpy with the same results.
 
 Drop-in replacement for the pycocotools/COCOeval_opt dependency
 (reference: utils/evaluation/prophesee/metrics/coco_eval.py:16-29) since
@@ -73,6 +73,14 @@ def _evaluate_image_all_areas(gt_boxes: np.ndarray, gt_ignore: np.ndarray,
                  | (gt_area[None, :] > areas[:, 1:]))
         return (np.zeros((A, T, 0), bool), np.zeros((A, T, 0), bool),
                 (~gt_ig).sum(axis=1).astype(np.int64), dt_scores)
+
+    if D and G:
+        from ..native import coco_eval_image
+        native = coco_eval_image(dt_boxes, gt_boxes, gt_ignore, IOU_THRS,
+                                 areas)
+        if native is not None:
+            dtm, dt_ig, npig = native
+            return dtm, dt_ig, npig, dt_scores
 
     ious = _iou_xywh(dt_boxes, gt_boxes)
     gt_area = gt_boxes[:, 2] * gt_boxes[:, 3] if G else np.zeros(0)

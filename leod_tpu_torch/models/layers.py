@@ -80,6 +80,20 @@ def grid_reverse(x: torch.Tensor, gh: int, gw: int, h: int,
     return x.permute(0, 3, 1, 4, 2, 5).reshape(-1, h, w, c)
 
 
+def attention_core(x: torch.Tensor, qkv_weight: torch.Tensor,
+                   qkv_bias: Optional[torch.Tensor],
+                   dim_head: int) -> torch.Tensor:
+    """Multi-head attention before the output projection on tokens
+    [N, T, C], the qkv projection packed head-major (`SelfAttention`)."""
+    n, t, c = x.shape
+    heads = c // dim_head
+    qkv = F.linear(x, qkv_weight, qkv_bias).reshape(n, t, heads, 3 * dim_head)
+    q, k, v = (u.transpose(1, 2) for u in qkv.split(dim_head, -1))
+    attn = (q @ k.transpose(-1, -2)) * dim_head ** -0.5
+    attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)
+    return (attn @ v).transpose(1, 2).reshape(n, t, c)
+
+
 class SelfAttention(nn.Module):
     """MHSA on token sequences [N, T, C]. The qkv projection is packed
     head-major: channel = head*3*dh + {q, k, v}*dh (layers.py:106-108),
@@ -93,13 +107,8 @@ class SelfAttention(nn.Module):
 
     def core(self, x: torch.Tensor) -> torch.Tensor:
         """Attention before the output projection: [N, T, C] -> [N, T, C]."""
-        n, t, _ = x.shape
-        heads = self.dim // self.dim_head
-        qkv = self.qkv(x).reshape(n, t, heads, 3 * self.dim_head)
-        q, k, v = (u.transpose(1, 2) for u in qkv.split(self.dim_head, -1))
-        attn = (q @ k.transpose(-1, -2)) * self.dim_head ** -0.5
-        attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)
-        return (attn @ v).transpose(1, 2).reshape(n, t, self.dim)
+        return attention_core(x, self.qkv.weight, self.qkv.bias,
+                              self.dim_head)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj(self.core(x))
@@ -110,6 +119,21 @@ def mlp_inner_dim(dim: int, expansion_ratio: int, gated: bool) -> int:
         # param-count-preserving inner dim (layers.py:147)
         return int(dim * expansion_ratio * 2 / 3 / 32) * 32
     return dim * expansion_ratio
+
+
+def mlp_apply(x: torch.Tensor, in_weight: torch.Tensor,
+              in_bias: Optional[torch.Tensor], out_weight: torch.Tensor,
+              out_bias: Optional[torch.Tensor], act: str,
+              gated: bool) -> torch.Tensor:
+    """The FFN of `MLP` on [..., C], from its weights."""
+    fn = get_act(act)
+    h = F.linear(x, in_weight, in_bias)
+    if gated:
+        h, gate = h.chunk(2, dim=-1)
+        h = h * fn(gate)
+    else:
+        h = fn(h)
+    return F.linear(h, out_weight, out_bias)
 
 
 class MLP(nn.Module):
@@ -125,14 +149,9 @@ class MLP(nn.Module):
         self.proj_out = nn.Linear(inner, dim, bias=use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        act = get_act(self.act)
-        h = self.proj_in(x)
-        if self.gated:
-            h, gate = h.chunk(2, dim=-1)
-            h = h * act(gate)
-        else:
-            h = act(h)
-        return self.proj_out(h)
+        return mlp_apply(x, self.proj_in.weight, self.proj_in.bias,
+                         self.proj_out.weight, self.proj_out.bias, self.act,
+                         self.gated)
 
 
 class PartitionAttention(nn.Module):

@@ -23,6 +23,15 @@ of CTAs splits K; plain version `lstm_update_plain`). The kernels take bf16
 activations and weights and accumulate in fp32, at the widths and head
 widths of RVT-T, RVT-S and RVT-B (`ATTN_SHAPES`, `KERNEL_DIMS`); any
 other shape raises on the card.
+
+The three launches are `torch.library` custom ops,
+`leod_tpu_torch::block_attention`, `::block_mlp` and `::lstm_update`,
+over flat tensors and scalars: the CPU implementation is the plain
+version, the CUDA one launches the kernel or raises, and a fake
+implementation gives `torch.export` the output's shape and dtype without
+building anything. The wrappers below call the ops, so a graph exported
+from the serving step (`serve.py` `export_serve_step`) holds them, and
+launches counted from such a graph are real launches.
 """
 from __future__ import annotations
 
@@ -35,7 +44,8 @@ import torch.nn.functional as F
 
 from . import _build
 from ..models.layers import (PartitionAttention, _SplitGateConv,
-                             block_pair_tokens, grid_partition, grid_reverse,
+                             attention_core, block_pair_tokens,
+                             grid_partition, grid_reverse, mlp_apply,
                              window_partition, window_reverse)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -102,6 +112,46 @@ def _check_block(blk: PartitionAttention, skip_first_norm: bool,
 # Plain versions
 # ---------------------------------------------------------------------------
 
+def _norm1(blk: PartitionAttention):
+    return (None, None) if blk.skip_first_norm else (blk.norm1.weight,
+                                                     blk.norm1.bias)
+
+
+def _mlp_weights(blk: PartitionAttention) -> tuple:
+    """The weights `block_mlp_kernel` reads, in the op's order."""
+    attn, mlp = blk.attn, blk.mlp
+    return (attn.proj.weight, attn.proj.bias, blk.ls1, blk.norm2.weight,
+            blk.norm2.bias, mlp.proj_in.weight, mlp.proj_in.bias,
+            mlp.proj_out.weight, mlp.proj_out.bias, blk.ls2)
+
+
+def _attention_fn(x, norm_weight, norm_bias, qkv_weight, qkv_bias,
+                  dim_head: int, eps: float) -> torch.Tensor:
+    if norm_weight is not None:
+        x = F.layer_norm(x, (x.shape[-1],), norm_weight, norm_bias, eps)
+    return attention_core(x, qkv_weight, qkv_bias, dim_head)
+
+
+def _mlp_fn(x, o, proj_w, proj_b, ls1, norm_w, norm_b, in_w, in_b, out_w,
+            out_b, ls2, act: str, gated: bool, eps: float) -> torch.Tensor:
+    y = F.linear(o, proj_w, proj_b)
+    x = x + (y if ls1 is None else y * ls1)
+    y = mlp_apply(F.layer_norm(x, (x.shape[-1],), norm_w, norm_b, eps),
+                  in_w, in_b, out_w, out_b, act, gated)
+    return x + (y if ls2 is None else y * ls2)
+
+
+def _lstm_fn(x, h_prev, c_prev, weight, bias
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    d = x.shape[-1]
+    k = weight.reshape(weight.shape[0], -1).float()
+    mix = (F.linear(x.float(), k[:, :d])
+           + F.linear(h_prev.to(x.dtype).float(), k[:, d:]) + bias.float())
+    f, i, o = torch.sigmoid(mix[..., :3 * d]).chunk(3, dim=-1)
+    c = f * c_prev.float() + i * torch.tanh(mix[..., 3 * d:])
+    return (o * torch.tanh(c)).to(x.dtype), c.to(c_prev.dtype)
+
+
 def block_attention_plain(x: torch.Tensor,
                           blk: PartitionAttention) -> torch.Tensor:
     """The half of a block that `block_attention_kernel` computes, on
@@ -117,10 +167,8 @@ def block_mlp_plain(x: torch.Tensor, o: torch.Tensor,
     LayerScale 1, residual x, LayerNorm 2, MLP, LayerScale 2, residual.
     `block_mlp_plain(x, block_attention_plain(x, blk), blk)` is
     `blk(x)`."""
-    y = blk.attn.proj(o)
-    x = x + (y if blk.ls1 is None else y * blk.ls1)
-    y = blk.mlp(blk.norm2(x))
-    return x + (y if blk.ls2 is None else y * blk.ls2)
+    return _mlp_fn(x, o, *_mlp_weights(blk), blk.mlp.act, blk.mlp.gated,
+                   blk.norm2.eps)
 
 
 def fused_block_pair_plain(x: torch.Tensor, window_block: PartitionAttention,
@@ -137,14 +185,7 @@ def lstm_update_plain(x: torch.Tensor, h_prev: torch.Tensor,
     """ConvLSTM update (maxvit_pallas.py:163-182): the gate mix
     x Kx + h Kh + b kept in fp32, gates [f, i, o, g]; h' in x's dtype,
     c' in c's dtype."""
-    d = gates.dim
-    k = gates.weight[:, :, 0, 0].float()
-    mix = (F.linear(x.float(), k[:, :d])
-           + F.linear(h_prev.to(x.dtype).float(), k[:, d:])
-           + gates.bias.float())
-    f, i, o = torch.sigmoid(mix[..., :3 * d]).chunk(3, dim=-1)
-    c = f * c_prev.float() + i * torch.tanh(mix[..., 3 * d:])
-    return (o * torch.tanh(c)).to(x.dtype), c.to(c_prev.dtype)
+    return _lstm_fn(x, h_prev, c_prev, gates.weight, gates.bias)
 
 
 def fused_stage_plain(x: torch.Tensor, h_prev: torch.Tensor,
@@ -161,77 +202,105 @@ def fused_stage_plain(x: torch.Tensor, h_prev: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Kernel launches
+# The custom ops: CPU (plain), CUDA (kernel) and fake implementations
 # ---------------------------------------------------------------------------
 
-def _attention_cuda(x: torch.Tensor, blk: PartitionAttention,
-                    grid_kind: bool, eps: float,
-                    cluster: Optional[int]
-                    ) -> Tuple[torch.Tensor, Tuple[int, int]]:
-    norm1 = None if blk.skip_first_norm else blk.norm1
-    qkv = blk.attn.qkv
-    _require_cuda("block_attention", x, qkv.weight, qkv.bias,
-                  *(() if norm1 is None else (norm1.weight, norm1.bias)))
+_LIB = torch.library.Library("leod_tpu_torch", "FRAGMENT")
+_LIB.define(
+    "block_attention(Tensor x, Tensor? norm_weight, Tensor? norm_bias, "
+    "Tensor qkv_weight, Tensor? qkv_bias, int dim_head, int ph, int pw, "
+    "bool grid_kind, float eps, int cluster) -> Tensor")
+_LIB.define(
+    "block_mlp(Tensor x, Tensor o, Tensor proj_weight, Tensor? proj_bias, "
+    "Tensor? ls1, Tensor norm_weight, Tensor norm_bias, Tensor in_weight, "
+    "Tensor? in_bias, Tensor out_weight, Tensor? out_bias, Tensor? ls2, "
+    "str act, bool gated, float eps, int cluster) -> Tensor")
+_LIB.define(
+    "lstm_update(Tensor x, Tensor h_prev, Tensor c_prev, Tensor weight, "
+    "Tensor bias, int cluster) -> (Tensor, Tensor)")
+
+
+def _partition(grid_kind: bool):
+    return ((grid_partition, grid_reverse) if grid_kind
+            else (window_partition, window_reverse))
+
+
+def _attention_cpu(x, norm_weight, norm_bias, qkv_weight, qkv_bias,
+                   dim_head, ph, pw, grid_kind, eps, cluster):
+    _, h, w, _ = x.shape
+    part, rev = _partition(grid_kind)
+    return rev(_attention_fn(part(x, ph, pw), norm_weight, norm_bias,
+                             qkv_weight, qkv_bias, dim_head, eps),
+               ph, pw, h, w)
+
+
+def _attention_cuda(x, norm_weight, norm_bias, qkv_weight, qkv_bias,
+                    dim_head, ph, pw, grid_kind, eps, cluster):
+    _require_cuda("block_attention", x, qkv_weight, qkv_bias, norm_weight,
+                  norm_bias)
     b, h, w, c = x.shape if x.dim() == 4 else (0,) * 4
-    ph, pw = blk.partition_size
-    dh = blk.attn.dim_head
-    if ((c, dh) not in ATTN_SHAPES or h % ph or w % pw
+    if ((c, dim_head) not in ATTN_SHAPES or h % ph or w % pw
             or ph * pw > MAX_TOKENS or b == 0):
         raise ValueError(
             f"block_attention: x [B, H, W, C] with (C, dim_head) in "
             f"{sorted(ATTN_SHAPES)}, H and W multiples of the partition, "
-            f"ph * pw <= {MAX_TOKENS}; got {tuple(x.shape)}, dim_head {dh}, "
-            f"partition {(ph, pw)}")
+            f"ph * pw <= {MAX_TOKENS}; got {tuple(x.shape)}, dim_head "
+            f"{dim_head}, partition {(ph, pw)}")
     o = torch.empty_like(x)
     plan = (ctypes.c_int * 2)()
     _build.check("leod_block_attention", _lib().leod_block_attention(
-        x.data_ptr(), o.data_ptr(),
-        _ptr(None if norm1 is None else norm1.weight),
-        _ptr(None if norm1 is None else norm1.bias), qkv.weight.data_ptr(),
-        _ptr(qkv.bias), b, h, w, c, dh, ph, pw, int(grid_kind), eps,
-        cluster or 0, _num_sms(x.device), plan, _stream(x)))
-    return o, (plan[0], plan[1])
+        x.data_ptr(), o.data_ptr(), _ptr(norm_weight), _ptr(norm_bias),
+        qkv_weight.data_ptr(), _ptr(qkv_bias), b, h, w, c, dim_head, ph, pw,
+        int(grid_kind), eps, cluster, _num_sms(x.device), plan, _stream(x)))
+    block_attention.plan = (plan[0], plan[1])
+    block_attention.launches += 1
+    return o
 
 
-def _mlp_cuda(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
-              act: str, gated: bool, eps: float,
-              cluster: Optional[int]) -> Tuple[torch.Tensor, int]:
-    attn, mlp = blk.attn, blk.mlp
-    _require_cuda("block_mlp", x, o, attn.proj.weight, attn.proj.bias,
-                  blk.ls1, blk.norm2.weight, blk.norm2.bias,
-                  mlp.proj_in.weight, mlp.proj_in.bias, mlp.proj_out.weight,
-                  mlp.proj_out.bias, blk.ls2)
+def _mlp_cpu(x, o, proj_w, proj_b, ls1, norm_w, norm_b, in_w, in_b, out_w,
+             out_b, ls2, act, gated, eps, cluster):
+    return _mlp_fn(x, o, proj_w, proj_b, ls1, norm_w, norm_b, in_w, in_b,
+                   out_w, out_b, ls2, act, gated, eps)
+
+
+def _mlp_cuda(x, o, proj_w, proj_b, ls1, norm_w, norm_b, in_w, in_b, out_w,
+              out_b, ls2, act, gated, eps, cluster):
+    if act not in _ACTS:
+        raise ValueError(f"the CUDA block takes act in {sorted(_ACTS)}")
+    _require_cuda("block_mlp", x, o, proj_w, proj_b, ls1, norm_w, norm_b,
+                  in_w, in_b, out_w, out_b, ls2)
     c = x.shape[-1]
     if o.shape != x.shape or c not in KERNEL_DIMS or x.numel() == 0:
         raise ValueError(f"block_mlp: x and o [..., C] of one shape, C in "
                          f"{KERNEL_DIMS}; got {tuple(x.shape)}, "
                          f"{tuple(o.shape)}")
     lib = _lib()
-    rows, inner = x.numel() // c, mlp.proj_out.in_features
-    if cluster is None:
+    rows, inner = x.numel() // c, out_w.shape[1]
+    if not cluster:
         # too few row tiles to fill the card: a cluster of CTAs shares
         # each tile's projection columns and hidden chunks
         cluster = lib.leod_block_mlp_cluster(rows, c, inner, int(gated),
                                              _num_sms(x.device))
     out = torch.empty_like(x)
     _build.check("leod_block_mlp", lib.leod_block_mlp(
-        x.data_ptr(), o.data_ptr(), out.data_ptr(),
-        attn.proj.weight.data_ptr(), _ptr(attn.proj.bias), _ptr(blk.ls1),
-        blk.norm2.weight.data_ptr(), blk.norm2.bias.data_ptr(),
-        mlp.proj_in.weight.data_ptr(), _ptr(mlp.proj_in.bias),
-        mlp.proj_out.weight.data_ptr(), _ptr(mlp.proj_out.bias),
-        _ptr(blk.ls2), rows, c, inner, int(gated), _ACTS[act], eps, cluster,
+        x.data_ptr(), o.data_ptr(), out.data_ptr(), proj_w.data_ptr(),
+        _ptr(proj_b), _ptr(ls1), norm_w.data_ptr(), norm_b.data_ptr(),
+        in_w.data_ptr(), _ptr(in_b), out_w.data_ptr(), _ptr(out_b),
+        _ptr(ls2), rows, c, inner, int(gated), _ACTS[act], eps, cluster,
         _stream(x)))
-    return out, cluster
+    block_mlp.plan = cluster
+    block_mlp.launches += 1
+    return out
 
 
-def _lstm_cuda(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
-               gates: _SplitGateConv, cluster: Optional[int]
-               ) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
-                          Tuple[int, int, int]]:
+def _lstm_cpu(x, h_prev, c_prev, weight, bias, cluster):
+    return _lstm_fn(x, h_prev, c_prev, weight, bias)
+
+
+def _lstm_cuda(x, h_prev, c_prev, weight, bias, cluster):
     h_prev = h_prev.to(x.dtype).contiguous()
-    w = gates.weight.view(gates.weight.shape[0], -1)         # [4C, 2C]
-    _require_cuda("lstm_update", x, h_prev, w, gates.bias)
+    w = weight.view(weight.shape[0], -1)                      # [4C, 2C]
+    _require_cuda("lstm_update", x, h_prev, w, bias)
     if c_prev.dtype not in (torch.bfloat16, torch.float32) or \
             not c_prev.is_contiguous() or c_prev.device != x.device:
         raise ValueError("lstm_update: c_prev must be a contiguous bf16 or "
@@ -248,10 +317,38 @@ def _lstm_cuda(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
     plan = (ctypes.c_int * 3)()
     _build.check("leod_lstm_update", _lib().leod_lstm_update(
         x.data_ptr(), h_prev.data_ptr(), c_prev.data_ptr(), w.data_ptr(),
-        gates.bias.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-        x.numel() // c, c, int(c_prev.dtype == torch.float32), cluster or 0,
+        bias.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+        x.numel() // c, c, int(c_prev.dtype == torch.float32), cluster,
         _num_sms(x.device), plan, _stream(x)))
-    return (h_out, c_out), (plan[0], plan[1], plan[2])
+    lstm_update.plan = (plan[0], plan[1], plan[2])
+    lstm_update.launches += 1
+    return h_out, c_out
+
+
+for _name, _cpu, _cuda in (("block_attention", _attention_cpu,
+                            _attention_cuda),
+                           ("block_mlp", _mlp_cpu, _mlp_cuda),
+                           ("lstm_update", _lstm_cpu, _lstm_cuda)):
+    _LIB.impl(_name, _cpu, "CPU")
+    _LIB.impl(_name, _cuda, "CUDA")
+
+
+@torch.library.register_fake("leod_tpu_torch::block_attention", lib=_LIB)
+def _attention_fake(x, *args):
+    return torch.empty_like(x)
+
+
+@torch.library.register_fake("leod_tpu_torch::block_mlp", lib=_LIB)
+def _mlp_fake(x, *args):
+    return torch.empty_like(x)
+
+
+@torch.library.register_fake("leod_tpu_torch::lstm_update", lib=_LIB)
+def _lstm_fake(x, h_prev, c_prev, *args):
+    return torch.empty_like(x), torch.empty_like(c_prev)
+
+
+_OPS = torch.ops.leod_tpu_torch
 
 
 # ---------------------------------------------------------------------------
@@ -269,15 +366,11 @@ def block_attention(x: torch.Tensor, blk: PartitionAttention,
     group each, share a group of windows (tests only; by default the
     kernel's plan picks). On the card, `block_attention.plan` is the last
     launch's (windows a CTA, CTAs a cluster)."""
-    if x.device.type == "cpu":
-        ph, pw = blk.partition_size
-        _, h, w, _ = x.shape
-        part, rev = ((grid_partition, grid_reverse) if grid_kind
-                     else (window_partition, window_reverse))
-        return rev(block_attention_plain(part(x, ph, pw), blk), ph, pw, h, w)
-    o, block_attention.plan = _attention_cuda(x, blk, grid_kind, eps, cluster)
-    block_attention.launches += 1
-    return o
+    qkv = blk.attn.qkv
+    ph, pw = blk.partition_size
+    return _OPS.block_attention.default(
+        x, *_norm1(blk), qkv.weight, qkv.bias, blk.attn.dim_head, ph, pw,
+        grid_kind, eps, cluster or 0)
 
 
 block_attention.launches = 0
@@ -295,13 +388,8 @@ def block_mlp(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
     if blk.mlp.act != act or blk.mlp.gated != gated:
         raise ValueError("block module config disagrees with the call's "
                          "act/gated")
-    if x.device.type == "cpu":
-        return block_mlp_plain(x, o, blk)
-    if act not in _ACTS:
-        raise ValueError(f"the CUDA block takes act in {sorted(_ACTS)}")
-    out, block_mlp.plan = _mlp_cuda(x, o, blk, act, gated, eps, cluster)
-    block_mlp.launches += 1
-    return out
+    return _OPS.block_mlp.default(x, o, *_mlp_weights(blk), act, gated, eps,
+                                  cluster or 0)
 
 
 block_mlp.launches = 0
@@ -317,15 +405,18 @@ def lstm_update(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
     forces how many CTAs split K for one tile of rows and channels (tests
     only; by default the kernel's plan picks); `lstm_update.plan` is the
     last launch's (rows a tile, channels a tile, CTAs a cluster)."""
-    if x.device.type == "cpu":
-        return lstm_update_plain(x, h_prev, c_prev, gates)
-    out, lstm_update.plan = _lstm_cuda(x, h_prev, c_prev, gates, cluster)
-    lstm_update.launches += 1
-    return out
+    return _OPS.lstm_update.default(x, h_prev, c_prev, gates.weight,
+                                    gates.bias, cluster or 0)
 
 
 lstm_update.launches = 0
 lstm_update.plan = None
+
+
+def _counts(x: torch.Tensor) -> bool:
+    """Whether a composite wrapper's call launched kernels: on the card,
+    and not while `torch.export` traces it."""
+    return x.is_cuda and not torch.compiler.is_compiling()
 
 
 def fused_block_pair(x: torch.Tensor, window_params: PartitionAttention,
@@ -333,23 +424,23 @@ def fused_block_pair(x: torch.Tensor, window_params: PartitionAttention,
                      partition_size: Tuple[int, int], skip_first_norm: bool,
                      dim_head: int = 32, act: str = "gelu",
                      gated: bool = False, eps: float = 1e-5) -> torch.Tensor:
-    """Window block then grid block on an NHWC map x [B, H, W, C].
-    `*_params` are the port's PartitionAttention modules."""
+    """Window block then grid block on an NHWC map x [B, H, W, C], each
+    as `block_attention` then `block_mlp`. `*_params` are the port's
+    PartitionAttention modules."""
     _check_block(window_params, skip_first_norm, dim_head, act, gated)
     _check_block(grid_params, False, dim_head, act, gated)
     if tuple(partition_size) != window_params.partition_size:
         raise ValueError("partition_size disagrees with the block modules")
-    if x.device.type == "cpu":
-        return fused_block_pair_plain(x, window_params, grid_params,
-                                      partition_size)
-    if (x.shape[-1], dim_head) not in ATTN_SHAPES or act not in _ACTS:
+    if x.is_cuda and ((x.shape[-1], dim_head) not in ATTN_SHAPES
+                      or act not in _ACTS):
         raise ValueError(f"the CUDA block takes (C, dim_head) in "
                          f"{sorted(ATTN_SHAPES)} and act in {sorted(_ACTS)}; "
                          f"got ({x.shape[-1]}, {dim_head}), {act!r}")
     for blk, grid_kind in ((window_params, False), (grid_params, True)):
         x = block_mlp(x, block_attention(x, blk, grid_kind, eps), blk, act,
                       gated, eps)
-    fused_block_pair.launches += 1
+    if _counts(x):
+        fused_block_pair.launches += 1
     return x
 
 
@@ -371,7 +462,7 @@ def fused_stage(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
                              skip_first_norm and i == 0, dim_head, act,
                              gated, eps)
     out = lstm_update(x, h_prev, c_prev, lstm_params)
-    if x.device.type != "cpu":
+    if _counts(x):
         fused_stage.launches += 1
     return out
 

@@ -5,7 +5,8 @@
 kernel that replaces the Pallas `nms_mask_pallas` is `ops/nms_cuda.py`.
 `postprocess` goes through the kernel's wrapper, which runs this plain
 version for CPU tensors. `nms_numpy` and `batched_nms_numpy` are the
-host NMS the TTA merge and the pseudo-labeller run on numpy rows.
+host NMS the TTA merge and the pseudo-labeller run on numpy rows: the
+C++ of `native/host_ops.cpp`, or a numpy loop with the same results.
 """
 from __future__ import annotations
 
@@ -110,16 +111,22 @@ def nms_numpy(boxes_xyxy: np.ndarray, scores: np.ndarray,
     """Host greedy NMS -> kept indices in score-descending order
     (`leod_tpu/ops/nms.py:120-146`).
 
-    The arithmetic is the JAX package's native `leod_nms`
-    (`leod_tpu/native/host_ops.cpp`), which it prefers: float32 boxes and
-    areas, a stable descending score sort, IoU = inter / max(area_i +
-    area_j - inter, 1e-16), suppression where IoU > threshold and only
-    between boxes of equal `class_ids` where given. float32 numpy
-    rounds each operation as that C++ does, so the kept indices are the
-    same."""
+    Runs the native `leod_nms` (`native/host_ops.cpp`) where the host
+    library builds, as the JAX package does, and else this numpy loop of
+    the same arithmetic: float32 boxes and areas, a stable descending
+    score sort, IoU = inter / max(area_i + area_j - inter, 1e-16),
+    suppression where IoU > threshold and only between boxes of equal
+    `class_ids` where given. float32 numpy rounds each operation as that
+    C++ does, so the kept indices are the same."""
     n = len(boxes_xyxy)
     if n == 0:
         return np.zeros((0,), np.int64)
+    from ..native import nms as native_nms
+    kept = native_nms(np.asarray(boxes_xyxy), np.asarray(scores),
+                      None if class_ids is None else np.asarray(class_ids),
+                      iou_threshold)
+    if kept is not None:
+        return kept
     b = np.asarray(boxes_xyxy, np.float32)
     s = np.asarray(scores, np.float32)
     order = np.argsort(-s, kind="stable")
@@ -153,11 +160,12 @@ def nms_numpy(boxes_xyxy: np.ndarray, scores: np.ndarray,
 def batched_nms_numpy(boxes_xyxy: np.ndarray, scores: np.ndarray,
                       class_ids: np.ndarray,
                       iou_threshold: float) -> np.ndarray:
-    """Class-aware host NMS (`leod_tpu/ops/nms.py:149-161`). The JAX
-    package's numpy fallback separates the classes by a coordinate
-    offset of 1e5 in float64; its preferred native path, which this
-    matches index for index, compares the class ids instead (that offset
-    in float32 would round the boxes' coordinates)."""
+    """Class-aware host NMS (`leod_tpu/ops/nms.py:149-161`): the native
+    `leod_nms` with class ids, or its numpy twin. The JAX package's numpy
+    fallback separates the classes by a coordinate offset of 1e5 in
+    float64; its preferred native path, which this matches index for
+    index, compares the class ids instead (that offset in float32 would
+    round the boxes' coordinates)."""
     if len(boxes_xyxy) == 0:
         return np.zeros((0,), np.int64)
     return nms_numpy(boxes_xyxy, scores, iou_threshold, class_ids)

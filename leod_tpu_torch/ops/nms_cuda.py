@@ -7,9 +7,12 @@ per image that resolves the greedy 32 boxes (one mask word) at a time,
 its row tiles streamed into shared memory by bulk copies, in one call
 per batch.
 
-For a CPU tensor the wrapper runs the plain version (`ops/nms.py`
-`nms_mask`); for a CUDA tensor it launches the kernel or raises. It
-counts its launches in `nms_mask.launches`.
+The launch is the `torch.library` custom op `leod_tpu_torch::nms_mask`:
+for a CPU tensor it runs the plain version (`ops/nms.py` `nms_mask`),
+for a CUDA tensor it launches the kernel or raises, and its fake
+implementation gives `torch.export` the keep mask's shape. The CUDA
+implementation counts its launches in `nms_mask.launches`, so launches
+made from an exported graph count too.
 """
 from __future__ import annotations
 
@@ -27,16 +30,12 @@ _SIGS = {"leod_nms_mask": [_P, _P, _P, ctypes.c_float, ctypes.c_int,
 MAX_K = 1024
 
 
-def nms_mask(boxes_xyxy: torch.Tensor, iou_threshold: float,
-             valid: torch.Tensor,
-             class_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Greedy NMS keep mask: boxes [B, K, 4] (or [K, 4]) sorted by score
-    descending, valid [B, K] bool, class_ids [B, K] or None ->
-    keep [B, K] bool."""
-    if boxes_xyxy.device.type == "cpu":
-        return nms_mask_plain(boxes_xyxy, iou_threshold, valid, class_ids)
-    if not boxes_xyxy.is_cuda:
-        raise ValueError(f"nms_mask: tensor on {boxes_xyxy.device}")
+_LIB = torch.library.Library("leod_tpu_torch", "FRAGMENT")
+_LIB.define("nms_mask(Tensor boxes, float iou_threshold, Tensor valid, "
+            "Tensor? class_ids) -> Tensor")
+
+
+def _nms_cuda(boxes_xyxy, iou_threshold, valid, class_ids):
     squeeze = boxes_xyxy.dim() == 2
     if squeeze:
         boxes_xyxy, valid = boxes_xyxy[None], valid[None]
@@ -69,6 +68,27 @@ def nms_mask(boxes_xyxy: torch.Tensor, iou_threshold: float,
     nms_mask.launches += 1
     keep = keep.bool()
     return keep[0] if squeeze else keep
+
+
+_LIB.impl("nms_mask", nms_mask_plain, "CPU")
+_LIB.impl("nms_mask", _nms_cuda, "CUDA")
+
+
+@torch.library.register_fake("leod_tpu_torch::nms_mask", lib=_LIB)
+def _nms_fake(boxes_xyxy, iou_threshold, valid, class_ids):
+    return torch.empty(valid.shape, dtype=torch.bool, device=valid.device)
+
+
+_OP = torch.ops.leod_tpu_torch.nms_mask.default
+
+
+def nms_mask(boxes_xyxy: torch.Tensor, iou_threshold: float,
+             valid: torch.Tensor,
+             class_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Greedy NMS keep mask: boxes [B, K, 4] (or [K, 4]) sorted by score
+    descending, valid [B, K] bool, class_ids [B, K] or None ->
+    keep [B, K] bool."""
+    return _OP(boxes_xyxy, float(iou_threshold), valid, class_ids)
 
 
 nms_mask.launches = 0

@@ -1,28 +1,44 @@
-"""Serving: the per-frame detect step and a stateful streaming engine
-(port of `leod_tpu/serve.py:50-104,198-392`; no AOT export yet).
+"""Serving: the per-frame detect step, its export to a self-contained
+artifact, and a stateful streaming engine (port of
+`leod_tpu/serve.py`).
 
 - `make_serve_step`: reset + backbone step + FPN + head + decode +
   fixed-shape NMS over an explicit LSTM state table. An `active` row
   mask freezes the state of idle stream slots.
+- `export_serve_step` / `save_artifact` / `load_artifact`: the step as a
+  `torch.export` program with the weights inside, written as `<out>.pt2`
+  with a `<out>.pt2.json` sidecar. A serving process loads and runs it
+  without the model code or a checkpoint; it needs only the op library
+  (`leod_tpu_torch.ops`, which registers the kernels as custom ops, so
+  the loaded graph launches the same kernels on the card).
 - `ServingEngine`: a thread-safe micro-batching engine mapping client
   stream ids onto the B state-table slots (LRU eviction -> state reset),
   coalescing concurrent requests into one device step.
+
+`cli/export.py` and `cli/serve.py` are the command-line entry points.
 """
 from __future__ import annotations
 
 import collections
+import json
+import os
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
+from torch.utils import _pytree as pytree
 
 from . import resolve_device
 from .config import ExperimentConfig, stem_fold_hw
 from .models.backbone import reset_states
 from .models.detector import Detector
 from .ops.nms import postprocess
+
+# lowering targets an artifact may name, and the device type each means
+PLATFORMS = {"cuda": "cuda", "gpu": "cuda", "cpu": "cpu"}
 
 
 def make_serve_step(det: Detector, conf_threshold: Optional[float] = None,
@@ -78,6 +94,166 @@ def serve_input_shape(cfg: ExperimentConfig, batch_size: int,
     c = cfg.model.backbone.input_channels
     fh, fw = stem_fold_hw(cfg.model) if fold else (1, 1)
     return (batch_size, h // fh, w // fw, fh * fw * c)
+
+
+# ---------------------------------------------------------------------------
+# Export (torch.export)
+# ---------------------------------------------------------------------------
+
+class _ServeModule(nn.Module):
+    """`make_serve_step` as a module: the detector's weights are its
+    parameters (no gradients), so `torch.export` lifts them into the
+    program."""
+
+    def __init__(self, det: Detector, conf_threshold: Optional[float]):
+        super().__init__()
+        self.det = det
+        self._step = make_serve_step(det, conf_threshold, device=det.device)
+
+    def forward(self, states, ev, reset, active):
+        return self._step(states, ev, reset, active)
+
+
+def export_platforms(platforms: Optional[Tuple[str, ...]],
+                     det: Detector) -> Tuple[str, ...]:
+    """The device types an artifact is for: `platforms` ("cuda" or its
+    alias "gpu", "cpu"), or the detector's own device type when None.
+    The ops dispatch on the device, so one program serves both."""
+    if platforms is None:
+        return (det.device.type,)
+    out = []
+    for p in platforms:
+        if p.lower() not in PLATFORMS:
+            raise ValueError(f"platform {p!r}: the port exports for "
+                             f"{sorted(PLATFORMS)} (no TPU)")
+        if PLATFORMS[p.lower()] not in out:
+            out.append(PLATFORMS[p.lower()])
+    return tuple(out)
+
+
+def export_serve_step(det: Detector, cfg: ExperimentConfig,
+                      batch_size: int, *, fold: bool = True,
+                      conf_threshold: Optional[float] = None,
+                      platforms: Optional[Tuple[str, ...]] = None
+                      ) -> torch.export.ExportedProgram:
+    """Export the serving step for fixed (batch, resolution) shapes: a
+    `torch.export` program over `det`'s weights, traced on `det`'s
+    device, whose backbone and NMS are the `leod_tpu_torch::` custom ops.
+    `platforms` (see `export_platforms`) is kept as the program's
+    `.platforms`, which `save_artifact` writes into the artifact."""
+    targets = export_platforms(platforms, det)
+    states = det.init_states(batch_size)
+    ev = torch.zeros(serve_input_shape(cfg, batch_size, fold),
+                     dtype=torch.uint8, device=det.device)
+    # reset and active must be two tensors: export would take one tensor
+    # passed twice for one input
+    reset, active = (torch.zeros(batch_size, dtype=torch.bool,
+                                 device=det.device) for _ in range(2))
+    # traced with gradients off, so the program holds no grad-mode region
+    with torch.no_grad():
+        exported = torch.export.export(_ServeModule(det, conf_threshold),
+                                       (states, ev, reset, active))
+    # the traced zeros would be saved with the program, as large as the
+    # weights at B = 8; the placeholders keep their shapes and dtypes
+    exported.example_inputs = None
+    exported.platforms = targets
+    return exported
+
+
+def artifact_meta(cfg: ExperimentConfig, batch_size: int, fold: bool,
+                  conf_threshold: Optional[float] = None) -> Dict[str, Any]:
+    pp = cfg.model.postprocess
+    return {
+        "dataset": cfg.dataset.name,
+        "classes": list(cfg.dataset.classes),
+        "batch_size": batch_size,
+        "in_res_hw": list(cfg.model.backbone.in_res_hw),
+        "input_channels": cfg.model.backbone.input_channels,
+        "fold_hw": list(stem_fold_hw(cfg.model)) if fold else [1, 1],
+        "frame_shape": list(serve_input_shape(cfg, batch_size, fold)[1:]),
+        "max_dets": pp.max_dets,
+        "conf_threshold": (conf_threshold if conf_threshold is not None
+                           else pp.confidence_threshold),
+        "nms_threshold": pp.nms_threshold,
+    }
+
+
+def _traced_device(exported: torch.export.ExportedProgram) -> torch.device:
+    return next(iter(exported.state_dict.values())).device
+
+
+def save_artifact(exported: torch.export.ExportedProgram, path: str,
+                  meta: Dict[str, Any]) -> None:
+    """Write `<path>` (`torch.export.save` of `export_serve_step`'s
+    program, its platforms inside) and `<path>.json` (`meta` and the
+    platforms)."""
+    platforms = list(exported.platforms)
+    torch.export.save(exported, path,
+                      extra_files={"platforms": json.dumps(platforms)})
+    with open(path + ".json", "w") as f:
+        json.dump({**meta, "platforms": platforms}, f, indent=2)
+
+
+def load_artifact_exported(path: str) -> Tuple[torch.export.ExportedProgram,
+                                               Dict[str, Any]]:
+    """Load an artifact -> (ExportedProgram, meta), the program's
+    `.platforms` read from it. The single owner of the on-disk convention
+    (`torch.export.save` + '<path>.json' sidecar)."""
+    extra = {"platforms": ""}
+    exported = torch.export.load(path, extra_files=extra)
+    exported.platforms = tuple(json.loads(extra["platforms"]))
+    meta: Dict[str, Any] = {}
+    if os.path.exists(path + ".json"):
+        with open(path + ".json") as f:
+            meta = json.load(f)
+    return exported, meta
+
+
+def load_artifact(path: str, device="cuda") -> Tuple[Callable,
+                                                     Dict[str, Any]]:
+    """Load an artifact -> (step_fn, meta). step_fn(states, ev, reset,
+    active) runs the program on `device` (the card unless the caller
+    asks for the CPU), which must be one of its platforms; the program
+    is moved there if it was traced elsewhere."""
+    exported, meta = load_artifact_exported(path)
+    return program_module(exported, device), meta
+
+
+def program_module(exported: torch.export.ExportedProgram,
+                   device) -> nn.Module:
+    """The runnable module of a loaded program on `device`."""
+    dev = resolve_device(device)
+    if dev.type not in exported.platforms:
+        raise ValueError(f"the artifact was exported for "
+                         f"{list(exported.platforms)}, not {dev.type}")
+    if _traced_device(exported).type != dev.type:
+        from torch.export.passes import move_to_device_pass
+        exported = move_to_device_pass(exported, dev)
+    return exported.module()
+
+
+def zero_states_like(exported: Optional[torch.export.ExportedProgram] = None,
+                     det: Optional[Detector] = None,
+                     batch_size: Optional[int] = None, device="cuda"):
+    """Zero state table matching a program's state inputs (their shapes
+    and dtypes from the placeholders; no model code needed) on `device`,
+    or from a live Detector."""
+    if det is not None:
+        return det.init_states(batch_size)
+    dev = resolve_device(device)
+    return pytree.tree_map(
+        lambda v: torch.zeros(v.shape, dtype=v.dtype, device=dev),
+        program_inputs(exported)[0])
+
+
+def program_inputs(exported: torch.export.ExportedProgram) -> tuple:
+    """The program's (states, ev, reset, active) as the shapes and dtypes
+    its placeholders carry (fake tensors)."""
+    user = set(exported.graph_signature.user_inputs)
+    vals = [n.meta["val"] for n in exported.graph.nodes
+            if n.op == "placeholder" and n.name in user]
+    args, _ = pytree.tree_unflatten(vals, exported.call_spec.in_spec)
+    return args
 
 
 # ---------------------------------------------------------------------------

@@ -43,7 +43,7 @@ class TrainState(NamedTuple):
 # TBPTT rematerialization: "full" recomputes every timestep's forward in
 # the backward pass (torch.utils.checkpoint around each timestep), "none"
 # stores every activation. The JAX package's "dots" and "stage1"
-# policies are not ported (ROADMAP.md A.4).
+# policies are not ported (ROADMAP.md A.1).
 REMAT_POLICIES = ("full", "none")
 
 
@@ -69,7 +69,7 @@ def _gather_frames(feats_seq: Dict[int, torch.Tensor],
 def _check_remat(remat: str) -> None:
     if remat in ("dots", "stage1"):
         raise NotImplementedError(
-            f"remat={remat!r} is not ported yet (ROADMAP.md A.4); the port "
+            f"remat={remat!r} is not ported yet (ROADMAP.md A.1); the port "
             f"takes {REMAT_POLICIES}")
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat={remat!r}; the port takes {REMAT_POLICIES}")

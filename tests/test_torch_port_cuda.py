@@ -28,6 +28,11 @@ and training: an fp32 train step on the card against the same step on
 the CPU (loss 1e-4, each module's grad norm 1e-3, relative), a bf16
 step that keeps fp32 parameters and moves them, and `Trainer.fit`,
 whose validation launches every kernel while its steps launch none.
+Deployment: each `leod_tpu_torch::` custom op bit-equal to the launch it
+wraps and under `torch.library.opcheck`, the serving step exported (on
+the card, and on the CPU for both platforms), loaded on the card and run
+against the live step, and the event voxelizer on the card equal to the
+CPU's.
 
 These tests need an NVIDIA Hopper card and `nvcc`; without a card they
 skip. They import no JAX. Run them on the card with
@@ -826,3 +831,165 @@ def test_fit_validates_through_every_kernel(cuda, tmp_path):
         {w.__name__: w.launches for w in wrappers}
     st, path = trainer.restore_latest(trainer.init_state(2))
     assert path is not None and st.step == 2
+
+
+# ---------------------------------------------------------------------------
+# Deployment: the custom ops, the exported artifact, the voxelizer
+# ---------------------------------------------------------------------------
+
+def _op_inputs(dev):
+    """Each custom op's arguments at RVT-B Gen1's first stage shape
+    (B = 1, 64 x 80 x 64, 8 x 10 partitions) and the NMS at one image of
+    K = 1000, with the CUDA implementation each op's dispatch reaches."""
+    wb, _ = _pair(64, (8, 10), False, "gelu", dev, first=False)
+    gates = _randomized(_SplitGateConv(64), 3, dev)
+    g = torch.Generator().manual_seed(5)
+    x, o, h = (torch.randn(1, 64, 80, 64, generator=g).to(dev, torch.bfloat16)
+               for _ in range(3))
+    c = torch.randn(1, 64, 80, 64, generator=g).to(dev)
+    boxes, valid, ids = _nms_inputs(1000, 1, dev, seed=2)
+    return {
+        "block_attention": (maxvit_cuda._attention_cuda, (
+            x, *maxvit_cuda._norm1(wb), wb.attn.qkv.weight,
+            wb.attn.qkv.bias, 32, 8, 10, True, 1e-5, 0)),
+        "block_mlp": (maxvit_cuda._mlp_cuda, (
+            x, o, *maxvit_cuda._mlp_weights(wb), "gelu", False, 1e-5, 0)),
+        "lstm_update": (maxvit_cuda._lstm_cuda, (
+            x, h, c, gates.weight, gates.bias, 0)),
+        "nms_mask": (nms_cuda._nms_cuda, (boxes, 0.45, valid, ids)),
+    }
+
+
+def _nms_inputs(k, b, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.rand(b, k, 2, generator=g) * 300
+    wh = torch.rand(b, k, 2, generator=g) * 60 + 2
+    boxes = torch.cat([xy, xy + wh], -1).to(dev)
+    valid = (torch.rand(b, k, generator=g) < 0.9).to(dev)
+    ids = torch.randint(0, 2, (b, k), generator=g).float().to(dev)
+    return boxes, valid, ids
+
+
+OP_NAMES = ("block_attention", "block_mlp", "lstm_update", "nms_mask")
+OP_WRAPPER = {"block_attention": maxvit_cuda.block_attention,
+              "block_mlp": maxvit_cuda.block_mlp,
+              "lstm_update": maxvit_cuda.lstm_update,
+              "nms_mask": nms_cuda.nms_mask}
+
+
+@pytest.mark.parametrize("op", OP_NAMES)
+def test_custom_op_is_its_direct_launch(cuda, op):
+    """`torch.ops.leod_tpu_torch.<op>` on CUDA tensors is bit-equal to
+    the launch it wraps, called directly, and counts one launch."""
+    impl, args = _op_inputs(cuda)[op]
+    want = impl(*args)
+    before = OP_WRAPPER[op].launches
+    got = getattr(torch.ops.leod_tpu_torch, op).default(*args)
+    torch.cuda.synchronize()
+    assert OP_WRAPPER[op].launches == before + 1
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert a.dtype == b.dtype and a.device == b.device
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("op", OP_NAMES)
+def test_custom_op_opcheck_on_the_card(cuda, op):
+    """`torch.library.opcheck` of each op on CUDA tensors: its schema,
+    its fake implementation against the kernel's output, and the op
+    under AOT dispatch."""
+    _, args = _op_inputs(cuda)[op]
+    torch.library.opcheck(getattr(torch.ops.leod_tpu_torch, op).default,
+                          args)
+
+
+def _tiny_det(dev, seed=0):
+    from dataclasses import replace
+
+    from leod_tpu_torch.config import derive, experiment_preset
+    from leod_tpu_torch.models.detector import Detector
+
+    cfg = experiment_preset("gen1", "tiny")
+    bb = replace(cfg.model.backbone, in_res_hw=(128, 160),
+                 partition_size=(4, 5))
+    cfg = derive(replace(cfg, model=replace(cfg.model, backbone=bb)))
+    det = Detector(cfg.model, device=dev, seed=seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in det.modules():
+            if isinstance(m, PartitionAttention) and m.ls1 is not None:
+                for p in (m.ls1, m.ls2):
+                    p.copy_(torch.rand(p.shape, generator=g) * 0.4 + 0.1)
+    return cfg, det
+
+
+@pytest.mark.parametrize("traced_on", ["cuda", "cpu"])
+def test_exported_artifact_runs_the_kernels(cuda, tmp_path, traced_on):
+    """The serving step of an RVT-T-wide bf16 model at 128 x 160 (B = 2),
+    exported on the card, or on the CPU for both platforms, saved, and
+    loaded on the card: two steps (all reset, then one row reset and one
+    idle) equal the live step on the card within 1e-5 relative, 1e-6
+    absolute, valid exactly, and each step launches the live step's
+    kernels."""
+    from leod_tpu_torch.serve import (artifact_meta, export_serve_step,
+                                      load_artifact, load_artifact_exported,
+                                      make_serve_step, save_artifact,
+                                      serve_input_shape, zero_states_like)
+
+    cfg, det = _tiny_det(cuda)
+    src = det if traced_on == "cuda" else _tiny_det("cpu")[1]
+    path = str(tmp_path / "m.pt2")
+    ep = export_serve_step(src, cfg, 2, conf_threshold=0.0,
+                           platforms=("cuda", "cpu"))
+    save_artifact(ep, path, artifact_meta(cfg, 2, True, 0.0))
+    step_fn, meta = load_artifact(path, device=cuda)
+    assert meta["platforms"] == ["cuda", "cpu"]
+    live = make_serve_step(det, conf_threshold=0.0, device=cuda)
+    st_a = det.init_states(2)
+    st_b = zero_states_like(load_artifact_exported(path)[0], device=cuda)
+    rng = np.random.default_rng(3)
+    n_blocks = 2 * sum(cfg.model.backbone.num_blocks)
+    for reset, active in (([1, 1], [1, 1]), ([0, 1], [1, 0])):
+        ev = torch.from_numpy(np.minimum(rng.poisson(
+            0.3, serve_input_shape(cfg, 2)), 255).astype(np.uint8)).to(cuda)
+        reset = torch.tensor(reset, dtype=torch.bool, device=cuda)
+        active = torch.tensor(active, dtype=torch.bool, device=cuda)
+        st_a, d_a, v_a = live(st_a, ev, reset, active)
+        before = {n: w.launches for n, w in OP_WRAPPER.items()}
+        st_b, d_b, v_b = step_fn(st_b, ev, reset, active)
+        torch.cuda.synchronize()
+        assert {n: w.launches - before[n] for n, w in OP_WRAPPER.items()} \
+            == {"block_attention": n_blocks, "block_mlp": n_blocks,
+                "lstm_update": 4, "nms_mask": 1}
+        assert torch.equal(v_b, v_a)
+        torch.testing.assert_close(d_b, d_a, rtol=1e-5, atol=1e-6)
+        for (ha, ca), (hb, cb) in zip(st_a, st_b):
+            torch.testing.assert_close(hb, ha, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(cb, ca, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("windows", [1, 6])
+def test_voxelizer_on_the_card_equals_the_cpu(cuda, windows):
+    """`stacked_histogram_batch` and `mixed_density_stack` on the card
+    equal the CPU's exactly: Gen1's 240 x 304 canvas, 10 bins, 30k events
+    a window with out-of-canvas and padded ones, and events on the bin
+    edges."""
+    from leod_tpu_torch.ops import voxel
+
+    rng = np.random.default_rng(windows)
+    n, h, w = 30_000, 240, 304
+    x = rng.integers(-2, w + 2, (windows, n))
+    y = rng.integers(-2, h + 2, (windows, n))
+    p = rng.integers(0, 2, (windows, n))
+    t = np.sort(rng.integers(0, 50_000, (windows, n)), axis=1)
+    t[:, :11] = np.arange(11) * 5_000
+    t = np.sort(t, axis=1)
+    valid = rng.uniform(size=(windows, n)) < 0.95
+    args = [torch.from_numpy(a) for a in (x, y, p, t, valid)]
+    kw = dict(bins=10, height=h, width=w)
+    want = voxel.stacked_histogram_batch(*args, **kw)
+    got = voxel.stacked_histogram_batch(*(a.to(cuda) for a in args), **kw)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    want = voxel.mixed_density_stack(*(a[0] for a in args), **kw)
+    got = voxel.mixed_density_stack(*(a[0].to(cuda) for a in args), **kw)
+    assert torch.equal(got.cpu(), want)

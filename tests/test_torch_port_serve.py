@@ -243,24 +243,38 @@ def test_load_jax_variables_rvt_s_consumes_every_leaf():
     assert det.backbone.stage4.block0_grid.attn.dim_head == 24
 
 
+DEPLOY_MODULES = ("leod_tpu_torch.cli.export", "leod_tpu_torch.cli.serve",
+                  "leod_tpu_torch.cli.import_raw",
+                  "leod_tpu_torch.data.import_raw",
+                  "leod_tpu_torch.data.psee", "leod_tpu_torch.native",
+                  "leod_tpu_torch.ops.voxel")
+
+
 def test_port_imports_neither_jax_nor_leod_tpu():
     """Importing every module of the port, and chip_smoke, in a fresh
     interpreter leaves jax, flax and leod_tpu out of sys.modules, and
-    h5py too (the port imports it only where it opens an h5 file)."""
+    h5py too (the port imports it only where it opens an h5 file); the
+    deployment modules (export, serve, ingestion, host ops) are among
+    those imported, and importing them builds nothing."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, os, pkgutil, sys\n"
         "import leod_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(leod_tpu_torch.__path__,\n"
         "                               'leod_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'leod_tpu', 'h5py')]\n"
+        f"missing = [m for m in {DEPLOY_MODULES!r} if m not in sys.modules]\n"
+        "from leod_tpu_torch import native\n"
+        "built = native._tried or native._lib is not None\n"
         "print(len([m for m in sys.modules if m.startswith('leod_tpu_')]))\n"
-        "sys.exit(f'imported {bad[:5]}' if bad else 0)\n")
+        "sys.exit(f'imported {bad[:5]}' if bad else\n"
+        "         f'not imported {missing}' if missing else\n"
+        "         'built the host library on import' if built else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 27       # every module loaded
+    assert int(proc.stdout.split()[-1]) >= 56       # every module loaded
 
 
 def test_entry_points_need_a_card_unless_given_cpu(tiny):
