@@ -42,8 +42,18 @@ JAX_TOL = dict(rtol=1e-4, atol=1e-4)
 OPS = ("block_attention", "block_mlp", "lstm_update", "nms_mask")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Several workers share the machine's cores: torch runs on one
+    thread in each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
-def exported(tmp_path_factory):
+def exported(tmp_path_factory, _one_torch_thread):
     """RVT-T widths at 64 x 96 (`test_torch_port_serve._models`), both
     packages' serve steps exported from the same JAX variables at
     conf 0, B = 2, and saved."""
