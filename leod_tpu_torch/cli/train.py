@@ -4,7 +4,7 @@
     python -m leod_tpu_torch.cli.train --synthetic --size tiny --steps 50 --cpu
 
 Every flag of the JAX CLI maps to the same `ExperimentConfig`; `--mesh`
-raises (multi-device, ROADMAP.md A.2). Pred-vs-GT panels go into
+raises (multi-device, ROADMAP.md A.1). Pred-vs-GT panels go into
 <run_dir>/viz/ every `training.viz_every_steps` (the preset's 5000).
 Checkpoints are the port's `ckpt_<name>.pt` files (`--checkpoint` and
 `--weight` take `runs/<exp>/ckpt_last` or the file itself); an orbax
@@ -87,7 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     ap.add_argument("--fp32", action="store_true")
     ap.add_argument("--mesh", default=None, metavar="DP[xSP[xTP]]",
-                    help="device mesh (not ported: ROADMAP.md A.2)")
+                    help="device mesh (not ported: ROADMAP.md A.1)")
     ap.add_argument("--wandb-project", default=None,
                     help="also stream metrics to WandB (needs the wandb "
                          "package)")
@@ -158,7 +158,7 @@ def main(argv: Optional[List[str]] = None, *, frames: Frames = None):
     if args.mesh:
         raise NotImplementedError(
             f"--mesh {args.mesh!r}: multi-device training is not ported yet "
-            f"(ROADMAP.md A.2, multi-device); the port trains on one card")
+            f"(ROADMAP.md A.1, multi-device); the port trains on one card")
     path = args.path
     if args.synthetic and frames is None:
         path, frames = synthetic_frames(args.path, args.seed, announce=True)

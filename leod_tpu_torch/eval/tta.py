@@ -94,7 +94,7 @@ def run_tta_eval(det: Detector, cfg: ExperimentConfig,
     return value is None (the caller evaluates the merged buffers once).
     The t-flip pass reuses the identical deal, so each shard sees both
     views of exactly its own sequences. The all-gather of evaluators
-    across processes is not ported (ROADMAP.md A.2).
+    across processes is not ported (ROADMAP.md A.1).
 
     `sequences` (already open, e.g. `ArrayEventSequence`s) replaces the
     split's directory; they are not closed. `det` must live on `device`

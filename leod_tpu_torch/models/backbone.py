@@ -9,6 +9,11 @@ Two routes through a stage: `forward` goes through the kernel wrappers
 define no backward; on the CPU their plain versions), and
 `forward_modules` through the module forwards under autograd, the
 port's counterpart of the flax/XLA path that `leod_tpu` trains through.
+A stage's module route is `cell(pre_modules(x))`: the non-recurrent
+downsample and block pairs, then the ConvLSTM. Stage 1's `pre_modules`
+carries no state, so a train step may checkpoint it alone or run it over
+every frame of a window at once (`RVTBackbone.stage1_pre`,
+`from_stage1`).
 """
 from __future__ import annotations
 
@@ -100,24 +105,40 @@ class RVTStage(nn.Module):
         h, cc = self.lstm(x, state)
         return h, (h, cc)
 
-    def forward_modules(self, x: torch.Tensor, state: StageState,
-                        token_mask: Optional[torch.Tensor] = None
-                        ) -> Tuple[torch.Tensor, StageState]:
-        """The stage through its module forwards, differentiable: the
-        downsample, the mask token, each block pair in token layout
-        (`layers.block_pair_tokens`), then `ConvLSTMCell`, as the flax
-        stage computes it (`leod_tpu/models/backbone.py:89-107,136-139`).
-        (h, c) come back in the dtypes of the state that went in (the
-        compute dtype, as JAX carries them)."""
+    def pre_modules(self, x: torch.Tensor,
+                    token_mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+        """The stage's non-recurrent part through its module forwards,
+        differentiable: the downsample, the mask token, each block pair
+        in token layout (`layers.block_pair_tokens`), as the flax stage's
+        `pre` computes it (`leod_tpu/models/backbone.py:69-111`). It
+        carries no state, so stage 1's can run over every timestep of a
+        window at once."""
         x = self.down(x)
         if self.mask_token is not None and token_mask is not None:
             x = torch.where(token_mask[..., None],
                             self.mask_token.to(x.dtype), x)
         for wb, gb in self.pairs():
             x = block_pair_tokens(x, wb, gb, self.cfg.partition_size)
-        h, cc = self.lstm(x, state)
+        return x
+
+    def cell(self, y: torch.Tensor, state: StageState
+             ) -> Tuple[torch.Tensor, StageState]:
+        """The ConvLSTM on the output of `pre_modules`
+        (`leod_tpu/models/backbone.py:112-115`). (h, c) come back in the
+        dtypes of the state that went in (the compute dtype, as JAX
+        carries them)."""
+        h, cc = self.lstm(y, state)
         h, cc = h.to(state[0].dtype), cc.to(state[1].dtype)
         return h, (h, cc)
+
+    def forward_modules(self, x: torch.Tensor, state: StageState,
+                        token_mask: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, StageState]:
+        """The stage through its module forwards, differentiable:
+        `cell(pre_modules(x))`, as the flax stage computes it
+        (`leod_tpu/models/backbone.py:136-139`)."""
+        return self.cell(self.pre_modules(x, token_mask), state)
 
 
 class RVTBackbone(nn.Module):
@@ -150,14 +171,29 @@ class RVTBackbone(nn.Module):
     def forward_modules(self, x: torch.Tensor, states: BackboneStates,
                         token_mask: Optional[torch.Tensor] = None
                         ) -> Tuple[BackboneFeatures, BackboneStates]:
-        """One timestep through every stage's `forward_modules`: the
-        differentiable route a train step records (and recomputes, under
-        `torch.utils.checkpoint`)."""
-        features: BackboneFeatures = {}
-        new_states: List[StageState] = []
-        for k in range(self.num_stages):
+        """One timestep through every stage's module forwards,
+        differentiable: `from_stage1(stage1_pre(x))`."""
+        return self.from_stage1(self.stage1_pre(x, token_mask), states)
+
+    def stage1_pre(self, x: torch.Tensor,
+                   token_mask: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+        """Stage 1's non-recurrent part (`RVTStage.pre_modules`): it
+        carries no state, so it takes any number of frames at once
+        (`leod_tpu/models/backbone.py:177-180`)."""
+        return self.stage1.pre_modules(x, token_mask)
+
+    def from_stage1(self, y1: torch.Tensor, states: BackboneStates
+                    ) -> Tuple[BackboneFeatures, BackboneStates]:
+        """One timestep from stage 1's `stage1_pre` output: stage 1's
+        ConvLSTM, then stages 2-4 through their module forwards
+        (`leod_tpu/models/backbone.py:182-197`)."""
+        x, st = self.stage1.cell(y1, states[0])
+        features: BackboneFeatures = {1: x}
+        new_states: List[StageState] = [st]
+        for k in range(1, self.num_stages):
             x, st = getattr(self, f"stage{k + 1}").forward_modules(
-                x, states[k], token_mask if k == 0 else None)
+                x, states[k])
             features[k + 1] = x
             new_states.append(st)
         return features, tuple(new_states)

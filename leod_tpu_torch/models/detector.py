@@ -38,8 +38,9 @@ class Detector(nn.Module):
     trainable=False: inference only, weights in `dtype`, no gradients;
     `forward_backbone` and `forward_detect` run through the kernels.
     trainable=True: fp32 parameters that take gradients, computing in
-    `dtype` (`compute`); the train route is `forward_backbone_modules`
-    and `forward_detect(train=True)`."""
+    `dtype` (`compute`); the train route is `forward_stage1_pre` then
+    `forward_from_stage1` (`forward_backbone_modules` split at stage 1's
+    ConvLSTM) and `forward_detect(train=True)`."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16,
                  device="cuda", seed: int = 0, trainable: bool = False):
@@ -113,12 +114,27 @@ class Detector(nn.Module):
     def forward_backbone_modules(self, x: torch.Tensor,
                                  states: BackboneStates,
                                  token_mask: Optional[torch.Tensor] = None):
-        """One timestep through the module forwards, differentiable (the
-        train route; `RVTBackbone.forward_modules`), in `compute()`:
+        """One timestep through the module forwards, differentiable
+        (`RVTBackbone.forward_modules`), in `compute()`:
         x [B, H, W, C] (or the stem's fold of it) -> ({stage: feature},
         new_states)."""
         with self.compute():
             return self.backbone.forward_modules(x, states, token_mask)
+
+    def forward_stage1_pre(self, x: torch.Tensor,
+                           token_mask: Optional[torch.Tensor] = None):
+        """Stage 1's downsample and block pairs through the module
+        forwards, in `compute()`, over any number of frames
+        (`RVTBackbone.stage1_pre`; `leod_tpu/models/detector.py:94-98`)."""
+        with self.compute():
+            return self.backbone.stage1_pre(x, token_mask)
+
+    def forward_from_stage1(self, y1: torch.Tensor, states: BackboneStates):
+        """The rest of one timestep from `forward_stage1_pre`'s output,
+        in `compute()` (`RVTBackbone.from_stage1`;
+        `leod_tpu/models/detector.py:100-105`)."""
+        with self.compute():
+            return self.backbone.from_stage1(y1, states)
 
     def forward_detect(self, feats, train: bool = False):
         """FPN + head + decode over harvested frames.

@@ -11,19 +11,22 @@ the gathered frames.
 Training is truncated backprop through time (TBPTT): the gradient flows
 across the L timesteps of a window through (h, c), and the states that
 leave the step are detached, so it never crosses windows. The train
-step runs the module forwards under autograd (`Detector.
-forward_backbone_modules`, `forward_detect(train=True)`), the
+step runs the module forwards under autograd (`_scan_backbone` over
+`Detector.forward_stage1_pre` and `forward_from_stage1`;
+`forward_detect(train=True)`), the
 counterpart of the JAX package's flax/XLA train path: the hand-written
 kernels define no backward, as the Pallas kernels define no VJP. The
 eval step runs the kernels.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+import functools
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import resolve_device
 from ..convert import jax_paths
@@ -40,11 +43,26 @@ class TrainState(NamedTuple):
     step: int                  # optimizer steps taken
 
 
-# TBPTT rematerialization: "full" recomputes every timestep's forward in
-# the backward pass (torch.utils.checkpoint around each timestep), "none"
-# stores every activation. The JAX package's "dots" and "stage1"
-# policies are not ported (ROADMAP.md A.1).
-REMAT_POLICIES = ("full", "none")
+# TBPTT rematerialization of the backbone loop, TrainingConfig.remat
+# (`leod_tpu/train/step.py:32-58`): "full" recomputes every timestep's
+# forward in the backward pass (torch.utils.checkpoint around each
+# timestep); "dots" keeps the outputs of the 2-D products (`_dots_policy`)
+# and recomputes the rest; "stage1" recomputes only stage 1's downsample
+# and block pairs (the bulk of the activation bytes, at 4x resolution)
+# and stores stages 2-4; "none" stores every activation.
+REMAT_POLICIES = ("full", "dots", "stage1", "none")
+# The products "dots" keeps: jax.checkpoint_policies.
+# dots_with_no_batch_dims_saveable keeps every dot_general without batch
+# dimensions, which in the backbone are the Dense layers and the
+# ConvLSTM's split products; F.linear lowers those to mm or addmm.
+# Attention's q k^T and p v (bmm), the convolutions, norms and
+# elementwise ops are recomputed.
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
@@ -66,13 +84,65 @@ def _gather_frames(feats_seq: Dict[int, torch.Tensor],
     return {s: one(f) for s, f in feats_seq.items()}
 
 
-def _check_remat(remat: str) -> None:
-    if remat in ("dots", "stage1"):
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported yet (ROADMAP.md A.1); the port "
-            f"takes {REMAT_POLICIES}")
+def check_remat(remat: str) -> None:
+    """Raises ValueError unless `remat` names one of REMAT_POLICIES."""
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat={remat!r}; the port takes {REMAT_POLICIES}")
+
+
+def _remat(fn: Callable, remat: str) -> Callable:
+    """fn under the TBPTT remat policy of a whole timestep: checkpointed
+    ("full"), selectively checkpointed ("dots"), or as it is ("none";
+    "stage1" checkpoints inside the timestep)."""
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    return fn
+
+
+def _scan_backbone(det: Detector, states0: BackboneStates, ev: torch.Tensor,
+                   prebatch_stage1: bool = False, remat: str = "full"
+                   ) -> Tuple[BackboneStates, Dict[int, torch.Tensor]]:
+    """The backbone over the L timesteps of ev [L, B, ...] through the
+    module forwards, differentiable (`leod_tpu/train/step.py:60-122`):
+    (final states, {FPN stage: features [L, B, h, w, C]}).
+
+    prebatch_stage1: stage 1's downsample and block pairs run over all
+    L*B frames in one call before the loop, which then runs the rest of
+    each timestep (`Detector.forward_from_stage1`); their activations
+    are stored. "stage1" with prebatch_stage1 or with
+    backbone.enable_masking becomes "full": neither has a stage-1
+    checkpoint boundary, and storing every activation instead would turn
+    the policy around (the JAX package does the same)."""
+    check_remat(remat)
+    stages = det.cfg.fpn.in_stages
+    masking = det.cfg.backbone.enable_masking
+    if remat == "stage1" and (masking or prebatch_stage1):
+        remat = "full"
+    pre, xs = det.forward_stage1_pre, ev
+    if prebatch_stage1 and not masking:
+        n, b = ev.shape[:2]
+        y1 = pre(ev.reshape((n * b,) + ev.shape[2:]))
+        pre, xs = (lambda y: y), y1.reshape((n, b) + y1.shape[1:])
+    elif remat == "stage1":
+        pre = functools.partial(checkpoint, pre, use_reentrant=False)
+
+    def body(x_t, states):
+        feats, new_states = det.forward_from_stage1(pre(x_t), states)
+        return tuple(feats[s] for s in stages), new_states
+
+    step = _remat(body, remat)
+    states = states0
+    feats_seq = {s: [] for s in stages}
+    for t in range(xs.shape[0]):
+        feats, states = step(xs[t], states)
+        for s, f in zip(stages, feats):
+            feats_seq[s].append(f)
+    return states, {s: torch.stack(f) for s, f in feats_seq.items()}
 
 
 def _global_norm(grads) -> torch.Tensor:
@@ -83,15 +153,17 @@ def _global_norm(grads) -> torch.Tensor:
 
 def make_train_step(det: Detector, optimizer: ClipAdamW,
                     remat: str = "full", with_preds: bool = False,
-                    gradflow: bool = False) -> Callable:
+                    gradflow: bool = False,
+                    prebatch_stage1: bool = False) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     batch: ev [L, B, H, W, C] (or the stem's fold of it), is_first [B],
     frame_t [B, M], frame_mask [B, M], labels [B, M, G, 7], as numpy
     arrays or tensors. One call: reset the states of the rows that
     start a sequence, run the backbone over the window through the
-    module forwards (each timestep under `torch.utils.checkpoint` where
-    remat="full"), gather the labeled frames, run the FPN and head once
+    module forwards (`_scan_backbone`, under the remat policy `remat` of
+    REMAT_POLICIES, with stage 1 over the whole window first where
+    `prebatch_stage1`), gather the labeled frames, run the FPN and head once
     over the B·M frames in train mode (BN on batch statistics, padded
     frames included), `yolox_loss`, backward, clip, AdamW.
 
@@ -110,8 +182,7 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
     if not det.trainable:
         raise ValueError("make_train_step needs a Detector built with "
                          "trainable=True")
-    _check_remat(remat)
-    stages = det.cfg.fpn.in_stages
+    check_remat(remat)
     groups = {mod: [p for p in getattr(det, mod).parameters()
                     if p.requires_grad] for mod in ("backbone", "fpn", "head")}
     flow = []
@@ -122,10 +193,6 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
         flow_numel = torch.tensor([float(p.numel()) for _, p in flow],
                                   device=det.device)
 
-    def timestep(x_t, states):
-        feats, new_states = det.forward_backbone_modules(x_t, states)
-        return tuple(feats[s] for s in stages), new_states
-
     def train_step(state: TrainState, batch) -> tuple:
         dev = det.device
         ev = _as_tensor(batch["ev"], dev)
@@ -135,17 +202,9 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
         states = reset_states(state.states,
                               _as_tensor(batch["is_first"], dev))
         optimizer.zero_grad()
-        feats_seq = {s: [] for s in stages}
-        for t in range(ev.shape[0]):
-            if remat == "full":
-                feats, states = checkpoint(timestep, ev[t], states,
-                                           use_reentrant=False)
-            else:
-                feats, states = timestep(ev[t], states)
-            for s, f in zip(stages, feats):
-                feats_seq[s].append(f)
-        feats = _gather_frames(
-            {s: torch.stack(f) for s, f in feats_seq.items()}, frame_t)
+        states, feats_seq = _scan_backbone(det, states, ev, prebatch_stage1,
+                                           remat)
+        feats = _gather_frames(feats_seq, frame_t)
         out, _ = det.forward_detect(feats, train=True)
         losses = det.loss(out, labels.reshape((-1,) + labels.shape[2:]),
                           frame_mask.reshape(-1))

@@ -52,7 +52,8 @@ from ..ops.nms import postprocess
 from ..timing import lap
 from ..utils.viz import save_pred_vs_gt_panel
 from .optim import make_optimizer
-from .step import TrainState, make_eval_step, make_train_step
+from .step import (TrainState, check_remat, make_eval_step,
+                   make_train_step)
 
 def resolve_checkpoint(path: str) -> str:
     """The port's checkpoint file for `path`: the file itself, or
@@ -542,8 +543,13 @@ class Trainer:
         weak view of every batch in the prefetch thread, the student
         trains on the strong view, the harvest budget defaults to the
         whole window, and the teacher is updated after every step; its
-        burn-in counter starts at the restored step."""
+        burn-in counter starts at the restored step.
+
+        `training.remat` picks the TBPTT remat policy of the steps
+        (`step.REMAT_POLICIES`); an unknown one raises here, before the
+        loaders start."""
         cfg = self.cfg
+        check_remat(cfg.training.remat)
         total = max_steps or cfg.training.max_steps
         loader, B = self.make_train_loader(seed, sequences)
         if state is None:

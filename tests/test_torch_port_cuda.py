@@ -14,7 +14,9 @@ the GLU MLP and SiLU, an
 fp32 and a bf16 cell state, the ConvLSTM update `lstm_update` alone at
 every width, with a ragged last 128-row tile, at B = 1 and 2, with K
 split over clusters of 1 to 8 CTAs, and launched back to back at the
-stage shapes at B = 1 and 8 by its own plan, NMS with and without class ids at
+stage shapes at B = 1 and 8 by its own plan, `block_mlp`, `lstm_update`
+and the whole stage `fused_stage` at RVT-B Gen4's four stage shapes
+(96 x 160 down to 12 x 20, a 6 x 10 partition) at B = 1 and 12, NMS with and without class ids at
 K = 1, 37, 1000 and 1024, NMS at IoUs on the threshold and on the floats
 either side of it (identical and nested boxes), the NMS sweep's chains
 (staircases across 32-box words, box 0 suppressing all, no overlap, all
@@ -70,6 +72,10 @@ DIM_HEAD = dict(maxvit_cuda.ATTN_SHAPES)   # C -> the head width it takes
 # the RVT-B and RVT-S Gen1 stage shapes: (C, (H, W)) at strides 4-32
 STAGES_B = [(64, (64, 80)), (128, (32, 40)), (256, (16, 20)), (512, (8, 10))]
 STAGES_S = [(48, (64, 80)), (96, (32, 40)), (192, (16, 20)), (384, (8, 10))]
+# RVT-B Gen4's (input 384 x 640), in its 6 x 10 partition (T = 60)
+STAGES_GEN4 = [(64, (96, 160)), (128, (48, 80)), (256, (24, 40)),
+               (512, (12, 20))]
+PARTITION_GEN4 = (6, 10)
 
 
 def _kblock(dim):
@@ -535,6 +541,60 @@ def test_lstm_update_back_to_back_launches_agree(cuda, dim, hw, b):
     hp, cp = maxvit_cuda.lstm_update_plain(x, h, c, gates)
     _close(outs[0][0], hp)
     _close(outs[0][1], cp)
+
+
+@pytest.mark.parametrize("b", [1, 12])
+@pytest.mark.parametrize("dim,hw", STAGES_GEN4)
+def test_block_mlp_at_the_gen4_stage_shapes(cuda, dim, hw, b):
+    """The per-token half at RVT-B Gen4's rows (up to 184,320 at stage 1
+    for B = 12), by its own plan."""
+    blk = _randomized(PartitionAttention(dim, PARTITION_GEN4, "window",
+                                         dim_head=DIM_HEAD[dim]), dim + b,
+                      cuda)
+    g = torch.Generator(device=cuda).manual_seed(dim + b)
+    x, o = (torch.randn(b * hw[0] * hw[1], dim, device=cuda, generator=g
+                        ).to(torch.bfloat16) for _ in range(2))
+    before = maxvit_cuda.block_mlp.launches
+    got = maxvit_cuda.block_mlp(x, o, blk, "gelu", False)
+    torch.cuda.synchronize()
+    assert maxvit_cuda.block_mlp.launches == before + 1
+    _close(got, maxvit_cuda.block_mlp_plain(x, o, blk))
+
+
+@pytest.mark.parametrize("b", [1, 12])
+@pytest.mark.parametrize("dim,hw", STAGES_GEN4)
+def test_lstm_update_at_the_gen4_stage_shapes(cuda, dim, hw, b):
+    x, h, c, gates = _lstm_inputs(dim, b, hw, torch.bfloat16, cuda, dim + b)
+    before = maxvit_cuda.lstm_update.launches
+    hk, ck = maxvit_cuda.lstm_update(x, h, c, gates)
+    torch.cuda.synchronize()
+    assert maxvit_cuda.lstm_update.launches == before + 1
+    hp, cp = maxvit_cuda.lstm_update_plain(x, h, c, gates)
+    _close(hk, hp)
+    _close(ck, cp)
+
+
+@pytest.mark.parametrize("b", [1, 12])
+@pytest.mark.parametrize("dim,hw", STAGES_GEN4)
+def test_fused_stage_at_the_gen4_stage_shapes(cuda, dim, hw, b):
+    """The whole stage of RVT-B Gen4 (one block pair, then the ConvLSTM
+    update) from warm (h, c) in bf16, as the serving path keeps them."""
+    pair = _pair(dim, PARTITION_GEN4, False, "gelu", cuda, seed=dim)
+    gates = _randomized(_SplitGateConv(dim), dim + 1, cuda)
+    g = torch.Generator(device=cuda).manual_seed(dim + b)
+    x, h, c = (torch.randn(b, *hw, dim, device=cuda, generator=g)
+               for _ in range(3))
+    x, h, c = x.to(torch.bfloat16), (h * 0.5).to(torch.bfloat16), \
+        (c * 0.5).to(torch.bfloat16)
+    before = maxvit_cuda.fused_stage.launches
+    hk, ck = maxvit_cuda.fused_stage(x, h, c, [pair], gates, PARTITION_GEN4,
+                                     True, dim_head=DIM_HEAD[dim])
+    torch.cuda.synchronize()
+    assert maxvit_cuda.fused_stage.launches == before + 1
+    hp, cp = maxvit_cuda.fused_stage_plain(x, h, c, [pair], gates,
+                                           PARTITION_GEN4)
+    _close(hk, hp)
+    _close(ck, cp)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

@@ -7,9 +7,9 @@ by value, AdamW with weight decay, the Gen1 preset's OneCycle schedule)
 after which the parameters, the BN statistics and the carried LSTM
 states agree to 1e-4 (of the tensor's largest where that is above one),
 and AdamW's moments to 1e-4 of each tensor's largest.
-And the port's own: remat "full" and "none" give the same gradients, a
-reset row's poisoned state does not leak, the states leave the step
-detached.
+And the port's own: every remat policy ("full", "dots", "stage1",
+"none") gives the same loss and gradients, a reset row's poisoned state
+does not leak, the states leave the step detached.
 
 AdamW divides each gradient by its own magnitude, so a parameter whose
 gradient is zero but for rounding (the key bias of attention, which the
@@ -226,27 +226,36 @@ def _leaf(tree, path):
     return tree
 
 
-def test_remat_full_and_none_give_the_same_step(models):
+@pytest.fixture(scope="module")
+def full_remat_step(models):
+    """The loss and gradients of one step under remat "full", and its
+    batch."""
     _, tcfg, _, v = models
     batch = _batches(tcfg, 1, seed=3)[0]
-    grads, losses = [], []
-    for remat in ("full", "none"):
-        det = _trainable(tcfg, v)
-        opt, _ = make_optimizer(tcfg.training, det.parameters())
-        st, m = make_train_step(det, opt, remat=remat)(
-            TrainState(states=det.init_states(B), step=0), batch)
-        grads.append([p.grad.clone() for p in det.parameters()])
-        losses.append(float(m["loss"]))
-        assert not any(t.requires_grad for s in st.states for t in s)
-    assert losses[0] == pytest.approx(losses[1], rel=1e-6)
-    for a, b in zip(*grads):
-        torch.testing.assert_close(a, b, rtol=1e-5,
-                                   atol=1e-6 * float(b.abs().max()) + 1e-30)
     det = _trainable(tcfg, v)
     opt, _ = make_optimizer(tcfg.training, det.parameters())
-    for remat in ("dots", "stage1"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(det, opt, remat=remat)
+    _, m = make_train_step(det, opt, remat="full")(
+        TrainState(states=det.init_states(B), step=0), batch)
+    return batch, float(m["loss"]), [p.grad.clone() for p in det.parameters()]
+
+
+@pytest.mark.parametrize("remat", ["full", "dots", "stage1", "none"])
+def test_remat_full_and_none_give_the_same_step(models, full_remat_step,
+                                                remat):
+    """Every remat policy gives the step of "full": the loss within 1e-6
+    relative, every gradient within rtol 1e-5; the states leave the step
+    detached."""
+    _, tcfg, _, v = models
+    batch, loss, grads = full_remat_step
+    det = _trainable(tcfg, v)
+    opt, _ = make_optimizer(tcfg.training, det.parameters())
+    st, m = make_train_step(det, opt, remat=remat)(
+        TrainState(states=det.init_states(B), step=0), batch)
+    assert not any(t.requires_grad for s in st.states for t in s)
+    assert float(m["loss"]) == pytest.approx(loss, rel=1e-6)
+    for a, b in zip([p.grad for p in det.parameters()], grads):
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-6 * float(b.abs().max()) + 1e-30)
 
 
 def test_reset_row_with_poisoned_state_trains_finite(models):
