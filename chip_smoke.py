@@ -270,14 +270,54 @@ switched off for the fp32 products of the plain ConvLSTM update.
    mask, the launches, `verify_pseudo_dataset` and the datasets'
    agreement.
 
+11. Data-parallel phase, after phase 10, RVT-B Gen4 at full width and
+   depth over DP_WORLD = 2 ranks of DP_LOCAL = 6 slots (the preset's
+   B 12), `parallel/` over `torch.distributed`. (a) DP_NCCL_STEPS = 2
+   steps of `Trainer.fit` (B 12, L 5, stream sampling) under a one-rank
+   NCCL group, against the same run without a group: losses and every
+   parameter and BN statistic bit-equal (cuDNN and the scatter-adds on
+   their deterministic algorithms for both). The kernels at a rank's
+   shapes: the kernel phase at B = 6 and the NMS at a rank's teacher's
+   6 x 5 = 30 images. One process runs `cli.train` (the preset, stream
+   sampling, DP_STEPS = 3 steps, in fp32: in bf16 a rank's B 6 and one
+   process's B 12 round apart, and a SimOTA assignment flips between
+   them at random weights) on phase 10's rendered split as a frame
+   store, then two rank processes, joined over gloo and sharing the
+   card, each render the same split and run (b) `cli.train --mesh 2`
+   with the same flags, then a validation of the run's checkpoint
+   sharded over the ranks through the kernels (each rank 6 of the 12 val
+   sequences at B 12, the evaluators all-gathered), (c) online SSOD
+   from that checkpoint through `perturb_teacher` (thresholds ST_OBJ,
+   ST_CLS, conf ST_CONF, burn-in 1, then DP_SSOD_STEPS = 2 steps), a
+   teacher a rank at B 6, and (d) a fit that the parent stops with a
+   SIGTERM to rank 1 after its second step. Fails if a rank or the
+   group times out or fails, and unless (b) the ranks' parameter
+   checksums and losses are equal after every step, the first step's
+   loss is within REMAT_LOSS_RTOL = 1e-3 and each gradient norm within
+   REMAT_NORM_RTOL = 1e-2 of one process's, relative, the train steps
+   launched no kernel, each labeled val frame's preds row from the
+   ranks is within 2^-4 * max|plain| (boxes and scores apart) of a
+   one-process eval of the same checkpoint, the ranks' metrics are
+   equal and within EVAL_AP_TOL of one process's, and each rank's eval
+   NMS mask is exact; (c) each rank took 3 steps with its teacher at 6
+   rows, pseudo boxes merged after the burn-in and none before, the
+   teacher launched what its batches imply, the NMS mask on its preds
+   (30 images) is exact, and the ranks' checksums are equal; (d) both
+   ranks left fit at the same step, and rank 0's ckpt_last.pt holds it.
+   Reports each rank's step ms, the gradient all-reduce's ms a step,
+   peak GiB, validation s, the teachers' ms and the phase's seconds,
+   beside the card's name and power limit.
+
 Prints the kernels' JSON line (each kernel wrapper of each path: its
 RVT-B Gen1 entry under its own name, its RVT-S entry as
 "<name>[RVT-S]", its RVT-B Gen4 entry as "<name>[Gen4]", whose times
-and bound are its rows' at B = 12; an RVT-B entry's launches are the
+and bound are its rows' at B = 12, its Gen4 entry at a data-parallel
+rank's B = 6 as "<name>[Gen4 DP]"; an RVT-B entry's launches are the
 slice phase's, the eval phase's, the train phase's validation's, the
 self-training phase's, the CLI phase's and the deploy phase's artifact
 and server steps', a Gen4 entry's its serving engines', eval's,
-validation's and pseudo-labels'),
+validation's and pseudo-labels', a Gen4 DP entry's the ranks'
+validations' and online SSOD teachers'),
 the card's name and power limit, and the result JSON as the last line.
 Any failure exits non-zero; so does a machine without a CUDA device, or
 a directory without the package.
@@ -405,6 +445,26 @@ GEN4_TRAIN_STEPS = 3
 REMAT_STEPS = 3
 REMAT_LOSS_RTOL = 1e-3
 REMAT_NORM_RTOL = 1e-2
+# the data-parallel phase (11), RVT-B Gen4 at full width and depth:
+# DP_WORLD rank processes of DP_LOCAL slots each (the preset's B 12 over
+# the ranks) over gloo on the one card, DP_STEPS steps of `cli.train
+# --mesh`, its first step's loss within REMAT_LOSS_RTOL and module
+# gradient norms within REMAT_NORM_RTOL of one process's at B 12; online
+# SSOD for DP_SSOD_BURN_IN + DP_SSOD_STEPS steps; a fit of at most
+# DP_STOP_MAX steps that rank 1's SIGTERM stops after its DP_STOP_AT-th;
+# DP_NCCL_STEPS steps under a one-rank NCCL group. A collective waits at
+# most DP_GROUP_TIMEOUT_S, and the ranks are killed after
+# DP_RANK_TIMEOUT_S.
+DP_WORLD = 2
+DP_LOCAL = 6
+DP_STEPS = 3
+DP_SSOD_BURN_IN = 1
+DP_SSOD_STEPS = 2
+DP_STOP_AT = 2
+DP_STOP_MAX = 40
+DP_NCCL_STEPS = 2
+DP_GROUP_TIMEOUT_S = 300
+DP_RANK_TIMEOUT_S = 600
 # the Gen4 teacher's logit spread: at phase 7's ST_LOGIT_STD its best
 # obj * cls score over a window of 60 frames of 5040 anchors and 3
 # classes was 0.0034 (on an H100), under ST_CONF, so that no box would
@@ -755,10 +815,12 @@ def stage_inputs(det, seed: int, batch: int = B):
     return out
 
 
-def phase_kernels(det, batch: int = B, batches=KERNEL_BATCHES):
+def phase_kernels(det, batch: int = B, batches=KERNEL_BATCHES,
+                  nms_images: int = 0):
     """Every kernel against its plain version at the model's stage shapes
     for `batch` slots, each half of a block and the ConvLSTM update also
-    at each of `batches`; the NMS at `batch` images."""
+    at each of `batches`; the NMS at `nms_images` images (default
+    `batch`)."""
     import torch
     from leod_tpu_torch.ops import maxvit_cuda as mc
     from leod_tpu_torch.models import layers as lay
@@ -855,15 +917,16 @@ def phase_kernels(det, batch: int = B, batches=KERNEL_BATCHES):
     # the sweep
     kk = det.cfg.postprocess.pre_nms_topk
     n_cls = det.cfg.head.num_classes
+    n_img = nms_images or batch
     gc = torch.Generator().manual_seed(2)
-    ctr = torch.rand(batch, kk, 2, generator=gc) * torch.tensor([w_in, h_in])
-    wh = torch.rand(batch, kk, 2, generator=gc) * 70 + 6
+    ctr = torch.rand(n_img, kk, 2, generator=gc) * torch.tensor([w_in, h_in])
+    wh = torch.rand(n_img, kk, 2, generator=gc) * 70 + 6
     boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1).cuda()
-    valid = (torch.rand(batch, kk, generator=gc) > 0.05).cuda()
-    ids = torch.randint(0, n_cls, (batch, kk), generator=gc).float().cuda()
+    valid = (torch.rand(n_img, kk, generator=gc) > 0.05).cuda()
+    ids = torch.randint(0, n_cls, (n_img, kk), generator=gc).float().cuda()
     thr = det.cfg.postprocess.nms_threshold
     inputs = {"random": (boxes, valid, ids),
-              "staircase": staircases(batch, kk)}
+              "staircase": staircases(n_img, kk)}
 
     def nms_k():
         return nms_cuda.nms_mask(boxes, thr, valid, ids)
@@ -885,20 +948,20 @@ def phase_kernels(det, batch: int = B, batches=KERNEL_BATCHES):
         device[name] = {k: device_us(call, f"nms_{k}_kernel")
                         for k in ("build", "sweep")}
     # per image: K (K-1) / 2 IoU tests of ~13 fp32 operations each
-    ops = batch * kk * (kk - 1) / 2 * 13
-    nbytes = batch * kk * (16 + 1 + 4 + 1)
+    ops = n_img * kk * (kk - 1) / 2 * 13
+    nbytes = n_img * kk * (16 + 1 + 4 + 1)
     bms, by = bound(ops, nbytes, PEAK_FP32)
     # each kernel alone: nms_build_kernel does the IoU tests, reads the
     # boxes and class ids and writes the mask words on and above the
     # diagonal; nms_sweep_kernel reads those and valid and writes keep,
     # its bound (its design's latency floor is the variant phase's)
     words = (kk + 31) // 32
-    mask_bytes = batch * 4 * sum(min(32, kk - 32 * t) * (words - t)
+    mask_bytes = n_img * 4 * sum(min(32, kk - 32 * t) * (words - t)
                                  for t in range(words))
-    build_ms, build_by = bound(ops, batch * kk * (16 + 4) + mask_bytes,
+    build_ms, build_by = bound(ops, n_img * kk * (16 + 4) + mask_bytes,
                                PEAK_FP32)
-    sweep_ms = (mask_bytes + 2 * batch * kk) / PEAK_BYTES * 1e3
-    nms_row = dict(shape=[batch, kk, 4], max_abs_err=float(mismatches),
+    sweep_ms = (mask_bytes + 2 * n_img * kk) / PEAK_BYTES * 1e3
+    nms_row = dict(shape=[n_img, kk, 4], max_abs_err=float(mismatches),
                    tol=0.0, batch=batch,
                    ok=mismatches == 0, kept=kept, device_us=device,
                    ms=cuda_ms(nms_k), plain_ms=cuda_ms(nms_p), flops=ops,
@@ -3192,6 +3255,631 @@ def drive_gen4():
     return report, out
 
 
+# ---------------------------------------------------------------------------
+# Data-parallel phase (11)
+# ---------------------------------------------------------------------------
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _checksum(module) -> str:
+    """sha256 of a module's parameters and buffers, byte for byte."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for k, v in module.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().reshape(-1).cpu().contiguous()
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+class StepSpy:
+    """While entered, every train step that `train.trainer` makes records
+    its metrics, its host ms (ending in a synchronize; the checksum
+    after it is not timed) and the checksum of the model's parameters
+    and BN statistics after it, then calls each of `hooks` with the
+    number of steps taken; every `Trainer.fit` collects `timings`
+    (among them the gradient all-reduce's "allreduce_ms")."""
+    KEYS = ("loss", "grad_norm", "grad_norm/backbone", "grad_norm/fpn",
+            "grad_norm/head", "num_fg")
+
+    def __init__(self):
+        self.steps, self.timings, self.hooks = [], {}, []
+
+    def __enter__(self):
+        import torch
+        from leod_tpu_torch.train import trainer as T
+        self._T, self._orig = T, (T.make_train_step, T.Trainer.fit)
+        make, fit = self._orig
+        spy = self
+
+        def make_step(det, *a, **k):
+            step = make(det, *a, **k)
+
+            def run(state, batch):
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                spy.steps.append({"step_ms": ms, "checksum": _checksum(det),
+                                  **{k: float(m[k]) for k in spy.KEYS}})
+                for hook in spy.hooks:
+                    hook(len(spy.steps))
+                return state, m
+            return run
+
+        def fit_timed(trainer, *a, **k):
+            k.setdefault("timings", spy.timings)
+            return fit(trainer, *a, **k)
+
+        T.make_train_step, T.Trainer.fit = make_step, fit_timed
+        return self
+
+    def __exit__(self, *exc):
+        self._T.make_train_step, self._T.Trainer.fit = self._orig
+
+
+def dp_frames(root: str, cfg):
+    """Phase 10's rendered Gen4 split (GEN4_SEQS train and val sequences,
+    seed 0) as a frame store, its label files under `root`."""
+    from leod_tpu_torch.data.synthetic import render_dataset_frames
+    dst = cfg.dataset
+    return render_dataset_frames(
+        root, GEN4_SEQS, GEN4_SEQS, 0, seed=0, num_reprs=GEN4_REPRS,
+        hw=dst.resolution_hw, ds2=dst.downsample_by_factor_2,
+        num_classes=cfg.model.head.num_classes,
+        first_label_repr=EVAL_FIRST_LABEL, label_every=EVAL_LABEL_EVERY)
+
+
+def dp_argv(root: str, save_dir: str, exp: str, mesh: bool):
+    """`cli.train` at the Gen4 preset (B 12, L 5, remat "full"), stream
+    sampling, DP_STEPS steps, no validation inside fit, in fp32: in bf16
+    a rank's B 6 and one process's B 12 round the convolutions apart
+    (cuDNN picks its algorithm by shape), and at random weights SimOTA's
+    costs are near-ties, so an anchor's assignment flips between the two
+    and moves the loss by percents."""
+    argv = ["--dataset", "gen4", "--size", "base", "--path", root,
+            "--steps", str(DP_STEPS), "--sampling", "stream", "--fp32",
+            "--save-dir", save_dir, "--exp-name", exp, "--val-every", "0"]
+    return argv + (["--mesh", str(DP_WORLD)] if mesh else [])
+
+
+def _eval_hook(store):
+    """run_streaming_eval's on_batch that keeps each labeled frame's
+    preds row (on the host) under the hash of its event frame and GT
+    boxes, and each batch's preds for the NMS check."""
+    import hashlib
+    import numpy as np
+
+    def on_batch(bi, hb, preds, dets, valid):
+        mslot = hb["frame_t"].shape[1]
+        for b, row in enumerate(hb["boxes"]):
+            for m, lab in enumerate(row):
+                if lab is not None:
+                    t = int(hb["frame_t"][b, m])
+                    h = hashlib.sha1(np.ascontiguousarray(hb["ev"][t, b]))
+                    h.update(lab.arr.tobytes())
+                    store["frames"][h.hexdigest()] = \
+                        preds[b * mslot + m].float().cpu()
+        store["batches"].append((preds.detach().clone(), int(valid.sum())))
+    return on_batch
+
+
+def dp_rank(rank: int, port: int, out: str) -> None:
+    """One rank of phase 11(b)-(d) (`--dp-rank`): joins the gloo group
+    of DP_WORLD ranks on the one card, then (b) `cli.train --mesh` for
+    DP_STEPS steps and a validation sharded over the ranks, (c) online
+    SSOD, (d) a fit that rank 1's SIGTERM stops. Writes its report to
+    <out>/rank<r>.json and its eval frames to <out>/eval<r>.pt."""
+    import signal
+    from dataclasses import replace
+    import torch
+    from leod_tpu_torch.cli import train as cli_train
+    from leod_tpu_torch.cli._common import load_detector, open_split, ratio_of
+    from leod_tpu_torch.config import experiment_preset
+    from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
+    from leod_tpu_torch.parallel.distributed import maybe_initialize
+    from leod_tpu_torch.parallel.mesh import make_mesh
+    from leod_tpu_torch.selftrain import online
+    from leod_tpu_torch.train.trainer import Trainer, run_streaming_eval
+
+    # a SIGTERM outside fit (whose handler turns it into a stop) is
+    # recorded, not fatal: (d) then fails on its step count
+    late = []
+    signal.signal(signal.SIGTERM, lambda *a: late.append(time.time()))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_WORLD),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    maybe_initialize(backend="gloo", timeout_s=DP_GROUP_TIMEOUT_S)
+    wrappers = maxvit_cuda.WRAPPERS + nms_cuda.WRAPPERS
+    root = os.path.join(out, f"data{rank}")
+    cfg = experiment_preset("gen4", "base")
+    cfg = replace(cfg, dataset=replace(cfg.dataset, path=root))
+    dst = cfg.dataset
+    L = dst.sequence_length
+    frames = dp_frames(root, cfg)
+    report = {"rank": rank, "device": torch.cuda.current_device(),
+              "start_s": time.perf_counter() - t0}
+
+    # (b) training through the CLI, then one sharded validation
+    save = os.path.join(out, "runs")
+    spy = StepSpy()
+    _zero(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with spy:
+        final = cli_train.main(dp_argv(root, save, "dp", True),
+                               frames=frames)
+    report["train"] = {
+        "cli_s": time.perf_counter() - t0, "step": final.step,
+        "steps": spy.steps, "allreduce_ms": spy.timings.get("allreduce_ms"),
+        "wait_ms": spy.timings.get("wait_ms"),
+        "local_slots": int(final.states[0][0].shape[0]),
+        "launches": _count(wrappers),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    ckpt = os.path.join(save, "dp", "ckpt_last.pt")
+    det = load_detector(cfg.model, torch.bfloat16, "cuda", ckpt=ckpt)
+    store = {"frames": {}, "batches": []}
+    _zero(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = run_streaming_eval(
+        det, cfg, "val", device="cuda", on_batch=_eval_hook(store),
+        sequences=open_split(dst, "val", frames,
+                             seq_ratio=ratio_of(dst, "val")))
+    torch.cuda.synchronize()
+    report["eval"] = {"val_s": time.perf_counter() - t0, "metrics": metrics,
+                      "frames": len(store["frames"]),
+                      "launches": _count(wrappers)}
+    report["eval"]["nms"] = _nms_exact(store["batches"], cfg,
+                                       f"rank {rank}'s eval")
+    torch.save(store["frames"], os.path.join(out, f"eval{rank}.pt"))
+    del det, store
+    torch.cuda.empty_cache()
+
+    # (c) online SSOD: a teacher a rank over its own rows, at B_local
+    pp = replace(cfg.model.postprocess, confidence_threshold=ST_CONF)
+    oc = replace(cfg.training.ssod_online, enabled=True,
+                 burn_in_steps=DP_SSOD_BURN_IN, obj_thresh=ST_OBJ,
+                 cls_thresh=ST_CLS)
+    scfg = replace(cfg, model=replace(cfg.model, postprocess=pp),
+                   save_dir=save, exp_name="dp_ssod",
+                   training=replace(cfg.training, ssod_online=oc,
+                                    val_check_interval=0,
+                                    max_steps=DP_SSOD_BURN_IN + DP_SSOD_STEPS))
+    train_seqs = open_split(dst, "train", frames)
+    mesh = make_mesh(DP_WORLD)
+    trainer = Trainer(scfg, mesh=mesh)
+    state = trainer.load_weights(ckpt, trainer.init_state(GEN4_BATCH))
+    perturb_teacher(trainer, open_split(dst, "train", frames), scfg,
+                    GEN4_LOGIT_STD)
+    trainer.replicate()
+    teacher_preds = []
+    make_eval_step = online.make_eval_step
+
+    def recording_eval_step(det, **kw):
+        step = make_eval_step(det, **kw)
+
+        def run(states, hb):
+            states, preds = step(states, hb)
+            if len(teacher_preds) < 2:
+                teacher_preds.append((preds.detach().clone(), 0))
+            return states, preds
+        return run
+
+    spy = StepSpy()
+    online.make_eval_step = recording_eval_step
+    _zero(wrappers)
+    t0 = time.perf_counter()
+    try:
+        with spy:
+            state = trainer.fit(state=state, log_every=1,
+                                sequences=train_seqs)
+    finally:
+        online.make_eval_step = make_eval_step
+    torch.cuda.synchronize()
+    batcher = trainer.ssod_batcher
+    launches = _count(wrappers)
+    n_batches = len(batcher.teacher_ms)
+    report["ssod"] = {
+        "fit_s": time.perf_counter() - t0, "step": state.step,
+        "steps": spy.steps, "teacher_rows": int(batcher.states[0][0].shape[0]),
+        "teacher_batches": n_batches, "merged": batcher.merged,
+        "teacher_ms": batcher.teacher_ms,
+        "teacher_update_ms": spy.timings.get("teacher_update_ms"),
+        "launches": launches,
+        "launches_implied": _implied(scfg, L * n_batches, n_batches)}
+    report["ssod"]["nms"] = _nms_exact(teacher_preds, scfg,
+                                       f"rank {rank}'s teacher")
+    trainer.close()
+    del trainer, batcher, teacher_preds
+    torch.cuda.empty_cache()
+
+    # (d) the stop: the parent sends rank 1 a SIGTERM once
+    # <out>/steps1 says its DP_STOP_AT-th step is done
+    stop_cfg = replace(cfg, save_dir=save, exp_name="dp_stop",
+                       dataset=replace(dst, train_sampling="stream"),
+                       training=replace(cfg.training, val_check_interval=0,
+                                        multihost_sync_every=1,
+                                        max_steps=DP_STOP_MAX))
+    trainer = Trainer(stop_cfg, mesh=mesh)
+    state = trainer.init_state(GEN4_BATCH)
+    spy = StepSpy()
+
+    def progress(n):
+        with open(os.path.join(out, f"steps{rank}.tmp"), "w") as f:
+            f.write(str(n))
+        os.replace(os.path.join(out, f"steps{rank}.tmp"),
+                   os.path.join(out, f"steps{rank}"))
+    spy.hooks.append(progress)
+    with spy:
+        state = trainer.fit(state=state, log_every=1, sequences=train_seqs)
+    trainer.close()
+    report["stop"] = {"step": state.step, "late_sigterm": bool(late),
+                      "checksum": spy.steps[-1]["checksum"]
+                      if spy.steps else None,
+                      "step_ms": [s["step_ms"] for s in spy.steps],
+                      "allreduce_ms": spy.timings.get("allreduce_ms")}
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+
+
+def dp_launch(out: str):
+    """Starts the DP_WORLD rank processes of phase 11 (`--dp-rank`)."""
+    port = _free_port()
+    env = dict(os.environ)
+    procs, logs = [], []
+    for r in range(DP_WORLD):
+        logs.append(open(os.path.join(out, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+             str(port), out], cwd=REPO, env=env, stdout=logs[-1],
+            stderr=subprocess.STDOUT))
+    return procs, logs
+
+
+def dp_wait(procs, logs, out: str) -> list:
+    """Waits for the ranks, sending rank 1 its SIGTERM once it reports
+    DP_STOP_AT steps of (d); a rank that fails or outlives
+    DP_RANK_TIMEOUT_S fails the phase, and every rank is killed."""
+    import signal
+    deadline = time.time() + DP_RANK_TIMEOUT_S
+    sent = None
+    marker = os.path.join(out, "steps1")
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.time() > deadline:
+                fail(f"phase 11's ranks outlived {DP_RANK_TIMEOUT_S} s")
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if sent is None and os.path.exists(marker):
+                with open(marker) as f:
+                    if int(f.read() or 0) >= DP_STOP_AT:
+                        procs[1].send_signal(signal.SIGTERM)
+                        sent = time.time()
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = []
+        for r in bad:
+            with open(os.path.join(out, f"rank{r}.log")) as f:
+                tails.append(f"rank {r} (rc {procs[r].returncode}): "
+                             f"{f.read()[-4000:]}")
+        fail("phase 11's ranks failed:\n" + "\n".join(tails))
+    if sent is None:
+        fail("rank 1 never reported the stop run's steps")
+    reports = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def phase_dp_nccl(cfg, splits):
+    """(a) DP_NCCL_STEPS steps of `Trainer.fit` (B 12, L 5, stream) under a
+    one-rank NCCL group, against the same run without a group: the
+    losses and every parameter and BN statistic bit-equal. cuDNN and
+    the scatter-adds run their deterministic algorithms for both runs."""
+    import datetime
+    from dataclasses import replace
+    import torch
+    import torch.distributed as dist
+    from leod_tpu_torch.parallel.mesh import make_mesh
+    from leod_tpu_torch.train.trainer import Trainer
+
+    root = os.path.join(REPO, "runs", "chip_smoke_dp_nccl")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = replace(cfg, save_dir=root,
+                  dataset=replace(cfg.dataset, train_sampling="stream"),
+                  training=replace(cfg.training, val_check_interval=0))
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def run(mesh, exp):
+        records = []
+        trainer = Trainer(replace(cfg, exp_name=exp), mesh=mesh)
+        trainer.logger.add_sink(records.append)
+        t0 = time.perf_counter()
+        trainer.fit(max_steps=DP_NCCL_STEPS, log_every=1,
+                    sequences=splits["train"])
+        torch.cuda.synchronize()
+        trainer.close()
+        sd = {k: v.detach().clone() for k, v in trainer.det.state_dict().items()}
+        return [r["loss"] for r in records if "loss" in r], sd, \
+            time.perf_counter() - t0
+
+    try:
+        losses0, sd0, s0 = run(None, "alone")
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://localhost:{_free_port()}",
+            world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT_S))
+        try:
+            losses1, sd1, s1 = run(make_mesh(1), "nccl")
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags[:2]
+        torch.use_deterministic_algorithms(flags[2])
+    differ = [k for k in sd0 if not torch.equal(sd0[k], sd1[k])]
+    if losses0 != losses1 or differ or len(losses0) != DP_NCCL_STEPS:
+        fail(f"one-rank NCCL training is not the run without a group: "
+             f"losses {losses1} against {losses0}, {len(differ)} tensors "
+             f"differ ({differ[:3]})")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"steps": DP_NCCL_STEPS, "losses": losses1, "bit_equal": True,
+            "tensors": len(sd0), "fit_s": {"alone": s0, "nccl": s1}}
+
+
+def _parity_frames(ranks, one, what):
+    """Each labeled frame's preds row of the ranks' sharded eval against
+    the one-process eval's, boxes and scores each within SLICE_TOL of
+    their largest plain value."""
+    if set(ranks) != set(one) or not one:
+        fail(f"{what}: the ranks evaluated {len(ranks)} frames, one "
+             f"process {len(one)}, not the same ones")
+    import torch
+    got = torch.stack([ranks[k] for k in one])
+    want = torch.stack([one[k] for k in one])
+    out = {"frames": len(one)}
+    for cols, g, w in (("boxes", got[..., :4], want[..., :4]),
+                       ("scores", got[..., 4:], want[..., 4:])):
+        err, tol, ok = compare(g, w, SLICE_TOL)
+        if not ok:
+            fail(f"{what}, {cols}: |ranks - one process| {err} > {tol}")
+        out[cols] = [err, tol]
+    return out
+
+
+def drive_dp():
+    """Phase 11: RVT-B Gen4 data-parallel. (a) one-rank NCCL training
+    against no group; the kernels at a rank's shapes; (b) two gloo ranks
+    sharing the card through `cli.train --mesh 2` against one process at
+    B 12, and a sharded validation; (c) online SSOD a teacher a rank;
+    (d) the stop. Returns its report and its kernels' entries of the
+    JSON line ("<name>[Gen4 DP]")."""
+    import torch
+    from leod_tpu_torch.cli import train as cli_train
+    from leod_tpu_torch.cli._common import load_detector, open_split, ratio_of
+    from leod_tpu_torch.config import experiment_preset
+    from leod_tpu_torch.models.detector import Detector
+    from leod_tpu_torch.train.trainer import run_streaming_eval
+
+    from dataclasses import replace
+    import numpy as np
+    t_phase = time.perf_counter()
+    cfg = experiment_preset("gen4", "base")
+    L = cfg.dataset.sequence_length
+    name = "RVT-B gen4 (experiment_preset('gen4', 'base')), data-parallel"
+    if DP_WORLD * DP_LOCAL != cfg.training.batch_size_train:
+        fail(f"{DP_WORLD} ranks of {DP_LOCAL} slots are not the preset's "
+             f"batch {cfg.training.batch_size_train}")
+    report = {"config": name, "card": card(), "ranks": DP_WORLD,
+              "global_batch": GEN4_BATCH, "local_batch": DP_LOCAL,
+              "window": L}
+
+    # (a) one-rank NCCL
+    t0 = time.perf_counter()
+    splits = render_gen4(cfg)
+    report["nccl"] = phase_dp_nccl(cfg, splits)
+    report["nccl"]["seconds"] = time.perf_counter() - t0
+    emit({"dp_nccl": report["nccl"]})
+    del splits
+
+    # the kernels at a rank's shapes: its teacher's B_local slots, and
+    # the NMS at the teacher's B_local x L images
+    t0 = time.perf_counter()
+    det = Detector(cfg.model, device="cuda", seed=0)
+    perturb_layerscale(det, seed=0)
+    rows, nms_row = phase_kernels(det, DP_LOCAL, (DP_LOCAL,),
+                                  nms_images=DP_LOCAL * L)
+    emit({"kernel_phase": {"config": name, **rows, "nms_mask": [nms_row]}})
+    for kind, kind_rows in rows.items():
+        if not all(r["ok"] for r in kind_rows):
+            fail(f"Gen4 B {DP_LOCAL} {kind} disagrees with its plain "
+                 f"version: {[(r['shape'], r['max_abs_err'], r['tol']) for r in kind_rows]}")
+    if not nms_row["ok"]:
+        fail(f"the NMS keep mask at {DP_LOCAL * L} images differs in "
+             f"{nms_row['max_abs_err']} boxes")
+    report["kernels_s"] = time.perf_counter() - t0
+    del det
+    torch.cuda.empty_cache()
+
+    # the one-process reference of (b): the same CLI run at B 12
+    work = os.path.join(REPO, "runs", "chip_smoke_dp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = replace(cfg, dataset=replace(cfg.dataset,
+                                       path=os.path.join(work, "data")))
+    t0 = time.perf_counter()
+    frames = dp_frames(os.path.join(work, "data"), cfg)
+    render_s = time.perf_counter() - t0
+    spy = StepSpy()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with spy:
+        cli_train.main(dp_argv(os.path.join(work, "data"),
+                               os.path.join(work, "one"), "one", False),
+                       frames=frames)
+    one = {"cli_s": time.perf_counter() - t0, "render_s": render_s,
+           "steps": spy.steps,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit({"dp_one_process": one})
+    torch.cuda.empty_cache()
+
+    # (b)-(d) in DP_WORLD rank processes
+    t0 = time.perf_counter()
+    procs, logs = dp_launch(work)
+    ranks = dp_wait(procs, logs, work)
+    ranks_s = time.perf_counter() - t0
+    tr = [r["train"] for r in ranks]
+    for r in tr:
+        if r["step"] != DP_STEPS or len(r["steps"]) != DP_STEPS or \
+                r["local_slots"] != DP_LOCAL:
+            fail(f"a rank took {r['step']} steps over {r['local_slots']} "
+                 f"slots")
+        if any(r["launches"].values()):
+            fail(f"the DP train steps launched the kernels: {r['launches']}")
+    for i in range(DP_STEPS):
+        if len({r["steps"][i]["checksum"] for r in tr}) != 1 or \
+                len({r["steps"][i]["loss"] for r in tr}) != 1:
+            fail(f"the ranks' parameters or losses differ after step "
+                 f"{i + 1}")
+    first, want = tr[0]["steps"][0], one["steps"][0]
+    rel = {k: abs(first[k] - want[k]) / max(abs(want[k]), 1e-30)
+           for k in StepSpy.KEYS[:5]}
+    if not all(np.isfinite(s[k]) for r in tr for s in r["steps"]
+               for k in StepSpy.KEYS) or rel["loss"] > REMAT_LOSS_RTOL or \
+            any(rel[k] > REMAT_NORM_RTOL for k in StepSpy.KEYS[1:5]):
+        fail(f"two ranks' first step {first} against one process's {want}")
+
+    # the sharded validation against one process on the same weights
+    det = load_detector(cfg.model, torch.bfloat16, "cuda",
+                        ckpt=os.path.join(work, "runs", "dp", "ckpt_last.pt"))
+    store = {"frames": {}, "batches": []}
+    one_metrics = run_streaming_eval(
+        det, cfg, "val", device="cuda", on_batch=_eval_hook(store),
+        sequences=open_split(cfg.dataset, "val", frames,
+                             seq_ratio=ratio_of(cfg.dataset, "val")))
+    del det
+    rank_frames = {}
+    for r in range(DP_WORLD):
+        rank_frames.update(torch.load(os.path.join(work, f"eval{r}.pt")))
+    eval_parity = _parity_frames(rank_frames, store["frames"],
+                                 "the sharded eval")
+    m0, m1 = (r["eval"]["metrics"] for r in ranks)
+    if m0 != m1:
+        fail(f"the ranks' all-gathered metrics differ: {m0} {m1}")
+    if any(abs(m0[k] - one_metrics[k]) > EVAL_AP_TOL
+           for k in ("AP", "AP_50", "AP_75")):
+        fail(f"the sharded eval's metrics {m0} against one process's "
+             f"{one_metrics}")
+    quiet = [k for r in ranks for k, n in r["eval"]["launches"].items()
+             if n == 0]
+    if quiet:
+        fail(f"a rank's validation launched no {quiet}")
+
+    # (c) online SSOD
+    ss = [r["ssod"] for r in ranks]
+    for r in ss:
+        if r["step"] != DP_SSOD_BURN_IN + DP_SSOD_STEPS or \
+                r["teacher_rows"] != DP_LOCAL or \
+                r["launches"] != r["launches_implied"] or \
+                r["teacher_batches"] < r["step"]:
+            fail(f"a rank's online SSOD: {r['step']} steps, teacher rows "
+                 f"{r['teacher_rows']}, {r['teacher_batches']} teacher "
+                 f"batches, launches {r['launches']} against "
+                 f"{r['launches_implied']}")
+        if any(r["merged"][:DP_SSOD_BURN_IN]) or \
+                not all(r["merged"][DP_SSOD_BURN_IN:r["step"]]):
+            fail(f"pseudo boxes merged a step: {r['merged']}")
+    if [s["checksum"] for s in ss[0]["steps"]] != \
+            [s["checksum"] for s in ss[1]["steps"]] or not all(
+                np.isfinite(s["loss"]) for r in ss for s in r["steps"]):
+        fail("the SSOD ranks' parameters differ, or a loss is not finite")
+
+    # (d) the stop
+    st = [r["stop"] for r in ranks]
+    stop_ckpt = os.path.join(work, "runs", "dp_stop", "ckpt_last.pt")
+    saved = torch.load(stop_ckpt, map_location="cpu",
+                       weights_only=True)["step"] \
+        if os.path.exists(stop_ckpt) else None
+    if len({s["step"] for s in st}) != 1 or saved != st[0]["step"] or \
+            not DP_STOP_AT <= saved < DP_STOP_MAX or \
+            any(s["late_sigterm"] for s in st) or \
+            st[0]["checksum"] != st[1]["checksum"]:
+        fail(f"the stop: ranks at steps {[s['step'] for s in st]}, "
+             f"ckpt_last at {saved}")
+
+    report.update({
+        "one_process": {k: one[k] for k in ("cli_s", "render_s", "peak_gib")},
+        "one_process_step_ms": [s["step_ms"] for s in one["steps"]],
+        "first_step_rel_diff": rel,
+        "step_ms_per_rank": [[s["step_ms"] for s in r["steps"]] for r in tr],
+        "allreduce_ms_per_rank": [r["allreduce_ms"] for r in tr],
+        "peak_gib_per_rank": [r["peak_gib"] for r in tr],
+        "losses": [s["loss"] for s in tr[0]["steps"]],
+        "val_s_per_rank": [r["eval"]["val_s"] for r in ranks],
+        "eval_metrics": m0, "one_process_eval_metrics": one_metrics,
+        "eval_parity": eval_parity,
+        "eval_nms": [r["eval"]["nms"] for r in ranks],
+        "ssod": [{k: r[k] for k in ("fit_s", "teacher_rows", "merged",
+                                     "teacher_ms", "teacher_update_ms",
+                                     "launches", "nms")}
+                 | {"step_ms": [s["step_ms"] for s in r["steps"]],
+                    "losses": [s["loss"] for s in r["steps"]]}
+                 for r in ss],
+        "stop": {"step": st[0]["step"], "ckpt_last_step": saved,
+                 "bf16_step_ms_per_rank": [s["step_ms"] for s in st],
+                 "bf16_allreduce_ms_per_rank": [s["allreduce_ms"]
+                                                for s in st]},
+        "rank_start_s": [r["start_s"] for r in ranks],
+        "ranks_s": ranks_s})
+    shutil.rmtree(work, ignore_errors=True)
+
+    out = kernel_entries(rows, nms_row, "[Gen4 DP]", step_batch=DP_LOCAL)
+    for e in out:
+        kname = e["name"][:-len("[Gen4 DP]")]
+        e["config"] = name
+        e["launches_eval"] = sum(r["eval"]["launches"].get(kname, 0)
+                                 for r in ranks)
+        e["launches_ssod"] = sum(r["launches"].get(kname, 0) for r in ss)
+        e["launches"] = e["launches_eval"] + e["launches_ssod"]
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report, out
+
+
 PATHS = (("RVT-B", "base", True), ("RVT-S", "small", False))
 
 
@@ -3331,6 +4019,9 @@ def main() -> int:
         serve_timing(sys.argv[2])
         return 0
     sys.path.insert(0, REPO)
+    if sys.argv[1:2] == ["--dp-rank"] and len(sys.argv) == 5:
+        dp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3353,6 +4044,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     gen4, gen4_kernels = drive_gen4()
     emit({"gen4": gen4})
+    torch.cuda.empty_cache()
+    dp, dp_kernels = drive_dp()
+    emit({"dp": dp})
     # the first path's kernels also ran in the train phase's validation,
     # in the self-training phase, in the CLI phase and in the deploy
     # phase (the artifact's and the server's steps)
@@ -3364,7 +4058,7 @@ def main() -> int:
             e["launches_deploy"] = deploy["launches"][e["name"]]
             e["launches"] += (e["launches_train"] + e["launches_selftrain"]
                               + e["launches_cli"] + e["launches_deploy"])
-    kernels += gen4_kernels
+    kernels += gen4_kernels + dp_kernels
     emit({"kernels": kernels})
     bad = [k["name"] for k in kernels if not k["ok"]]
     if bad:
@@ -3375,12 +4069,7 @@ def main() -> int:
     if leaked:
         fail(f"imported JAX or the JAX package: {leaked[:5]}")
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,9 +2,14 @@
 
     python -m leod_tpu_torch.cli.train --dataset gen1 --size base --path ./datasets/gen1
     python -m leod_tpu_torch.cli.train --synthetic --size tiny --steps 50 --cpu
+    torchrun --nproc_per_node 2 -m leod_tpu_torch.cli.train --mesh 2 ...
 
-Every flag of the JAX CLI maps to the same `ExperimentConfig`; `--mesh`
-raises (multi-device, ROADMAP.md A.1). Pred-vs-GT panels go into
+Every flag of the JAX CLI maps to the same `ExperimentConfig`.
+`--mesh DP` trains data-parallel over a process group of DP ranks, one
+card each, as torchrun starts them (`parallel/`); a mesh of another
+degree than the group's raises, and so do the space and model axes
+(`--mesh DPxSP`, `--mesh DPxSPxTP` with SP or TP > 1: ROADMAP.md A.2 and
+A.3). Pred-vs-GT panels go into
 <run_dir>/viz/ every `training.viz_every_steps` (the preset's 5000).
 Checkpoints are the port's `ckpt_<name>.pt` files (`--checkpoint` and
 `--weight` take `runs/<exp>/ckpt_last` or the file itself); an orbax
@@ -23,6 +28,8 @@ from typing import List, Optional
 
 from ..config import ExperimentConfig, derive, experiment_preset
 from ..convert import load_reference_checkpoint
+from ..parallel.distributed import maybe_initialize
+from ..parallel.mesh import make_mesh
 from ..train.trainer import MetricLogger, Trainer
 from ._common import (Frames, device_of, dtype_of, open_split, ratio_of,
                       synthetic_frames)
@@ -87,7 +94,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     ap.add_argument("--fp32", action="store_true")
     ap.add_argument("--mesh", default=None, metavar="DP[xSP[xTP]]",
-                    help="device mesh (not ported: ROADMAP.md A.1)")
+                    help="device mesh: '2' = 2-way data parallel over a "
+                         "process group of 2 ranks (torchrun "
+                         "--nproc_per_node 2); the space (SP) and model "
+                         "(TP) axes are not ported (ROADMAP.md A.2, A.3)")
     ap.add_argument("--wandb-project", default=None,
                     help="also stream metrics to WandB (needs the wandb "
                          "package)")
@@ -155,17 +165,25 @@ def build_config(args, path: Optional[str]) -> ExperimentConfig:
 def main(argv: Optional[List[str]] = None, *, frames: Frames = None):
     """Train as the flags say; returns the final `TrainState`."""
     args = build_parser().parse_args(argv)
+    maybe_initialize()
+    mesh = None
     if args.mesh:
-        raise NotImplementedError(
-            f"--mesh {args.mesh!r}: multi-device training is not ported yet "
-            f"(ROADMAP.md A.1, multi-device); the port trains on one card")
+        dims = [int(d) for d in args.mesh.split("x")]
+        if len(dims) > 3 or any(d < 1 for d in dims):
+            raise ValueError(
+                f"--mesh {args.mesh!r}: expected 1-3 positive dims "
+                f"(DP[xSP[xTP]]) — silently truncating would train at a "
+                f"smaller parallel degree than requested")
+        dp, sp, tp = (dims + [1, 1])[:3]
+        mesh = make_mesh(dp * sp * tp, space=sp, model=tp)
     path = args.path
     if args.synthetic and frames is None:
         path, frames = synthetic_frames(args.path, args.seed, announce=True)
     cfg = build_config(args, path)
     dst, tr = cfg.dataset, cfg.training
 
-    trainer = Trainer(cfg, dtype=dtype_of(args), device=device_of(args))
+    trainer = Trainer(cfg, dtype=dtype_of(args), device=device_of(args),
+                      mesh=mesh)
     if args.wandb_project:
         try:
             trainer.logger.add_sink(MetricLogger.wandb_sink(

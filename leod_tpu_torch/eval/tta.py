@@ -25,6 +25,7 @@ from ..data.loader import (EvalStreamLoader, Prefetcher, harvest_frames,
 from ..data.sequence import EventSequence
 from ..models.detector import Detector
 from ..ops.nms import batched_nms_numpy, postprocess
+from ..parallel import distributed as pdist
 from ..timing import lap
 from ..train.step import make_eval_step
 from .prophesee import PropheseeEvaluator, boxes_to_prophesee
@@ -78,7 +79,8 @@ def run_tta_eval(det: Detector, cfg: ExperimentConfig,
                  batch_size: Optional[int] = None,
                  conf_threshold: Optional[float] = None,
                  frames_per_slot: Optional[int] = None,
-                 shard_index: int = 0, num_shards: int = 1,
+                 shard_index: Optional[int] = None,
+                 num_shards: Optional[int] = None,
                  evaluator: Optional[PropheseeEvaluator] = None, *,
                  sequences: Optional[List[EventSequence]] = None,
                  plain: bool = False, device="cuda",
@@ -93,8 +95,11 @@ def run_tta_eval(det: Detector, cfg: ExperimentConfig,
     union of shards equals a full run; with an external evaluator the
     return value is None (the caller evaluates the merged buffers once).
     The t-flip pass reuses the identical deal, so each shard sees both
-    views of exactly its own sequences. The all-gather of evaluators
-    across processes is not ported (ROADMAP.md A.1).
+    views of exactly its own sequences. Defaults: under a process group
+    each process evaluates its own shard and the evaluators' buffers are
+    all-gathered before the COCO eval, so every rank returns identical
+    metrics, exactly like run_streaming_eval; one process evaluates the
+    whole split.
 
     `sequences` (already open, e.g. `ArrayEventSequence`s) replaces the
     split's directory; they are not closed. `det` must live on `device`
@@ -107,12 +112,19 @@ def run_tta_eval(det: Detector, cfg: ExperimentConfig,
     dev = resolve_device(device)
     if det.device.type != dev.type:
         raise ValueError(f"detector is on {det.device}, eval asked for {dev}")
-    if num_shards > 1 and evaluator is None:
-        # a per-shard AP is statistically meaningless — the caller must
-        # collect one evaluator per shard and merge before evaluating
-        raise ValueError(
-            "explicit sharding needs an external `evaluator` "
-            "(merge the shards' buffers, then evaluate once)")
+    if shard_index is None and num_shards is None:
+        shard_index, num_shards = pdist.process_shard()
+        sync_metrics = True
+    else:
+        shard_index, num_shards = shard_index or 0, num_shards or 1
+        sync_metrics = False
+        if num_shards > 1 and evaluator is None:
+            # a per-shard AP is statistically meaningless — the caller
+            # must collect one evaluator per shard and merge before
+            # evaluating
+            raise ValueError(
+                "explicit sharding needs an external `evaluator` "
+                "(merge the shards' buffers, then evaluate once)")
     dst = cfg.dataset
     pp = cfg.model.postprocess
     if conf_threshold is not None:
@@ -225,6 +237,8 @@ def run_tta_eval(det: Detector, cfg: ExperimentConfig,
                                             merged if len(merged) else None)
             evaluator.add_labels([gt_p])
             evaluator.add_predictions([dt_p])
+    if sync_metrics:
+        pdist.allgather_evaluator(evaluator)
     if external:
         # the caller merges shard evaluators and evaluates ONCE
         return None

@@ -19,6 +19,7 @@ from ..config import HeadConfig
 from ..ops.boxes import maximum
 from ..ops.losses import bce_with_logits, iou_loss, sigmoid_focal_loss
 from ..ops.simota import mark_low_conf_as_ignore, simota_assign
+from ..parallel.distributed import global_sum
 from .layers import ConvBNAct, DWConvBlock, _nchw, _nhwc
 
 PRIOR_PROB = 0.01
@@ -114,10 +115,11 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _bbox_loss_weights(cfg: HeadConfig, labels: torch.Tensor,
-                       matched_gt: torch.Tensor,
-                       fg: torch.Tensor) -> torch.Tensor:
+                       matched_gt: torch.Tensor, fg: torch.Tensor,
+                       num_fg: torch.Tensor) -> torch.Tensor:
     """Teacher-confidence bbox loss weights, mean-normalized over all fg
-    (reference: yolo_head.py:358-380,550-555). Returns [M, A]."""
+    of the batch (`num_fg` of them; under data parallelism the global
+    batch's) (reference: yolo_head.py:358-380,550-555). Returns [M, A]."""
     spec = cfg.bbox_loss_weighting
     if not spec:
         return torch.ones(fg.shape, device=fg.device)
@@ -127,8 +129,7 @@ def _bbox_loss_weights(cfg: HeadConfig, labels: torch.Tensor,
     w = {"obj": obj_c, "cls": cls_c, "objxcls": obj_c * cls_c}[val]
     if expr == "w**2":
         w = w ** 2
-    fg_f = fg.float()
-    mean = (w * fg_f).sum() / maximum(fg_f.sum(), 1.0)
+    mean = global_sum((w * fg.float()).sum()) / maximum(num_fg, 1.0)
     return w / maximum(mean, 1e-12)
 
 
@@ -160,7 +161,9 @@ def yolox_loss(train_out: torch.Tensor, labels: torch.Tensor,
     frame_mask[M] bool — padded frame slots contribute nothing
 
     total = 5 * iou + 1 * obj + 1 * cls (+ l1), each summed over the
-    batch and divided by max(total_fg, 1); the obj BCE skips
+    batch and divided by max(total_fg, 1) (under data parallelism the
+    global batch's total_fg: the global loss is then the SUM of the
+    ranks' losses, `train/step.py`); the obj BCE skips
     ignore-region anchors (reference: yolo_head.py:563-597, :940-972).
     The gradient reaches the boxes through the cls target's IoU as well
     (`ops/simota.py`)."""
@@ -184,15 +187,18 @@ def yolox_loss(train_out: torch.Tensor, labels: torch.Tensor,
     fm = frame_mask.bool()
     fg = assign.fg & fm[:, None]                                 # [M, A]
     fg_f = fg.to(f32)
-    num_fg = fg_f.sum()
-    num_gt = (assign.num_gt * fm).sum()
+    # the batch's counts: under data parallelism every rank's rows
+    # (`parallel.distributed.global_batch`), so that each rank's loss is
+    # its share of the global batch's
+    num_fg, num_gt = global_sum(torch.stack(
+        [fg_f.sum(), (assign.num_gt * fm).sum().to(f32)])).unbind()
     denom = maximum(num_fg, 1.0)
 
     # regression: 1 - IoU^2 on matched pairs
     idx = assign.matched_gt.long()[..., None]
     gt_boxes = torch.gather(labels[..., 1:5], 1,
                             idx.expand(-1, -1, 4))               # [M, A, 4]
-    bbox_w = _bbox_loss_weights(cfg, labels, assign.matched_gt, fg)
+    bbox_w = _bbox_loss_weights(cfg, labels, assign.matched_gt, fg, num_fg)
     loss_iou = (iou_loss(boxes, gt_boxes) * bbox_w * fg_f).sum() / denom
 
     # objectness: BCE against the fg indicator, skipping ignore anchors,
@@ -232,7 +238,7 @@ def yolox_loss(train_out: torch.Tensor, labels: torch.Tensor,
         "iou_loss": loss_iou,
         "conf_loss": loss_obj,
         "cls_loss": loss_cls,
-        "num_fg": num_fg / maximum(num_gt.to(f32), 1.0),
+        "num_fg": num_fg / maximum(num_gt, 1.0),
     }
     if cfg.use_l1:
         out["l1_loss"] = loss_l1

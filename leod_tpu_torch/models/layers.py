@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import distributed as pdist
+
 
 def get_act(name: str) -> Callable:
     # jax.nn.gelu defaults to the tanh approximation (layers.py:24)
@@ -400,14 +402,56 @@ def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     torch's own training-mode BN would move `running_var` by the
     unbiased variance instead, so the statistics are taken here and the
     normalization is `F.batch_norm` without running buffers. Every frame
-    of y counts, padded ones included, as in the JAX step."""
+    of y counts, padded ones included, as in the JAX step.
+
+    Inside `parallel.distributed.global_batch` over several ranks, the
+    batch is every rank's frames together, as the JAX package's BN over
+    a sharded batch takes it (`_global_batch_norm`)."""
+    group = pdist.data_group()
+    if group is not None and pdist.world_size(group) > 1:
+        return _global_batch_norm(y, bn, group)
     with torch.no_grad():
         var, mean = torch.var_mean(y.float(), dim=(0, 2, 3), correction=0)
-        for buf, stat in ((bn.running_mean, mean), (bn.running_var, var)):
-            buf.copy_(BN_MOMENTUM * buf.float()
-                      + (1.0 - BN_MOMENTUM) * stat)
+        _move_running(bn, mean, var)
     return F.batch_norm(y, None, None, bn.weight, bn.bias, True, 0.0,
                         bn.eps)
+
+
+def _move_running(bn: nn.BatchNorm2d, mean: torch.Tensor,
+                  var: torch.Tensor) -> None:
+    with torch.no_grad():
+        for buf, stat in ((bn.running_mean, mean), (bn.running_var, var)):
+            buf.copy_(BN_MOMENTUM * buf.float()
+                      + (1.0 - BN_MOMENTUM) * stat.detach())
+
+
+def _global_batch_norm(y: torch.Tensor, bn: nn.BatchNorm2d,
+                       group) -> torch.Tensor:
+    """`batch_norm_train` over the frames of every rank of `group`: each
+    rank's count, mean and sum of squared deviations (fp32, per
+    channel) go to every rank through one differentiable all-reduce,
+    and combine as Chan et al.'s parallel variance does (stable where
+    the mean is large against the deviation, unlike sum(y^2) - N
+    mean^2). The backward all-reduces the statistics' gradients, so each
+    rank's input gradient is the global batch's; the running statistics
+    move identically on every rank."""
+    c = y.shape[1]
+    yf = y.float()
+    n_local = yf.numel() // c
+    mean_l = yf.mean(dim=(0, 2, 3))
+    m2_l = (yf - mean_l[:, None, None]).square().sum(dim=(0, 2, 3))
+    rows = pdist.all_gather_rows(
+        torch.cat([mean_l.new_full((1,), float(n_local)), mean_l, m2_l]),
+        group)
+    n = rows[:, :1]
+    total = n.sum()
+    mean = (n * rows[:, 1:c + 1]).sum(0) / total
+    var = (rows[:, c + 1:] + n * (rows[:, 1:c + 1] - mean).square()
+           ).sum(0) / total
+    _move_running(bn, mean, var)
+    scale = torch.rsqrt(var + bn.eps) * bn.weight.float()
+    return ((yf - mean[:, None, None]) * scale[:, None, None]
+            + bn.bias.float()[:, None, None]).to(y.dtype)
 
 
 class ConvBNAct(nn.Module):

@@ -1,6 +1,6 @@
 """Online SSOD: an EMA teacher on weak views supervises the student on
 strong views, within one training loop (port of
-`leod_tpu/selftrain/online.py`, one device).
+`leod_tpu/selftrain/online.py`).
 
 `StreamTrainLoader(ssod=True)` yields weak/strong paired batches;
 `OnlineSSODBatcher` runs the teacher on the weak view inside the
@@ -18,6 +18,12 @@ the prefetch thread on the same CUDA stream as the student's step: the
 stream orders the refresh after the teacher's reads that were enqueued
 before it (a lock keeps the two host sections apart), and the teacher's
 work does not overlap the student's on the card.
+
+Under data parallelism each rank keeps its own teacher: it runs on the
+rank's card over the rank's rows of the global batch (B_local slots,
+`Trainer.fit`), and takes its EMA from the rank's replicated student, so
+the ranks' teachers stay equal and no collective runs in the prefetch
+thread.
 """
 from __future__ import annotations
 
@@ -113,7 +119,9 @@ class OnlineSSODBatcher:
 
     def __init__(self, loader, det: Detector, cfg: ExperimentConfig,
                  batch_size: int, start_step: int = 0):
-        """`det`: the student (its state dict seeds the teacher)."""
+        """`det`: the student (its state dict seeds the teacher);
+        `batch_size`: the loader's slots (a rank's B_local under data
+        parallelism)."""
         oc = cfg.training.ssod_online
         self.loader = loader
         self.cfg = cfg

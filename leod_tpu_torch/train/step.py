@@ -21,7 +21,8 @@ eval step runs the kernels.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, NamedTuple, Tuple
+import time
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +33,9 @@ from .. import resolve_device
 from ..convert import jax_paths
 from ..models.backbone import BackboneStates, reset_states
 from ..models.detector import Detector
+from ..parallel import distributed as pdist
+from ..parallel.mesh import Mesh
+from ..timing import lap
 from .optim import ClipAdamW
 
 
@@ -151,10 +155,26 @@ def _global_norm(grads) -> torch.Tensor:
         [torch.linalg.vector_norm(g.float()) for g in grads]))
 
 
+def sum_gradients(grads, group) -> None:
+    """Every rank's gradients become the SUM of the ranks' (in place):
+    one all-reduce of one flat fp32 buffer."""
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    torch.distributed.all_reduce(flat, group=group)
+    with torch.no_grad():
+        torch._foreach_copy_(list(grads), [
+            v.view_as(g) for v, g in zip(flat.split(
+                [g.numel() for g in grads]), grads)])
+
+
+_SUMMED = ("loss", "iou_loss", "conf_loss", "cls_loss", "l1_loss")
+
+
 def make_train_step(det: Detector, optimizer: ClipAdamW,
                     remat: str = "full", with_preds: bool = False,
                     gradflow: bool = False,
-                    prebatch_stage1: bool = False) -> Callable:
+                    prebatch_stage1: bool = False,
+                    mesh: Optional[Mesh] = None,
+                    timings: Optional[Dict[str, list]] = None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     batch: ev [L, B, H, W, C] (or the stem's fold of it), is_first [B],
@@ -178,11 +198,24 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
     gradflow: metrics also carry the mean |grad| of every parameter,
     unclipped, under "gradflow/<JAX path>" (the JAX package's dotted
     flax path, e.g. "backbone.stage1.down.conv.kernel"; reference:
-    callbacks/gradflow.py:10-27)."""
+    callbacks/gradflow.py:10-27).
+
+    mesh (`parallel.mesh.make_mesh`): data parallelism over its ranks,
+    each feeding its rows of one global batch, as the JAX step computes
+    on a mesh. The forward runs under `parallel.distributed.global_batch`
+    (the loss normalizers and the BN statistics over every rank's rows,
+    so a rank's loss is its share of the global loss); after the
+    backward the gradients are SUMMED over the ranks once (not averaged
+    as DDP does), before the gradient metrics, the clip and AdamW, so
+    every rank takes the global batch's update; the loss terms in the
+    metrics are the ranks' sums. Where `timings` is given, the host ms
+    of that reduction (ending in a device synchronize) go under
+    "allreduce_ms"."""
     if not det.trainable:
         raise ValueError("make_train_step needs a Detector built with "
                          "trainable=True")
     check_remat(remat)
+    group = mesh.group if mesh is not None else None
     groups = {mod: [p for p in getattr(det, mod).parameters()
                     if p.requires_grad] for mod in ("backbone", "fpn", "head")}
     flow = []
@@ -202,15 +235,26 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
         states = reset_states(state.states,
                               _as_tensor(batch["is_first"], dev))
         optimizer.zero_grad()
-        states, feats_seq = _scan_backbone(det, states, ev, prebatch_stage1,
-                                           remat)
-        feats = _gather_frames(feats_seq, frame_t)
-        out, _ = det.forward_detect(feats, train=True)
-        losses = det.loss(out, labels.reshape((-1,) + labels.shape[2:]),
-                          frame_mask.reshape(-1))
+        with pdist.global_batch(group):
+            states, feats_seq = _scan_backbone(det, states, ev,
+                                               prebatch_stage1, remat)
+            feats = _gather_frames(feats_seq, frame_t)
+            out, _ = det.forward_detect(feats, train=True)
+            losses = det.loss(out, labels.reshape((-1,) + labels.shape[2:]),
+                              frame_mask.reshape(-1))
         losses["loss"].backward()
         grads = optimizer.grads()
         metrics = {k: v.detach() for k, v in losses.items()}
+        if group is not None:
+            if timings is not None and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            sum_gradients(grads, group)
+            lap(timings, "allreduce_ms", t0, dev)
+            summed = [k for k in _SUMMED if k in metrics]
+            tot = torch.stack([metrics[k] for k in summed])
+            torch.distributed.all_reduce(tot, group=group)
+            metrics.update(zip(summed, tot.unbind()))
         with torch.no_grad():
             metrics["grad_norm"] = _global_norm(grads)
             for mod, params in groups.items():

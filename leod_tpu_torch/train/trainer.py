@@ -1,5 +1,5 @@
 """Training orchestration and streaming evaluation (port of
-`leod_tpu/train/trainer.py:68-731`, single device).
+`leod_tpu/train/trainer.py:68-731`).
 
 `Trainer.fit` is a plain loop: a host prefetch thread reads, augments,
 collates and harvests train windows and copies them to the device; one
@@ -27,6 +27,16 @@ Checkpoints are the port's own (`torch.save` of the model's and the
 optimizer's state dicts, ckpt_<name>.pt); the JAX package's orbax
 checkpoint directories are not read (`resolve_checkpoint` raises on
 one).
+
+Data parallelism (`Trainer(mesh=make_mesh())`, one process a card in one
+process group; the JAX package's mesh and multi-host runtime): rank p
+feeds global stream slots [p*B_local, (p+1)*B_local) and holds their
+LSTM states, every rank holds the whole model (broadcast from rank 0 at
+init, restore and weight load) and takes the global batch's update
+(`train/step.py`), rank 0 writes the checkpoints and the metrics, the
+checkpoint timer and the stop request are decided together every
+`multihost_sync_every` steps, and validation is sharded over the ranks
+with the evaluators all-gathered (`run_streaming_eval`).
 """
 from __future__ import annotations
 
@@ -49,6 +59,9 @@ from ..eval.prophesee import PropheseeEvaluator, boxes_to_prophesee
 from ..models.detector import Detector
 from ..models.layers import unfold_ev_hw, unfold_ev_width
 from ..ops.nms import postprocess
+from ..parallel import distributed as pdist
+from ..parallel.mesh import (Mesh, data_axis_size, replicate,
+                             shard_states)
 from ..timing import lap
 from ..utils.viz import save_pred_vs_gt_panel
 from .optim import make_optimizer
@@ -99,7 +112,8 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
                        conf_threshold: Optional[float] = None,
                        max_batches: Optional[int] = None,
                        time_flip: bool = False,
-                       shard_index: int = 0, num_shards: int = 1,
+                       shard_index: Optional[int] = None,
+                       num_shards: Optional[int] = None,
                        evaluator: Optional[PropheseeEvaluator] = None, *,
                        sequences: Optional[List[EventSequence]] = None,
                        plain: bool = False, device="cuda",
@@ -112,7 +126,13 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
     The split's sequences are dealt over B stream slots (shard
     `shard_index` of `num_shards`); with several shards, pass one
     `evaluator` per shard and combine them with
-    `PropheseeEvaluator.merge`. `sequences` (already open, e.g.
+    `PropheseeEvaluator.merge`. By default, under a process group, each
+    process evaluates its own shard (reference shards by global rank,
+    stream_sharded_datapipe.py:88-105) with no collective inside the
+    loop, and the evaluators' buffers are all-gathered before the COCO
+    eval, so every rank returns identical exact metrics
+    (`parallel.distributed.allgather_evaluator`); one process evaluates
+    the whole split. `sequences` (already open, e.g.
     `ArrayEventSequence`s) replaces the split's directory. `det` must live
     on `device` (`cuda` unless the caller asks for `cpu`); plain=True
     runs the kernels' plain versions.
@@ -133,6 +153,12 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
     if not seqs:
         return None
     time_flip = time_flip or dst.reverse_event_order
+    if shard_index is None and num_shards is None:
+        shard_index, num_shards = pdist.process_shard()
+        sync_metrics = True
+    else:
+        shard_index, num_shards = shard_index or 0, num_shards or 1
+        sync_metrics = False
     B = min(B, len(seqs))
     loader = EvalStreamLoader(seqs, dst, B, time_flip=time_flip,
                               shard_index=shard_index, num_shards=num_shards)
@@ -198,6 +224,8 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
         prefetcher.close()
         for s in seqs:
             s.close()
+    if sync_metrics:
+        pdist.allgather_evaluator(evaluator)
     t0 = time.perf_counter()
     metrics = evaluator.evaluate()
     if timings is not None:
@@ -207,14 +235,17 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
 
 class MetricLogger:
     """JSONL + stdout metrics with pluggable sinks
-    (`leod_tpu/train/trainer.py:84-153`, one process). Each sink is
-    called with the plain-float record of every log call; a sink's
-    exception is reported and never stops training."""
+    (`leod_tpu/train/trainer.py:84-153`). Each sink is called with the
+    plain-float record of every log call; a sink's exception is reported
+    and never stops training. Under a process group only rank 0 writes,
+    prints and calls the sinks (the records are the same on every rank;
+    the reference logs on rank 0 through Lightning)."""
 
     def __init__(self, path: Optional[str]):
         self._sinks: list = []
         self._f = None
-        if path:
+        self._primary = pdist.is_primary()
+        if path and self._primary:
             os.makedirs(os.path.dirname(path), exist_ok=True)
             self._f = open(path, "a")
 
@@ -246,6 +277,8 @@ class MetricLogger:
             self._f = None
 
     def log(self, record: Dict[str, Any]):
+        if not self._primary:
+            return
         rec = {k: (float(v) if isinstance(v, (torch.Tensor, np.ndarray,
                                               np.floating)) else v)
                for k, v in record.items()}
@@ -315,17 +348,25 @@ class _Uploader:
 
 
 class Trainer:
-    """Single-device training of `cfg` (the JAX package's `Trainer`
-    without a mesh). The trainable model (`self.det`, fp32 parameters
-    computing in `dtype`) and the optimizer are built by `init_state`
-    (which `fit` calls when given no state), and updated in place by
-    every step and by a restore."""
+    """Training of `cfg` on one card, or data-parallel over the ranks of
+    `mesh` (`parallel.mesh.make_mesh()`: one process a card; the JAX
+    package's `Trainer(mesh=...)` with a data axis). The trainable model
+    (`self.det`, fp32 parameters computing in `dtype`) and the optimizer
+    are built by `init_state` (which `fit` calls when given no state),
+    and updated in place by every step and by a restore."""
 
     def __init__(self, cfg: ExperimentConfig, dtype=torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[Mesh] = None):
+        if mesh is None and pdist.world_size() > 1:
+            raise ValueError(
+                f"a process group of {pdist.world_size()} ranks and no "
+                f"mesh: pass mesh=make_mesh() to train data-parallel "
+                f"(each rank alone would train a model of its own)")
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.world = data_axis_size(mesh)
         self.run_dir = os.path.join(cfg.save_dir, cfg.exp_name)
         os.makedirs(self.run_dir, exist_ok=True)
         self.logger = MetricLogger(os.path.join(self.run_dir,
@@ -352,12 +393,20 @@ class Trainer:
     # -- state -------------------------------------------------------------
     def init_state(self, batch_size: int, seed: int = 0) -> TrainState:
         """A fresh model from `seed`, a fresh optimizer, and zero states
-        for `batch_size` slots."""
+        for `batch_size` slots (under a mesh, this rank's rows of the
+        global slot table, and rank 0's weights on every rank)."""
         self.det = Detector(self.cfg.model, dtype=self.dtype,
                             device=self.device, seed=seed, trainable=True)
         self.optimizer, self.schedule = make_optimizer(
             self.cfg.training, self.det.parameters())
-        return TrainState(states=self.det.init_states(batch_size), step=0)
+        self.replicate()
+        return TrainState(states=shard_states(
+            self.mesh, self.det.init_states(batch_size)), step=0)
+
+    def replicate(self) -> None:
+        """Rank 0's parameters and BN statistics on every rank of the
+        mesh (no-op without one)."""
+        replicate(self.mesh, self.det.state_dict().values())
 
     def _ckpt_path(self, name: str) -> str:
         return os.path.join(self.run_dir, f"ckpt_{name}.pt")
@@ -366,14 +415,17 @@ class Trainer:
         """Write ckpt_<name>.pt: the model's parameters and BN statistics,
         the optimizer's moments and count, the step and the best-AP
         retention state. Written to a temporary file and renamed, so a
-        checkpoint on disk is never half written."""
-        path = self._ckpt_path(name)
-        payload = {"model": self.det.state_dict(),
-                   "optimizer": self.optimizer.state_dict(),
-                   "step": int(state.step),
-                   "best_aps": list(self._best_aps)}
-        torch.save(payload, path + ".tmp")
-        os.replace(path + ".tmp", path)
+        checkpoint on disk is never half written. Under a mesh every rank
+        calls it: rank 0 writes, then all pass a barrier."""
+        if pdist.is_primary():
+            path = self._ckpt_path(name)
+            payload = {"model": self.det.state_dict(),
+                       "optimizer": self.optimizer.state_dict(),
+                       "step": int(state.step),
+                       "best_aps": list(self._best_aps)}
+            torch.save(payload, path + ".tmp")
+            os.replace(path + ".tmp", path)
+        pdist.barrier()
 
     def _checkpoint_candidates(self) -> List[str]:
         """All checkpoint files in the run dir, newest first."""
@@ -400,7 +452,23 @@ class Trainer:
     def restore_latest(self, state: TrainState):
         """Full resume from the newest RESTORABLE checkpoint, falling back
         past ones that do not load (reference: train.py:85-92). Returns
-        (state, path-or-None)."""
+        (state, path-or-None). Under a mesh rank 0 picks the file and
+        every rank restores that one (no rank races rank 0's writes)."""
+        if self.world > 1:
+            path = None
+            if pdist.is_primary():
+                for cand in self._checkpoint_candidates():
+                    try:
+                        self._load(cand)
+                        path = cand
+                        break
+                    except Exception as e:             # noqa: BLE001
+                        print(f"restore failed for {cand}, falling "
+                              f"back: {e}")
+            path = pdist.broadcast_object(path)
+            if path is None:
+                return state, None
+            return self.restore_checkpoint(path, state), path
         for path in self._checkpoint_candidates():
             try:
                 return self.restore_checkpoint(path, state), path
@@ -415,20 +483,25 @@ class Trainer:
         self.det.load_state_dict(payload["model"])
         self.optimizer.load_state_dict(payload["optimizer"])
         self._best_aps = [float(v) for v in payload["best_aps"]]
+        self.replicate()
         return TrainState(states=state.states, step=int(payload["step"]))
 
     def load_weights(self, path: str, state: TrainState) -> TrainState:
         """Weight-only resume (reference: modules/detection.py:583-594)."""
         self.det.load_state_dict(load_variables(path, self.device))
+        self.replicate()
         return state
 
     def _save_best(self, ap: float, state: TrainState) -> None:
         """Keep the TWO best-AP checkpoints: a new best demotes
         ckpt_best -> ckpt_best2; an AP beating only the runner-up
-        overwrites ckpt_best2."""
+        overwrites ckpt_best2. Under a mesh `ap` is the same on every
+        rank (the evaluators are all-gathered); rank 0 moves the
+        files."""
         if ap > self._best_aps[0]:
             best = self._ckpt_path("best")
-            if self._best_aps[0] >= 0 and os.path.exists(best):
+            if self._best_aps[0] >= 0 and pdist.is_primary() and \
+                    os.path.exists(best):
                 os.replace(best, self._ckpt_path("best2"))
             self._best_aps = [ap, self._best_aps[0]]
             self.save_checkpoint(state, "best")
@@ -439,30 +512,46 @@ class Trainer:
     # -- data ---------------------------------------------------------------
     def make_train_loader(self, seed: int = 0,
                           sequences: Optional[List[EventSequence]] = None):
-        """Returns (loader, batch size). `sequences` (already open, e.g.
-        `ArrayEventSequence`s) replaces the train split's directory."""
+        """Returns (loader, global batch size). `sequences` (already open,
+        e.g. `ArrayEventSequence`s) replaces the train split's directory.
+        Under several processes each builds only its slice of the global
+        slot table: process p feeds global slots [p*B_local,
+        (p+1)*B_local) with stream seeds no other process has (reference
+        shards by rank*num_workers+worker,
+        stream_sharded_datapipe.py:88-105); a mixed loader splits into
+        its stream and random-access halves per process."""
         cfg = self.cfg
         dst = cfg.dataset
         B = cfg.training.batch_size_train
+        p, n = pdist.process_shard()
+        if B % n:
+            raise ValueError(f"batch_size_train {B} does not split over "
+                             f"{n} processes")
+        b_local = B // n
         seqs = sequences if sequences is not None else open_split_sequences(
             dst, "train", seq_ratio=dst.train_ratio)
         if cfg.training.ssod_online.enabled:
             # online SSOD needs continuous streams (the EMA teacher's
             # LSTM state tracks the weak view across windows)
-            return StreamTrainLoader(seqs, dst, B, seed, ssod=True), B
+            return StreamTrainLoader(seqs, dst, b_local, seed,
+                                     slot_offset=p * b_local, ssod=True), B
         mode = dst.train_sampling
         if mode == "stream":
-            return StreamTrainLoader(seqs, dst, B, seed), B
+            return StreamTrainLoader(seqs, dst, b_local, seed,
+                                     slot_offset=p * b_local), B
         if mode == "random":
-            return RandomTrainLoader(seqs, dst, B, seed), B
+            return RandomTrainLoader(seqs, dst, b_local, seed,
+                                     slot_offset=p * b_local), B
         if mode != "mixed":
             raise ValueError(f"train_sampling {mode!r}: 'stream', 'random' "
                              f"or 'mixed'")
-        b_stream = max(B // 2, 1)
-        b_rand = max(B - b_stream, 1)
+        b_stream = max(b_local // 2, 1)
+        b_rand = max(b_local - b_stream, 1)
         return MixedTrainLoader(
-            StreamTrainLoader(seqs, dst, b_stream, seed),
-            RandomTrainLoader(seqs, dst, b_rand, seed)), b_stream + b_rand
+            StreamTrainLoader(seqs, dst, b_stream, seed,
+                              slot_offset=p * b_stream),
+            RandomTrainLoader(seqs, dst, b_rand, seed,
+                              slot_offset=p * b_rand)), (b_stream + b_rand) * n
 
     # -- validation ----------------------------------------------------------
     def eval_detector(self) -> Detector:
@@ -547,7 +636,16 @@ class Trainer:
 
         `training.remat` picks the TBPTT remat policy of the steps
         (`step.REMAT_POLICIES`); an unknown one raises here, before the
-        loaders start."""
+        loaders start.
+
+        Under a mesh every rank calls fit: "frames_per_s" counts the
+        global batch's frames, panels are off, the profiler traces rank
+        0 only, the online SSOD teacher runs on
+        the rank's own rows, the checkpoint timer (rank 0's clock) and
+        the stop request (any rank's) are exchanged every
+        `training.multihost_sync_every` steps so that all ranks
+        checkpoint and leave together, and `timings` also collects the
+        gradient all-reduce's ms a step under "allreduce_ms"."""
         cfg = self.cfg
         check_remat(cfg.training.remat)
         total = max_steps or cfg.training.max_steps
@@ -561,15 +659,20 @@ class Trainer:
             # up within ~1/(1-alpha) steps, so teacher state is not
             # checkpointed separately)
             from ..selftrain.online import OnlineSSODBatcher
-            ssod_batcher = OnlineSSODBatcher(loader, self.det, cfg, B,
+            # the loader yields this rank's rows of the global batch;
+            # the teacher's slot/state table matches them
+            ssod_batcher = OnlineSSODBatcher(loader, self.det, cfg,
+                                             B // self.world,
                                              start_step=int(state.step))
             loader = ssod_batcher
         self.ssod_batcher = ssod_batcher
-        viz_every = cfg.training.viz_every_steps
+        # a panel reads one row of this rank's preds: one process only
+        viz_every = cfg.training.viz_every_steps if self.world == 1 else 0
         train_step = make_train_step(self.det, self.optimizer,
                                      remat=cfg.training.remat,
                                      with_preds=viz_every > 0,
-                                     gradflow=cfg.training.gradflow)
+                                     gradflow=cfg.training.gradflow,
+                                     mesh=self.mesh, timings=timings)
         M = (cfg.training.max_det_frames or
              (cfg.dataset.sequence_length if ssod_batcher is not None else
               default_frames_per_slot(cfg.dataset.sequence_length,
@@ -618,7 +721,7 @@ class Trainer:
                     break
                 dev, done, meta = item
                 upload.ready(dev, done)
-                if profile_steps and step == 5:
+                if profile_steps and step == 5 and pdist.is_primary():
                     profiler = _start_profile(self.device)
                 ts = lap(timings, "wait_ms", tw)
                 state, metrics = train_step(state, dev)
@@ -632,7 +735,8 @@ class Trainer:
                     self._write_viz_panel(step, meta["viz"], preds)
                 if profiler is not None and step == 5 + profile_steps:
                     profiler = _stop_profile(profiler, self.run_dir)
-                frames_seen += meta["frames"]
+                # local frames x ranks = the global batch's frames
+                frames_seen += meta["frames"] * self.world
                 dropped_total += meta["dropped_frames"]
                 if step % log_every == 0 or step == 1:
                     dt = time.time() - t0
@@ -645,9 +749,22 @@ class Trainer:
                     if dropped_total:
                         rec["dropped_frames_total"] = dropped_total
                     self.logger.log(rec)
+                # the time-triggered checkpoint and the stop are
+                # RANK-CONSISTENT: a rank that leaves the loop (or writes)
+                # alone would wait forever in the others' next collective.
+                # Under a mesh they are exchanged every
+                # multihost_sync_every steps: rank 0's clock binds
+                # everyone, any rank's stop request stops everyone
                 ckpt_due = ((time.time() - last_ckpt_time) / 60
                             >= cfg.training.ckpt_every_min)
                 stop = self._stop_requested
+                if self.world > 1:
+                    if step % cfg.training.multihost_sync_every == 0:
+                        ckpt_due, stop = pdist.any_all(
+                            [ckpt_due, stop], self.mesh.group,
+                            first_from_primary=(0,))
+                    else:
+                        ckpt_due = stop = False
                 if ckpt_due or stop:
                     self.save_checkpoint(state, "last")
                     last_ckpt_time = time.time()

@@ -165,8 +165,13 @@ def test_cli_builds_the_jax_config(monkeypatch, cli, argv):
 
 
 def test_unported_flags_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.1"):
-        ttrain.main(["--mesh", "4x2", "--cpu"])
+    # the space and model mesh axes are not ported; a data axis of
+    # another degree than the process group's (one process here) raises
+    for mesh, item in (("4x2", "A.2"), ("1x2", "A.2"), ("1x1x2", "A.3")):
+        with pytest.raises(NotImplementedError, match=item):
+            ttrain.main(["--mesh", mesh, "--cpu"])
+    with pytest.raises(ValueError, match="process group has 1"):
+        ttrain.main(["--mesh", "2", "--cpu"])
     os.makedirs(tmp_path / "ckpt_last")                 # an orbax directory
     with pytest.raises(ValueError, match="orbax"):
         tval.main(["--size", "tiny", "--cpu", "--path", str(tmp_path),
