@@ -282,9 +282,12 @@ switched off for the fp32 products of the plain ConvLSTM update.
    sampling, DP_STEPS = 3 steps, in fp32: in bf16 a rank's B 6 and one
    process's B 12 round apart, and a SimOTA assignment flips between
    them at random weights) on phase 10's rendered split as a frame
-   store, then two rank processes, joined over gloo and sharing the
-   card, each render the same split and run (b) `cli.train --mesh 2`
-   with the same flags, then a validation of the run's checkpoint
+   store, and the first step of (d)'s fit at B 12 in bf16 and in fp32,
+   recording its head outputs and how far it moved each BN running
+   statistic. Then
+   two rank processes, joined over gloo and sharing the card, each
+   render the same split and run (b) `cli.train --mesh 2` with the same
+   flags, then a validation of the run's checkpoint
    sharded over the ranks through the kernels (each rank 6 of the 12 val
    sequences at B 12, the evaluators all-gathered), (c) online SSOD
    from that checkpoint through `perturb_teacher` (thresholds ST_OBJ,
@@ -292,9 +295,13 @@ switched off for the fp32 products of the plain ConvLSTM update.
    teacher a rank at B 6, and (d) a fit that the parent stops with a
    SIGTERM to rank 1 after its second step. Fails if a rank or the
    group times out or fails, and unless (b) the ranks' parameter
-   checksums and losses are equal after every step, the first step's
-   loss is within REMAT_LOSS_RTOL = 1e-3 and each gradient norm within
-   REMAT_NORM_RTOL = 1e-2 of one process's, relative, the train steps
+   checksums and losses are equal after every step, every step's loss
+   and num_fg and the first step's gradient norms (global and per
+   module) are within DP_FP32_RTOL = 1e-5 of one process's, relative,
+   the later steps' norms within DP_FP32_LATER_NORM_RTOL = 1e-3, the
+   weights after step 1 no further apart than two first Adam updates,
+   and apart by a sign only where one process's gradient is at most
+   DP_FLIP_GRAD_MAX = 1e-5 (a rounding's sign), the train steps
    launched no kernel, each labeled val frame's preds row from the
    ranks is within 2^-4 * max|plain| (boxes and scores apart) of a
    one-process eval of the same checkpoint, the ranks' metrics are
@@ -303,7 +310,12 @@ switched off for the fp32 products of the plain ConvLSTM update.
    rows, pseudo boxes merged after the burn-in and none before, the
    teacher launched what its batches imply, the NMS mask on its preds
    (30 images) is exact, and the ranks' checksums are equal; (d) both
-   ranks left fit at the same step, and rank 0's ckpt_last.pt holds it.
+   ranks left fit at the same step, and rank 0's ckpt_last.pt holds it,
+   the first bf16 step's head outputs of the two ranks together (boxes
+   and scores apart) lie no further from one process's fp32 step than
+   DP_BF16_NOISE = 2 times one process's bf16 step does, and the moves
+   of every BN running statistic are within 2^-4 * max|plain| of one
+   process's bf16 step at B 12.
    Reports each rank's step ms, the gradient all-reduce's ms a step,
    peak GiB, validation s, the teachers' ms and the phase's seconds,
    beside the card's name and power limit.
@@ -448,8 +460,16 @@ REMAT_NORM_RTOL = 1e-2
 # the data-parallel phase (11), RVT-B Gen4 at full width and depth:
 # DP_WORLD rank processes of DP_LOCAL slots each (the preset's B 12 over
 # the ranks) over gloo on the one card, DP_STEPS steps of `cli.train
-# --mesh`, its first step's loss within REMAT_LOSS_RTOL and module
-# gradient norms within REMAT_NORM_RTOL of one process's at B 12; online
+# --mesh` in fp32, every step's loss and num_fg and the first step's
+# gradient norms within DP_FP32_RTOL of one process's at B 12 (the first
+# step's loss was bit-equal and its norms within 3.0e-6 on an H100), the
+# later steps' norms within DP_FP32_LATER_NORM_RTOL (8.8e-5 to 2.2e-4
+# read on an H100: Adam's first update takes opposite signs where the
+# gradient's sign is a rounding's, 35 weights with |g| up to 1.9e-6,
+# under DP_FLIP_GRAD_MAX, and the backbone's norm, 7e4 at the seeded
+# weights, moves with them); the first bf16 step's head outputs no
+# further from the fp32 step's than DP_BF16_NOISE times one process's
+# bf16 step; online
 # SSOD for DP_SSOD_BURN_IN + DP_SSOD_STEPS steps; a fit of at most
 # DP_STOP_MAX steps that rank 1's SIGTERM stops after its DP_STOP_AT-th;
 # DP_NCCL_STEPS steps under a one-rank NCCL group. A collective waits at
@@ -458,6 +478,10 @@ REMAT_NORM_RTOL = 1e-2
 DP_WORLD = 2
 DP_LOCAL = 6
 DP_STEPS = 3
+DP_FP32_RTOL = 1e-5
+DP_FP32_LATER_NORM_RTOL = 1e-3
+DP_BF16_NOISE = 2.0
+DP_FLIP_GRAD_MAX = 1e-5
 DP_SSOD_BURN_IN = 1
 DP_SSOD_STEPS = 2
 DP_STOP_AT = 2
@@ -3288,18 +3312,36 @@ def _checksum(module) -> str:
     return h.hexdigest()
 
 
+def _bn_running(module) -> dict:
+    """Every BN running mean and variance of `module`, in fp32 copies."""
+    return {k: v.detach().float().clone()
+            for k, v in module.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def _params(module) -> dict:
+    """The trainable parameters of `module`, fp32 copies on the host."""
+    return {k: v.detach().float().cpu().clone()
+            for k, v in module.named_parameters() if v.requires_grad}
+
+
 class StepSpy:
     """While entered, every train step that `train.trainer` makes records
     its metrics, its host ms (ending in a synchronize; the checksum
     after it is not timed) and the checksum of the model's parameters
     and BN statistics after it, then calls each of `hooks` with the
     number of steps taken; every `Trainer.fit` collects `timings`
-    (among them the gradient all-reduce's "allreduce_ms")."""
+    (among them the gradient all-reduce's "allreduce_ms"). With
+    `first_step`, `first` holds, on the host, the first step's head
+    outputs ("preds"), each BN running statistic's move in that step
+    ("bn"), the parameters before and after it ("w0", "w1") and their
+    gradients, clipped ("g1")."""
     KEYS = ("loss", "grad_norm", "grad_norm/backbone", "grad_norm/fpn",
             "grad_norm/head", "num_fg")
 
-    def __init__(self):
+    def __init__(self, first_step: bool = False):
         self.steps, self.timings, self.hooks = [], {}, []
+        self.first_step, self.first = first_step, None
 
     def __enter__(self):
         import torch
@@ -3309,13 +3351,26 @@ class StepSpy:
         spy = self
 
         def make_step(det, *a, **k):
+            if spy.first_step:
+                k["with_preds"] = True
             step = make(det, *a, **k)
 
             def run(state, batch):
+                record = spy.first_step and not spy.steps
+                if record:
+                    before, w0 = _bn_running(det), _params(det)
                 t0 = time.perf_counter()
                 state, m = step(state, batch)
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
+                if record:
+                    spy.first = {"preds": m["preds"].float().cpu(), "bn": {
+                        k: (v - before[k]).cpu()
+                        for k, v in _bn_running(det).items()},
+                        "w0": w0, "w1": _params(det), "g1": {
+                            k: v.grad.detach().float().cpu().clone()
+                            for k, v in det.named_parameters()
+                            if v.requires_grad}}
                 spy.steps.append({"step_ms": ms, "checksum": _checksum(det),
                                   **{k: float(m[k]) for k in spy.KEYS}})
                 for hook in spy.hooks:
@@ -3357,6 +3412,17 @@ def dp_argv(root: str, save_dir: str, exp: str, mesh: bool):
             "--steps", str(DP_STEPS), "--sampling", "stream", "--fp32",
             "--save-dir", save_dir, "--exp-name", exp, "--val-every", "0"]
     return argv + (["--mesh", str(DP_WORLD)] if mesh else [])
+
+
+def dp_bf16_cfg(cfg, save_dir: str, exp: str):
+    """(d)'s fit: the preset in bf16 (B 12, L 5, remat "full"), stream
+    sampling, no validation, the stop exchanged after every step."""
+    from dataclasses import replace
+    return replace(cfg, save_dir=save_dir, exp_name=exp,
+                   dataset=replace(cfg.dataset, train_sampling="stream"),
+                   training=replace(cfg.training, val_check_interval=0,
+                                    multihost_sync_every=1,
+                                    max_steps=DP_STOP_MAX))
 
 
 def _eval_hook(store):
@@ -3421,7 +3487,7 @@ def dp_rank(rank: int, port: int, out: str) -> None:
 
     # (b) training through the CLI, then one sharded validation
     save = os.path.join(out, "runs")
-    spy = StepSpy()
+    spy = StepSpy(first_step=True)
     _zero(wrappers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3435,6 +3501,9 @@ def dp_rank(rank: int, port: int, out: str) -> None:
         "local_slots": int(final.states[0][0].shape[0]),
         "launches": _count(wrappers),
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if rank == 0:
+        torch.save(spy.first["w1"], os.path.join(out, "w1.pt"))
+    del spy
     ckpt = os.path.join(save, "dp", "ckpt_last.pt")
     det = load_detector(cfg.model, torch.bfloat16, "cuda", ckpt=ckpt)
     store = {"frames": {}, "batches": []}
@@ -3514,15 +3583,11 @@ def dp_rank(rank: int, port: int, out: str) -> None:
     torch.cuda.empty_cache()
 
     # (d) the stop: the parent sends rank 1 a SIGTERM once
-    # <out>/steps1 says its DP_STOP_AT-th step is done
-    stop_cfg = replace(cfg, save_dir=save, exp_name="dp_stop",
-                       dataset=replace(dst, train_sampling="stream"),
-                       training=replace(cfg.training, val_check_interval=0,
-                                        multihost_sync_every=1,
-                                        max_steps=DP_STOP_MAX))
-    trainer = Trainer(stop_cfg, mesh=mesh)
+    # <out>/steps1 says its DP_STOP_AT-th step is done; the first step's
+    # head outputs and BN moves go to <out>/first<r>.pt
+    trainer = Trainer(dp_bf16_cfg(cfg, save, "dp_stop"), mesh=mesh)
     state = trainer.init_state(GEN4_BATCH)
-    spy = StepSpy()
+    spy = StepSpy(first_step=True)
 
     def progress(n):
         with open(os.path.join(out, f"steps{rank}.tmp"), "w") as f:
@@ -3533,6 +3598,7 @@ def dp_rank(rank: int, port: int, out: str) -> None:
     with spy:
         state = trainer.fit(state=state, log_every=1, sequences=train_seqs)
     trainer.close()
+    torch.save(spy.first, os.path.join(out, f"first{rank}.pt"))
     report["stop"] = {"step": state.step, "late_sigterm": bool(late),
                       "checksum": spy.steps[-1]["checksum"]
                       if spy.steps else None,
@@ -3694,7 +3760,7 @@ def drive_dp():
     from leod_tpu_torch.cli._common import load_detector, open_split, ratio_of
     from leod_tpu_torch.config import experiment_preset
     from leod_tpu_torch.models.detector import Detector
-    from leod_tpu_torch.train.trainer import run_streaming_eval
+    from leod_tpu_torch.train.trainer import Trainer, run_streaming_eval
 
     from dataclasses import replace
     import numpy as np
@@ -3745,7 +3811,7 @@ def drive_dp():
     t0 = time.perf_counter()
     frames = dp_frames(os.path.join(work, "data"), cfg)
     render_s = time.perf_counter() - t0
-    spy = StepSpy()
+    spy = StepSpy(first_step=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with spy:
@@ -3755,8 +3821,24 @@ def drive_dp():
     one = {"cli_s": time.perf_counter() - t0, "render_s": render_s,
            "steps": spy.steps,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    one_w = {k: spy.first[k] for k in ("w0", "w1", "g1")}
     emit({"dp_one_process": one})
     torch.cuda.empty_cache()
+    # and the first step of (d)'s bf16 fit at B 12, and of the same fit
+    # in fp32 (the yardstick of bf16's rounding)
+    first_one = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        one_spy = StepSpy(first_step=True)
+        trainer = Trainer(dp_bf16_cfg(cfg, os.path.join(work, "one"),
+                                      f"one_{dtype}"), dtype=dtype)
+        with one_spy:
+            trainer.fit(max_steps=1, state=trainer.init_state(GEN4_BATCH),
+                        log_every=1,
+                        sequences=open_split(cfg.dataset, "train", frames))
+        trainer.close()
+        first_one[dtype] = one_spy.first
+        del trainer, one_spy
+        torch.cuda.empty_cache()
 
     # (b)-(d) in DP_WORLD rank processes
     t0 = time.perf_counter()
@@ -3776,13 +3858,52 @@ def drive_dp():
                 len({r["steps"][i]["loss"] for r in tr}) != 1:
             fail(f"the ranks' parameters or losses differ after step "
                  f"{i + 1}")
-    first, want = tr[0]["steps"][0], one["steps"][0]
-    rel = {k: abs(first[k] - want[k]) / max(abs(want[k]), 1e-30)
-           for k in StepSpy.KEYS[:5]}
-    if not all(np.isfinite(s[k]) for r in tr for s in r["steps"]
-               for k in StepSpy.KEYS) or rel["loss"] > REMAT_LOSS_RTOL or \
-            any(rel[k] > REMAT_NORM_RTOL for k in StepSpy.KEYS[1:5]):
-        fail(f"two ranks' first step {first} against one process's {want}")
+    rel = [{k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+            for k in StepSpy.KEYS}
+           for got, want in zip(tr[0]["steps"], one["steps"])]
+    limits = [{k: DP_FP32_RTOL if i == 0 or k in ("loss", "num_fg")
+               else DP_FP32_LATER_NORM_RTOL for k in StepSpy.KEYS}
+              for i in range(DP_STEPS)]
+    if len(one["steps"]) != DP_STEPS or not all(
+            np.isfinite(s[k]) for r in tr for s in r["steps"]
+            for k in StepSpy.KEYS) or any(
+                r[k] > lim[k] for r, lim in zip(rel, limits) for k in r):
+        fail(f"two ranks' fp32 steps {tr[0]['steps']} against one "
+             f"process's {one['steps']}: relative differences {rel}")
+    # the weights after step 1: Adam's first update is +-lr wherever
+    # |g| >> eps, whatever g's size, so they differ by a sign only where
+    # the gradient's sign is a rounding's (|g| <= DP_FLIP_GRAD_MAX), and
+    # by less than lr where |g| is near eps
+    w1 = torch.load(os.path.join(work, "w1.pt"))
+    if sorted(w1) != sorted(one_w["w1"]):
+        fail("the ranks' parameters are not one process's")
+    max_move = max(float((one_w["w1"][k] - one_w["w0"][k]).abs().max())
+                   for k in w1)
+    diff = {k: (w1[k] - one_w["w1"][k]).abs() for k in w1}
+    g_flip = torch.cat([one_w["g1"][k][diff[k] > max_move].abs()
+                        for k in w1])
+    g_all = torch.cat([one_w["g1"][k].abs().flatten() for k in w1])
+    step1_w = {"differ": sum(int((d > 0).sum()) for d in diff.values()),
+               "flipped": int(g_flip.numel()),
+               "of": sum(v.numel() for v in w1.values()),
+               "max_abs": max(float(d.max()) for d in diff.values()),
+               "max_move": max_move,
+               # |g| of one process's step 1 where the ranks' update took
+               # the other sign, against |g| over all weights
+               "flipped_grad_max": float(g_flip.max()) if g_flip.numel()
+               else 0.0,
+               "grad_abs_median": float(g_all.median()),
+               "grad_abs_quantiles": {
+                   q: float(torch.quantile(g_all[::16], q))
+                   for q in (0.01, 0.03, 0.1)}}
+    max_abs = step1_w["max_abs"]
+    del diff, g_flip, g_all, w1, one_w
+    emit({"dp_fp32_parity": {"step_rel_diff": rel, "step1_weights": step1_w}})
+    if max_abs > 2.0 * max_move * (1 + 1e-3) or \
+            step1_w["flipped_grad_max"] > DP_FLIP_GRAD_MAX:
+        fail(f"the weights after step 1 of two ranks and one process are "
+             f"further apart than two first updates, or a first update "
+             f"took the other sign where |g| > {DP_FLIP_GRAD_MAX}: {step1_w}")
 
     # the sharded validation against one process on the same weights
     det = load_detector(cfg.model, torch.bfloat16, "cuda",
@@ -3841,11 +3962,47 @@ def drive_dp():
             st[0]["checksum"] != st[1]["checksum"]:
         fail(f"the stop: ranks at steps {[s['step'] for s in st]}, "
              f"ckpt_last at {saved}")
+    # the first bf16 step: its head outputs of the two ranks together
+    # lie no further from the fp32 step's than DP_BF16_NOISE times one
+    # process's bf16 step does (boxes and scores apart), and each BN
+    # running statistic moved as in one process's, within SLICE_TOL
+    firsts = [torch.load(os.path.join(work, f"first{r}.pt"))
+              for r in range(DP_WORLD)]
+    preds = torch.cat([f["preds"] for f in firsts])
+    one16, one32 = first_one[torch.bfloat16], first_one[torch.float32]
+    if preds.shape != one16["preds"].shape:
+        fail(f"the ranks' first bf16 step gave {tuple(preds.shape)} head "
+             f"outputs, one process {tuple(one16['preds'].shape)}")
+    bf16_parity, ok = {}, True
+    for cols, sl in (("boxes", slice(0, 4)), ("scores", slice(4, None))):
+        def dist(a, b):
+            return float((a[..., sl] - b[..., sl]).abs().max())
+        e = {"ranks_fp32": dist(preds, one32["preds"]),
+             "one_fp32": dist(one16["preds"], one32["preds"]),
+             "ranks_one": dist(preds, one16["preds"]),
+             "max_plain": float(one16["preds"][..., sl].abs().max())}
+        ok = ok and e["ranks_fp32"] <= DP_BF16_NOISE * e["one_fp32"]
+        bf16_parity[cols] = e
+    keys = sorted(one16["bn"])
+    for r, f in enumerate(firsts):
+        if sorted(f["bn"]) != keys:
+            fail(f"rank {r}'s BN statistics are not one process's")
+        err, tol, bn_ok = compare_all(tuple(f["bn"][k] for k in keys),
+                                      tuple(one16["bn"][k] for k in keys),
+                                      SLICE_TOL)
+        bf16_parity[f"bn_rank{r}"] = [err, tol]
+        ok = ok and bn_ok
+    emit({"dp_bf16_first_step": bf16_parity})
+    if not ok:
+        fail(f"the first bf16 step of two ranks against one process at "
+             f"B {GEN4_BATCH}: {bf16_parity}")
+    del firsts, preds, first_one, one16, one32
 
     report.update({
         "one_process": {k: one[k] for k in ("cli_s", "render_s", "peak_gib")},
         "one_process_step_ms": [s["step_ms"] for s in one["steps"]],
-        "first_step_rel_diff": rel,
+        "fp32_step_rel_diff": rel, "fp32_step1_weights": step1_w,
+        "bf16_first_step": bf16_parity, "bn_tensors": len(keys),
         "step_ms_per_rank": [[s["step_ms"] for s in r["steps"]] for r in tr],
         "allreduce_ms_per_rank": [r["allreduce_ms"] for r in tr],
         "peak_gib_per_rank": [r["peak_gib"] for r in tr],

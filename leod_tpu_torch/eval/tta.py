@@ -112,19 +112,14 @@ def run_tta_eval(det: Detector, cfg: ExperimentConfig,
     dev = resolve_device(device)
     if det.device.type != dev.type:
         raise ValueError(f"detector is on {det.device}, eval asked for {dev}")
-    if shard_index is None and num_shards is None:
-        shard_index, num_shards = pdist.process_shard()
-        sync_metrics = True
-    else:
-        shard_index, num_shards = shard_index or 0, num_shards or 1
-        sync_metrics = False
-        if num_shards > 1 and evaluator is None:
-            # a per-shard AP is statistically meaningless — the caller
-            # must collect one evaluator per shard and merge before
-            # evaluating
-            raise ValueError(
-                "explicit sharding needs an external `evaluator` "
-                "(merge the shards' buffers, then evaluate once)")
+    shard_index, num_shards, sync_metrics = pdist.eval_shard(shard_index,
+                                                             num_shards)
+    if not sync_metrics and num_shards > 1 and evaluator is None:
+        # a per-shard AP is statistically meaningless — the caller must
+        # collect one evaluator per shard and merge before evaluating
+        raise ValueError(
+            "explicit sharding needs an external `evaluator` "
+            "(merge the shards' buffers, then evaluate once)")
     dst = cfg.dataset
     pp = cfg.model.postprocess
     if conf_threshold is not None:

@@ -113,6 +113,16 @@ def local_batch_slice(global_batch: int) -> slice:
     return slice(p * b_local, (p + 1) * b_local)
 
 
+def eval_shard(shard_index: Optional[int], num_shards: Optional[int]
+               ) -> tuple:
+    """(shard_index, num_shards, gather) of an eval over a split: the
+    caller's shard where it names one, else this process's shard of the
+    group, whose evaluators are then all-gathered (gather True)."""
+    if shard_index is None and num_shards is None:
+        return (*process_shard(), True)
+    return shard_index or 0, num_shards or 1, False
+
+
 def barrier(group=None) -> None:
     if world_size(group) > 1:
         dist.barrier(group)

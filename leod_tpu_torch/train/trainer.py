@@ -153,12 +153,8 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
     if not seqs:
         return None
     time_flip = time_flip or dst.reverse_event_order
-    if shard_index is None and num_shards is None:
-        shard_index, num_shards = pdist.process_shard()
-        sync_metrics = True
-    else:
-        shard_index, num_shards = shard_index or 0, num_shards or 1
-        sync_metrics = False
+    shard_index, num_shards, sync_metrics = pdist.eval_shard(shard_index,
+                                                             num_shards)
     B = min(B, len(seqs))
     loader = EvalStreamLoader(seqs, dst, B, time_flip=time_flip,
                               shard_index=shard_index, num_shards=num_shards)
@@ -451,40 +447,42 @@ class Trainer:
 
     def restore_latest(self, state: TrainState):
         """Full resume from the newest RESTORABLE checkpoint, falling back
-        past ones that do not load (reference: train.py:85-92). Returns
-        (state, path-or-None). Under a mesh rank 0 picks the file and
-        every rank restores that one (no rank races rank 0's writes)."""
-        if self.world > 1:
-            path = None
-            if pdist.is_primary():
-                for cand in self._checkpoint_candidates():
-                    try:
-                        self._load(cand)
-                        path = cand
-                        break
-                    except Exception as e:             # noqa: BLE001
-                        print(f"restore failed for {cand}, falling "
-                              f"back: {e}")
-            path = pdist.broadcast_object(path)
-            if path is None:
-                return state, None
-            return self.restore_checkpoint(path, state), path
-        for path in self._checkpoint_candidates():
-            try:
-                return self.restore_checkpoint(path, state), path
-            except Exception as e:                     # noqa: BLE001
-                print(f"restore failed for {path}, falling back: {e}")
-        return state, None
+        past ones that do not load or restore (reference:
+        train.py:85-92). Returns (state, path-or-None). Rank 0 picks the
+        file and every other rank restores that one (no rank races rank
+        0's writes)."""
+        path = step = None
+        if pdist.is_primary():
+            for cand in self._checkpoint_candidates():
+                try:
+                    step = self._restore_local(cand)
+                    path = cand
+                    break
+                except Exception as e:                 # noqa: BLE001
+                    print(f"restore failed for {cand}, falling back: {e}")
+        path = pdist.broadcast_object(path)
+        if path is None:
+            return state, None
+        if not pdist.is_primary():
+            step = self._restore_local(path)
+        self.replicate()
+        return TrainState(states=state.states, step=step), path
 
     def restore_checkpoint(self, path: str, state: TrainState) -> TrainState:
         """Full resume: weights, BN statistics, optimizer, step and the
         best-AP retention state; the stream states stay `state`'s."""
+        step = self._restore_local(path)
+        self.replicate()
+        return TrainState(states=state.states, step=step)
+
+    def _restore_local(self, path: str) -> int:
+        """This rank's part of a restore: its model, optimizer and best-AP
+        state from `path`; returns the checkpoint's step."""
         payload = self._load(path)
         self.det.load_state_dict(payload["model"])
         self.optimizer.load_state_dict(payload["optimizer"])
         self._best_aps = [float(v) for v in payload["best_aps"]]
-        self.replicate()
-        return TrainState(states=state.states, step=int(payload["step"]))
+        return int(payload["step"])
 
     def load_weights(self, path: str, state: TrainState) -> TrainState:
         """Weight-only resume (reference: modules/detection.py:583-594)."""
@@ -523,28 +521,26 @@ class Trainer:
         cfg = self.cfg
         dst = cfg.dataset
         B = cfg.training.batch_size_train
-        p, n = pdist.process_shard()
-        if B % n:
-            raise ValueError(f"batch_size_train {B} does not split over "
-                             f"{n} processes")
-        b_local = B // n
+        rows = pdist.local_batch_slice(B)
+        b_local = rows.stop - rows.start
         seqs = sequences if sequences is not None else open_split_sequences(
             dst, "train", seq_ratio=dst.train_ratio)
         if cfg.training.ssod_online.enabled:
             # online SSOD needs continuous streams (the EMA teacher's
             # LSTM state tracks the weak view across windows)
             return StreamTrainLoader(seqs, dst, b_local, seed,
-                                     slot_offset=p * b_local, ssod=True), B
+                                     slot_offset=rows.start, ssod=True), B
         mode = dst.train_sampling
         if mode == "stream":
             return StreamTrainLoader(seqs, dst, b_local, seed,
-                                     slot_offset=p * b_local), B
+                                     slot_offset=rows.start), B
         if mode == "random":
             return RandomTrainLoader(seqs, dst, b_local, seed,
-                                     slot_offset=p * b_local), B
+                                     slot_offset=rows.start), B
         if mode != "mixed":
             raise ValueError(f"train_sampling {mode!r}: 'stream', 'random' "
                              f"or 'mixed'")
+        p, n = pdist.process_shard()
         b_stream = max(b_local // 2, 1)
         b_rand = max(b_local - b_stream, 1)
         return MixedTrainLoader(

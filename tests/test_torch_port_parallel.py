@@ -5,9 +5,10 @@ the port only, keep one thread each, and join one gloo process group
 through a file. A module fixture launches them once (across the suite's
 worker processes too: the first one to need them runs them under a
 file lock, the others read its results), with a third process that runs
-the port's one-process eval and online SSOD, while the pytest process
-runs the JAX package's `Trainer` on a `make_mesh(2)` of the 8 CPU
-devices `tests/conftest.py` forces. Each assertion is then its own
+the port's one-process eval and online SSOD, and a fourth that runs the
+JAX package's online SSOD on a mesh, while the pytest process runs the
+JAX package's `Trainer` on a `make_mesh(2)` of the 8 CPU devices
+`tests/conftest.py` forces. Each assertion is then its own
 test. The configuration is `tests/mp_worker.py`'s (embed 32, 64 x 96,
 partition 2 x 3, L 4, global B 8 of stream slots, max_det_frames 2, 3
 steps) on a split the JAX generator writes.
@@ -45,7 +46,7 @@ WORLD = 2
 # the BN case: unequal frame counts a rank
 BN_FRAMES = (2, 4)
 BN_SHAPE = (5, 3, 4)
-RANK_TIMEOUT_S = 120
+RANK_TIMEOUT_S = 180
 GROUP_TIMEOUT_S = 60
 
 
@@ -260,6 +261,31 @@ def _one_process(shared: str) -> None:
         json.dump(out, f)
 
 
+def _jax_ssod(shared: str) -> None:
+    """The JAX package's online SSOD on `make_mesh(2)` of 8 CPU devices
+    from the randomized weights (one teacher over the global batch):
+    its losses, the reference of the ranks' per-rank teachers."""
+    sys.path[:0] = [TESTS, REPO]
+    import conftest  # noqa: F401  the 8 CPU devices, the compile cache
+    import jax.numpy as jnp
+    from leod_tpu import config as jc
+    from leod_tpu.parallel.mesh import make_mesh, shard_params
+    from leod_tpu.train.trainer import Trainer as JTrainer
+
+    with open(os.path.join(shared, "weights.pkl"), "rb") as f:
+        weights = pickle.load(f)
+    mesh = make_mesh(WORLD)
+    tr = JTrainer(ssod_cfg(jc, weights["root"], os.path.join(shared, "jax")),
+                  dtype=jnp.float32, mesh=mesh)
+    st = tr.init_state(B)
+    tr.fit(max_steps=STEPS, log_every=1, state=st._replace(
+        variables=shard_params(mesh, weights["rand"])))
+    tr.close()
+    with open(os.path.join(shared, "jax_ssod.json"), "w") as f:
+        json.dump([r["loss"] for r in _records(tr.run_dir) if "loss" in r],
+                  f)
+
+
 # ---------------------------------------------------------------------------
 # The fixture: the ranks, and the references meanwhile
 # ---------------------------------------------------------------------------
@@ -268,13 +294,15 @@ def _launch(shared: str):
     init_file = os.path.join(shared, "group_init")
     env = {k: v for k, v in os.environ.items()
            if k not in ("XLA_FLAGS", "RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    jax_env = dict(env)
     env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     argv = [[str(r), init_file, shared] for r in range(WORLD)] + \
-        [["one", shared]]
+        [["one", shared], ["jax_ssod", shared]]
+    envs = [env] * (WORLD + 1) + [jax_env]
     logs = [open(os.path.join(shared, f"{a[0]}.log"), "w") for a in argv]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__)] + a, stdout=f,
-        stderr=subprocess.STDOUT, env=env) for a, f in zip(argv, logs)]
+        stderr=subprocess.STDOUT, env=e) for a, f, e in zip(argv, logs, envs)]
     return procs, logs
 
 
@@ -344,9 +372,12 @@ def _run_all(shared: str) -> dict:
             p.kill()
         raise
     ranks, one = _wait(procs, logs, shared)
+    with open(os.path.join(shared, "jax_ssod.json")) as f:
+        jax_ssod = json.load(f)
     return {"root": root, "ranks": ranks, "one": one,
             "jax_steps": [r for r in _records(jtr.run_dir) if "loss" in r],
-            "jax_final": jax.tree.map(np.asarray, jstate.variables)}
+            "jax_final": jax.tree.map(np.asarray, jstate.variables),
+            "jax_ssod": jax_ssod}
 
 
 def _shared_dir(tmp_path_factory) -> str:
@@ -454,6 +485,58 @@ def test_global_batch_norm_equals_concatenated_batch(run):
                                    err_msg=k)
 
 
+def test_global_batch_norm_matches_jax_on_concatenated_batch(run):
+    """The two ranks' BN against flax's `nn.BatchNorm` as the JAX package
+    builds it (`leod_tpu/models/layers.py` `ConvBNAct`: momentum 0.9,
+    epsilon 1e-5, train mode) on the concatenated frames, its output,
+    input and weight gradients by `jax.vjp`, and its running
+    statistics, within 1e-5: flax's own fp32 weight gradient lies 5.2e-6
+    from the float64 value on this data (a sum of 72 terms whose
+    magnitudes add to 42), so the 1e-6 that holds the ranks to the
+    port's one-process BN would test flax's rounding."""
+    import flax.linen as fnn
+    import jax
+    import jax.numpy as jnp
+    y, gout, bn = _bn_data()
+
+    def nhwc(t):
+        return jnp.asarray(t.detach().numpy().transpose(0, 2, 3, 1))
+
+    jbn = fnn.BatchNorm(use_running_average=False, momentum=0.9,
+                        epsilon=1e-5)
+    params = {"scale": jnp.asarray(bn.weight.detach().numpy()),
+              "bias": jnp.asarray(bn.bias.detach().numpy())}
+    stats = {"mean": jnp.asarray(bn.running_mean.numpy()),
+             "var": jnp.asarray(bn.running_var.numpy())}
+
+    def fwd(p, x):
+        out, upd = jbn.apply({"params": p, "batch_stats": stats}, x,
+                             mutable=["batch_stats"])
+        return out, upd["batch_stats"]
+    out, vjp, upd = jax.vjp(fwd, params, nhwc(y), has_aux=True)
+    dp, dy = vjp(nhwc(gout))
+
+    def nchw(a):
+        return np.asarray(a).transpose(0, 3, 1, 2)
+    want = {"out": nchw(out), "dy": nchw(dy), "dw": np.asarray(dp["scale"]),
+            "db": np.asarray(dp["bias"]), "mean": np.asarray(upd["mean"]),
+            "var": np.asarray(upd["var"])}
+    lo = 0
+    for r, n in enumerate(BN_FRAMES):
+        got = run["ranks"][r]["arrays"]
+        for k in ("out", "dy"):
+            np.testing.assert_allclose(got[f"bn_{k}"], want[k][lo:lo + n],
+                                       rtol=1e-5, atol=1e-5, err_msg=k)
+        for k in ("mean", "var"):
+            np.testing.assert_allclose(got[f"bn_{k}"], want[k], rtol=1e-5,
+                                       atol=1e-5, err_msg=k)
+        lo += n
+    for k in ("dw", "db"):
+        got = sum(r["arrays"][f"bn_{k}"] for r in run["ranks"])
+        np.testing.assert_allclose(got, want[k], rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # Files, resume and stop
 # ---------------------------------------------------------------------------
@@ -520,6 +603,17 @@ def test_online_ssod_teacher_per_rank(run):
     assert sum(one["ssod_merged"][1:STEPS]) > 0
     np.testing.assert_allclose(s0["losses"], one["ssod"], rtol=1e-4)
     np.testing.assert_allclose(s1["losses"], one["ssod"], rtol=1e-4)
+
+
+def test_online_ssod_matches_jax_mesh(run):
+    """The two ranks' online SSOD losses (a teacher a rank over its own
+    rows) against the JAX package's `Trainer` on `make_mesh(2)` (one
+    teacher over the global batch), from the same randomized weights."""
+    want = run["jax_ssod"]
+    assert len(want) == STEPS
+    for r in run["ranks"]:
+        np.testing.assert_allclose(r["ssod"]["losses"], want, rtol=2e-4,
+                                   atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -660,5 +754,7 @@ def test_one_rank_group_step_is_bit_equal(root, tmp_path):
 if __name__ == "__main__":
     if sys.argv[1] == "one":
         _one_process(sys.argv[2])
+    elif sys.argv[1] == "jax_ssod":
+        _jax_ssod(sys.argv[2])
     else:
         _worker(int(sys.argv[1]), sys.argv[2], sys.argv[3])
