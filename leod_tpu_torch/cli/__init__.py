@@ -1,6 +1,6 @@
 """Command-line entry points of the port (ports of the JAX package's
 `cli/train.py`, `cli/val.py`, `cli/predict.py`, `cli/val_dst.py`,
-`cli/export.py`, `cli/serve.py`, `cli/import_raw.py` and
+`cli/export.py`, `cli/serve.py`, `cli/import_raw.py`, `cli/vis.py` and
 `tools/selftrain_cycle.sh`):
 
     python -m leod_tpu_torch.cli.train ...
@@ -11,6 +11,7 @@
     python -m leod_tpu_torch.cli.export ...
     python -m leod_tpu_torch.cli.serve ...
     python -m leod_tpu_torch.cli.import_raw ...
+    python -m leod_tpu_torch.cli.vis ...
 
 Each takes the JAX CLI's flags and builds the same `ExperimentConfig`.
 Each runs on the card unless `--cpu` is given. A flag the port does not

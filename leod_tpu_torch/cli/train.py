@@ -3,13 +3,15 @@
     python -m leod_tpu_torch.cli.train --dataset gen1 --size base --path ./datasets/gen1
     python -m leod_tpu_torch.cli.train --synthetic --size tiny --steps 50 --cpu
     torchrun --nproc_per_node 2 -m leod_tpu_torch.cli.train --mesh 2 ...
+    torchrun --nproc_per_node 4 -m leod_tpu_torch.cli.train --mesh 2x2 ...
 
 Every flag of the JAX CLI maps to the same `ExperimentConfig`.
 `--mesh DP` trains data-parallel over a process group of DP ranks, one
-card each, as torchrun starts them (`parallel/`); a mesh of another
-degree than the group's raises, and so do the space and model axes
-(`--mesh DPxSP`, `--mesh DPxSPxTP` with SP or TP > 1: ROADMAP.md A.2 and
-A.3). Pred-vs-GT panels go into
+card each, as torchrun starts them (`parallel/`); `--mesh DPxSP` over
+DP x SP ranks, each data shard's image height split over SP of them
+(`parallel/space.py`). A mesh of another size than the group's raises,
+and so does the model axis (`--mesh DPxSPxTP` with TP > 1: ROADMAP.md
+A.1). Pred-vs-GT panels go into
 <run_dir>/viz/ every `training.viz_every_steps` (the preset's 5000).
 Checkpoints are the port's `ckpt_<name>.pt` files (`--checkpoint` and
 `--weight` take `runs/<exp>/ckpt_last` or the file itself); an orbax
@@ -96,8 +98,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default=None, metavar="DP[xSP[xTP]]",
                     help="device mesh: '2' = 2-way data parallel over a "
                          "process group of 2 ranks (torchrun "
-                         "--nproc_per_node 2); the space (SP) and model "
-                         "(TP) axes are not ported (ROADMAP.md A.2, A.3)")
+                         "--nproc_per_node 2); '2x2' = 2 data shards, each "
+                         "height-sharded over 2 ranks (4 processes); the "
+                         "model (TP) axis is not ported (ROADMAP.md A.1)")
     ap.add_argument("--wandb-project", default=None,
                     help="also stream metrics to WandB (needs the wandb "
                          "package)")

@@ -200,12 +200,17 @@ class RVTBackbone(nn.Module):
 
 
 def init_states(cfg: BackboneConfig, batch_size: int,
-                dtype=torch.float32, device="cpu") -> BackboneStates:
-    """Zero LSTM states for `batch_size` streams."""
+                dtype=torch.float32, device="cpu",
+                space: int = 1) -> BackboneStates:
+    """Zero LSTM states for `batch_size` streams; with `space` > 1, a
+    space rank's height slice of them (h / stride / space rows)."""
     h, w = cfg.in_res_hw
     states = []
     for dim, stride in zip(cfg.stage_dims, cfg.stage_strides):
-        shape = (batch_size, h // stride, w // stride, dim)
+        if (h // stride) % space:
+            raise ValueError(f"a state map of {h // stride} rows does not "
+                             f"split over {space} space ranks")
+        shape = (batch_size, h // stride // space, w // stride, dim)
         states.append((torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device)))
     return tuple(states)

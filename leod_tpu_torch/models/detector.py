@@ -24,6 +24,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..config import ModelConfig
+from ..parallel.space import gather_height
 from .backbone import BackboneStates, RVTBackbone, init_states
 from .fpn import PAFPN
 from .head import (PRIOR_BIAS, Anchors, YOLOXHead, decode_outputs,
@@ -40,7 +41,11 @@ class Detector(nn.Module):
     trainable=True: fp32 parameters that take gradients, computing in
     `dtype` (`compute`); the train route is `forward_stage1_pre` then
     `forward_from_stage1` (`forward_backbone_modules` split at stage 1's
-    ConvLSTM) and `forward_detect(train=True)`."""
+    ConvLSTM) and `forward_detect(train=True)`.
+
+    Inside a space shard (`parallel/space.py`) every map is a rank's
+    rows; `forward_detect` gathers the head's outputs whole before the
+    decode, so anchors, SimOTA and the loss see the whole image."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16,
                  device="cuda", seed: int = 0, trainable: bool = False):
@@ -92,9 +97,12 @@ class Detector(nn.Module):
                 m.mask_token.copy_(torch.randn(m.mask_token.shape,
                                                generator=generator) * 0.02)
 
-    def init_states(self, batch_size: int, dtype=None) -> BackboneStates:
+    def init_states(self, batch_size: int, dtype=None,
+                    space: int = 1) -> BackboneStates:
+        """Zero states for `batch_size` slots (a space rank's height slice
+        of them with `space` > 1)."""
         return init_states(self.cfg.backbone, batch_size,
-                           dtype or self.dtype, self.device)
+                           dtype or self.dtype, self.device, space)
 
     @torch.no_grad()
     def forward_backbone(self, x: torch.Tensor, states: BackboneStates,
@@ -148,14 +156,15 @@ class Detector(nn.Module):
         if not train:
             with torch.no_grad():
                 raw = self.head(self.fpn(feats))
-                return decode_outputs(raw, self.anchors,
-                                      apply_sigmoid=True), None
+                return decode_outputs([gather_height(r) for r in raw],
+                                      self.anchors, apply_sigmoid=True), None
         if not self.trainable:
             raise ValueError("forward_detect(train=True) needs a detector "
                              "built with trainable=True")
         with self.compute():
             raw = self.head(self.fpn(feats, train=True), train=True)
-            out = decode_outputs(raw, self.anchors, apply_sigmoid=False)
+            out = decode_outputs([gather_height(r) for r in raw],
+                                 self.anchors, apply_sigmoid=False)
         return out, self.batch_stats()
 
     def batch_stats(self) -> Dict[str, Dict[str, torch.Tensor]]:

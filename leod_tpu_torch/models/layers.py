@@ -19,6 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import distributed as pdist
+from ..parallel import space
+from ..parallel.space import space_conv2d
 
 
 def get_act(name: str) -> Callable:
@@ -37,6 +39,15 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """`conv` on NCHW x, through the height halo inside a space shard
+    (`parallel/space.py` `space_conv2d`)."""
+    if space.active() is None:
+        return conv(x)
+    return space_conv2d(x, conv.weight, conv.bias, conv.stride, conv.padding,
+                        conv.groups)
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int,
@@ -198,13 +209,21 @@ def block_pair_tokens(x: torch.Tensor, window_block: PartitionAttention,
     """A window block then a grid block on an NHWC map, each run whole on
     its partitioned tokens [N, T, C] (the flax token layout,
     `leod_tpu/models/backbone.py:89-107`): the module forwards, under
-    autograd when the caller records it."""
+    autograd when the caller records it. Inside a space shard the window
+    half runs on the rank's rows and the grid half on the exchanged ones
+    (`parallel/space.py`)."""
     ph, pw = partition_size
-    _, h, w, _ = x.shape
-    t = window_block(window_partition(x, ph, pw))
-    y = window_reverse(t, ph, pw, h, w)
-    t = grid_block(grid_partition(y, ph, pw))
-    return grid_reverse(t, ph, pw, h, w)
+
+    def window(y):
+        _, h, w, _ = y.shape
+        return window_reverse(window_block(window_partition(y, ph, pw)),
+                              ph, pw, h, w)
+
+    def grid(y):
+        _, h, w, _ = y.shape
+        return grid_reverse(grid_block(grid_partition(y, ph, pw)), ph, pw,
+                            h, w)
+    return space.grid_half(grid, space.window_half(window, x, ph), ph)
 
 
 def _stem_kernel_4c(w_hwio: torch.Tensor) -> torch.Tensor:
@@ -233,7 +252,8 @@ class _S2DStemConv(nn.Module):
     layouts of the JAX module, dispatched on the channel count:
     [B, H, W, Cin], the width fold [B, H, W/4, 4Cin] and the both-axis
     fold [B, H/4, W/4, 16Cin]. Padding is asymmetric, as in JAX:
-    H (1, 0), W (1, 0) for 16Cin; H (3, 3), W (1, 0) for 4Cin."""
+    H (1, 0), W (1, 0) for 16Cin; H (3, 3), W (1, 0) for 4Cin. Inside a
+    space shard the height is padded by the halo (`space_conv2d`)."""
 
     def __init__(self, dim_out: int, in_channels: int):
         super().__init__()
@@ -246,8 +266,7 @@ class _S2DStemConv(nn.Module):
         x = x.to(self.weight.dtype)
         if x.shape[-1] == 16 * cin:
             k = _stem_kernel_16c(w_hwio).permute(3, 2, 0, 1)
-            y = F.conv2d(F.pad(_nchw(x), (1, 0, 1, 0)), k)
-            return _nhwc(y)
+            return _nhwc(space_conv2d(_nchw(x), k, padding=(1, 0, 1, 0)))
         k = _stem_kernel_4c(w_hwio).permute(3, 2, 0, 1)
         if x.shape[-1] == cin:                      # fold on device
             b, h, w, _ = x.shape
@@ -257,8 +276,8 @@ class _S2DStemConv(nn.Module):
         elif x.shape[-1] != 4 * cin:
             raise ValueError(f"stem input has {x.shape[-1]} channels; "
                              f"expected {cin}, {4 * cin} or {16 * cin}")
-        y = F.conv2d(F.pad(_nchw(x), (1, 0, 3, 3)), k, stride=(4, 1))
-        return _nhwc(y)
+        return _nhwc(space_conv2d(_nchw(x), k, stride=(4, 1),
+                                  padding=(3, 3, 1, 0)))
 
 
 def fold_ev_width(ev):
@@ -322,7 +341,7 @@ class ConvDownsample(nn.Module):
         if isinstance(self.conv, _S2DStemConv):
             x = self.conv(x)
         else:
-            x = _nhwc(self.conv(_nchw(x.to(self.conv.weight.dtype))))
+            x = _nhwc(_conv(self.conv, _nchw(x.to(self.conv.weight.dtype))))
         return self.norm(x)
 
 
@@ -373,10 +392,10 @@ class ConvLSTMCell(nn.Module):
         h_prev, c_prev = state
         if self.dws is not None:
             if self.dws_conv_only_hidden:
-                h_prev = _nhwc(self.dws(_nchw(h_prev.to(x.dtype))))
+                h_prev = _nhwc(_conv(self.dws, _nchw(h_prev.to(x.dtype))))
             else:
-                xh = _nhwc(self.dws(_nchw(torch.cat([x, h_prev.to(x.dtype)],
-                                                    dim=-1))))
+                xh = _nhwc(_conv(self.dws, _nchw(torch.cat(
+                    [x, h_prev.to(x.dtype)], dim=-1))))
                 x, h_prev = xh.split(self.dim, dim=-1)
         mix = self.gates(x, h_prev)
         gates, g = mix.split([3 * self.dim, self.dim], dim=-1)
@@ -406,8 +425,11 @@ def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
 
     Inside `parallel.distributed.global_batch` over several ranks, the
     batch is every rank's frames together, as the JAX package's BN over
-    a sharded batch takes it (`_global_batch_norm`)."""
-    group = pdist.data_group()
+    a sharded batch takes it (`_global_batch_norm`); inside a space
+    shard, every rank's rows of every rank's frames (data x space)."""
+    group = space.bn_group()
+    if group is None:
+        group = pdist.data_group()
     if group is not None and pdist.world_size(group) > 1:
         return _global_batch_norm(y, bn, group)
     with torch.no_grad():
@@ -470,7 +492,7 @@ class ConvBNAct(nn.Module):
         self.bn = nn.BatchNorm2d(features, eps=1e-5)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = self.conv(_nchw(x))
+        y = _conv(self.conv, _nchw(x))
         bn = self.bn
         if train:
             y = batch_norm_train(y, bn)

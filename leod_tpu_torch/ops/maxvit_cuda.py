@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..parallel import space
 from ..models.layers import (PartitionAttention, _SplitGateConv,
                              attention_core, block_pair_tokens,
                              grid_partition, grid_reverse, mlp_apply,
@@ -426,7 +427,11 @@ def fused_block_pair(x: torch.Tensor, window_params: PartitionAttention,
                      gated: bool = False, eps: float = 1e-5) -> torch.Tensor:
     """Window block then grid block on an NHWC map x [B, H, W, C], each
     as `block_attention` then `block_mlp`. `*_params` are the port's
-    PartitionAttention modules."""
+    PartitionAttention modules. Inside a space shard (`parallel/space.py`)
+    x is a rank's rows: the window block runs on them, and the grid
+    block between the grid exchange and its inverse, the kernels
+    unchanged (or either on the whole map where the stage's local height
+    is not a multiple of the partition)."""
     _check_block(window_params, skip_first_norm, dim_head, act, gated)
     _check_block(grid_params, False, dim_head, act, gated)
     if tuple(partition_size) != window_params.partition_size:
@@ -436,9 +441,12 @@ def fused_block_pair(x: torch.Tensor, window_params: PartitionAttention,
         raise ValueError(f"the CUDA block takes (C, dim_head) in "
                          f"{sorted(ATTN_SHAPES)} and act in {sorted(_ACTS)}; "
                          f"got ({x.shape[-1]}, {dim_head}), {act!r}")
-    for blk, grid_kind in ((window_params, False), (grid_params, True)):
-        x = block_mlp(x, block_attention(x, blk, grid_kind, eps), blk, act,
-                      gated, eps)
+    def half(blk, grid_kind):
+        return lambda y: block_mlp(y, block_attention(y, blk, grid_kind, eps),
+                                   blk, act, gated, eps)
+    ph = partition_size[0]
+    x = space.window_half(half(window_params, False), x, ph)
+    x = space.grid_half(half(grid_params, True), x, ph)
     if _counts(x):
         fused_block_pair.launches += 1
     return x

@@ -33,6 +33,9 @@ import torch.distributed as dist
 _active = threading.local()
 
 DEFAULT_TIMEOUT_S = 600.0
+# the timeout the default group was created with, for the groups made
+# after it (`parallel/mesh.py` `make_mesh`)
+_timeout = {"s": DEFAULT_TIMEOUT_S}
 
 
 def maybe_initialize(coordinator_address: Optional[str] = None,
@@ -76,9 +79,15 @@ def maybe_initialize(coordinator_address: Optional[str] = None,
                 f"local rank {local_rank} has no card of its own ({cards} "
                 f"on this node); pass backend='gloo' to share cards")
         torch.cuda.set_device(local_rank % cards)
+    _timeout["s"] = timeout_s
     dist.init_process_group(backend, init_method=init_method, world_size=n,
                             rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def group_timeout_s() -> float:
+    """The seconds a collective of the default group may wait."""
+    return _timeout["s"]
 
 
 def world_size(group=None) -> int:
@@ -100,12 +109,14 @@ def process_shard() -> tuple:
     return rank(), world_size()
 
 
-def local_batch_slice(global_batch: int) -> slice:
-    """The rows of the global batch this process feeds.
+def local_batch_slice(global_batch: int,
+                      shard: Optional[tuple] = None) -> slice:
+    """The rows of the global batch this process feeds: those of its
+    `shard` (index, count), by default its process shard.
 
-    Stream-slot identity stays global: process p owns slots
+    Stream-slot identity stays global: shard p owns slots
     [p*B_local, (p+1)*B_local)."""
-    p, n = process_shard()
+    p, n = shard if shard is not None else process_shard()
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} does not split over "
                          f"{n} processes")

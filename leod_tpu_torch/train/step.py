@@ -34,7 +34,8 @@ from ..convert import jax_paths
 from ..models.backbone import BackboneStates, reset_states
 from ..models.detector import Detector
 from ..parallel import distributed as pdist
-from ..parallel.mesh import Mesh
+from ..parallel import space
+from ..parallel.mesh import Mesh, height_slice
 from ..timing import lap
 from .optim import ClipAdamW
 
@@ -94,10 +95,25 @@ def check_remat(remat: str) -> None:
         raise ValueError(f"remat={remat!r}; the port takes {REMAT_POLICIES}")
 
 
+def _in_shard(fn: Callable) -> Callable:
+    """`fn` re-entering the space shard active now, if any: a remat
+    recompute runs in the backward, on the autograd engine's thread, and
+    must issue the halo and exchange collectives as the forward did."""
+    mesh = space.active()
+    if mesh is None:
+        return fn
+
+    def run(*args):
+        with space.space_shard(mesh):
+            return fn(*args)
+    return run
+
+
 def _remat(fn: Callable, remat: str) -> Callable:
     """fn under the TBPTT remat policy of a whole timestep: checkpointed
     ("full"), selectively checkpointed ("dots"), or as it is ("none";
     "stage1" checkpoints inside the timestep)."""
+    fn = _in_shard(fn)
     if remat == "full":
         return functools.partial(checkpoint, fn, use_reentrant=False)
     if remat == "dots":
@@ -133,7 +149,8 @@ def _scan_backbone(det: Detector, states0: BackboneStates, ev: torch.Tensor,
         y1 = pre(ev.reshape((n * b,) + ev.shape[2:]))
         pre, xs = (lambda y: y), y1.reshape((n, b) + y1.shape[1:])
     elif remat == "stage1":
-        pre = functools.partial(checkpoint, pre, use_reentrant=False)
+        pre = functools.partial(checkpoint, _in_shard(pre),
+                                use_reentrant=False)
 
     def body(x_t, states):
         feats, new_states = det.forward_from_stage1(pre(x_t), states)
@@ -203,19 +220,26 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
     mesh (`parallel.mesh.make_mesh`): data parallelism over its ranks,
     each feeding its rows of one global batch, as the JAX step computes
     on a mesh. The forward runs under `parallel.distributed.global_batch`
-    (the loss normalizers and the BN statistics over every rank's rows,
-    so a rank's loss is its share of the global loss); after the
-    backward the gradients are SUMMED over the ranks once (not averaged
-    as DDP does), before the gradient metrics, the clip and AdamW, so
-    every rank takes the global batch's update; the loss terms in the
-    metrics are the ranks' sums. Where `timings` is given, the host ms
-    of that reduction (ending in a device synchronize) go under
-    "allreduce_ms"."""
+    over the data group (the loss normalizers and the BN statistics over
+    every data shard's rows, so a rank's loss is its data shard's share
+    of the global loss) and, on a space axis, under
+    `parallel.space.space_shard` (each rank computes on its height slice
+    of its shard's frames, `ev` [L, B_local, H, ...] sliced here along
+    dim 2, the states being its slice already; the BN statistics over
+    data x space; the head's outputs gathered, so the space ranks of a
+    shard compute the same loss); after the backward the gradients are
+    SUMMED over every rank once (not averaged as DDP does; a space
+    rank's gradient is its rows' share), before the gradient metrics,
+    the clip and AdamW, so every rank takes the global batch's update;
+    the loss terms in the metrics are the sums over the data group.
+    Where `timings` is given, the host ms of that reduction (ending in a
+    device synchronize) go under "allreduce_ms"."""
     if not det.trainable:
         raise ValueError("make_train_step needs a Detector built with "
                          "trainable=True")
     check_remat(remat)
     group = mesh.group if mesh is not None else None
+    data_group = mesh.data_group if mesh is not None else None
     groups = {mod: [p for p in getattr(det, mod).parameters()
                     if p.requires_grad] for mod in ("backbone", "fpn", "head")}
     flow = []
@@ -228,14 +252,14 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
 
     def train_step(state: TrainState, batch) -> tuple:
         dev = det.device
-        ev = _as_tensor(batch["ev"], dev)
+        ev = _as_tensor(height_slice(mesh, batch["ev"], 2), dev)
         frame_t = _as_tensor(batch["frame_t"], dev).long()
         frame_mask = _as_tensor(batch["frame_mask"], dev)
         labels = _as_tensor(batch["labels"], dev)
         states = reset_states(state.states,
                               _as_tensor(batch["is_first"], dev))
         optimizer.zero_grad()
-        with pdist.global_batch(group):
+        with pdist.global_batch(data_group), space.space_shard(mesh):
             states, feats_seq = _scan_backbone(det, states, ev,
                                                prebatch_stage1, remat)
             feats = _gather_frames(feats_seq, frame_t)
@@ -253,7 +277,7 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
             lap(timings, "allreduce_ms", t0, dev)
             summed = [k for k in _SUMMED if k in metrics]
             tot = torch.stack([metrics[k] for k in summed])
-            torch.distributed.all_reduce(tot, group=group)
+            torch.distributed.all_reduce(tot, group=data_group)
             metrics.update(zip(summed, tot.unbind()))
         with torch.no_grad():
             metrics["grad_norm"] = _global_norm(grads)
@@ -278,7 +302,7 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
 
 
 def make_eval_step(det: Detector, plain: bool = False,
-                   device="cuda") -> Callable:
+                   device="cuda", mesh: Optional[Mesh] = None) -> Callable:
     """Returns eval_step(states, batch) -> (new_states, preds [B*M, A, 5+C]
     with sigmoided obj/cls).
 
@@ -288,7 +312,10 @@ def make_eval_step(det: Detector, plain: bool = False,
     modules/detection.py:300-401). `det` must live on `device` (`cuda`
     unless the caller asks for `cpu`; without a card, `cuda` raises).
     plain=True runs the kernels' plain versions (the reference a kernel
-    step is held against on the card)."""
+    step is held against on the card). On a `mesh` with a space axis the
+    step runs under `parallel.space.space_shard`: it takes this rank's
+    height slice of `ev` (dim 2), the states are its slice, and the
+    preds come back whole on every rank of the space group."""
     dev = resolve_device(device)
     if det.device.type != dev.type:
         raise ValueError(f"detector is on {det.device}, step asked for {dev}")
@@ -296,19 +323,21 @@ def make_eval_step(det: Detector, plain: bool = False,
 
     @torch.no_grad()
     def eval_step(states: BackboneStates, batch) -> tuple:
-        ev = _as_tensor(batch["ev"], det.device)
+        ev = _as_tensor(height_slice(mesh, batch["ev"], 2), det.device)
         frame_t = _as_tensor(batch["frame_t"], det.device).long()
         states = reset_states(states, _as_tensor(batch["is_first"],
                                                  det.device))
-        # only the FPN's stages are kept over time (not stage 1's map)
-        feats_seq = {s: [] for s in stages}
-        for t in range(ev.shape[0]):
-            feats, states = det.forward_backbone(ev[t], states, plain=plain)
-            for s in stages:
-                feats_seq[s].append(feats[s])
-        feats = _gather_frames(
-            {s: torch.stack(f) for s, f in feats_seq.items()}, frame_t)
-        preds, _ = det.forward_detect(feats, train=False)
+        with space.space_shard(mesh):
+            # only the FPN's stages are kept over time (not stage 1's map)
+            feats_seq = {s: [] for s in stages}
+            for t in range(ev.shape[0]):
+                feats, states = det.forward_backbone(ev[t], states,
+                                                     plain=plain)
+                for s in stages:
+                    feats_seq[s].append(feats[s])
+            feats = _gather_frames(
+                {s: torch.stack(f) for s, f in feats_seq.items()}, frame_t)
+            preds, _ = det.forward_detect(feats, train=False)
         return states, preds
 
     return eval_step

@@ -36,7 +36,11 @@ init, restore and weight load) and takes the global batch's update
 (`train/step.py`), rank 0 writes the checkpoints and the metrics, the
 checkpoint timer and the stop request are decided together every
 `multihost_sync_every` steps, and validation is sharded over the ranks
-with the evaluators all-gathered (`run_streaming_eval`).
+with the evaluators all-gathered (`run_streaming_eval`). On a space axis
+(`make_mesh(space=k)`, rank r = d*k + s) the k ranks of data shard d
+feed the same slots, each its height slice of every map (the step slices
+the window, `train/step.py`), and validate their shard together; the
+online SSOD teacher runs the shard's slots at full height on each rank.
 """
 from __future__ import annotations
 
@@ -60,7 +64,7 @@ from ..models.detector import Detector
 from ..models.layers import unfold_ev_hw, unfold_ev_width
 from ..ops.nms import postprocess
 from ..parallel import distributed as pdist
-from ..parallel.mesh import (Mesh, data_axis_size, replicate,
+from ..parallel.mesh import (Mesh, data_axis_size, data_shard, replicate,
                              shard_states)
 from ..timing import lap
 from ..utils.viz import save_pred_vs_gt_panel
@@ -118,7 +122,8 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
                        sequences: Optional[List[EventSequence]] = None,
                        plain: bool = False, device="cuda",
                        on_batch: Optional[Callable] = None,
-                       timings: Optional[Dict[str, list]] = None
+                       timings: Optional[Dict[str, list]] = None,
+                       mesh: Optional[Mesh] = None
                        ) -> Optional[Dict[str, float]]:
     """Full streaming evaluation of a split -> Prophesee COCO metrics
     (reference: modules/detection.py:300-463, val.py).
@@ -137,6 +142,16 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
     on `device` (`cuda` unless the caller asks for `cpu`); plain=True
     runs the kernels' plain versions.
 
+    `mesh` with a space axis (`parallel.mesh.make_mesh(space=k)`): the
+    ranks of a space group evaluate one shard together, each on its
+    height slice (`make_eval_step(mesh=)`), the shards being the data
+    shards (`data_shard`) where none is given; the head's outputs come
+    back whole on every rank, and only space rank 0 of each data shard
+    feeds its evaluator before the all-gather, so no frame counts twice
+    (with an explicit shard every rank feeds its own). B stays the slots
+    of a shard, as PR 14's process shards take it. Without one (or with
+    space 1) each process evaluates its own shard.
+
     on_batch(batch_index, harvested, preds, dets, valid) is called after
     the NMS of every batch with labeled frames (dets and valid as numpy).
     `timings`, where given, collects host ms a batch under "harvest_ms",
@@ -153,8 +168,13 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
     if not seqs:
         return None
     time_flip = time_flip or dst.reverse_event_order
-    shard_index, num_shards, sync_metrics = pdist.eval_shard(shard_index,
-                                                             num_shards)
+    spatial = mesh is not None and mesh.space > 1
+    if spatial and shard_index is None and num_shards is None:
+        (shard_index, num_shards), sync_metrics = data_shard(mesh), True
+    else:
+        shard_index, num_shards, sync_metrics = pdist.eval_shard(
+            shard_index, num_shards)
+    feed = not (spatial and sync_metrics) or mesh.space_index == 0
     B = min(B, len(seqs))
     loader = EvalStreamLoader(seqs, dst, B, time_flip=time_flip,
                               shard_index=shard_index, num_shards=num_shards)
@@ -162,10 +182,11 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
     pp = cfg.model.postprocess
     conf = conf_threshold if conf_threshold is not None else pp.confidence_threshold
 
-    eval_step = make_eval_step(det, plain=plain, device=dev)
+    eval_step = make_eval_step(det, plain=plain, device=dev,
+                               mesh=mesh if spatial else None)
     if evaluator is None:
         evaluator = PropheseeEvaluator(dst.name, dst.downsample_by_factor_2)
-    states = det.init_states(B)
+    states = det.init_states(B, space=mesh.space if spatial else 1)
     n_cls = cfg.model.head.num_classes
 
     prefetcher = Prefetcher(iter(loader))
@@ -201,7 +222,7 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
             t0 = lap(timings, "postprocess_ms", t0)
             # rows are (b, m) flattened with b outer
             Mslot = hb["frame_t"].shape[1]
-            for b in range(len(hb["boxes"])):
+            for b in range(len(hb["boxes"]) if feed else 0):
                 for m in range(Mslot):
                     lab = hb["boxes"][b][m]
                     if lab is None:
@@ -513,15 +534,17 @@ class Trainer:
         """Returns (loader, global batch size). `sequences` (already open,
         e.g. `ArrayEventSequence`s) replaces the train split's directory.
         Under several processes each builds only its slice of the global
-        slot table: process p feeds global slots [p*B_local,
-        (p+1)*B_local) with stream seeds no other process has (reference
-        shards by rank*num_workers+worker,
+        slot table: data shard p (`data_shard`: the process, or the
+        mesh's data index, which the ranks of a space group share) feeds
+        global slots [p*B_local, (p+1)*B_local) with stream seeds no
+        other shard has (reference shards by rank*num_workers+worker,
         stream_sharded_datapipe.py:88-105); a mixed loader splits into
-        its stream and random-access halves per process."""
+        its stream and random-access halves per shard."""
         cfg = self.cfg
         dst = cfg.dataset
         B = cfg.training.batch_size_train
-        rows = pdist.local_batch_slice(B)
+        p, n = data_shard(self.mesh)
+        rows = pdist.local_batch_slice(B, (p, n))
         b_local = rows.stop - rows.start
         seqs = sequences if sequences is not None else open_split_sequences(
             dst, "train", seq_ratio=dst.train_ratio)
@@ -540,7 +563,6 @@ class Trainer:
         if mode != "mixed":
             raise ValueError(f"train_sampling {mode!r}: 'stream', 'random' "
                              f"or 'mixed'")
-        p, n = pdist.process_shard()
         b_stream = max(b_local // 2, 1)
         b_rand = max(b_local - b_stream, 1)
         return MixedTrainLoader(
@@ -563,7 +585,8 @@ class Trainer:
                  sequences: Optional[List[EventSequence]] = None
                  ) -> Optional[Dict[str, float]]:
         return run_streaming_eval(self.eval_detector(), self.cfg, split,
-                                  sequences=sequences, device=self.device)
+                                  sequences=sequences, device=self.device,
+                                  mesh=self.mesh)
 
     # -- visualization -------------------------------------------------------
     def _viz_payload(self, hb: Dict[str, Any]) -> Optional[Dict[str, Any]]:
@@ -662,8 +685,10 @@ class Trainer:
                                              start_step=int(state.step))
             loader = ssod_batcher
         self.ssod_batcher = ssod_batcher
-        # a panel reads one row of this rank's preds: one process only
-        viz_every = cfg.training.viz_every_steps if self.world == 1 else 0
+        # a panel reads one row of the step's preds: one data shard only,
+        # drawn by rank 0 (a space rank's preds are whole)
+        viz_every = (cfg.training.viz_every_steps
+                     if self.world == 1 and pdist.is_primary() else 0)
         train_step = make_train_step(self.det, self.optimizer,
                                      remat=cfg.training.remat,
                                      with_preds=viz_every > 0,
