@@ -489,6 +489,17 @@ DP_STOP_MAX = 40
 DP_NCCL_STEPS = 2
 DP_GROUP_TIMEOUT_S = 300
 DP_RANK_TIMEOUT_S = 600
+# the space phase (12), RVT-B Gen4 at full width and depth: SP_WORLD rank
+# processes over gloo on the one card hold the preset's B 12 (one data
+# shard) as the space axis of `make_mesh(SP_WORLD, space=SP_WORLD)`, half
+# its height each; their fp32 steps are held to phase 11's bars against
+# phase 11's one process, and the ranks are killed after
+# SP_RANK_TIMEOUT_S. (e) runs cli.vis at its default thresholds, its
+# model's obj and class prediction kernels scaled by VIS_LOGIT_SCALE and
+# their biases 0 (scores spread about 0.25) so that boxes are drawn.
+SP_WORLD = 2
+SP_RANK_TIMEOUT_S = 600
+VIS_LOGIT_SCALE = 30.0
 # the Gen4 teacher's logit spread: at phase 7's ST_LOGIT_STD its best
 # obj * cls score over a window of 60 frames of 5040 anchors and 3
 # classes was 0.0034 (on an H100), under ST_CONF, so that no box would
@@ -820,16 +831,17 @@ def perturb_layerscale(det, seed: int) -> None:
                     p.copy_(torch.rand(p.shape, generator=g) * 0.4 + 0.1)
 
 
-def stage_inputs(det, seed: int, batch: int = B):
-    """(stage, NHWC shape, x, h, c) at each stage's `batch`-slot shape:
-    seeded bf16 input and warm non-zero (h, c)."""
+def stage_inputs(det, seed: int, batch: int = B, space: int = 1):
+    """(stage, NHWC shape, x, h, c) at each stage's `batch`-slot shape (a
+    space rank's rows of it, h / `space`): seeded bf16 input and warm
+    non-zero (h, c)."""
     import torch
     bb = det.cfg.backbone
     h_in, w_in = bb.in_res_hw
     g = torch.Generator(device="cuda").manual_seed(seed)
     out = []
     for k, (dim, stride) in enumerate(zip(bb.stage_dims, bb.stage_strides)):
-        shape = (batch, h_in // stride, w_in // stride, dim)
+        shape = (batch, h_in // stride // space, w_in // stride, dim)
         x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
         hs = (torch.randn(shape, device="cuda", generator=g) * 0.5
               ).to(torch.bfloat16)
@@ -840,10 +852,12 @@ def stage_inputs(det, seed: int, batch: int = B):
 
 
 def phase_kernels(det, batch: int = B, batches=KERNEL_BATCHES,
-                  nms_images: int = 0):
+                  nms_images: int = 0, space: int = 1):
     """Every kernel against its plain version at the model's stage shapes
-    for `batch` slots, each half of a block and the ConvLSTM update also
-    at each of `batches`; the NMS at `nms_images` images (default
+    for `batch` slots (a space rank's h / `space` rows of them: its
+    window layout, and the grid layout after the exchange, a map of as
+    many rows), each half of a block and the ConvLSTM update also at
+    each of `batches`; the NMS at `nms_images` images (default
     `batch`)."""
     import torch
     from leod_tpu_torch.ops import maxvit_cuda as mc
@@ -868,7 +882,8 @@ def phase_kernels(det, batch: int = B, batches=KERNEL_BATCHES,
                     plain_ms=cuda_ms(plain), host_us=enqueue_us(kern),
                     flops=flops, bytes=nbytes, bound_ms=bms, bound_by=by)
 
-    for stage, shape, x, hs, cs in stage_inputs(det, seed=1, batch=batch):
+    for stage, shape, x, hs, cs in stage_inputs(det, seed=1, batch=batch,
+                                                space=space):
         dim = shape[3]
         pairs = stage.pairs()
         wb, gb = pairs[0]
@@ -3275,6 +3290,9 @@ def drive_gen4():
         e["launches_selftrain"] = pseudo["launches"].get(kname, 0)
         e["launches"] = (e["launches_serve"] + e["launches_eval"]
                          + e["launches_train"] + e["launches_selftrain"])
+    # one process's remat peaks: phase 12's yardstick
+    report["remat_peak_gib"] = {k: r["peak_gib"]
+                                for k, r in remat["policies"].items()}
     report["phase_s"] = time.perf_counter() - t_phase
     return report, out
 
@@ -3609,39 +3627,35 @@ def dp_rank(rank: int, port: int, out: str) -> None:
     torch.distributed.destroy_process_group()
 
 
-def dp_launch(out: str):
-    """Starts the DP_WORLD rank processes of phase 11 (`--dp-rank`)."""
+def launch_ranks(out: str, flag: str, prefix: str, n: int):
+    """Starts `n` rank processes of this script (`flag` r port out), their
+    output in <out>/<prefix><r>.log."""
     port = _free_port()
     env = dict(os.environ)
     procs, logs = [], []
-    for r in range(DP_WORLD):
-        logs.append(open(os.path.join(out, f"rank{r}.log"), "w"))
+    for r in range(n):
+        logs.append(open(os.path.join(out, f"{prefix}{r}.log"), "w"))
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+            [sys.executable, os.path.abspath(__file__), flag, str(r),
              str(port), out], cwd=REPO, env=env, stdout=logs[-1],
             stderr=subprocess.STDOUT))
     return procs, logs
 
 
-def dp_wait(procs, logs, out: str) -> list:
-    """Waits for the ranks, sending rank 1 its SIGTERM once it reports
-    DP_STOP_AT steps of (d); a rank that fails or outlives
-    DP_RANK_TIMEOUT_S fails the phase, and every rank is killed."""
-    import signal
-    deadline = time.time() + DP_RANK_TIMEOUT_S
-    sent = None
-    marker = os.path.join(out, "steps1")
+def wait_ranks(procs, logs, out: str, what: str, prefix: str,
+               timeout_s: float, tick=None) -> list:
+    """Waits for the ranks (calling `tick` between polls); a rank that
+    fails or outlives `timeout_s` fails `what`, and every rank is
+    killed. Returns each rank's <out>/<prefix><r>.json."""
+    deadline = time.time() + timeout_s
     try:
         while any(p.poll() is None for p in procs):
             if time.time() > deadline:
-                fail(f"phase 11's ranks outlived {DP_RANK_TIMEOUT_S} s")
+                fail(f"{what}'s ranks outlived {timeout_s} s")
             if any(p.poll() not in (None, 0) for p in procs):
                 break
-            if sent is None and os.path.exists(marker):
-                with open(marker) as f:
-                    if int(f.read() or 0) >= DP_STOP_AT:
-                        procs[1].send_signal(signal.SIGTERM)
-                        sent = time.time()
+            if tick is not None:
+                tick()
             time.sleep(0.05)
     finally:
         for p in procs:
@@ -3654,16 +3668,40 @@ def dp_wait(procs, logs, out: str) -> list:
     if bad:
         tails = []
         for r in bad:
-            with open(os.path.join(out, f"rank{r}.log")) as f:
+            with open(os.path.join(out, f"{prefix}{r}.log")) as f:
                 tails.append(f"rank {r} (rc {procs[r].returncode}): "
                              f"{f.read()[-4000:]}")
-        fail("phase 11's ranks failed:\n" + "\n".join(tails))
-    if sent is None:
-        fail("rank 1 never reported the stop run's steps")
+        fail(f"{what}'s ranks failed:\n" + "\n".join(tails))
     reports = []
-    for r in range(DP_WORLD):
-        with open(os.path.join(out, f"rank{r}.json")) as f:
+    for r in range(len(procs)):
+        with open(os.path.join(out, f"{prefix}{r}.json")) as f:
             reports.append(json.load(f))
+    return reports
+
+
+def dp_launch(out: str):
+    """Starts the DP_WORLD rank processes of phase 11 (`--dp-rank`)."""
+    return launch_ranks(out, "--dp-rank", "rank", DP_WORLD)
+
+
+def dp_wait(procs, logs, out: str) -> list:
+    """Waits for the ranks, sending rank 1 its SIGTERM once it reports
+    DP_STOP_AT steps of (d); a rank that fails or outlives
+    DP_RANK_TIMEOUT_S fails the phase, and every rank is killed."""
+    import signal
+    sent = []
+    marker = os.path.join(out, "steps1")
+
+    def tick():
+        if not sent and os.path.exists(marker):
+            with open(marker) as f:
+                if int(f.read() or 0) >= DP_STOP_AT:
+                    procs[1].send_signal(signal.SIGTERM)
+                    sent.append(time.time())
+    reports = wait_ranks(procs, logs, out, "phase 11", "rank",
+                         DP_RANK_TIMEOUT_S, tick)
+    if not sent:
+        fail("rank 1 never reported the stop run's steps")
     return reports
 
 
@@ -3726,6 +3764,46 @@ def phase_dp_nccl(cfg, splits):
     shutil.rmtree(root, ignore_errors=True)
     return {"steps": DP_NCCL_STEPS, "losses": losses1, "bit_equal": True,
             "tensors": len(sd0), "fit_s": {"alone": s0, "nccl": s1}}
+
+
+def dp_one_process(cfg, work: str, frames):
+    """The one-process references of phases 11 and 12 on the rendered
+    split (`frames`, its label files under <work>/data): `cli.train`'s
+    DP_STEPS fp32 steps at B 12 (`dp_argv`), and the first step of
+    `dp_bf16_cfg`'s fit at B 12 in bf16 and in fp32 (the yardstick of
+    bf16's rounding). Returns (the CLI run's steps, seconds and peak
+    GiB; its first step's parameters before and after it and clipped
+    gradients; {dtype: the first step's `StepSpy.first`})."""
+    import torch
+    from leod_tpu_torch.cli import train as cli_train
+    from leod_tpu_torch.cli._common import open_split
+    from leod_tpu_torch.train.trainer import Trainer
+    spy = StepSpy(first_step=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with spy:
+        cli_train.main(dp_argv(os.path.join(work, "data"),
+                               os.path.join(work, "one"), "one", False),
+                       frames=frames)
+    one = {"cli_s": time.perf_counter() - t0, "steps": spy.steps,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    one_w = {k: spy.first[k] for k in ("w0", "w1", "g1")}
+    del spy
+    torch.cuda.empty_cache()
+    first_one = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        one_spy = StepSpy(first_step=True)
+        trainer = Trainer(dp_bf16_cfg(cfg, os.path.join(work, "one"),
+                                      f"one_{dtype}"), dtype=dtype)
+        with one_spy:
+            trainer.fit(max_steps=1, state=trainer.init_state(GEN4_BATCH),
+                        log_every=1,
+                        sequences=open_split(cfg.dataset, "train", frames))
+        trainer.close()
+        first_one[dtype] = one_spy.first
+        del trainer, one_spy
+        torch.cuda.empty_cache()
+    return one, one_w, first_one
 
 
 def _parity_frames(ranks, one, what):
@@ -3811,34 +3889,9 @@ def drive_dp():
     t0 = time.perf_counter()
     frames = dp_frames(os.path.join(work, "data"), cfg)
     render_s = time.perf_counter() - t0
-    spy = StepSpy(first_step=True)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    with spy:
-        cli_train.main(dp_argv(os.path.join(work, "data"),
-                               os.path.join(work, "one"), "one", False),
-                       frames=frames)
-    one = {"cli_s": time.perf_counter() - t0, "render_s": render_s,
-           "steps": spy.steps,
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    one_w = {k: spy.first[k] for k in ("w0", "w1", "g1")}
+    one, one_w, first_one = dp_one_process(cfg, work, frames)
+    one["render_s"] = render_s
     emit({"dp_one_process": one})
-    torch.cuda.empty_cache()
-    # and the first step of (d)'s bf16 fit at B 12, and of the same fit
-    # in fp32 (the yardstick of bf16's rounding)
-    first_one = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        one_spy = StepSpy(first_step=True)
-        trainer = Trainer(dp_bf16_cfg(cfg, os.path.join(work, "one"),
-                                      f"one_{dtype}"), dtype=dtype)
-        with one_spy:
-            trainer.fit(max_steps=1, state=trainer.init_state(GEN4_BATCH),
-                        log_every=1,
-                        sequences=open_split(cfg.dataset, "train", frames))
-        trainer.close()
-        first_one[dtype] = one_spy.first
-        del trainer, one_spy
-        torch.cuda.empty_cache()
 
     # (b)-(d) in DP_WORLD rank processes
     t0 = time.perf_counter()
@@ -3996,6 +4049,10 @@ def drive_dp():
     if not ok:
         fail(f"the first bf16 step of two ranks against one process at "
              f"B {GEN4_BATCH}: {bf16_parity}")
+    # phase 12's references: one process's fp32 steps and first steps
+    refs = {"one_steps": one["steps"],
+            "first_one": {k: {"preds": v["preds"]}
+                          for k, v in first_one.items()}}
     del firsts, preds, first_one, one16, one32
 
     report.update({
@@ -4034,7 +4091,525 @@ def drive_dp():
         e["launches_ssod"] = sum(r["launches"].get(kname, 0) for r in ss)
         e["launches"] = e["launches_eval"] + e["launches_ssod"]
     report["phase_s"] = time.perf_counter() - t_phase
-    return report, out
+    return report, out, refs
+
+
+# ---------------------------------------------------------------------------
+# Space phase (12)
+# ---------------------------------------------------------------------------
+
+def sp_rank(rank: int, port: int, out: str) -> None:
+    """One rank of phase 12(b)-(d) (`--sp-rank`): joins the gloo group of
+    SP_WORLD ranks on the one card as the space axis of a (1, SP_WORLD)
+    mesh, then (b) `cli.train --mesh 1xSP_WORLD` for DP_STEPS fp32 steps
+    and the first step of a bf16 fit, (c) one step of every remat
+    policy, (d) a streaming eval of (b)'s checkpoint. Writes its report
+    to <out>/sp<r>.json, its eval frames to <out>/sp_eval<r>.pt and its
+    first bf16 head outputs to <out>/sp_first<r>.pt."""
+    from dataclasses import replace
+    import numpy as np
+    import torch
+    from leod_tpu_torch.cli import train as cli_train
+    from leod_tpu_torch.cli._common import load_detector, open_split, ratio_of
+    from leod_tpu_torch.config import experiment_preset, stem_fold_hw
+    from leod_tpu_torch.data.loader import harvest_frames
+    from leod_tpu_torch.models.detector import Detector
+    from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
+    from leod_tpu_torch.parallel import space
+    from leod_tpu_torch.parallel.distributed import maybe_initialize
+    from leod_tpu_torch.parallel.mesh import make_mesh, shard_states
+    from leod_tpu_torch.train.optim import make_optimizer
+    from leod_tpu_torch.train.step import (REMAT_POLICIES, TrainState,
+                                           make_train_step)
+    from leod_tpu_torch.train.trainer import (Trainer, default_frames_per_slot,
+                                              run_streaming_eval)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(SP_WORLD),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    maybe_initialize(backend="gloo", timeout_s=DP_GROUP_TIMEOUT_S)
+    wrappers = maxvit_cuda.WRAPPERS + nms_cuda.WRAPPERS
+    root = os.path.join(out, f"data{rank}")
+    cfg = experiment_preset("gen4", "base")
+    cfg = replace(cfg, dataset=replace(cfg.dataset, path=root))
+    dst, mc = cfg.dataset, cfg.model
+    frames = dp_frames(root, cfg)
+    report = {"rank": rank, "device": torch.cuda.current_device(),
+              "start_s": time.perf_counter() - t0}
+
+    def collectives():
+        """The block halves by route and the space collectives by kind
+        since the last reset."""
+        return {"routes": dict(space.COUNTS),
+                "collectives": {k: dict(v) for k, v in space.STATS.items()}}
+
+    # (b) training through the CLI, then the first step of a bf16 fit
+    save = os.path.join(out, "runs")
+    spy = StepSpy()
+    _zero(wrappers)
+    space.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with spy:
+        final = cli_train.main(dp_argv(root, save, "sp", False)
+                               + ["--mesh", f"1x{SP_WORLD}"], frames=frames)
+    report["train"] = {
+        "cli_s": time.perf_counter() - t0, "step": final.step,
+        "steps": spy.steps, "state_shape": list(final.states[0][0].shape),
+        "launches": _count(wrappers),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        **collectives()}
+    del spy, final
+    torch.cuda.empty_cache()
+    mesh = make_mesh(SP_WORLD, space=SP_WORLD)
+    trainer = Trainer(dp_bf16_cfg(cfg, save, "sp_bf16"), mesh=mesh)
+    spy = StepSpy(first_step=True)
+    with spy:
+        trainer.fit(max_steps=1, state=trainer.init_state(GEN4_BATCH),
+                    log_every=1, sequences=open_split(dst, "train", frames))
+    trainer.close()
+    torch.save(spy.first["preds"], os.path.join(out, f"sp_first{rank}.pt"))
+    report["bf16"] = {"step_ms": spy.steps[0]["step_ms"],
+                      "checksum": spy.steps[0]["checksum"]}
+    del trainer, spy
+    torch.cuda.empty_cache()
+
+    # (c) one bf16 step of every remat policy on the first batch of the
+    # train loader, from the same seeded weights, as phase 10(d)
+    L, bt = dst.sequence_length, cfg.training.batch_size_train
+    m = default_frames_per_slot(L, mc.use_label_every)
+    trainer = Trainer(replace(cfg, save_dir=save, exp_name="sp_remat"),
+                      mesh=mesh)
+    loader, _ = trainer.make_train_loader(0, open_split(dst, "train", frames))
+    hb = harvest_frames(next(iter(loader)), m, mc.head.max_gt,
+                        mc.backbone.in_res_hw,
+                        use_label_every=mc.use_label_every,
+                        ignore_label=mc.head.ignore_label,
+                        ignore_image=mc.ignore_image, fold_hw=stem_fold_hw(mc))
+    trainer.close()
+    hb = {k: torch.from_numpy(np.ascontiguousarray(hb[k])).cuda()
+          for k in ("ev", "is_first", "frame_t", "frame_mask", "labels")}
+    det = Detector(mc, device="cuda", seed=0, trainable=True)
+    perturb_layerscale(det, seed=0)
+    weights = {k: v.clone() for k, v in det.state_dict().items()}
+    keys = ("loss", "grad_norm/backbone", "grad_norm/fpn", "grad_norm/head")
+    remat = {}
+    for pol in REMAT_POLICIES:
+        det.load_state_dict(weights)
+        det.zero_grad(set_to_none=True)
+        opt, _ = make_optimizer(cfg.training, det.parameters())
+        step = make_train_step(det, opt, remat=pol, mesh=mesh)
+        state = TrainState(states=shard_states(mesh, det.init_states(bt)),
+                           step=0)
+        space.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state, metrics = step(state, hb)
+        torch.cuda.synchronize()
+        remat[pol] = {"first_step": {k: float(metrics[k]) for k in keys},
+                      "step_ms": (time.perf_counter() - t0) * 1e3,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "peak_over_start_gib":
+                      (torch.cuda.max_memory_allocated() - base) / 2**30,
+                      **collectives()}
+        del opt, step, state, metrics
+    report["remat"] = remat
+    del det, weights, hb
+    torch.cuda.empty_cache()
+
+    # (d) a streaming eval of (b)'s checkpoint, sharded in height
+    det = load_detector(mc, torch.bfloat16, "cuda",
+                        ckpt=os.path.join(save, "sp", "ckpt_last.pt"))
+    store = {"frames": {}, "batches": []}
+    _zero(wrappers)
+    space.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = run_streaming_eval(
+        det, cfg, "val", device="cuda", on_batch=_eval_hook(store),
+        sequences=open_split(dst, "val", frames,
+                             seq_ratio=ratio_of(dst, "val")), mesh=mesh)
+    torch.cuda.synchronize()
+    report["eval"] = {
+        "val_s": time.perf_counter() - t0, "metrics": metrics,
+        "frames": len(store["frames"]), "launches": _count(wrappers),
+        "preds_shapes": sorted({tuple(p.shape) for p, _ in store["batches"]}),
+        **collectives()}
+    report["eval"]["nms"] = _nms_exact(store["batches"], cfg,
+                                       f"space rank {rank}'s eval")
+    torch.save(store["frames"], os.path.join(out, f"sp_eval{rank}.pt"))
+    with open(os.path.join(out, f"sp{rank}.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_vis():
+    """(e) `leod_tpu_torch.cli.vis` as a user runs it, at RVT-B Gen1 full
+    width and depth (bf16, the kernels), `--reverse`, on one rendered val
+    sequence of EVAL_REPRS reprs (phase 8's frame store, through
+    `main(argv, frames=)`, at the CLI's default thresholds) from a
+    checkpoint of the seeded model with LayerScale from seed 0 and its
+    obj and class prediction kernels scaled by VIS_LOGIT_SCALE, their
+    biases 0, so that boxes pass. Fails unless both videos are written
+    with every frame, the side-by-side one 2w + PAD wide, and the
+    detections the CLI drew in green (above `--conf`) are exactly those
+    of the eval step and NMS on the same windows, at least one a run;
+    reports the launches."""
+    import numpy as np
+    import torch
+    from leod_tpu_torch.cli import vis as cli_vis
+    from leod_tpu_torch.cli._common import load_detector, open_split
+    from leod_tpu_torch.config import experiment_preset, stem_fold_hw
+    from leod_tpu_torch.data.loader import collate, harvest_frames
+    from leod_tpu_torch.data.sequence import WindowedSequence
+    from leod_tpu_torch.data.synthetic import render_dataset_frames
+    from leod_tpu_torch.models.detector import Detector
+    from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
+    from leod_tpu_torch.ops.nms import postprocess
+    from leod_tpu_torch.train.step import make_eval_step
+
+    t_phase = time.perf_counter()
+    wrappers = maxvit_cuda.WRAPPERS + nms_cuda.WRAPPERS
+    work = os.path.join(REPO, "runs", "chip_smoke_vis")
+    shutil.rmtree(work, ignore_errors=True)
+    root, out = os.path.join(work, "data"), os.path.join(work, "out")
+    frames = render_dataset_frames(root, 0, 1, 0, seed=0,
+                                   num_reprs=EVAL_REPRS,
+                                   first_label_repr=EVAL_FIRST_LABEL,
+                                   label_every=EVAL_LABEL_EVERY)
+    ckpt = os.path.join(work, "ckpt_vis.pt")
+    L = experiment_preset("gen1", "base").dataset.sequence_length
+    argv = ["--dataset", "gen1", "--size", "base", "--path", root,
+            "--split", "val", "--ckpt", ckpt, "--out", out, "--num-seqs", "1",
+            "--seq-len", str(L), "--reverse"]
+    args = cli_vis.build_parser().parse_args(argv)
+    cfg = cli_vis.build_config(args, root)
+    mc, conf, show_conf = cfg.model, args.conf, args.show_conf
+    det = Detector(mc, device="cuda", seed=0)
+    perturb_layerscale(det, seed=0)
+    with torch.no_grad():
+        for name, mod in det.head.named_children():
+            if name.startswith(("cls_pred", "obj_pred")):
+                mod.weight.mul_(VIS_LOGIT_SCALE)
+                mod.bias.zero_()
+    torch.save({"model": det.state_dict()}, ckpt)
+    del det
+    _zero(wrappers)
+    t0 = time.perf_counter()
+    written = cli_vis.main(argv, frames=frames)
+    torch.cuda.synchronize()
+    vis_s = time.perf_counter() - t0
+    launches = _count(wrappers)
+    normal = os.path.join(out, "seq_000.mp4")
+    both = os.path.join(out, "seq_000_both.mp4")
+    if sorted(written) != sorted([normal, both]):
+        fail(f"cli.vis wrote {sorted(written)}")
+    import cv2
+    videos = {}
+    for path in (normal, both):
+        cap = cv2.VideoCapture(path)
+        videos[os.path.basename(path)] = v = {
+            "frames": int(cap.get(cv2.CAP_PROP_FRAME_COUNT)),
+            "width": int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+            "height": int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))}
+        cap.release()
+        if v["frames"] != EVAL_REPRS or written[path]["frames"] != EVAL_REPRS:
+            fail(f"{path}: {v['frames']} frames in the file, "
+                 f"{written[path]['frames']} drawn, not {EVAL_REPRS}")
+    wn, wb = (videos[os.path.basename(p)]["width"] for p in (normal, both))
+    if wb != 2 * wn + cli_vis.PAD:
+        fail(f"the side-by-side video is {wb} wide, not 2 x {wn} + "
+             f"{cli_vis.PAD}")
+
+    # the eval step and NMS on the same windows, from the same checkpoint
+    det = load_detector(mc, torch.bfloat16, "cuda", ckpt=ckpt)
+    step = make_eval_step(det)
+    seq = open_split(cfg.dataset, "val", frames)[0]
+    win = WindowedSequence(seq, L, start_from_zero=True)
+    states = det.init_states(1)
+    pp = mc.postprocess
+    want = []
+    for i in range(len(win)):
+        batch = collate([win[i]])
+        hb = harvest_frames(batch, L, mc.head.max_gt, mc.backbone.in_res_hw,
+                            fold_hw=stem_fold_hw(mc))
+        hb["frame_t"] = np.arange(L, dtype=np.int32)[None]
+        hb["frame_mask"] = np.ones((1, L), bool)
+        states, preds = step(states, hb)
+        dets, valid = postprocess(preds, num_classes=mc.head.num_classes,
+                                  conf_threshold=show_conf,
+                                  nms_threshold=pp.nms_threshold,
+                                  pre_topk=pp.pre_nms_topk,
+                                  max_dets=pp.max_dets)
+        dets, valid = dets.float().cpu().numpy(), valid.cpu().numpy()
+        want += [dets[t][valid[t]] for t in range(L)
+                 if not batch["is_padded"][0, t]]
+    seq.close()
+    del det, step, states
+
+    def strong(d):
+        return d[d[:, 4] * d[:, 5] >= conf]
+    got = written[normal]["dets"]
+    same = len(got) == len(want) and all(
+        np.array_equal(strong(a), strong(b)) for a, b in zip(got, want))
+    n_strong = sum(len(strong(d)) for d in got)
+    n_all = sum(len(d) for d in got)
+    if not same or n_strong == 0:
+        fail(f"cli.vis drew {n_strong} boxes above {conf}, "
+             f"{'' if same else 'not '}the eval step's")
+    quiet = [k for k, n in launches.items() if n == 0]
+    if quiet:
+        fail(f"cli.vis launched no {quiet}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"config": "RVT-B gen1 (experiment_preset('gen1', 'base')), cli.vis",
+            "videos": videos, "boxes_drawn": {"above_conf": n_strong,
+                                              "below_conf": n_all - n_strong},
+            "conf": conf, "show_conf": show_conf, "cli_s": vis_s,
+            "launches": launches, "phase_s": time.perf_counter() - t_phase}
+
+
+def drive_space(refs=None, remat_peaks=None):
+    """Phase 12: RVT-B Gen4 height-sharded over SP_WORLD ranks. (a) the
+    kernels at a space rank's shapes; (b) `cli.train --mesh 1x2` in fp32
+    against one process, and a bf16 first step; (c) every remat policy,
+    a rank's peak memory against one process's; (d) a sharded eval
+    against one process's; (e) `cli.vis`. `refs` (phase 11's
+    `dp_one_process` steps and first steps) and `remat_peaks` (phase
+    10(d)'s peak GiB by policy) are computed here where not given (the
+    phase run alone). Returns its report, its kernels' entries of the
+    JSON line ("<name>[Gen4 SP]") and (e)'s report."""
+    from dataclasses import replace
+    import numpy as np
+    import torch
+    from leod_tpu_torch.cli._common import load_detector, open_split, ratio_of
+    from leod_tpu_torch.config import experiment_preset
+    from leod_tpu_torch.models.detector import Detector
+    from leod_tpu_torch.models.head import make_anchors
+    from leod_tpu_torch.train.trainer import (default_frames_per_slot,
+                                              run_streaming_eval)
+
+    t_phase = time.perf_counter()
+    cfg = experiment_preset("gen4", "base")
+    bb = cfg.model.backbone
+    L = cfg.dataset.sequence_length
+    m_eval = default_frames_per_slot(L)
+    name = ("RVT-B gen4 (experiment_preset('gen4', 'base')), height-sharded "
+            f"over {SP_WORLD} ranks")
+    report = {"config": name, "card": card(), "mesh": [1, SP_WORLD],
+              "batch": GEN4_BATCH, "window": L,
+              "note": "the ranks share one card over gloo: times show "
+                      "correctness and per-rank memory, not speed across "
+                      "cards"}
+
+    # (a) the kernels at a rank's stage shapes (its window layout and
+    # the exchanged grid layout, maps of h / SP_WORLD rows), and the NMS
+    # at an eval batch's images
+    t0 = time.perf_counter()
+    det = Detector(cfg.model, device="cuda", seed=0)
+    perturb_layerscale(det, seed=0)
+    rows, nms_row = phase_kernels(det, GEN4_BATCH, (GEN4_BATCH,),
+                                  nms_images=GEN4_BATCH * m_eval,
+                                  space=SP_WORLD)
+    emit({"kernel_phase": {"config": name, **rows, "nms_mask": [nms_row]}})
+    for kind, kind_rows in rows.items():
+        if not all(r["ok"] for r in kind_rows):
+            fail(f"Gen4 space-rank {kind} disagrees with its plain version: "
+                 f"{[(r['shape'], r['max_abs_err'], r['tol']) for r in kind_rows]}")
+    if not nms_row["ok"]:
+        fail(f"the NMS keep mask at {GEN4_BATCH * m_eval} images differs in "
+             f"{nms_row['max_abs_err']} boxes")
+    report["kernels_s"] = time.perf_counter() - t0
+    del det
+    torch.cuda.empty_cache()
+
+    work = os.path.join(REPO, "runs", "chip_smoke_sp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = replace(cfg, dataset=replace(cfg.dataset,
+                                       path=os.path.join(work, "data")))
+    frames = dp_frames(os.path.join(work, "data"), cfg)
+    if refs is None:
+        one, _, first_one = dp_one_process(cfg, work, frames)
+        refs = {"one_steps": one["steps"],
+                "first_one": {k: {"preds": v["preds"]}
+                              for k, v in first_one.items()}}
+        del one, first_one
+    if remat_peaks is None:
+        remat_peaks = {k: r["peak_gib"] for k, r in
+                       phase_remat(cfg, render_gen4(cfg))["policies"].items()}
+    torch.cuda.empty_cache()
+
+    # (b)-(d) in SP_WORLD rank processes
+    t0 = time.perf_counter()
+    procs, logs = launch_ranks(work, "--sp-rank", "sp", SP_WORLD)
+    ranks = wait_ranks(procs, logs, work, "phase 12", "sp", SP_RANK_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+
+    # (b) the fp32 steps against one process at B 12, the bf16 first step
+    tr = [r["train"] for r in ranks]
+    local = [GEN4_BATCH, bb.in_res_hw[0] // 4 // SP_WORLD,
+             bb.in_res_hw[1] // 4, bb.stage_dims[0]]
+    for r in tr:
+        if r["step"] != DP_STEPS or len(r["steps"]) != DP_STEPS or \
+                r["state_shape"] != local or any(r["launches"].values()):
+            fail(f"a space rank took {r['step']} steps, carried states "
+                 f"{r['state_shape']} (not {local}), launched "
+                 f"{r['launches']}")
+    for i in range(DP_STEPS):
+        if len({r["steps"][i]["checksum"] for r in tr}) != 1 or \
+                len({r["steps"][i]["loss"] for r in tr}) != 1:
+            fail(f"the space ranks' parameters or losses differ after step "
+                 f"{i + 1}")
+    one_steps = refs["one_steps"]
+    rel = [{k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+            for k in StepSpy.KEYS}
+           for got, want in zip(tr[0]["steps"], one_steps)]
+    limits = [{k: DP_FP32_RTOL if i == 0 or k in ("loss", "num_fg")
+               else DP_FP32_LATER_NORM_RTOL for k in StepSpy.KEYS}
+              for i in range(DP_STEPS)]
+    if len(one_steps) != DP_STEPS or not all(
+            np.isfinite(s[k]) for r in tr for s in r["steps"]
+            for k in StepSpy.KEYS) or any(
+                r[k] > lim[k] for r, lim in zip(rel, limits) for k in r):
+        fail(f"two space ranks' fp32 steps {tr[0]['steps']} against one "
+             f"process's {one_steps}: relative differences {rel}")
+    emit({"sp_fp32_parity": {"step_rel_diff": rel}})
+    firsts = [torch.load(os.path.join(work, f"sp_first{r}.pt"))
+              for r in range(SP_WORLD)]
+    one16 = refs["first_one"][torch.bfloat16]["preds"]
+    one32 = refs["first_one"][torch.float32]["preds"]
+    if any(f.shape != one16.shape for f in firsts) or \
+            not all(torch.equal(f, firsts[0]) for f in firsts):
+        fail(f"the space ranks' first bf16 head outputs "
+             f"{[tuple(f.shape) for f in firsts]} are not one whole map "
+             f"each, equal, of one process's {tuple(one16.shape)}")
+    bf16_parity, ok = {}, True
+    for cols, sl in (("boxes", slice(0, 4)), ("scores", slice(4, None))):
+        def dist(a, b):
+            return float((a[..., sl] - b[..., sl]).abs().max())
+        e = {"ranks_fp32": dist(firsts[0], one32),
+             "one_fp32": dist(one16, one32),
+             "ranks_one": dist(firsts[0], one16),
+             "max_plain": float(one16[..., sl].abs().max())}
+        ok = ok and e["ranks_fp32"] <= DP_BF16_NOISE * e["one_fp32"]
+        bf16_parity[cols] = e
+    emit({"sp_bf16_first_step": bf16_parity})
+    if not ok:
+        fail(f"the first bf16 step of the space ranks against one process "
+             f"at B {GEN4_BATCH}: {bf16_parity}")
+    del firsts, one16, one32
+
+    # (c) every remat policy's first step against "full"'s, and a rank's
+    # peak memory against one process's (phase 10(d))
+    keys = ("loss", "grad_norm/backbone", "grad_norm/fpn", "grad_norm/head")
+    remat_rel = []
+    for r in ranks:
+        full = r["remat"]["full"]["first_step"]
+        rels = {}
+        for pol, v in r["remat"].items():
+            rels[pol] = {k: abs(v["first_step"][k] - full[k])
+                         / max(abs(full[k]), 1e-30) for k in keys}
+            if not all(np.isfinite(x) for x in v["first_step"].values()) or \
+                    rels[pol]["loss"] > REMAT_LOSS_RTOL or any(
+                        rels[pol][k] > REMAT_NORM_RTOL for k in keys[1:]):
+                fail(f"space rank {r['rank']}: remat {pol!r}'s first step "
+                     f"{v['first_step']} against \"full\"'s {full}")
+        remat_rel.append(rels)
+    rank_peaks = [{pol: v["peak_gib"] for pol, v in r["remat"].items()}
+                  for r in ranks]
+    if not max(p["none"] for p in rank_peaks) < remat_peaks["none"]:
+        fail(f"a space rank's \"none\" peak {rank_peaks} is not below one "
+             f"process's {remat_peaks['none']} GiB")
+    emit({"sp_remat": {"rank_peak_gib": rank_peaks,
+                       "one_process_peak_gib": remat_peaks,
+                       "rel_diff_to_full": remat_rel}})
+
+    # (d) the sharded eval against one process's on the same checkpoint
+    det = load_detector(cfg.model, torch.bfloat16, "cuda",
+                        ckpt=os.path.join(work, "runs", "sp", "ckpt_last.pt"))
+    store = {"frames": {}, "batches": []}
+    one_metrics = run_streaming_eval(
+        det, cfg, "val", device="cuda", on_batch=_eval_hook(store),
+        sequences=open_split(cfg.dataset, "val", frames,
+                             seq_ratio=ratio_of(cfg.dataset, "val")))
+    del det
+    eval_parity = [_parity_frames(torch.load(os.path.join(work,
+                                                          f"sp_eval{r}.pt")),
+                                  store["frames"],
+                                  f"space rank {r}'s eval")
+                   for r in range(SP_WORLD)]
+    m0 = ranks[0]["eval"]["metrics"]
+    if any(r["eval"]["metrics"] != m0 for r in ranks):
+        fail(f"the space ranks' metrics differ: "
+             f"{[r['eval']['metrics'] for r in ranks]}")
+    if any(abs(m0[k] - one_metrics[k]) > EVAL_AP_TOL
+           for k in ("AP", "AP_50", "AP_75")):
+        fail(f"the sharded eval's metrics {m0} against one process's "
+             f"{one_metrics}")
+    anchors = make_anchors(bb.in_res_hw, cfg.model.head.strides)
+    whole = [GEN4_BATCH * m_eval, int(anchors.strides.numel()),
+             5 + cfg.model.head.num_classes]
+    for r in ranks:
+        ev = r["eval"]
+        if any(list(s) != whole for s in ev["preds_shapes"]):
+            fail(f"space rank {r['rank']}'s NMS inputs {ev['preds_shapes']} "
+                 f"are not whole ({whole})")
+        routes = ev["routes"]
+        if routes["window_gather"] or routes["grid_gather"] or \
+                not routes["grid_exchange"]:
+            fail(f"space rank {r['rank']}'s eval took the block halves' "
+                 f"routes {routes}: Gen4 at space {SP_WORLD} aligns every "
+                 f"stage")
+        quiet = [k for k, n in ev["launches"].items() if n == 0]
+        if quiet:
+            fail(f"space rank {r['rank']}'s eval launched no {quiet}")
+
+    # (e) the vis CLI
+    vis = phase_vis()
+    emit({"vis": vis})
+
+    report.update({
+        "one_process_step_ms": [s["step_ms"] for s in one_steps],
+        "fp32_step_rel_diff": rel, "bf16_first_step": bf16_parity,
+        "step_ms_per_rank": [[s["step_ms"] for s in r["steps"]] for r in tr],
+        "train_peak_gib_per_rank": [r["peak_gib"] for r in tr],
+        "train_collectives_per_rank": [r["collectives"] for r in tr],
+        "train_routes": tr[0]["routes"],
+        "bf16_step_ms_per_rank": [r["bf16"]["step_ms"] for r in ranks],
+        "losses": [s["loss"] for s in tr[0]["steps"]],
+        "remat": {"rank_peak_gib": rank_peaks,
+                  "one_process_peak_gib": remat_peaks,
+                  "rank_step_ms": [{pol: v["step_ms"]
+                                    for pol, v in r["remat"].items()}
+                                   for r in ranks],
+                  "rel_diff_to_full": remat_rel},
+        "eval_metrics": m0, "one_process_eval_metrics": one_metrics,
+        "eval_parity": eval_parity,
+        "eval_nms": [r["eval"]["nms"] for r in ranks],
+        "eval_s_per_rank": [r["eval"]["val_s"] for r in ranks],
+        "eval_routes": ranks[0]["eval"]["routes"],
+        "eval_gather_path_calls": ranks[0]["eval"]["routes"]["window_gather"]
+        + ranks[0]["eval"]["routes"]["grid_gather"],
+        "eval_collectives_per_rank": [r["eval"]["collectives"]
+                                      for r in ranks],
+        "rank_start_s": [r["start_s"] for r in ranks], "ranks_s": ranks_s})
+    shutil.rmtree(work, ignore_errors=True)
+
+    out = kernel_entries(rows, nms_row, "[Gen4 SP]", step_batch=GEN4_BATCH)
+    for e in out:
+        kname = e["name"][:-len("[Gen4 SP]")]
+        e["config"] = name
+        e["launches_eval"] = sum(r["eval"]["launches"].get(kname, 0)
+                                 for r in ranks)
+        e["launches"] = e["launches_eval"]
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report, out, vis
 
 
 PATHS = (("RVT-B", "base", True), ("RVT-S", "small", False))
@@ -4179,6 +4754,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--dp-rank"] and len(sys.argv) == 5:
         dp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return 0
+    if sys.argv[1:2] == ["--sp-rank"] and len(sys.argv) == 5:
+        sp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4202,20 +4780,25 @@ def main() -> int:
     gen4, gen4_kernels = drive_gen4()
     emit({"gen4": gen4})
     torch.cuda.empty_cache()
-    dp, dp_kernels = drive_dp()
+    dp, dp_kernels, dp_refs = drive_dp()
     emit({"dp": dp})
+    torch.cuda.empty_cache()
+    sp, sp_kernels, vis = drive_space(dp_refs, gen4["remat_peak_gib"])
+    emit({"space": sp})
     # the first path's kernels also ran in the train phase's validation,
-    # in the self-training phase, in the CLI phase and in the deploy
-    # phase (the artifact's and the server's steps)
+    # in the self-training phase, in the CLI phase, in the deploy phase
+    # (the artifact's and the server's steps) and in phase 12's cli.vis
     for e in kernels:
         if e["config"].startswith("RVT-B"):
             e["launches_train"] = train["launches"][e["name"]]
             e["launches_selftrain"] = selftrain["launches"][e["name"]]
             e["launches_cli"] = cli["launches"][e["name"]]
             e["launches_deploy"] = deploy["launches"][e["name"]]
+            e["launches_vis"] = vis["launches"][e["name"]]
             e["launches"] += (e["launches_train"] + e["launches_selftrain"]
-                              + e["launches_cli"] + e["launches_deploy"])
-    kernels += gen4_kernels + dp_kernels
+                              + e["launches_cli"] + e["launches_deploy"]
+                              + e["launches_vis"])
+    kernels += gen4_kernels + dp_kernels + sp_kernels
     emit({"kernels": kernels})
     bad = [k["name"] for k in kernels if not k["ok"]]
     if bad:

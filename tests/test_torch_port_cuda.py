@@ -16,7 +16,9 @@ every width, with a ragged last 128-row tile, at B = 1 and 2, with K
 split over clusters of 1 to 8 CTAs, and launched back to back at the
 stage shapes at B = 1 and 8 by its own plan, `block_mlp`, `lstm_update`
 and the whole stage `fused_stage` at RVT-B Gen4's four stage shapes
-(96 x 160 down to 12 x 20, a 6 x 10 partition) at B = 1 and 12, NMS with and without class ids at
+(96 x 160 down to 12 x 20, a 6 x 10 partition) at B = 1 and 12, the
+attention half (window and grid) and the whole stage at a space rank's
+halves of them (48 x 160 down to 6 x 20, B = 12), NMS with and without class ids at
 K = 1, 37, 1000 and 1024, NMS at IoUs on the threshold and on the floats
 either side of it (identical and nested boxes), the NMS sweep's chains
 (staircases across 32-box words, box 0 suppressing all, no overlap, all
@@ -76,6 +78,9 @@ STAGES_S = [(48, (64, 80)), (96, (32, 40)), (192, (16, 20)), (384, (8, 10))]
 STAGES_GEN4 = [(64, (96, 160)), (128, (48, 80)), (256, (24, 40)),
                (512, (12, 20))]
 PARTITION_GEN4 = (6, 10)
+# a space rank's rows of them at space 2 (`parallel/space.py`): its window
+# layout, and the grid layout after the row exchange, maps of h / 2 rows
+STAGES_GEN4_SPACE2 = [(dim, (h // 2, w)) for dim, (h, w) in STAGES_GEN4]
 
 
 def _kblock(dim):
@@ -591,6 +596,48 @@ def test_fused_stage_at_the_gen4_stage_shapes(cuda, dim, hw, b):
                                      True, dim_head=DIM_HEAD[dim])
     torch.cuda.synchronize()
     assert maxvit_cuda.fused_stage.launches == before + 1
+    hp, cp = maxvit_cuda.fused_stage_plain(x, h, c, [pair], gates,
+                                           PARTITION_GEN4)
+    _close(hk, hp)
+    _close(ck, cp)
+
+
+@pytest.mark.parametrize("grid_kind", [False, True])
+@pytest.mark.parametrize("dim,hw", STAGES_GEN4_SPACE2)
+def test_block_attention_at_the_gen4_space_rank_shapes(cuda, dim, hw,
+                                                       grid_kind):
+    """The attention half at a space rank's RVT-B Gen4 maps (B 12, h / 2
+    rows): the window layout of its rows, and the grid layout the row
+    exchange gives it."""
+    blk = _randomized(PartitionAttention(dim, PARTITION_GEN4,
+                                         "grid" if grid_kind else "window",
+                                         dim_head=DIM_HEAD[dim]), dim, cuda)
+    g = torch.Generator(device=cuda).manual_seed(dim + grid_kind)
+    x = torch.randn(12, *hw, dim, device=cuda, generator=g).to(torch.bfloat16)
+    part, rev = ((grid_partition, grid_reverse) if grid_kind
+                 else (window_partition, window_reverse))
+    got = maxvit_cuda.block_attention(x, blk, grid_kind)
+    torch.cuda.synchronize()
+    want = rev(maxvit_cuda.block_attention_plain(part(x, *PARTITION_GEN4),
+                                                 blk),
+               *PARTITION_GEN4, *hw)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("dim,hw", STAGES_GEN4_SPACE2)
+def test_fused_stage_at_the_gen4_space_rank_shapes(cuda, dim, hw):
+    """The whole stage of RVT-B Gen4 at a space rank's maps (B 12, h / 2
+    rows), the window and grid blocks on them as they are."""
+    pair = _pair(dim, PARTITION_GEN4, False, "gelu", cuda, seed=dim)
+    gates = _randomized(_SplitGateConv(dim), dim + 1, cuda)
+    g = torch.Generator(device=cuda).manual_seed(dim)
+    x, h, c = (torch.randn(12, *hw, dim, device=cuda, generator=g)
+               for _ in range(3))
+    x, h, c = x.to(torch.bfloat16), (h * 0.5).to(torch.bfloat16), \
+        (c * 0.5).to(torch.bfloat16)
+    hk, ck = maxvit_cuda.fused_stage(x, h, c, [pair], gates, PARTITION_GEN4,
+                                     True, dim_head=DIM_HEAD[dim])
+    torch.cuda.synchronize()
     hp, cp = maxvit_cuda.fused_stage_plain(x, h, c, [pair], gates,
                                            PARTITION_GEN4)
     _close(hk, hp)

@@ -44,7 +44,7 @@ REPO = os.path.dirname(TESTS)
 sys.path[:0] = [TESTS]
 
 from test_torch_port_parallel import (B, SPLIT, _bn_run, _digest,  # noqa: E402
-                                      _records, build_cfg)
+                                      _records, build_cfg, ssod_cfg)
 
 STEPS12, STEPS22 = 2, 3
 KEYS = ("loss", "grad_norm", "grad_norm/backbone", "grad_norm/fpn",
@@ -147,6 +147,23 @@ def _fit(T, cfg, mesh, variables, steps: list) -> dict:
     finite = all(bool(torch.isfinite(p).all()) for p in tr.det.parameters())
     return {"step": st.step, "steps": list(steps), "finite": finite,
             "state_shapes": [list(h.shape) for h, _ in st.states]}
+
+
+def _ssod(T, tc, root, runs, mesh, variables, steps: list) -> dict:
+    """Online SSOD (`test_torch_port_parallel.py`'s configuration, 3
+    steps) from `variables`: the steps, the teacher's state rows and
+    heights, and the pseudo boxes merged a batch."""
+    from leod_tpu_torch.convert import load_jax_variables
+    del steps[:]
+    tr = T.Trainer(ssod_cfg(tc, root, runs), dtype=torch.float32,
+                   device="cpu", mesh=mesh)
+    st = tr.init_state(B)
+    load_jax_variables(tr.det, variables)
+    st = tr.fit(max_steps=3, state=st, log_every=1)
+    tr.close()
+    return {"step": st.step, "steps": list(steps),
+            "teacher_state": list(tr.ssod_batcher.states[0][0].shape),
+            "merged": list(tr.ssod_batcher.merged)}
 
 
 def _cli_mesh(mesh_flag: str, root: str) -> list:
@@ -382,6 +399,7 @@ def _worker12(rank: int, init_file: str, shared: str) -> None:
         out["remat"][pol] = _fit(T, pcfg, mesh, weights["init"], steps)
     gcfg = gen4_cfg(tc, weights["gen4_root"], runs)
     out["gen4"] = _fit(T, gcfg, mesh, None, steps)
+    out["ssod"] = _ssod(T, tc, root, runs, mesh, weights["rand"], steps)
     out["cli"] = _cli_mesh("1x2", root)
     with open(os.path.join(shared, f"rank12_{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
@@ -444,6 +462,7 @@ def _one_process(shared: str) -> None:
                    "tta": run_tta_eval(det, cfg, "val", device="cpu")}
     out["gen4"] = _fit(T, gen4_cfg(tc, weights["gen4_root"], runs), None,
                        None, steps)
+    out["ssod"] = _ssod(T, tc, root, runs, None, weights["rand"], steps)
     with open(os.path.join(shared, "one.pkl"), "wb") as f:
         pickle.dump(out, f)
 
@@ -837,6 +856,26 @@ def test_space_gen4_flavour_step(run12):
             np.testing.assert_allclose(g["steps"][0][key],
                                        want["steps"][0][key], **STEP_TOL,
                                        err_msg=key)
+
+
+def test_space_online_ssod_teacher_at_full_height(run12):
+    """Online SSOD on (1, 2): each rank's teacher labels its data shard's
+    slots at full height in the prefetch thread (no space shard there),
+    so each rank merges what one process merges, and the student's
+    steps are one process's."""
+    one = run12["one"]["ssod"]
+    assert sum(one["merged"][1:3]) > 0
+    for r in run12["ranks"]:
+        g = r["ssod"]
+        assert g["step"] == 3
+        assert g["teacher_state"] == one["teacher_state"] == [B, 16, 24, 32]
+        assert g["merged"][:3] == one["merged"][:3]
+        for key in KEYS:
+            np.testing.assert_allclose([s[key] for s in g["steps"]],
+                                       [s[key] for s in one["steps"]],
+                                       **STEP_TOL, err_msg=key)
+    assert run12["ranks"][0]["ssod"]["steps"][-1]["digest"] == \
+        run12["ranks"][1]["ssod"]["steps"][-1]["digest"]
 
 
 # ---------------------------------------------------------------------------
