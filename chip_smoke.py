@@ -320,16 +320,54 @@ switched off for the fp32 products of the plain ConvLSTM update.
    peak GiB, validation s, the teachers' ms and the phase's seconds,
    beside the card's name and power limit.
 
+12. Space phase, after phase 11, RVT-B Gen4 at full width and depth
+   with the image height sharded over SP_WORLD = 2 ranks (the preset's
+   B 12 as one data shard, `make_mesh(2, space=2)`, `parallel/space.py`).
+   (a) The kernel phase at a space rank's maps (48 x 160 down to 6 x 20
+   at B 12: its window layout, and the grid layout the row exchange
+   gives it, maps of as many rows), and the NMS at an eval batch's 24
+   images. Two rank processes, joined over gloo and sharing the card,
+   each render phase 11's split and run (b) `cli.train --mesh 1x2` with
+   phase 11's flags (3 fp32 steps) and the first step of phase 11's bf16
+   fit, (c) one bf16 step of every remat policy from the seeded weights
+   on the first batch of the train loader, and (d) a streaming eval of
+   (b)'s checkpoint through the kernels. Fails unless (b) the ranks'
+   checksums and losses are equal after every step, each carries its
+   height slice of the state table, the steps launched no kernel,
+   every step's loss and num_fg and step 1's gradient norms are within
+   DP_FP32_RTOL of phase 11's one process at B 12 and the later norms
+   within DP_FP32_LATER_NORM_RTOL, and the first bf16 step's head
+   outputs (whole, equal on both ranks) lie no further from one
+   process's fp32 step than DP_BF16_NOISE times one process's bf16 step;
+   (c) every policy's first step is within REMAT_LOSS_RTOL and
+   REMAT_NORM_RTOL of "full"'s, and a rank's "none" peak is below one
+   process's "none" peak of phase 10(d); (d) each labeled val frame's
+   preds row of each rank is within 2^-4 * max|plain| (boxes and scores
+   apart) of a one-process eval of the checkpoint, the ranks' metrics
+   are equal and within EVAL_AP_TOL of one process's, the NMS inputs are
+   whole (B M images of every anchor), each rank's NMS mask is exact, no
+   block half took the gather path, and every kernel launched. (e)
+   `leod_tpu_torch.cli.vis --reverse` at RVT-B Gen1 on one rendered val
+   sequence (`phase_vis`): both videos with every frame, the side-by-side
+   one 2w + 4 wide, the boxes drawn above `--conf` exactly the eval
+   step's. Reports each rank's step ms, the space collectives' calls,
+   bytes and host ms by kind, the block halves by route, the peaks
+   beside one process's, and the phase's seconds, beside the card's
+   name and power limit: the ranks share one card, so the times show
+   correctness and per-rank memory, not speed across cards.
+
 Prints the kernels' JSON line (each kernel wrapper of each path: its
 RVT-B Gen1 entry under its own name, its RVT-S entry as
 "<name>[RVT-S]", its RVT-B Gen4 entry as "<name>[Gen4]", whose times
 and bound are its rows' at B = 12, its Gen4 entry at a data-parallel
-rank's B = 6 as "<name>[Gen4 DP]"; an RVT-B entry's launches are the
-slice phase's, the eval phase's, the train phase's validation's, the
-self-training phase's, the CLI phase's and the deploy phase's artifact
-and server steps', a Gen4 entry's its serving engines', eval's,
-validation's and pseudo-labels', a Gen4 DP entry's the ranks'
-validations' and online SSOD teachers'),
+rank's B = 6 as "<name>[Gen4 DP]", its Gen4 entry at a space rank's
+maps as "<name>[Gen4 SP]"; an RVT-B entry's launches are the slice
+phase's, the eval phase's, the train phase's validation's, the
+self-training phase's, the CLI phase's, the deploy phase's artifact and
+server steps' and phase 12's cli.vis's, a Gen4 entry's its serving
+engines', eval's, validation's and pseudo-labels', a Gen4 DP entry's the
+ranks' validations' and online SSOD teachers', a Gen4 SP entry's the
+space ranks' evals'),
 the card's name and power limit, and the result JSON as the last line.
 Any failure exits non-zero; so does a machine without a CUDA device, or
 a directory without the package.
@@ -3831,14 +3869,14 @@ def drive_dp():
     against no group; the kernels at a rank's shapes; (b) two gloo ranks
     sharing the card through `cli.train --mesh 2` against one process at
     B 12, and a sharded validation; (c) online SSOD a teacher a rank;
-    (d) the stop. Returns its report and its kernels' entries of the
-    JSON line ("<name>[Gen4 DP]")."""
+    (d) the stop. Returns its report, its kernels' entries of the JSON
+    line ("<name>[Gen4 DP]") and phase 12's references (one process's
+    fp32 steps and first steps' head outputs)."""
     import torch
-    from leod_tpu_torch.cli import train as cli_train
     from leod_tpu_torch.cli._common import load_detector, open_split, ratio_of
     from leod_tpu_torch.config import experiment_preset
     from leod_tpu_torch.models.detector import Detector
-    from leod_tpu_torch.train.trainer import Trainer, run_streaming_eval
+    from leod_tpu_torch.train.trainer import run_streaming_eval
 
     from dataclasses import replace
     import numpy as np

@@ -29,7 +29,7 @@ thread never enter it) the layers consult it:
   (`bn_group`).
 
 Every collective is one all-reduce over the space group of a buffer
-that is zero but for each rank's own part (PR 14's route,
+that is zero but for each rank's own part (the route of
 `distributed.all_gather_rows`): it runs over gloo on the CPU and on one
 card (gloo takes CUDA tensors for all-reduce and broadcast, not
 all-gather) and over NCCL across cards through one code path. Where
@@ -44,6 +44,7 @@ backward.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 import time
 from typing import Callable, Optional, Tuple
@@ -238,15 +239,12 @@ class _Halo(torch.autograd.Function):
 
 def halo_rows(x: torch.Tensor, top: int, bottom: int,
               dim: int = 1) -> torch.Tensor:
-    """x with `top` rows of the previous space rank above it and `bottom`
-    rows of the next one below it along `dim` (NHWC: 1, NCHW: 2), zero
-    rows at the global top and bottom edges; differentiable. Outside a
-    space shard, x padded by zero rows."""
+    """Inside a space shard: x with `top` rows of the previous space rank
+    above it and `bottom` rows of the next one below it along `dim`
+    (NHWC: 1, NCHW: 2), zero rows at the global top and bottom edges;
+    differentiable."""
     mesh = active()
     h = x.shape[dim]
-    if mesh is None:
-        pad = [0, 0] * (x.dim() - 1 - dim) + [top, bottom]
-        return F.pad(x, pad)
     if top > h or bottom > h:
         raise ValueError(f"a halo of ({top}, {bottom}) rows from "
                          f"neighbours of {h} rows")
@@ -307,27 +305,51 @@ def space_conv2d(x: torch.Tensor, weight: torch.Tensor,
 # The block pair's halves
 # ---------------------------------------------------------------------------
 
-def _grid_rows(h: int, ph: int, mesh, device) -> torch.Tensor:
-    """The global rows rank s holds after the grid exchange, in its
-    local order: cell rows [s*H/(ph*k), (s+1)*H/(ph*k)) of each of the
-    ph grid rows, grid row outermost."""
-    hc = h // (ph * mesh.space)
-    cell = mesh.space_index * hc + torch.arange(hc, device=device)
-    return (torch.arange(ph, device=device)[:, None] * (h // ph)
-            + cell[None]).reshape(-1)
+@functools.lru_cache(maxsize=None)
+def _exchange_plan(h: int, ph: int, k: int, s: int, inverse: bool, device):
+    """Rank s's index lists of the grid exchange of a map of h rows (or of
+    its inverse). Before it rank t holds rows [t*h/k, (t+1)*h/k); after
+    it, cell rows [t*h/(ph*k), (t+1)*h/(ph*k)) of each of the ph grid
+    rows, grid row outermost. Only rows that change rank travel, each in
+    its own slot of one buffer. Returns (positions of the rows that stay,
+    in the source and in the destination layout; source positions of the
+    rows that leave and their slots; slots of the rows that arrive and
+    their destination positions; the number of slots)."""
+    hl, hc = h // k, h // (ph * k)
+    blocks = [range(t * hl, (t + 1) * hl) for t in range(k)]
+    grid = [[a * (h // ph) + t * hc + j for a in range(ph) for j in range(hc)]
+            for t in range(k)]
+    src, dst = (grid, blocks) if inverse else (blocks, grid)
+    owner = {r: t for t in range(k) for r in src[t]}
+    slot = {r: i for i, r in enumerate(
+        r for t in range(k) for r in dst[t] if owner[r] != t)}
+    at = {r: i for i, r in enumerate(src[s])}
+    stay = [(at[r], p) for p, r in enumerate(dst[s]) if owner[r] == s]
+    arrive = [(slot[r], p) for p, r in enumerate(dst[s]) if owner[r] != s]
+    leave = [(at[r], slot[r]) for r in src[s] if r in slot]
+
+    def idx(pairs, i):
+        return torch.tensor([q[i] for q in pairs], dtype=torch.long,
+                            device=device)
+    return (idx(stay, 0), idx(stay, 1), idx(leave, 0), idx(leave, 1),
+            idx(arrive, 0), idx(arrive, 1), len(slot))
 
 
 def _exchange(x: torch.Tensor, ph: int, mesh, inverse: bool) -> torch.Tensor:
-    """NHWC: the grid exchange of a rank's rows (or its inverse); each
-    is a permutation of the whole map's rows, so each one's adjoint is
-    the other."""
-    h = x.shape[1] * mesh.space
-    idx = _grid_rows(h, ph, mesh, x.device)
-    if not inverse:
-        return _gather(x, 1, mesh, "exchange").index_select(1, idx)
-    full = x.new_zeros((x.shape[0], h) + tuple(x.shape[2:]))
-    full.index_copy_(1, idx, x)
-    return _scatter(full, 1, mesh, "exchange", exact=True)
+    """NHWC: the grid exchange of a rank's rows (or its inverse), exact:
+    the rows that change rank go through one all-reduce of their slots.
+    Each is a permutation of the whole map's rows, so each one's adjoint
+    is the other."""
+    (stay_src, stay_dst, leave_src, leave_slot, arrive_slot, arrive_dst,
+     n) = _exchange_plan(x.shape[1] * mesh.space, ph, mesh.space,
+                         mesh.space_index, inverse, x.device)
+    buf = x.new_zeros((x.shape[0], n) + tuple(x.shape[2:]))
+    buf.index_copy_(1, leave_slot, x.index_select(1, leave_src))
+    _all_reduce(buf, mesh.space_group, "exchange", exact=True)
+    y = torch.empty_like(x)
+    y.index_copy_(1, stay_dst, x.index_select(1, stay_src))
+    y.index_copy_(1, arrive_dst, buf.index_select(1, arrive_slot))
+    return y
 
 
 class _Exchange(torch.autograd.Function):
@@ -375,12 +397,13 @@ def window_half(fn: Callable, x: torch.Tensor, ph: int) -> torch.Tensor:
 
 def grid_half(fn: Callable, x: torch.Tensor, ph: int) -> torch.Tensor:
     """`fn` (a grid-kind block half on an NHWC map) on this rank's rows:
-    between the grid exchange and its inverse where H % (ph*k) == 0,
-    else through the gather path."""
+    between the grid exchange and its inverse where H % (ph*k) == 0
+    (that is, h/k % ph == 0, as for the window half), else through the
+    gather path."""
     mesh = active()
     if mesh is None:
         return fn(x)
-    if (x.shape[1] * mesh.space) % (ph * mesh.space) == 0:
+    if x.shape[1] % ph == 0:
         COUNTS["grid_exchange"] += 1
         return grid_exchange(fn(grid_exchange(x, ph)), ph, inverse=True)
     COUNTS["grid_gather"] += 1

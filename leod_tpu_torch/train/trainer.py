@@ -149,7 +149,7 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
     back whole on every rank, and only space rank 0 of each data shard
     feeds its evaluator before the all-gather, so no frame counts twice
     (with an explicit shard every rank feeds its own). B stays the slots
-    of a shard, as PR 14's process shards take it. Without one (or with
+    of a shard, as the process shards take it. Without one (or with
     space 1) each process evaluates its own shard.
 
     on_batch(batch_index, harvested, preds, dets, valid) is called after
@@ -182,8 +182,7 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
     pp = cfg.model.postprocess
     conf = conf_threshold if conf_threshold is not None else pp.confidence_threshold
 
-    eval_step = make_eval_step(det, plain=plain, device=dev,
-                               mesh=mesh if spatial else None)
+    eval_step = make_eval_step(det, plain=plain, device=dev, mesh=mesh)
     if evaluator is None:
         evaluator = PropheseeEvaluator(dst.name, dst.downsample_by_factor_2)
     states = det.init_states(B, space=mesh.space if spatial else 1)
