@@ -42,10 +42,8 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """`conv` on NCHW x, through the height halo inside a space shard
-    (`parallel/space.py` `space_conv2d`)."""
-    if space.active() is None:
-        return conv(x)
+    """`conv` on NCHW x through `space_conv2d`: the height halo inside a
+    space shard, the plain convolution outside one."""
     return space_conv2d(x, conv.weight, conv.bias, conv.stride, conv.padding,
                         conv.groups)
 

@@ -124,13 +124,14 @@ def local_batch_slice(global_batch: int,
     return slice(p * b_local, (p + 1) * b_local)
 
 
-def eval_shard(shard_index: Optional[int], num_shards: Optional[int]
-               ) -> tuple:
+def eval_shard(shard_index: Optional[int], num_shards: Optional[int],
+               default: Optional[tuple] = None) -> tuple:
     """(shard_index, num_shards, gather) of an eval over a split: the
-    caller's shard where it names one, else this process's shard of the
-    group, whose evaluators are then all-gathered (gather True)."""
+    caller's shard where it names one, else `default` (index, count) or
+    this process's shard of the group, whose evaluators are then
+    all-gathered (gather True)."""
     if shard_index is None and num_shards is None:
-        return (*process_shard(), True)
+        return (*(default or process_shard()), True)
     return shard_index or 0, num_shards or 1, False
 
 

@@ -134,13 +134,12 @@ def _gather(x: torch.Tensor, dim: int, mesh, kind: str) -> torch.Tensor:
     return buf
 
 
-def _scatter(full: torch.Tensor, dim: int, mesh, kind: str,
-             exact: bool) -> torch.Tensor:
-    """This rank's rows of the SUM over the space ranks of `full` (a
-    buffer this call owns): exact where each element has one non-zero
-    contributor, else summed in fp32."""
-    buf = full.contiguous() if exact else full.float().contiguous()
-    _all_reduce(buf, mesh.space_group, kind, exact)
+def _scatter(full: torch.Tensor, dim: int, mesh, kind: str) -> torch.Tensor:
+    """This rank's rows of the SUM over the space ranks of `full`, summed
+    in fp32 in a buffer of its own."""
+    buf = full.to(torch.float32, memory_format=torch.contiguous_format,
+                  copy=True)
+    _all_reduce(buf, mesh.space_group, kind, exact=False)
     return _own(buf, dim, mesh).to(full.dtype).contiguous()
 
 
@@ -160,7 +159,7 @@ class _GatherRows(torch.autograd.Function):
     def backward(ctx, g):
         dim, mesh, kind, reduce = ctx.args
         if reduce:
-            g = _scatter(g.clone(), dim, mesh, kind, exact=False)
+            g = _scatter(g, dim, mesh, kind)
         else:
             g = _own(g, dim, mesh).contiguous()
         return g, None, None, None, None

@@ -168,13 +168,9 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
     if not seqs:
         return None
     time_flip = time_flip or dst.reverse_event_order
-    spatial = mesh is not None and mesh.space > 1
-    if spatial and shard_index is None and num_shards is None:
-        (shard_index, num_shards), sync_metrics = data_shard(mesh), True
-    else:
-        shard_index, num_shards, sync_metrics = pdist.eval_shard(
-            shard_index, num_shards)
-    feed = not (spatial and sync_metrics) or mesh.space_index == 0
+    shard_index, num_shards, sync_metrics = pdist.eval_shard(
+        shard_index, num_shards, data_shard(mesh))
+    feed = not sync_metrics or mesh is None or mesh.space_index == 0
     B = min(B, len(seqs))
     loader = EvalStreamLoader(seqs, dst, B, time_flip=time_flip,
                               shard_index=shard_index, num_shards=num_shards)
@@ -185,7 +181,7 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
     eval_step = make_eval_step(det, plain=plain, device=dev, mesh=mesh)
     if evaluator is None:
         evaluator = PropheseeEvaluator(dst.name, dst.downsample_by_factor_2)
-    states = det.init_states(B, space=mesh.space if spatial else 1)
+    states = det.init_states(B, space=mesh.space if mesh is not None else 1)
     n_cls = cfg.model.head.num_classes
 
     prefetcher = Prefetcher(iter(loader))
@@ -382,7 +378,8 @@ class Trainer:
         self.dtype = dtype
         self.device = resolve_device(device)
         self.mesh = mesh
-        self.world = data_axis_size(mesh)
+        # batch rows divide this (space ranks share their data shard's rows)
+        self.data_degree = data_axis_size(mesh)
         self.run_dir = os.path.join(cfg.save_dir, cfg.exp_name)
         os.makedirs(self.run_dir, exist_ok=True)
         self.logger = MetricLogger(os.path.join(self.run_dir,
@@ -680,14 +677,14 @@ class Trainer:
             # the loader yields this rank's rows of the global batch;
             # the teacher's slot/state table matches them
             ssod_batcher = OnlineSSODBatcher(loader, self.det, cfg,
-                                             B // self.world,
+                                             B // self.data_degree,
                                              start_step=int(state.step))
             loader = ssod_batcher
         self.ssod_batcher = ssod_batcher
         # a panel reads one row of the step's preds: one data shard only,
         # drawn by rank 0 (a space rank's preds are whole)
         viz_every = (cfg.training.viz_every_steps
-                     if self.world == 1 and pdist.is_primary() else 0)
+                     if self.data_degree == 1 and pdist.is_primary() else 0)
         train_step = make_train_step(self.det, self.optimizer,
                                      remat=cfg.training.remat,
                                      with_preds=viz_every > 0,
@@ -755,8 +752,8 @@ class Trainer:
                     self._write_viz_panel(step, meta["viz"], preds)
                 if profiler is not None and step == 5 + profile_steps:
                     profiler = _stop_profile(profiler, self.run_dir)
-                # local frames x ranks = the global batch's frames
-                frames_seen += meta["frames"] * self.world
+                # local frames x data shards = the global batch's frames
+                frames_seen += meta["frames"] * self.data_degree
                 dropped_total += meta["dropped_frames"]
                 if step % log_every == 0 or step == 1:
                     dt = time.time() - t0
@@ -778,7 +775,7 @@ class Trainer:
                 ckpt_due = ((time.time() - last_ckpt_time) / 60
                             >= cfg.training.ckpt_every_min)
                 stop = self._stop_requested
-                if self.world > 1:
+                if self.mesh is not None and self.mesh.world > 1:
                     if step % cfg.training.multihost_sync_every == 0:
                         ckpt_due, stop = pdist.any_all(
                             [ckpt_due, stop], self.mesh.group,

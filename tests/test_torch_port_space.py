@@ -11,7 +11,8 @@ launches its ranks), each check then its own test:
 - mesh (1, 2), two ranks and a one-process reference: every convolution
   of the model through `space_conv2d` (forward, input and weight
   gradients), the grid exchange, the block halves on the aligned and
-  the gather path, a 2-step `fit` and a streaming eval, TTA eval (whose
+  the gather path, a 2-step `fit`, a stop asked on one rank with the
+  checkpoint timer due on that rank alone, a streaming eval, TTA eval (whose
   process shards are then space ranks), the first step of every remat
   policy, a Gen4-flavour step, and `cli.train --mesh 1x2`; the pytest
   process runs the JAX package's streaming eval on `make_mesh(4,
@@ -116,9 +117,10 @@ def _join(rank: int, world: int, init_file: str):
                            timeout_s=GROUP_TIMEOUT_S)
 
 
-def _spy(T, steps: list) -> None:
+def _spy(T, steps: list, hooks: list = ()) -> None:
     """Every train step `train.trainer` makes records its metrics and
-    the parameters' digest after it."""
+    the parameters' digest after it, then calls each of `hooks` with the
+    number of steps recorded."""
     real = T.make_train_step
 
     def make(*a, **k):
@@ -128,6 +130,8 @@ def _spy(T, steps: list) -> None:
             state, m = step(state, batch)
             steps.append({**{key: float(m[key]) for key in KEYS},
                           "digest": _digest(a[0])})
+            for hook in hooks:
+                hook(len(steps))
             return state, m
         return run
     T.make_train_step = make
@@ -166,6 +170,38 @@ def _ssod(T, tc, root, runs, mesh, variables, steps: list) -> dict:
             "merged": list(tr.ssod_batcher.merged)}
 
 
+def _stop(T, tc, root, runs, mesh, variables, steps: list, hooks: list,
+          rank: int) -> dict:
+    """A fit of up to 50 steps, the stop and the checkpoint timer
+    exchanged every step: rank 1 alone asks to stop after its second
+    step, and its own clock (ckpt_every_min 0) says a checkpoint is due
+    after every step, rank 0's never. The step it ended at, the run
+    dir's files and the steps at which this rank saved a checkpoint."""
+    from leod_tpu_torch.convert import load_jax_variables
+    del steps[:]
+    cfg = build_cfg(tc, root, runs, exp="stop", max_steps=50,
+                    multihost_sync_every=1,
+                    ckpt_every_min=0.0 if rank == 1 else 1e9)
+    tr = T.Trainer(cfg, dtype=torch.float32, device="cpu", mesh=mesh)
+    st = tr.init_state(B)
+    load_jax_variables(tr.det, variables)
+    saves, real = [], tr.save_checkpoint
+
+    def save(state, name="last"):
+        saves.append(int(state.step))
+        real(state, name)
+    tr.save_checkpoint = save
+    if rank == 1:
+        hooks.append(lambda n: tr.request_stop() if n == 2 else None)
+    try:
+        st = tr.fit(max_steps=50, state=st, log_every=1)
+    finally:
+        del hooks[:]
+        tr.close()
+    return {"step": st.step, "files": sorted(os.listdir(tr.run_dir)),
+            "run_dir": tr.run_dir, "saves": saves}
+
+
 def _cli_mesh(mesh_flag: str, root: str) -> list:
     """`cli.train --mesh` up to the Trainer it builds: (data, space) of
     the mesh handed to it."""
@@ -194,29 +230,40 @@ def _cli_mesh(mesh_flag: str, root: str) -> list:
 
 def _conv_cases(det, cfg):
     """Every convolution of the model and its input shape in one
-    unsharded train-mode timestep at B 2 (forward pre-hooks), plus the
-    stem's two other input layouts and the ConvLSTM's depthwise conv at
-    stage 3's map."""
+    unsharded train-mode timestep at B 2 (forward pre-hooks on the
+    modules called as such, and `layers._conv` for those run through
+    `space_conv2d`), plus the stem's two other input layouts and the
+    ConvLSTM's depthwise conv at stage 3's map."""
     from torch import nn
-    from leod_tpu_torch.models.layers import _S2DStemConv
+    from leod_tpu_torch.models import layers
     seen, hooks = {}, []
+    names = {id(m): name for name, m in det.named_modules()}
 
     def record(name):
         def hook(mod, args):
             seen.setdefault((name, tuple(args[0].shape)), mod)
         return hook
     for name, m in det.named_modules():
-        if isinstance(m, (nn.Conv2d, _S2DStemConv)):
+        if isinstance(m, (nn.Conv2d, layers._S2DStemConv)):
             hooks.append(m.register_forward_pre_hook(record(name)))
+    real_conv = layers._conv
+
+    def conv(m, x):
+        seen.setdefault((names[id(m)], tuple(x.shape)), m)
+        return real_conv(m, x)
     bb = cfg.model.backbone
     h, w = bb.in_res_hw
     c = bb.input_channels
     g = torch.Generator().manual_seed(3)
     x = torch.randn(2, h // 4, w // 4, 16 * c, generator=g)
-    feats, _ = det.forward_backbone_modules(x, det.init_states(2))
-    det.forward_detect(feats, train=True)
-    for hk in hooks:
-        hk.remove()
+    layers._conv = conv
+    try:
+        feats, _ = det.forward_backbone_modules(x, det.init_states(2))
+        det.forward_detect(feats, train=True)
+    finally:
+        layers._conv = real_conv
+        for hk in hooks:
+            hk.remove()
     stem = det.backbone.stage1.down.conv
     cases = [(name, shape, m) for (name, shape), m in seen.items()]
     cases += [("stem_width_fold", (2, h, w // 4, 4 * c), stem),
@@ -250,7 +297,9 @@ def _unit_checks(mesh, det, cfg) -> dict:
     out = {"convs": [], "halves": []}
 
     def run_conv(m, x, nhwc):
-        if isinstance(m, _S2DStemConv):
+        """Unsharded, the module itself (an nn.Conv2d: `F.conv2d` with its
+        own padding); in a shard, as the model runs it."""
+        if isinstance(m, _S2DStemConv) or space.active() is None:
             return m(x)
         return _conv(m, x)
 
@@ -381,11 +430,13 @@ def _worker12(rank: int, init_file: str, shared: str) -> None:
     out["units"] = _unit_checks(mesh, det, cfg)
     del det
 
-    steps = []
-    _spy(T, steps)
+    steps, hooks = [], []
+    _spy(T, steps, hooks)
     space.reset_counts()
     out["fit"] = _fit(T, cfg, mesh, weights["init"], steps)
     out["fit"]["counts"] = dict(space.COUNTS)
+    out["stop"] = _stop(T, tc, root, os.path.join(shared, f"stop{rank}"),
+                        mesh, weights["init"], steps, hooks, rank)
     det = Detector(cfg.model, dtype=torch.float32, device="cpu")
     load_jax_variables(det, weights["rand"])
     out["eval"] = {
@@ -660,6 +711,72 @@ def _jax_space_result(shared: str) -> list:
         return json.load(f)
 
 
+def _jax_leaf_grads(work: str) -> None:
+    """(As a script: `python tests/test_torch_port_space.py jax_grads
+    DIR`.) The JAX package's first-step gradient of every parameter on
+    `make_mesh(4, space=2)` and `make_mesh(8, space=2)` (the state built
+    by `Trainer._place(init_state)`, as
+    `test_spatial_mesh_matches_single_device` builds it, and as this
+    file's `_jax_fit` builds it) and on the data-only `make_mesh(2)`,
+    against one device: each leaf's |g_mesh - g_one| / |g_one|, printed
+    largest first. The optimizer is the identity, so the step's
+    parameter change is the gradient."""
+    sys.path[:0] = [TESTS, REPO]
+    import conftest  # noqa: F401  the 8 CPU devices, the compile cache
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from leod_tpu import config as jc
+    from leod_tpu.data.loader import (StreamTrainLoader, harvest_frames,
+                                      open_split_sequences)
+    from leod_tpu.data.synthetic import generate_dataset
+    from leod_tpu.parallel.mesh import make_mesh as j_make_mesh
+    from leod_tpu.parallel.mesh import shard_batch, shard_params
+    from leod_tpu.train.step import make_train_step
+    from leod_tpu.train.trainer import Trainer as JTrainer
+
+    root = generate_dataset(os.path.join(work, "synth"), **SPLIT)
+    cfg = build_cfg(jc, root, os.path.join(work, "runs"))
+    one = JTrainer(cfg, dtype=jnp.float32)
+    seqs = open_split_sequences(cfg.dataset, "train")
+    batch = next(iter(StreamTrainLoader(seqs, cfg.dataset, B, seed=0)))
+    hb = harvest_frames(batch, 2, cfg.model.head.max_gt,
+                        cfg.dataset.resolution_hw)
+    dev = {k: hb[k] for k in ("ev", "is_first", "frame_t", "frame_mask",
+                              "labels")}
+    ident = optax.GradientTransformation(lambda p: optax.EmptyState(),
+                                         lambda g, s, p=None: (g, s))
+    step = jax.jit(make_train_step(one.det, ident))
+    state = one.init_state(B, seed=0)
+    p0 = jax.tree_util.tree_flatten_with_path(state.variables["params"])[0]
+    names = [".".join(str(getattr(k, "key", k)) for k in path)
+             for path, _ in p0]
+
+    def grads(st, b):
+        new, m = step(st, b)
+        flat = jax.tree.leaves(new.variables["params"])
+        return ([np.asarray(v, np.float64) - np.asarray(w, np.float64)
+                 for v, (_, w) in zip(flat, p0)],
+                {k: float(m[k]) for k in ("loss", "grad_norm")})
+
+    g1, m1 = grads(state, dev)
+    print("one device", m1)
+    for label, mesh in (("make_mesh(4, space=2)", j_make_mesh(4, space=2)),
+                        ("make_mesh(8, space=2)", j_make_mesh(8, space=2)),
+                        ("make_mesh(2)", j_make_mesh(2))):
+        tr = JTrainer(cfg, dtype=jnp.float32, mesh=mesh)
+        tr.det = one.det
+        st = tr._place(one.init_state(B, seed=0))
+        gm, mm = grads(st, shard_batch(mesh, dev))
+        rows = sorted(((np.linalg.norm(b - a) / np.linalg.norm(a), n,
+                        np.linalg.norm(b) / np.linalg.norm(a))
+                       for n, a, b in zip(names, g1, gm)), reverse=True)
+        print(f"{label} {mm}: {sum(r[0] > 1e-3 for r in rows)} of "
+              f"{len(rows)} leaves over 1e-3")
+        for gap, n, ratio in rows:
+            print(f"  {gap:.4e}  |g|/|g_one| {ratio:.4f}  {n}")
+
+
 def _run22(shared: str) -> dict:
     init_file = os.path.join(shared, "group22")
     argvs = [["sp22", str(r), init_file, shared] for r in range(4)]
@@ -787,6 +904,26 @@ def test_space_fit_matches_one_process(run12):
     assert run12["ranks"][0]["fit"]["state_shapes"] == [
         [B, 8, 24, 32], [B, 4, 12, 64], [B, 2, 6, 128], [B, 1, 3, 256]]
     assert run12["one"]["fit"]["state_shapes"][0] == [B, 16, 24, 32]
+
+
+def test_space_stop_on_one_rank_stops_both(run12):
+    """A stop asked on space rank 1 alone stops both ranks at the same
+    step, and rank 0 alone writes ckpt_last at that step."""
+    s0, s1 = (r["stop"] for r in run12["ranks"])
+    assert s0["step"] == s1["step"] == 2
+    assert "ckpt_last.pt" in s0["files"]
+    assert not [f for f in s1["files"] if f.startswith("ckpt_")]
+    payload = torch.load(os.path.join(s0["run_dir"], "ckpt_last.pt"),
+                         weights_only=True)
+    assert payload["step"] == 2
+
+
+def test_space_checkpoint_timer_is_rank0s(run12):
+    """Rank 0's clock decides the timed checkpoint for both space ranks:
+    rank 1's own clock, due after every step, saves nothing alone, and
+    both ranks enter `save_checkpoint` (and its barrier) only at the
+    stop."""
+    assert [r["stop"]["saves"] for r in run12["ranks"]] == [[2], [2]]
 
 
 def test_space_ranks_bit_equal_after_every_step(run12, run22):
@@ -1010,6 +1147,8 @@ if __name__ == "__main__":
         _one_process(sys.argv[2])
     elif sys.argv[1] == "jax_space":
         _jax_space(sys.argv[2])
+    elif sys.argv[1] == "jax_grads":
+        _jax_leaf_grads(sys.argv[2])
     elif sys.argv[1] == "sp12":
         _worker12(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     else:
