@@ -356,18 +356,59 @@ switched off for the fp32 products of the plain ConvLSTM update.
    name and power limit: the ranks share one card, so the times show
    correctness and per-rank memory, not speed across cards.
 
+13. Model phase, after phase 12, RVT-B Gen4 at full width and depth
+   with the transformer blocks tensor-parallel over TP_WORLD = 2 ranks
+   (the preset's B 12 as one data shard, `make_mesh(2, model=2)`,
+   `parallel/tensor.py`: every stage's heads and MLP inner units halved).
+   (a) The model axis's variants against their plain versions within
+   2^-5 * max|plain|, at model rank 0's shard of every Gen4 stage's
+   first pair at B 12 for each local head count 1, 2, 4, 8 below the
+   stage's heads (model degrees 2-16), and at the Gen1 RVT-B and RVT-S
+   widths at degree 2 (B 8; RVT-S's 48-wide stage 1 keeps 1 head of
+   24): the head-shard `block_attention` (window and grid),
+   `block_mlp_tp` (the MLP kernel's model-axis mode, on an fp32 sum of
+   the out-projection) and `block_residual`, timed with CUDA events,
+   each with its bound. Two rank processes, joined over gloo and sharing
+   the card, each render phase 11's split and run (b) `cli.train --mesh
+   1x1x2` with phase 11's flags (3 fp32 steps) and the first step of
+   phase 11's bf16 fit, and (c) a streaming eval of (b)'s checkpoint
+   through the variants; then (d) four rank processes run one fp32 step
+   of `cli.train --mesh 1x2x2` (the space and model axes together).
+   Fails unless (b) every block sharded, the ranks' whole tensors (all
+   but the sharded ones) and losses are equal after every step, the
+   steps launched no kernel, every step's loss and num_fg and step 1's
+   gradient norms are within DP_FP32_RTOL of phase 11's one process at
+   B 12 and the later norms within DP_FP32_LATER_NORM_RTOL, the first
+   bf16 step's head outputs (whole, equal on both ranks) lie no further
+   from one process's fp32 step than DP_BF16_NOISE times one process's
+   bf16 step, and the checkpoint the ranks wrote (whole tensors) loads
+   into one process; (c) each labeled val frame's preds row of each
+   rank is within 2^-4 * max|plain| (boxes and scores apart) of a
+   one-process eval of that checkpoint, the ranks' metrics are equal and
+   within EVAL_AP_TOL of one process's, each rank's NMS mask is exact,
+   and every kernel launched but the whole-block `block_mlp`; (d) the
+   four ranks' losses and whole tensors are equal, each carries half
+   the height of the state table, and the step is within phase 11's
+   step-1 bars of one process's. Reports each rank's step ms, the model
+   all-reduces' calls, bytes and host ms (`tensor.STATS`), a rank's peak
+   GiB beside one process's (activations stay whole under the model
+   axis), and the phase's seconds, beside the card's name and power
+   limit.
+
 Prints the kernels' JSON line (each kernel wrapper of each path: its
 RVT-B Gen1 entry under its own name, its RVT-S entry as
 "<name>[RVT-S]", its RVT-B Gen4 entry as "<name>[Gen4]", whose times
 and bound are its rows' at B = 12, its Gen4 entry at a data-parallel
 rank's B = 6 as "<name>[Gen4 DP]", its Gen4 entry at a space rank's
-maps as "<name>[Gen4 SP]"; an RVT-B entry's launches are the slice
+maps as "<name>[Gen4 SP]", the model axis's variants at a model rank's
+Gen4 shards as "<name>[Gen4 TP]", whose times and bound are its rows' at
+model degree 2; an RVT-B entry's launches are the slice
 phase's, the eval phase's, the train phase's validation's, the
 self-training phase's, the CLI phase's, the deploy phase's artifact and
 server steps' and phase 12's cli.vis's, a Gen4 entry's its serving
 engines', eval's, validation's and pseudo-labels', a Gen4 DP entry's the
 ranks' validations' and online SSOD teachers', a Gen4 SP entry's the
-space ranks' evals'),
+space ranks' evals', a Gen4 TP entry's the model ranks' evals'),
 the card's name and power limit, and the result JSON as the last line.
 Any failure exits non-zero; so does a machine without a CUDA device, or
 a directory without the package.
@@ -542,6 +583,23 @@ DP_RANK_TIMEOUT_S = 600
 # classes predict 0.67x of those counts at -4.5, 0.31x at -5).
 SP_WORLD = 2
 SP_RANK_TIMEOUT_S = 600
+# the model phase (13), RVT-B Gen4 at full width and depth: TP_WORLD rank
+# processes over gloo on the one card hold the preset's B 12 (one data
+# shard) as the model axis of `make_mesh(TP_WORLD, model=TP_WORLD)`:
+# every Gen4 stage's heads (2, 4, 8, 16) and MLP inner units halved, 1,
+# 2, 4 and 8 heads a rank. Their fp32 steps are held to phase 11's bars
+# against phase 11's one process, their eval to phase 12's; then
+# TP3D_WORLD ranks of `make_mesh(4, space=2, model=2)` take TP3D_STEPS
+# fp32 step(s), held to the same bars. The kernel phase runs the
+# variants at a model rank's shards of every Gen4 stage for each local
+# head count TP_HEADS below the stage's heads (model degrees 2-16), and
+# at the Gen1 RVT-B and RVT-S widths at degree 2. Ranks are killed after
+# TP_RANK_TIMEOUT_S.
+TP_WORLD = 2
+TP3D_WORLD = 4
+TP3D_STEPS = 1
+TP_HEADS = (1, 2, 4, 8)
+TP_RANK_TIMEOUT_S = 600
 VIS_LOGIT_MEAN, VIS_LOGIT_STD = -5.0, 2.0
 # the Gen4 teacher's logit spread: at phase 7's ST_LOGIT_STD its best
 # obj * cls score over a window of 60 frames of 5040 anchors and 3
@@ -598,6 +656,11 @@ extern "C" int sweep_chain(int n, long long* out) {
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 """
+
+
+# the kernels that run only on a model mesh axis (phase 13, which checks
+# their launches), never in a one-process step
+MODEL_AXIS_KERNELS = ("block_residual_kernel",)
 
 
 def port_kernels():
@@ -775,15 +838,43 @@ def mlp_work(blk, n_tok: int):
 
 def attn_work(blk, n_tok: int):
     """(bf16 tensor-core FLOPs, bytes) of the attention half over n_tok
-    tokens: q|k|v, q k^T and p v; x read and o written once in bf16, the
-    q|k|v weights and LN1's vectors."""
+    tokens and the block's heads (all, or a model rank's shard: o has
+    oc = heads * dim_head channels): q|k|v, q k^T and p v; x read and o
+    written once in bf16, the q|k|v weights and LN1's vectors."""
     c = blk.dim
+    oc = blk.attn.qkv.weight.shape[0] // 3
     t = blk.partition_size[0] * blk.partition_size[1]
-    flops = 2 * n_tok * c * 3 * c + 4 * n_tok * t * c
+    flops = 2 * n_tok * c * 3 * oc + 4 * n_tok * t * oc
     mods = [blk.attn.qkv] + ([] if blk.skip_first_norm else [blk.norm1])
     wbytes = sum(p.numel() * p.element_size() for m in mods
                  for p in m.parameters())
-    return flops, wbytes + 2 * n_tok * c * 2
+    return flops, wbytes + n_tok * (c + oc) * 2
+
+
+def mlp_tp_work(blk, n_tok: int):
+    """(bf16 tensor-core FLOPs, bytes) of `block_mlp_tp` over n_tok
+    tokens of a model rank's shard: both MLP layers over its inner
+    units; x (bf16) and the summed projection a (fp32) read, x1 (bf16)
+    and the partial p (fp32) written once, the shard's weights and the
+    vectors."""
+    c = blk.dim
+    flops = 2 * n_tok * c * blk.mlp.proj_in.weight.shape[0]
+    flops += 2 * n_tok * blk.mlp.proj_out.weight.shape[1] * c
+    ps = [blk.attn.proj.bias, blk.ls1, blk.norm2.weight, blk.norm2.bias,
+          blk.mlp.proj_in.weight, blk.mlp.proj_in.bias,
+          blk.mlp.proj_out.weight]
+    wbytes = sum(p.numel() * p.element_size() for p in ps if p is not None)
+    return flops, wbytes + n_tok * c * (2 + 4 + 2 + 4)
+
+
+def residual_work(blk, n_tok: int):
+    """(fp32 operations, bytes) of `block_residual` over n_tok tokens:
+    three a channel; x1 (bf16) and p (fp32) read, the output (bf16)
+    written, the bias and LayerScale."""
+    c = blk.dim
+    vec = sum(p.numel() * p.element_size()
+              for p in (blk.mlp.proj_out.bias, blk.ls2) if p is not None)
+    return 3 * n_tok * c, vec + n_tok * c * (2 + 4 + 2)
 
 
 def lstm_work(gates, x, c_state):
@@ -894,6 +985,17 @@ def stage_inputs(det, seed: int, batch: int = B, space: int = 1):
     return out
 
 
+def kernel_row(kern, plain, flops, nbytes, peak=None, **extra):
+    """One shape's entry: the kernel against its plain version (within
+    KERNEL_TOL), both timed, the kernel's launch cost on the host, and
+    its bound (bf16 tensor-core rate unless `peak`)."""
+    err, tol, ok = compare_all(kern(), plain(), KERNEL_TOL)
+    bms, by = bound(flops, nbytes, peak or PEAK_BF16)
+    return dict(extra, max_abs_err=err, tol=tol, ok=ok, ms=cuda_ms(kern),
+                plain_ms=cuda_ms(plain), host_us=enqueue_us(kern),
+                flops=flops, bytes=nbytes, bound_ms=bms, bound_by=by)
+
+
 def phase_kernels(det, batch: int = B, batches=KERNEL_BATCHES,
                   nms_images: int = 0, space: int = 1):
     """Every kernel against its plain version at the model's stage shapes
@@ -916,14 +1018,7 @@ def phase_kernels(det, batch: int = B, batches=KERNEL_BATCHES,
     h_in, w_in = bb.in_res_hw
     rows = {"fused_block_pair": [], "fused_stage": [], "block_attention": [],
             "block_mlp": [], "lstm_update": []}
-
-    def row(kern, plain, flops, nbytes, **extra):
-        """One shape's entry: the kernel against its plain version."""
-        err, tol, ok = compare_all(kern(), plain(), KERNEL_TOL)
-        bms, by = bound(flops, nbytes, PEAK_BF16)
-        return dict(extra, max_abs_err=err, tol=tol, ok=ok, ms=cuda_ms(kern),
-                    plain_ms=cuda_ms(plain), host_us=enqueue_us(kern),
-                    flops=flops, bytes=nbytes, bound_ms=bms, bound_by=by)
+    row = kernel_row
 
     for stage, shape, x, hs, cs in stage_inputs(det, seed=1, batch=batch,
                                                 space=space):
@@ -1371,8 +1466,8 @@ def device_summary(dev_events, calls: int, host_ms: float, what: str,
     device-busy time (the union of the events' intervals), its idle share
     against the unprofiled host time of a call, the port's kernels by
     name and by instantiation, and the largest events. Every port kernel
-    must show up, unless `kernels_expected` is false (a train step, which
-    runs the module forwards)."""
+    but MODEL_AXIS_KERNELS must show up, unless `kernels_expected` is
+    false (a train step, which runs the module forwards)."""
     kernels = port_kernels()
     by_name = {}
     for e in dev_events:
@@ -1386,7 +1481,7 @@ def device_summary(dev_events, calls: int, host_ms: float, what: str,
     per_kernel = {k: sum(v[0] for n, v in by_name.items()
                          if re.search(rf"\b{k}\b", n))
                   for k in kernels}
-    missing = [k for k in kernels if not any(
+    missing = [k for k in kernels if k not in MODEL_AXIS_KERNELS and not any(
         re.search(rf"\b{k}\b", n) for n in by_name)]
     if missing and kernels_expected:
         fail(f"port kernels absent from the profiled {what}: {missing}")
@@ -3392,7 +3487,8 @@ class StepSpy:
     after it is not timed) and the checksum of the model's parameters
     and BN statistics after it, then calls each of `hooks` with the
     number of steps taken; every `Trainer.fit` collects `timings`
-    (among them the gradient all-reduce's "allreduce_ms"). With
+    (among them the gradient all-reduce's "allreduce_ms"); `checksum`
+    (default `_checksum`) digests the model after each step. With
     `first_step`, `first` holds, on the host, the first step's head
     outputs ("preds"), each BN running statistic's move in that step
     ("bn"), the parameters before and after it ("w0", "w1") and their
@@ -3400,9 +3496,10 @@ class StepSpy:
     KEYS = ("loss", "grad_norm", "grad_norm/backbone", "grad_norm/fpn",
             "grad_norm/head", "num_fg")
 
-    def __init__(self, first_step: bool = False):
+    def __init__(self, first_step: bool = False, checksum=None):
         self.steps, self.timings, self.hooks = [], {}, []
         self.first_step, self.first = first_step, None
+        self.checksum = checksum or _checksum
 
     def __enter__(self):
         import torch
@@ -3432,7 +3529,8 @@ class StepSpy:
                             k: v.grad.detach().float().cpu().clone()
                             for k, v in det.named_parameters()
                             if v.requires_grad}}
-                spy.steps.append({"step_ms": ms, "checksum": _checksum(det),
+                spy.steps.append({"step_ms": ms,
+                                  "checksum": spy.checksum(det),
                                   **{k: float(m[k]) for k in spy.KEYS}})
                 for hook in spy.hooks:
                     hook(len(spy.steps))
@@ -3520,7 +3618,6 @@ def dp_rank(rank: int, port: int, out: str) -> None:
     from leod_tpu_torch.cli._common import load_detector, open_split, ratio_of
     from leod_tpu_torch.config import experiment_preset
     from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
-    from leod_tpu_torch.parallel.distributed import maybe_initialize
     from leod_tpu_torch.parallel.mesh import make_mesh
     from leod_tpu_torch.selftrain import online
     from leod_tpu_torch.train.trainer import Trainer, run_streaming_eval
@@ -3529,13 +3626,8 @@ def dp_rank(rank: int, port: int, out: str) -> None:
     # recorded, not fatal: (d) then fails on its step count
     late = []
     signal.signal(signal.SIGTERM, lambda *a: late.append(time.time()))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_WORLD),
-                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
-                      MASTER_PORT=str(port))
     t0 = time.perf_counter()
-    maybe_initialize(backend="gloo", timeout_s=DP_GROUP_TIMEOUT_S)
+    join_ranks(rank, port, DP_WORLD)
     wrappers = maxvit_cuda.WRAPPERS + nms_cuda.WRAPPERS
     root = os.path.join(out, f"data{rank}")
     cfg = experiment_preset("gen4", "base")
@@ -3809,6 +3901,57 @@ def phase_dp_nccl(cfg, splits):
             "tensors": len(sd0), "fit_s": {"alone": s0, "nccl": s1}}
 
 
+def step_parity(rank_steps, one_steps, what: str) -> list:
+    """Rank 0's fp32 steps' relative differences to one process's first
+    steps, held to phase 11's bars: every loss and num_fg and step 1's
+    norms within DP_FP32_RTOL, the later norms within
+    DP_FP32_LATER_NORM_RTOL; every rank's metrics finite."""
+    import numpy as np
+    steps = rank_steps[0]
+    rel = [{k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+            for k in StepSpy.KEYS} for got, want in zip(steps, one_steps)]
+    limits = [{k: DP_FP32_RTOL if i == 0 or k in ("loss", "num_fg")
+               else DP_FP32_LATER_NORM_RTOL for k in StepSpy.KEYS}
+              for i in range(len(steps))]
+    if len(one_steps) < len(steps) or not all(
+            np.isfinite(s[k]) for r in rank_steps for s in r
+            for k in StepSpy.KEYS) or any(
+                r[k] > lim[k] for r, lim in zip(rel, limits) for k in r):
+        fail(f"{what} {steps} against one process's {one_steps}: "
+             f"relative differences {rel}")
+    return rel
+
+
+def whole_map_bf16_parity(firsts, refs, what: str) -> dict:
+    """The first bf16 step's head outputs of ranks that each compute the
+    whole map (space or model ranks): equal on every rank, of one
+    process's shape, and no further from one process's fp32 step than
+    DP_BF16_NOISE times one process's bf16 step (boxes and scores
+    apart)."""
+    import torch
+    one16 = refs["first_one"][torch.bfloat16]["preds"]
+    one32 = refs["first_one"][torch.float32]["preds"]
+    if any(f.shape != one16.shape for f in firsts) or \
+            not all(torch.equal(f, firsts[0]) for f in firsts):
+        fail(f"{what}: the first bf16 head outputs "
+             f"{[tuple(f.shape) for f in firsts]} are not one whole map "
+             f"each, equal, of one process's {tuple(one16.shape)}")
+    parity, ok = {}, True
+    for cols, sl in (("boxes", slice(0, 4)), ("scores", slice(4, None))):
+        def dist(a, b):
+            return float((a[..., sl] - b[..., sl]).abs().max())
+        e = {"ranks_fp32": dist(firsts[0], one32),
+             "one_fp32": dist(one16, one32),
+             "ranks_one": dist(firsts[0], one16),
+             "max_plain": float(one16[..., sl].abs().max())}
+        ok = ok and e["ranks_fp32"] <= DP_BF16_NOISE * e["one_fp32"]
+        parity[cols] = e
+    if not ok:
+        fail(f"{what}: the first bf16 step against one process at B "
+             f"{GEN4_BATCH}: {parity}")
+    return parity
+
+
 def dp_one_process(cfg, work: str, frames):
     """The one-process references of phases 11 and 12 on the rendered
     split (`frames`, its label files under <work>/data): `cli.train`'s
@@ -3954,18 +4097,8 @@ def drive_dp():
                 len({r["steps"][i]["loss"] for r in tr}) != 1:
             fail(f"the ranks' parameters or losses differ after step "
                  f"{i + 1}")
-    rel = [{k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
-            for k in StepSpy.KEYS}
-           for got, want in zip(tr[0]["steps"], one["steps"])]
-    limits = [{k: DP_FP32_RTOL if i == 0 or k in ("loss", "num_fg")
-               else DP_FP32_LATER_NORM_RTOL for k in StepSpy.KEYS}
-              for i in range(DP_STEPS)]
-    if len(one["steps"]) != DP_STEPS or not all(
-            np.isfinite(s[k]) for r in tr for s in r["steps"]
-            for k in StepSpy.KEYS) or any(
-                r[k] > lim[k] for r, lim in zip(rel, limits) for k in r):
-        fail(f"two ranks' fp32 steps {tr[0]['steps']} against one "
-             f"process's {one['steps']}: relative differences {rel}")
+    rel = step_parity([r["steps"] for r in tr], one["steps"],
+                      "two ranks' fp32 steps")
     # the weights after step 1: Adam's first update is +-lr wherever
     # |g| >> eps, whatever g's size, so they differ by a sign only where
     # the gradient's sign is a rounding's (|g| <= DP_FLIP_GRAD_MAX), and
@@ -4092,8 +4225,9 @@ def drive_dp():
     if not ok:
         fail(f"the first bf16 step of two ranks against one process at "
              f"B {GEN4_BATCH}: {bf16_parity}")
-    # phase 12's references: one process's fp32 steps and first steps
-    refs = {"one_steps": one["steps"],
+    # phases 12's and 13's references: one process's fp32 steps, first
+    # steps and peak
+    refs = {"one_steps": one["steps"], "one_peak_gib": one["peak_gib"],
             "first_one": {k: {"preds": v["preds"]}
                           for k, v in first_one.items()}}
     del firsts, preds, first_one, one16, one32
@@ -4159,7 +4293,6 @@ def sp_rank(rank: int, port: int, out: str) -> None:
     from leod_tpu_torch.models.detector import Detector
     from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
     from leod_tpu_torch.parallel import space
-    from leod_tpu_torch.parallel.distributed import maybe_initialize
     from leod_tpu_torch.parallel.mesh import make_mesh, shard_states
     from leod_tpu_torch.train.optim import make_optimizer
     from leod_tpu_torch.train.step import (REMAT_POLICIES, TrainState,
@@ -4167,13 +4300,8 @@ def sp_rank(rank: int, port: int, out: str) -> None:
     from leod_tpu_torch.train.trainer import (Trainer, default_frames_per_slot,
                                               run_streaming_eval)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(SP_WORLD),
-                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
-                      MASTER_PORT=str(port))
     t0 = time.perf_counter()
-    maybe_initialize(backend="gloo", timeout_s=DP_GROUP_TIMEOUT_S)
+    join_ranks(rank, port, SP_WORLD)
     wrappers = maxvit_cuda.WRAPPERS + nms_cuda.WRAPPERS
     root = os.path.join(out, f"data{rank}")
     cfg = experiment_preset("gen4", "base")
@@ -4538,43 +4666,14 @@ def drive_space(refs=None, remat_peaks=None):
             fail(f"the space ranks' parameters or losses differ after step "
                  f"{i + 1}")
     one_steps = refs["one_steps"]
-    rel = [{k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
-            for k in StepSpy.KEYS}
-           for got, want in zip(tr[0]["steps"], one_steps)]
-    limits = [{k: DP_FP32_RTOL if i == 0 or k in ("loss", "num_fg")
-               else DP_FP32_LATER_NORM_RTOL for k in StepSpy.KEYS}
-              for i in range(DP_STEPS)]
-    if len(one_steps) != DP_STEPS or not all(
-            np.isfinite(s[k]) for r in tr for s in r["steps"]
-            for k in StepSpy.KEYS) or any(
-                r[k] > lim[k] for r, lim in zip(rel, limits) for k in r):
-        fail(f"two space ranks' fp32 steps {tr[0]['steps']} against one "
-             f"process's {one_steps}: relative differences {rel}")
+    rel = step_parity([r["steps"] for r in tr], one_steps,
+                      "two space ranks' fp32 steps")
     emit({"sp_fp32_parity": {"step_rel_diff": rel}})
     firsts = [torch.load(os.path.join(work, f"sp_first{r}.pt"))
               for r in range(SP_WORLD)]
-    one16 = refs["first_one"][torch.bfloat16]["preds"]
-    one32 = refs["first_one"][torch.float32]["preds"]
-    if any(f.shape != one16.shape for f in firsts) or \
-            not all(torch.equal(f, firsts[0]) for f in firsts):
-        fail(f"the space ranks' first bf16 head outputs "
-             f"{[tuple(f.shape) for f in firsts]} are not one whole map "
-             f"each, equal, of one process's {tuple(one16.shape)}")
-    bf16_parity, ok = {}, True
-    for cols, sl in (("boxes", slice(0, 4)), ("scores", slice(4, None))):
-        def dist(a, b):
-            return float((a[..., sl] - b[..., sl]).abs().max())
-        e = {"ranks_fp32": dist(firsts[0], one32),
-             "one_fp32": dist(one16, one32),
-             "ranks_one": dist(firsts[0], one16),
-             "max_plain": float(one16[..., sl].abs().max())}
-        ok = ok and e["ranks_fp32"] <= DP_BF16_NOISE * e["one_fp32"]
-        bf16_parity[cols] = e
+    bf16_parity = whole_map_bf16_parity(firsts, refs, "the space ranks")
     emit({"sp_bf16_first_step": bf16_parity})
-    if not ok:
-        fail(f"the first bf16 step of the space ranks against one process "
-             f"at B {GEN4_BATCH}: {bf16_parity}")
-    del firsts, one16, one32
+    del firsts
 
     # (c) every remat policy's first step against "full"'s, and a rank's
     # peak memory against one process's (phase 10(d))
@@ -4681,6 +4780,460 @@ def drive_space(refs=None, remat_peaks=None):
         e["launches"] = e["launches_eval"]
     report["phase_s"] = time.perf_counter() - t_phase
     return report, out, vis
+
+
+def tp_shard(blk, k: int):
+    """A copy of block `blk` cut to model rank 0's shard of k
+    (`parallel.tensor.shard_params`)."""
+    import copy
+    from types import SimpleNamespace
+    import torch
+    from leod_tpu_torch.parallel import tensor
+    b = copy.deepcopy(blk)
+    tensor.shard_params(torch.nn.ModuleList([b]),
+                        SimpleNamespace(model=k, model_index=0))
+    if b.attn.model_shards != k:
+        fail(f"a block of {blk.dim} channels does not shard {k} ways")
+    return b
+
+
+def phase_tp_kernels(det, batch: int, heads_local=None):
+    """The model axis's variants against their plain versions at `det`'s
+    stage shapes for `batch` slots: for each stage and each local head
+    count of `heads_local` below its heads (default: half of them, model
+    degree 2), model rank 0's shard of the stage's first pair through
+    `block_attention` (the head-shard kernel; window block with LN1
+    skipped and grid block), `block_mlp_tp` (on the map's rows and a
+    seeded fp32 sum of the out-projection) and `block_residual` (on the
+    plain x1 and partial p)."""
+    import torch
+    from leod_tpu_torch.models import layers as lay
+    from leod_tpu_torch.ops import maxvit_cuda as mc
+
+    bb = det.cfg.backbone
+    ps, eps = bb.partition_size, bb.norm_eps
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rows = {"block_attention": [], "block_mlp_tp": [], "block_residual": []}
+    for stage, shape, x, _, _ in stage_inputs(det, seed=1, batch=batch):
+        dim = shape[3]
+        heads = dim // bb.dim_head
+        wb, gb = stage.pairs()[0]
+        n_tok = batch * shape[1] * shape[2]
+        for hl in heads_local or (heads // 2,):
+            if hl >= heads or heads % hl:
+                continue
+            ws, gs = tp_shard(wb, heads // hl), tp_shard(gb, heads // hl)
+            extra = dict(shape=list(shape), batch=batch, heads=hl,
+                         degree=heads // hl)
+            for blk, grid_kind in ((ws, False), (gs, True)):
+                part, rev = ((lay.grid_partition, lay.grid_reverse)
+                             if grid_kind
+                             else (lay.window_partition, lay.window_reverse))
+
+                def attn_p(blk=blk, part=part, rev=rev):
+                    return rev(mc.block_attention_plain(part(x, *ps), blk),
+                               *ps, shape[1], shape[2])
+
+                r = kernel_row(lambda blk=blk, grid_kind=grid_kind:
+                               mc.block_attention(x, blk, grid_kind, eps),
+                               attn_p, *attn_work(blk, n_tok),
+                               kind="grid" if grid_kind else "window",
+                               **extra)
+                r["plan"] = list(mc.block_attention.plan)
+                rows["block_attention"].append(r)
+            xr = x.reshape(-1, dim)
+            a = torch.randn(xr.shape, device="cuda", generator=g)
+            r = kernel_row(lambda: mc.block_mlp_tp(xr, a, ws, bb.mlp_act,
+                                                   bb.mlp_gated, eps),
+                           lambda: mc.block_mlp_tp_plain(xr, a, ws),
+                           *mlp_tp_work(ws, n_tok), **extra)
+            r["plan"] = mc.block_mlp_tp.plan
+            rows["block_mlp_tp"].append(r)
+            x1, pp = mc.block_mlp_tp_plain(xr, a, ws)
+            rows["block_residual"].append(kernel_row(
+                lambda: mc.block_residual(x1, pp, ws),
+                lambda: mc.block_residual_plain(x1, pp, ws),
+                *residual_work(ws, n_tok), peak=PEAK_FP32, **extra))
+    return rows
+
+
+def _checksum_whole(det) -> str:
+    """`_checksum` of the tensors a model rank holds whole (every one but
+    the sharded blocks' `_TP_RULES` tensors)."""
+    import hashlib
+    import torch
+    from leod_tpu_torch.parallel import tensor
+    shards = tensor.sharded_tensors(det)
+    h = hashlib.sha256()
+    for k, v in det.state_dict().items():
+        if k in shards:
+            continue
+        h.update(k.encode())
+        h.update(v.detach().reshape(-1).cpu().contiguous()
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def join_ranks(rank: int, port: int, world: int) -> None:
+    """This process as rank `rank` of a gloo group of `world` rank
+    processes sharing the card (TF32 off for the fp32 comparisons)."""
+    import torch
+    from leod_tpu_torch.parallel.distributed import maybe_initialize
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    maybe_initialize(backend="gloo", timeout_s=DP_GROUP_TIMEOUT_S)
+
+
+def tp_rank(rank: int, port: int, out: str) -> None:
+    """One rank of phase 13(b)-(c) (`--tp-rank`): joins the gloo group
+    of TP_WORLD ranks on the one card as the model axis of a (1, 1,
+    TP_WORLD) mesh, then (b) `cli.train --mesh 1x1xTP_WORLD` for DP_STEPS
+    fp32 steps and the first step of a bf16 fit, (c) a streaming eval of
+    (b)'s checkpoint through the variants. Writes its report to
+    <out>/tp<r>.json, its eval frames to <out>/tp_eval<r>.pt and its
+    first bf16 head outputs to <out>/tp_first<r>.pt."""
+    from dataclasses import replace
+    import torch
+    from leod_tpu_torch.cli import train as cli_train
+    from leod_tpu_torch.cli._common import load_detector, open_split, ratio_of
+    from leod_tpu_torch.config import experiment_preset
+    from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
+    from leod_tpu_torch.parallel import tensor
+    from leod_tpu_torch.parallel.mesh import make_mesh
+    from leod_tpu_torch.train.trainer import Trainer, run_streaming_eval
+
+    t0 = time.perf_counter()
+    join_ranks(rank, port, TP_WORLD)
+    wrappers = maxvit_cuda.WRAPPERS + maxvit_cuda.TP_WRAPPERS + \
+        nms_cuda.WRAPPERS
+    root = os.path.join(out, f"data{rank}")
+    cfg = experiment_preset("gen4", "base")
+    cfg = replace(cfg, dataset=replace(cfg.dataset, path=root))
+    dst, mc = cfg.dataset, cfg.model
+    frames = dp_frames(root, cfg)
+    report = {"rank": rank, "device": torch.cuda.current_device(),
+              "start_s": time.perf_counter() - t0}
+
+    # (b) training through the CLI, then the first step of a bf16 fit
+    save = os.path.join(out, "runs")
+    spy = StepSpy(checksum=_checksum_whole)
+    _zero(wrappers)
+    tensor.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with spy:
+        final = cli_train.main(dp_argv(root, save, "tp", False)
+                               + ["--mesh", f"1x1x{TP_WORLD}"],
+                               frames=frames)
+    report["train"] = {
+        "cli_s": time.perf_counter() - t0, "step": final.step,
+        "steps": spy.steps, "launches": _count(wrappers),
+        "allreduce_ms": spy.timings.get("allreduce_ms", []),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "model_collectives": dict(tensor.STATS)}
+    del spy, final
+    torch.cuda.empty_cache()
+    mesh = make_mesh(TP_WORLD, model=TP_WORLD)
+    trainer = Trainer(dp_bf16_cfg(cfg, save, "tp_bf16"), mesh=mesh)
+    spy = StepSpy(first_step=True, checksum=_checksum_whole)
+    with spy:
+        trainer.fit(max_steps=1, state=trainer.init_state(GEN4_BATCH),
+                    log_every=1, sequences=open_split(dst, "train", frames))
+    report["shards"] = trainer.shards
+    trainer.close()
+    torch.save(spy.first["preds"], os.path.join(out, f"tp_first{rank}.pt"))
+    report["bf16"] = {"step_ms": spy.steps[0]["step_ms"],
+                      "checksum": spy.steps[0]["checksum"]}
+    del trainer, spy
+    torch.cuda.empty_cache()
+
+    # (c) a streaming eval of (b)'s checkpoint through the variants
+    det = load_detector(mc, torch.bfloat16, "cuda",
+                        ckpt=os.path.join(save, "tp", "ckpt_last.pt"))
+    store = {"frames": {}, "batches": []}
+    _zero(wrappers)
+    tensor.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = run_streaming_eval(
+        det, cfg, "val", device="cuda", on_batch=_eval_hook(store),
+        sequences=open_split(dst, "val", frames,
+                             seq_ratio=ratio_of(dst, "val")), mesh=mesh)
+    torch.cuda.synchronize()
+    report["eval"] = {
+        "val_s": time.perf_counter() - t0, "metrics": metrics,
+        "frames": len(store["frames"]), "launches": _count(wrappers),
+        "model_collectives": dict(tensor.STATS)}
+    report["eval"]["nms"] = _nms_exact(store["batches"], cfg,
+                                       f"model rank {rank}'s eval")
+    torch.save(store["frames"], os.path.join(out, f"tp_eval{rank}.pt"))
+    with open(os.path.join(out, f"tp{rank}.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+
+
+def tp3_rank(rank: int, port: int, out: str) -> None:
+    """One rank of phase 13(d) (`--tp3-rank`): TP3D_STEPS fp32 steps of
+    `cli.train --mesh 1x2x2` (the space and model axes together) with
+    phase 11's flags, in a gloo group of TP3D_WORLD ranks on the one
+    card. Writes its report to <out>/tp3<r>.json."""
+    from dataclasses import replace
+    import torch
+    from leod_tpu_torch.cli import train as cli_train
+    from leod_tpu_torch.config import experiment_preset
+    from leod_tpu_torch.parallel import space, tensor
+
+    t0 = time.perf_counter()
+    join_ranks(rank, port, TP3D_WORLD)
+    root = os.path.join(out, f"data{rank}")
+    cfg = experiment_preset("gen4", "base")
+    cfg = replace(cfg, dataset=replace(cfg.dataset, path=root))
+    frames = dp_frames(root, cfg)
+    report = {"rank": rank, "start_s": time.perf_counter() - t0}
+    argv = dp_argv(root, os.path.join(out, "runs3"), "tp3", False)
+    argv[argv.index("--steps") + 1] = str(TP3D_STEPS)
+    spy = StepSpy(checksum=_checksum_whole)
+    tensor.reset_counts()
+    space.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with spy:
+        final = cli_train.main(argv + ["--mesh", "1x2x2"], frames=frames)
+    report["train"] = {
+        "step": final.step, "steps": spy.steps,
+        "state_shape": list(final.states[0][0].shape),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "model_collectives": dict(tensor.STATS),
+        "space_collectives": {k: dict(v) for k, v in space.STATS.items()}}
+    with open(os.path.join(out, f"tp3{rank}.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+
+
+def drive_model(refs=None, one_peak_gib=None):
+    """Phase 13: RVT-B Gen4 tensor-parallel. (a) the variants at a model
+    rank's shards; (b) `cli.train --mesh 1x1x2` in fp32 against one
+    process, and a bf16 first step; (c) a streaming eval of (b)'s
+    checkpoint through the variants against one process's; (d) one fp32
+    step of `--mesh 1x2x2`. `refs` (phase 11's one-process steps and
+    first steps) and `one_peak_gib` (its CLI run's peak) are computed
+    here where not given (the phase run alone). Returns its report and
+    its kernels' entries of the JSON line ("<name>[Gen4 TP]")."""
+    from dataclasses import replace
+    import torch
+    from leod_tpu_torch.cli._common import load_detector, open_split, ratio_of
+    from leod_tpu_torch.config import experiment_preset
+    from leod_tpu_torch.models.detector import Detector
+    from leod_tpu_torch.train.trainer import run_streaming_eval
+
+    t_phase = time.perf_counter()
+    cfg = experiment_preset("gen4", "base")
+    bb = cfg.model.backbone
+    name = ("RVT-B gen4 (experiment_preset('gen4', 'base')), "
+            f"tensor-parallel over {TP_WORLD} ranks")
+    report = {"config": name, "card": card(), "mesh": [1, 1, TP_WORLD],
+              "batch": GEN4_BATCH, "window": cfg.dataset.sequence_length,
+              "note": "the ranks share one card over gloo: times show "
+                      "correctness and per-rank memory, not speed across "
+                      "cards"}
+
+    # (a) the variants at every Gen4 stage's shards, and at the Gen1
+    # RVT-B and RVT-S widths at model degree 2
+    t0 = time.perf_counter()
+    det = Detector(cfg.model, device="cuda", seed=0)
+    perturb_layerscale(det, seed=0)
+    rows = phase_tp_kernels(det, GEN4_BATCH, TP_HEADS)
+    del det
+    gen1 = {}
+    for tag, size in (("RVT-B", "base"), ("RVT-S", "small")):
+        gcfg = experiment_preset("gen1", size)
+        det = Detector(gcfg.model, device="cuda", seed=0)
+        perturb_layerscale(det, seed=0)
+        gen1[tag] = phase_tp_kernels(det, B)
+        del det
+    emit({"kernel_phase": {"config": name, **rows,
+                           "gen1_degree2": gen1}})
+    for kind, kind_rows in list(rows.items()) + [
+            (f"{t} {k}", v) for t, r in gen1.items() for k, v in r.items()]:
+        if not all(r["ok"] for r in kind_rows):
+            fail(f"model-axis {kind} disagrees with its plain version: "
+                 f"{[(r['shape'], r['heads'], r['max_abs_err'], r['tol']) for r in kind_rows]}")
+    report["kernels_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    work = os.path.join(REPO, "runs", "chip_smoke_tp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = replace(cfg, dataset=replace(cfg.dataset,
+                                       path=os.path.join(work, "data")))
+    frames = dp_frames(os.path.join(work, "data"), cfg)
+    if refs is None:
+        one, _, first_one = dp_one_process(cfg, work, frames)
+        refs = {"one_steps": one["steps"],
+                "first_one": {k: {"preds": v["preds"]}
+                              for k, v in first_one.items()}}
+        one_peak_gib = one["peak_gib"]
+        del one, first_one
+    torch.cuda.empty_cache()
+
+    # (b)-(c) in TP_WORLD rank processes
+    t0 = time.perf_counter()
+    procs, logs = launch_ranks(work, "--tp-rank", "tp", TP_WORLD)
+    ranks = wait_ranks(procs, logs, work, "phase 13", "tp",
+                       TP_RANK_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+
+    # (b) the fp32 steps against one process at B 12, the bf16 first step
+    tr = [r["train"] for r in ranks]
+    for r in ranks:
+        if r["shards"]["replicated"] or len(r["shards"]["sharded"]) != \
+                2 * sum(bb.num_blocks):
+            fail(f"model rank {r['rank']} sharded {r['shards']}: every "
+                 f"Gen4 stage's heads divide by {TP_WORLD}")
+    for r in tr:
+        if r["step"] != DP_STEPS or len(r["steps"]) != DP_STEPS or \
+                any(r["launches"].values()):
+            fail(f"a model rank took {r['step']} steps, launched "
+                 f"{r['launches']}")
+    for i in range(DP_STEPS):
+        if len({r["steps"][i]["checksum"] for r in tr}) != 1 or \
+                len({r["steps"][i]["loss"] for r in tr}) != 1:
+            fail(f"the model ranks' whole tensors or losses differ after "
+                 f"step {i + 1}")
+    if len({r["bf16"]["checksum"] for r in ranks}) != 1:
+        fail("the model ranks' whole tensors differ after the bf16 step")
+    one_steps = refs["one_steps"]
+    if len(one_steps) != DP_STEPS:
+        fail(f"one process took {len(one_steps)} steps")
+    rel = step_parity([r["steps"] for r in tr], one_steps,
+                      "two model ranks' fp32 steps")
+    emit({"tp_fp32_parity": {"step_rel_diff": rel}})
+    firsts = [torch.load(os.path.join(work, f"tp_first{r}.pt"))
+              for r in range(TP_WORLD)]
+    bf16_parity = whole_map_bf16_parity(firsts, refs, "the model ranks")
+    emit({"tp_bf16_first_step": bf16_parity})
+    del firsts
+
+    # (b) the checkpoint the ranks wrote holds whole tensors: it loads
+    # into one process; (c) the eval against one process's on it
+    ckpt = os.path.join(work, "runs", "tp", "ckpt_last.pt")
+    det = load_detector(cfg.model, torch.bfloat16, "cuda", ckpt=ckpt)
+    store = {"frames": {}, "batches": []}
+    one_metrics = run_streaming_eval(
+        det, cfg, "val", device="cuda", on_batch=_eval_hook(store),
+        sequences=open_split(cfg.dataset, "val", frames,
+                             seq_ratio=ratio_of(cfg.dataset, "val")))
+    del det
+    eval_parity = [_parity_frames(torch.load(os.path.join(work,
+                                                          f"tp_eval{r}.pt")),
+                                  store["frames"],
+                                  f"model rank {r}'s eval")
+                   for r in range(TP_WORLD)]
+    m0 = ranks[0]["eval"]["metrics"]
+    if any(r["eval"]["metrics"] != m0 for r in ranks):
+        fail(f"the model ranks' metrics differ: "
+             f"{[r['eval']['metrics'] for r in ranks]}")
+    if any(abs(m0[k] - one_metrics[k]) > EVAL_AP_TOL
+           for k in ("AP", "AP_50", "AP_75")):
+        fail(f"the tensor-parallel eval's metrics {m0} against one "
+             f"process's {one_metrics}")
+    for r in ranks:
+        quiet = [k for k, n in r["eval"]["launches"].items()
+                 if n == 0 and k != "block_mlp"]
+        if quiet or r["eval"]["launches"]["block_mlp"]:
+            fail(f"model rank {r['rank']}'s eval launched "
+                 f"{r['eval']['launches']}: every Gen4 block is sharded, "
+                 f"so each variant and no whole block_mlp")
+    emit({"tp_eval": {"parity": eval_parity, "metrics": m0,
+                      "one_process_metrics": one_metrics}})
+
+    # (d) the space and model axes together: one fp32 step on 1x2x2
+    t0 = time.perf_counter()
+    procs, logs = launch_ranks(work, "--tp3-rank", "tp3", TP3D_WORLD)
+    ranks3 = wait_ranks(procs, logs, work, "phase 13(d)", "tp3",
+                        TP_RANK_TIMEOUT_S)
+    ranks3_s = time.perf_counter() - t0
+    local = [GEN4_BATCH, bb.in_res_hw[0] // 4 // 2, bb.in_res_hw[1] // 4,
+             bb.stage_dims[0]]
+    t3 = [r["train"] for r in ranks3]
+    for r in t3:
+        if r["step"] != TP3D_STEPS or r["state_shape"] != local:
+            fail(f"a (1, 2, 2) rank took {r['step']} steps with states "
+                 f"{r['state_shape']} (not {local})")
+    for i in range(TP3D_STEPS):
+        if len({r["steps"][i]["loss"] for r in t3}) != 1 or \
+                len({r["steps"][i]["checksum"] for r in t3}) != 1:
+            fail(f"the (1, 2, 2) ranks' losses or whole tensors differ "
+                 f"after step {i + 1}")
+    rel3 = step_parity([r["steps"] for r in t3], one_steps,
+                       "the (1, 2, 2) ranks' fp32 step")
+    emit({"tp3_fp32_parity": {"step_rel_diff": rel3}})
+
+    report.update({
+        "one_process_step_ms": [s["step_ms"] for s in one_steps],
+        "one_process_peak_gib": one_peak_gib,
+        "fp32_step_rel_diff": rel, "bf16_first_step": bf16_parity,
+        "step_ms_per_rank": [[s["step_ms"] for s in r["steps"]] for r in tr],
+        "allreduce_ms_per_rank": [r["allreduce_ms"] for r in tr],
+        "train_peak_gib_per_rank": [r["peak_gib"] for r in tr],
+        "train_model_collectives_per_rank": [r["model_collectives"]
+                                             for r in tr],
+        "bf16_step_ms_per_rank": [r["bf16"]["step_ms"] for r in ranks],
+        "losses": [s["loss"] for s in tr[0]["steps"]],
+        "eval_metrics": m0, "one_process_eval_metrics": one_metrics,
+        "eval_parity": eval_parity,
+        "eval_nms": [r["eval"]["nms"] for r in ranks],
+        "eval_s_per_rank": [r["eval"]["val_s"] for r in ranks],
+        "eval_model_collectives_per_rank": [r["eval"]["model_collectives"]
+                                            for r in ranks],
+        "mesh_1x2x2": {
+            "step_rel_diff": rel3,
+            "step_ms_per_rank": [[s["step_ms"] for s in r["steps"]]
+                                 for r in t3],
+            "peak_gib_per_rank": [r["peak_gib"] for r in t3],
+            "model_collectives_per_rank": [r["model_collectives"]
+                                           for r in t3],
+            "space_collectives_per_rank": [r["space_collectives"]
+                                           for r in t3],
+            "ranks_s": ranks3_s},
+        "rank_start_s": [r["start_s"] for r in ranks], "ranks_s": ranks_s})
+    shutil.rmtree(work, ignore_errors=True)
+
+    src, pallas = ("leod_tpu_torch/csrc/maxvit.cu",
+                   "leod_tpu/ops/maxvit_pallas.py")
+    out = []
+    for kname, replaces, peak in (
+            ("block_attention", f"{pallas}:62", PEAK_BF16),
+            ("block_mlp_tp", f"{pallas}:92", PEAK_BF16),
+            ("block_residual", f"{pallas}:115", PEAK_FP32)):
+        e = _summary(kname + "[Gen4 TP]", replaces, source=src,
+                     shape_rows=rows[kname], launches=0, peak_ops=peak,
+                     step_batch=GEN4_BATCH)
+        # a step of model degree 2 (each stage's heads halved) is the
+        # entry's time and bound; the rows of the other degrees stay in
+        # per_shape
+        deg2 = [r for r in rows[kname] if r["degree"] == 2]
+        tot = {k: sum(r[k] for r in deg2)
+               for k in ("ms", "plain_ms", "flops", "bytes")}
+        bms, by = bound(tot["flops"], tot["bytes"], peak)
+        e.update(ms=tot["ms"], kernel_ms=tot["ms"], plain_ms=tot["plain_ms"],
+                 flops=tot["flops"], bytes=tot["bytes"], bound_ms=bms,
+                 bound_by=by, config=name,
+                 gen1_degree2={t: [{k: r[k] for k in ("shape", "heads", "ms",
+                                                      "plain_ms", "bound_ms",
+                                                      "max_abs_err", "tol")}
+                                   for r in g[kname]]
+                               for t, g in gen1.items()})
+        e["launches_eval"] = sum(r["eval"]["launches"].get(kname, 0)
+                                 for r in ranks)
+        e["launches"] = e["launches_eval"]
+        if not all(r["ok"] for g in gen1.values() for r in g[kname]):
+            e["ok"] = False
+        out.append(e)
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report, out
 
 
 PATHS = (("RVT-B", "base", True), ("RVT-S", "small", False))
@@ -4828,6 +5381,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--sp-rank"] and len(sys.argv) == 5:
         sp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return 0
+    if sys.argv[1:2] == ["--tp-rank"] and len(sys.argv) == 5:
+        tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
+    if sys.argv[1:2] == ["--tp3-rank"] and len(sys.argv) == 5:
+        tp3_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4856,6 +5415,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     sp, sp_kernels, vis = drive_space(dp_refs, gen4["remat_peak_gib"])
     emit({"space": sp})
+    torch.cuda.empty_cache()
+    tp, tp_kernels = drive_model(dp_refs, dp_refs["one_peak_gib"])
+    emit({"model": tp})
     # the first path's kernels also ran in the train phase's validation,
     # in the self-training phase, in the CLI phase, in the deploy phase
     # (the artifact's and the server's steps) and in phase 12's cli.vis
@@ -4869,7 +5431,7 @@ def main() -> int:
             e["launches"] += (e["launches_train"] + e["launches_selftrain"]
                               + e["launches_cli"] + e["launches_deploy"]
                               + e["launches_vis"])
-    kernels += gen4_kernels + dp_kernels + sp_kernels
+    kernels += gen4_kernels + dp_kernels + sp_kernels + tp_kernels
     emit({"kernels": kernels})
     bad = [k["name"] for k in kernels if not k["ok"]]
     if bad:

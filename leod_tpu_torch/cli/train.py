@@ -4,14 +4,16 @@
     python -m leod_tpu_torch.cli.train --synthetic --size tiny --steps 50 --cpu
     torchrun --nproc_per_node 2 -m leod_tpu_torch.cli.train --mesh 2 ...
     torchrun --nproc_per_node 4 -m leod_tpu_torch.cli.train --mesh 2x2 ...
+    torchrun --nproc_per_node 8 -m leod_tpu_torch.cli.train --mesh 2x2x2 ...
 
 Every flag of the JAX CLI maps to the same `ExperimentConfig`.
 `--mesh DP` trains data-parallel over a process group of DP ranks, one
 card each, as torchrun starts them (`parallel/`); `--mesh DPxSP` over
 DP x SP ranks, each data shard's image height split over SP of them
-(`parallel/space.py`). A mesh of another size than the group's raises,
-and so does the model axis (`--mesh DPxSPxTP` with TP > 1: ROADMAP.md
-A.1). Pred-vs-GT panels go into
+(`parallel/space.py`); `--mesh DPxSPxTP` over DP x SP x TP ranks, rank
+(d*SP + s)*TP + m holding model shard m of the transformer blocks
+(`parallel/tensor.py`). A mesh of another size than the group's raises.
+Pred-vs-GT panels go into
 <run_dir>/viz/ every `training.viz_every_steps` (the preset's 5000).
 Checkpoints are the port's `ckpt_<name>.pt` files (`--checkpoint` and
 `--weight` take `runs/<exp>/ckpt_last` or the file itself); an orbax
@@ -30,6 +32,7 @@ from typing import List, Optional
 
 from ..config import ExperimentConfig, derive, experiment_preset
 from ..convert import load_reference_checkpoint
+from ..models.detector import Detector
 from ..parallel.distributed import maybe_initialize
 from ..parallel.mesh import make_mesh
 from ..train.trainer import MetricLogger, Trainer
@@ -99,8 +102,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="device mesh: '2' = 2-way data parallel over a "
                          "process group of 2 ranks (torchrun "
                          "--nproc_per_node 2); '2x2' = 2 data shards, each "
-                         "height-sharded over 2 ranks (4 processes); the "
-                         "model (TP) axis is not ported (ROADMAP.md A.1)")
+                         "height-sharded over 2 ranks (4 processes); "
+                         "'2x2x2' = each of those ranks' transformer "
+                         "blocks tensor-parallel over 2 more (8 "
+                         "processes)")
     ap.add_argument("--wandb-project", default=None,
                     help="also stream metrics to WandB (needs the wandb "
                          "package)")
@@ -210,7 +215,11 @@ def main(argv: Optional[List[str]] = None, *, frames: Frames = None):
     elif state is None and args.weight:
         state = trainer.load_weights(args.weight, base)
     elif state is None and args.torch_weight:
-        load_reference_checkpoint(trainer.det, args.torch_weight)
+        # converted into a whole model, then cut to this rank's shards
+        whole = Detector(cfg.model, device=device_of(args), trainable=True)
+        load_reference_checkpoint(whole, args.torch_weight)
+        trainer.load_state(whole.state_dict())
+        del whole
         state = base
     elif state is None:
         state = base

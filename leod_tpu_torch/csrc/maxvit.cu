@@ -27,6 +27,7 @@
 //       shares a row tile: each projects C / size of the columns and
 //       runs a share of the hidden chunks, and their fp32 partial sums
 //       are added over distributed shared memory.
+//   block_residual_kernel  the model axis's last residual (below).
 //   lstm_update_kernel  the gate product [rows, 2C] x [2C, 4C] on wgmma,
 //       a CTA per 128 rows of B*H*W and 64 channels of all four gates,
 //       with x and h (no concat) and the weight streamed by TMA through
@@ -150,6 +151,13 @@ struct MlpArgs {
   bf16* out;      // holds the y rows until the last step overwrites them
   int R, inner, gated, act;
   float eps;
+  // the model axis's mode (tp = 1): the out-projection summed over the
+  // model group `a` (fp32, no bias) replaces o and GEMM0, `out` keeps
+  // the y rows (x1), and the fp32 partial MLP output, without its bias,
+  // goes to `part`
+  int tp;
+  const float* a;
+  float* part;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -584,6 +592,31 @@ __device__ __forceinline__ void mlp_project(const MlpArgs& p,
   }
 }
 
+// y = x + ls1 * (a + b) for this CTA's columns col0.. (ccols of them)
+// from the out-projection summed over the model group a (fp32), rounded
+// as the plain path rounds, into `out` (the model axis's mode).
+template <int C>
+__device__ __forceinline__ void mlp_residual_tp(const MlpArgs& p, int row0,
+                                                int col0, int ccols, int tid,
+                                                int nthreads) {
+  for (int i = tid; i < MLP_BM * ccols / 2; i += nthreads) {
+    const int r = i / (ccols / 2), col = col0 + (i % (ccols / 2)) * 2;
+    const int row = row0 + r;
+    if (row >= p.R) continue;
+    const size_t idx = static_cast<size_t>(row) * C + col;
+    const float2 av = *reinterpret_cast<const float2*>(p.a + idx);
+    float v0 = round_bf16(av.x + opt(p.proj_b, col));
+    float v1 = round_bf16(av.y + opt(p.proj_b, col + 1));
+    if (p.ls1) {
+      v0 = round_bf16(v0 * f32(p.ls1[col]));
+      v1 = round_bf16(v1 * f32(p.ls1[col + 1]));
+    }
+    const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(p.x + idx);
+    *reinterpret_cast<__nv_bfloat162*>(p.out + idx) =
+        __floats2bfloat162_rn(f32(xv.x) + v0, f32(xv.y) + v1);
+  }
+}
+
 // A cluster of CS CTAs (2, 4 or 8; the launch's cluster dimension x)
 // shares a row tile (a CTA launched alone has the tile to itself): CTA r
 // projects columns [r C/CS, (r+1) C/CS) and writes their y rows; after
@@ -592,6 +625,16 @@ __device__ __forceinline__ void mlp_project(const MlpArgs& p,
 // its fp32 [64, C] partial in its own shared memory, and CTA r sums the
 // peers' partials of its columns over distributed shared memory in rank
 // order (so runs agree bit for bit) and writes them out.
+//
+// The model axis's mode (p.tp, a block sharded over the model group,
+// parallel/tensor.py): the out-projection's sum crosses the ranks before
+// the residual, so o and GEMM0 give way to y = x + ls1 * (a + b) from
+// the summed projection a; LN2 is unchanged, the hidden chunks are this
+// rank's inner units (its rows of proj_in, of both halves where gated,
+// and its columns of proj_out: `inner` is the rank's), and the epilogue
+// writes the fp32 partial sum, without bias, LayerScale or residual,
+// to `part`; `out` keeps y (x1). The last residual waits for the
+// partials' sum over the ranks (block_residual_kernel).
 template <int C>
 __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
     block_mlp_kernel(const __grid_constant__ CUtensorMap m_proj,
@@ -612,7 +655,11 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
   const int tid = threadIdx.x;
   const int row0 = blockIdx.y * MLP_BM;
   const int hc = p.gated ? 32 : 64;
-  const int nchunks = p.inner / hc;
+  // an ungated inner dim of 32 mod 64 (a model rank's shard: RVT-S
+  // stage 1's 96 units) ends in a half chunk: TMA fills the weight rows
+  // and columns past `inner` with zeros, the bias reads stop there, so
+  // its missing units are act(0) = 0 and add nothing
+  const int nchunks = (p.inner + hc - 1) / hc;
   const int cs = static_cast<int>(cluster_size());
   const int rank = static_cast<int>(cluster_rank());
   const int j0 = rank * nchunks / cs, j1 = (rank + 1) * nchunks / cs;
@@ -639,7 +686,7 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
                        p.gated, col0, ccols / S::NWG, j0, j1, first, stage,
                        phase);
     };
-    produce(true);
+    if (!p.tp) produce(true);
     if (cs == 1) {
       produce(false);
       return;
@@ -662,24 +709,29 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
   int stage = 0;
   uint32_t phase = 0;
 
-  // 1. attention output rows into A, swizzled (zero past R)
+  // 1. attention output rows into A, swizzled (zero past R); none in
+  // the model axis's mode, whose A is LN2's alone
+  if (!p.tp) {
 #pragma unroll
-  for (int it = 0; it < MLP_BM * C / 8 / NCT; ++it) {
-    const int i = tid + it * NCT;
-    const int r = i / (C / 8), c8 = i % (C / 8);
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < p.R)
-      v = reinterpret_cast<const uint4*>(p.o + static_cast<size_t>(row0 + r) * C)[c8];
-    const int kb = c8 / (S::KB / 8), b = (c8 % (S::KB / 8)) * 16;
-    *reinterpret_cast<uint4*>(smem + kb * 64 * S::SW + swz(r, b, S::SW)) = v;
+    for (int it = 0; it < MLP_BM * C / 8 / NCT; ++it) {
+      const int i = tid + it * NCT;
+      const int r = i / (C / 8), c8 = i % (C / 8);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (row0 + r < p.R)
+        v = reinterpret_cast<const uint4*>(p.o + static_cast<size_t>(row0 + r) * C)[c8];
+      const int kb = c8 / (S::KB / 8), b = (c8 % (S::KB / 8)) * 16;
+      *reinterpret_cast<uint4*>(smem + kb * 64 * S::SW + swz(r, b, S::SW)) = v;
+    }
+    fence_async_smem();
+    consumer_sync(NCT);
   }
-  fence_async_smem();
-  consumer_sync(NCT);
 
   // 2. projection and residual for this CTA's columns, y rows to `out`
   // (a cluster size is taken only where each CTA's share of a warpgroup's
   // columns is a multiple of 8, wgmma's N step: mlp_cluster_ok)
-  if (cs == 1) {
+  if (p.tp) {
+    mlp_residual_tp<C>(p, row0, col0, ccols, tid, NCT);
+  } else if (cs == 1) {
     mlp_project<C, S::NW>(p, smem, full, empty, w, col0, row0, wr, q2, stage, phase);
   } else if (cs == 2) {
     if constexpr (S::NW % 16 == 0)
@@ -818,7 +870,9 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
 #pragma unroll
       for (int i = 0; i < HN / 8; ++i) {
         const int cl = w * HN + 8 * i + q2;
-        const float b0 = opt(p.in_b, j * 64 + cl), b1v = opt(p.in_b, j * 64 + cl + 1);
+        const int u = j * 64 + cl;
+        const float b0 = u < p.inner ? opt(p.in_b, u) : 0.f;
+        const float b1v = u + 1 < p.inner ? opt(p.in_b, u + 1) : 0.f;
 #pragma unroll
         for (int h = 0; h < 2; ++h)
           *reinterpret_cast<__nv_bfloat162*>(H + swz(wr + 8 * h, cl * 2, 128)) =
@@ -863,6 +917,21 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
   fence_regs<S::NW / 2>(acc);
   if (pend >= 0) mbar_arrive(&empty[pend]);
 
+  if (cs == 1 && p.tp) {
+    // alone on its tile, the model axis's mode: the fp32 partial
+#pragma unroll
+    for (int i = 0; i < S::NW / 8; ++i) {
+      const int col = w * S::NW + 8 * i + q2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + wr + 8 * h;
+        if (row >= p.R) continue;
+        *reinterpret_cast<float2*>(p.part + static_cast<size_t>(row) * C + col) =
+            make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+      }
+    }
+    return;
+  }
   if (cs == 1) {
     // alone on its tile: out = y + ls2 * (mlp + b) from the registers
 #pragma unroll
@@ -918,8 +987,12 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
       sum.z += v.z;
       sum.w += v.w;
     }
-    const float m[4] = {sum.x, sum.y, sum.z, sum.w};
     const size_t idx = static_cast<size_t>(row) * C + col;
+    if (p.tp) {
+      *reinterpret_cast<float4*>(p.part + idx) = sum;
+      continue;
+    }
+    const float m[4] = {sum.x, sum.y, sum.z, sum.w};
     const uint2 yraw = *reinterpret_cast<const uint2*>(p.out + idx);
     const bf16* y = reinterpret_cast<const bf16*>(&yraw);
     uint2 oraw;
@@ -964,6 +1037,12 @@ __global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
 // normalizes the r-th block of the tile's rows into its own tile, and
 // the bulk-copy engine copies the block into every peer's tile over
 // distributed shared memory, so LN1 runs once per token per launch.
+//
+// Head shards (the model axis, parallel/tensor.py): the launch's heads
+// are a count Hl at most C / DH, its q|k|v weight the [3 Hl DH, C] rows
+// of those heads (a contiguous block: the projection is packed
+// head-major), and o has Hl DH channels. C (LN1 and the product's K)
+// stays the token width, so one kernel per (C, DH) serves every shard.
 
 template <int C, int DH>
 struct AttnShape {
@@ -1005,6 +1084,7 @@ struct AttnArgs {
   const bf16 *x, *ln_w, *ln_b, *qkv_b;
   bf16* o;
   int H, W, ph, pw, grid_kind, nwin, nwindows, heads;   // heads a CTA
+  int oc;         // o's channels: the launch's heads x DH
   float eps, scale;
 };
 
@@ -1455,12 +1535,50 @@ __global__ void __launch_bounds__(AttnShape<C, DH>::THREADS, AttnShape<C, DH>::M
     for (int i = tid; i < nrows * NPT; i += S::NCT) {
       const int r = i / NPT, c = i % NPT, row = rows[r];
       if (row < 0) continue;
-      *reinterpret_cast<uint4*>(p.o + static_cast<size_t>(row) * C + head * DH + c * 8) =
+      *reinterpret_cast<uint4*>(p.o + static_cast<size_t>(row) * p.oc + head * DH + c * 8) =
           *reinterpret_cast<const uint4*>(qkv + qkv_off(r, c * 8));
     }
     consumer_sync(S::NCT);
   }
   if (cs > 1) cluster_wait();
+}
+
+// ---------------------------------------------------------------------------
+// The model axis's last residual: x2 = x1 + ls2 (p + out_b)
+// ---------------------------------------------------------------------------
+//
+// Replaces no TP kernel: the JAX package's model axis runs on its flax
+// path, whose last residual XLA fuses after GSPMD's all-reduce. Under the
+// port's model axis (parallel/tensor.py) the MLP's output is a partial
+// sum on each rank until that all-reduce, so block_mlp_kernel (its
+// model-axis mode) stops at the fp32 partial and this pass adds the
+// bias, LayerScale 2 and the residual, rounded as the plain path rounds.
+// One pass over 8 bytes of x1 and p and 2 of out per channel, no
+// product: bound by bytes. A thread takes 8 channels of a row (16 bytes
+// of x1 and out, 32 of p), a grid-stride loop the rows.
+__global__ void block_residual_kernel(const bf16* __restrict__ x1,
+                                      const float* __restrict__ p,
+                                      const bf16* __restrict__ out_b,
+                                      const bf16* __restrict__ ls2,
+                                      bf16* __restrict__ out, long n8, int C) {
+  for (long i = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x; i < n8;
+       i += static_cast<long>(gridDim.x) * blockDim.x) {
+    const int c0 = static_cast<int>(i * 8 % C);
+    const uint4 xr = reinterpret_cast<const uint4*>(x1)[i];
+    const float4 p0 = reinterpret_cast<const float4*>(p)[2 * i];
+    const float4 p1 = reinterpret_cast<const float4*>(p)[2 * i + 1];
+    const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+    const bf16* xv = reinterpret_cast<const bf16*>(&xr);
+    uint4 o;
+    bf16* ov = reinterpret_cast<bf16*>(&o);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      float v = round_bf16(pv[k] + opt(out_b, c0 + k));
+      if (ls2) v = round_bf16(v * f32(ls2[c0 + k]));
+      ov[k] = __float2bfloat16(f32(xv[k]) + v);
+    }
+    reinterpret_cast<uint4*>(out)[i] = o;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1946,8 +2064,9 @@ cudaError_t launch_mlp(const MlpArgs& a, const void* proj_w, const void* in_w,
                        const void* out_w, int cluster, cudaStream_t st) {
   using S = MlpShape<C>;
   const int hc = a.gated ? 32 : 64;
-  CUtensorMap m_proj, m_in, m_out;
-  if (!weight_map(&m_proj, proj_w, C, C, S::NW / cluster, S::KB) ||
+  CUtensorMap m_proj = {}, m_in, m_out;
+  // the model axis's mode reads no projection weight
+  if ((!a.tp && !weight_map(&m_proj, proj_w, C, C, S::NW / cluster, S::KB)) ||
       !weight_map(&m_in, in_w, a.gated ? 2 * a.inner : a.inner, C,
                   hc / S::NWG, S::KB) ||
       !weight_map(&m_out, out_w, C, a.inner, S::NW, hc))
@@ -2004,28 +2123,32 @@ long cluster_slots(void (*kernel)(K...), int threads, int smem, int cs,
 }
 
 // Plans and launches block_attention_kernel<C, DH> over a.nwindows windows of
-// T = ph * pw tokens. The plan deals `a.nwin` windows a CTA (at most what
-// its token tile holds) and `cs` CTAs to each window group, one head
-// group each (a cluster of 1, 2, 4, 8 or 16, at most the heads). The
+// T = ph * pw tokens and `heads` heads. The plan deals `a.nwin` windows a
+// CTA (at most what its token tile holds) and `cs` CTAs to each window
+// group, one head group each (a cluster of 1, 2, 4, 8 or 16 that divides
+// the heads). The
 // pair gives the most CTAs within one wave (the CTAs the card runs at
 // once in clusters of cs, by the occupancy calculator), the larger nwin
 // on a tie: each CTA pays its token gather and barriers, so splitting
 // past one wave only adds them. `cluster` > 0 fixes cs. The plan goes to
 // plan[0] (windows a CTA) and plan[1] (cs) where plan is not NULL.
 template <int C, int DH>
-cudaError_t launch_attention(AttnArgs a, const void* qkv_w, int cluster,
-                             int num_sms, int* plan, cudaStream_t st) {
+cudaError_t launch_attention(AttnArgs a, const void* qkv_w, int heads,
+                             int cluster, int num_sms, int* plan,
+                             cudaStream_t st) {
   using S = AttnShape<C, DH>;
-  const int heads = C / DH, tp = (a.ph * a.pw + 15) / 16 * 16;
+  const int tp = (a.ph * a.pw + 15) / 16 * 16;
   a.scale = 1.f / sqrtf(static_cast<float>(DH));
-  if (cluster > 0 && ((cluster & (cluster - 1)) || cluster > 16 || cluster > heads))
+  a.oc = heads * DH;
+  if (heads < 1 || heads > C / DH ||
+      (cluster > 0 && ((cluster & (cluster - 1)) || cluster > 16 || heads % cluster)))
     return cudaErrorInvalidValue;
   const int max_win = S::MP / tp;
   long best = -1;
   int cs = cluster > 0 ? cluster : 1;
   a.nwin = max_win;
   for (int c = 1; c <= 16 && c <= heads; c *= 2) {
-    if (cluster > 0 && c != cluster) continue;
+    if ((cluster > 0 && c != cluster) || heads % c) continue;
     const long slots = cluster_slots(block_attention_kernel<C, DH>, S::THREADS,
                                      S::SMEM, c, num_sms);
     for (int n = max_win; n >= 1; --n) {
@@ -2045,7 +2168,7 @@ cudaError_t launch_attention(AttnArgs a, const void* qkv_w, int cluster,
     plan[1] = cs;
   }
   CUtensorMap m_qkv;
-  if (!weight_map(&m_qkv, qkv_w, 3 * C, C, S::QKV_N, S::KB))
+  if (!weight_map(&m_qkv, qkv_w, 3 * heads * DH, C, S::QKV_N, S::KB))
     return cudaErrorInvalidValue;
   return launch(block_attention_kernel<C, DH>, dim3(cs, groups), S::THREADS,
                 S::SMEM, cs, st, m_qkv, a);
@@ -2066,12 +2189,21 @@ int mlp_smem_bytes(int C) {
   }
 }
 
+// Hidden chunks of block_mlp_kernel: 64 units (32 of each half gated);
+// an ungated inner dim may end in a half chunk (inner % 32 == 0 either
+// way: `mlp_inner_ok`)
+int mlp_chunks(int inner, int gated) {
+  const int hc = gated ? 32 : 64;
+  return (inner + hc - 1) / hc;
+}
+bool mlp_inner_ok(int inner) { return inner > 0 && inner % 32 == 0; }
+
 // The cluster sizes a width takes: each CTA projects a multiple of 8
 // columns a warpgroup (wgmma's N step) and owns at least one hidden chunk.
 bool mlp_cluster_ok(int C, int inner, int gated, int cluster) {
   const int nwg = C > 256 ? 2 : 1;
   return (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) &&
-         C % (nwg * 8 * cluster) == 0 && cluster <= inner / (gated ? 32 : 64);
+         C % (nwg * 8 * cluster) == 0 && cluster <= mlp_chunks(inner, gated);
 }
 
 // Plans and launches lstm_update_kernel<C, CT> over a.R rows: tiles of
@@ -2148,16 +2280,20 @@ cudaError_t launch_lstm_c(const void* x, const void* h, const void* c,
 
 // (C, dim_head) in {32, 64, 128, 256, 512} x {32} (RVT-T, RVT-B) and
 // {48, 96, 192, 384} x {24} (RVT-S), T = ph * pw <= 80; LN1 skipped
-// where ln_w and ln_b are NULL. `cluster` > 0 fixes how many CTAs
+// where ln_w and ln_b are NULL. `heads` (at most C / dim_head) are the
+// heads of qkv_w [3 heads dim_head, C], and o has heads * dim_head
+// channels: all of a block's heads, or a model rank's shard of them.
+// `cluster` > 0 fixes how many CTAs
 // (one head group each) share a window group; 0 lets the plan choose.
 // `plan` (NULL or two ints) receives the windows a CTA and the cluster
 // size the launch took.
 extern "C" int leod_block_attention(const void* x, void* o, const void* ln_w,
                                     const void* ln_b, const void* qkv_w,
                                     const void* qkv_b, int B, int H, int W,
-                                    int C, int dim_head, int ph, int pw,
-                                    int grid_kind, float eps, int cluster,
-                                    int num_sms, int* plan, void* stream) {
+                                    int C, int dim_head, int heads, int ph,
+                                    int pw, int grid_kind, float eps,
+                                    int cluster, int num_sms, int* plan,
+                                    void* stream) {
   if (B < 1 || ph < 1 || pw < 1 || H % ph || W % pw || ph * pw > ATTN_MAX_T ||
       (ln_w == nullptr) != (ln_b == nullptr))
     return cudaErrorInvalidValue;
@@ -2176,15 +2312,15 @@ extern "C" int leod_block_attention(const void* x, void* o, const void* ln_w,
   a.eps = eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dim_head == 32 ? C : (dim_head == 24 ? -C : 0)) {
-    case 32: return launch_attention<32, 32>(a, qkv_w, cluster, num_sms, plan, st);
-    case 64: return launch_attention<64, 32>(a, qkv_w, cluster, num_sms, plan, st);
-    case 128: return launch_attention<128, 32>(a, qkv_w, cluster, num_sms, plan, st);
-    case 256: return launch_attention<256, 32>(a, qkv_w, cluster, num_sms, plan, st);
-    case 512: return launch_attention<512, 32>(a, qkv_w, cluster, num_sms, plan, st);
-    case -48: return launch_attention<48, 24>(a, qkv_w, cluster, num_sms, plan, st);
-    case -96: return launch_attention<96, 24>(a, qkv_w, cluster, num_sms, plan, st);
-    case -192: return launch_attention<192, 24>(a, qkv_w, cluster, num_sms, plan, st);
-    case -384: return launch_attention<384, 24>(a, qkv_w, cluster, num_sms, plan, st);
+    case 32: return launch_attention<32, 32>(a, qkv_w, heads, cluster, num_sms, plan, st);
+    case 64: return launch_attention<64, 32>(a, qkv_w, heads, cluster, num_sms, plan, st);
+    case 128: return launch_attention<128, 32>(a, qkv_w, heads, cluster, num_sms, plan, st);
+    case 256: return launch_attention<256, 32>(a, qkv_w, heads, cluster, num_sms, plan, st);
+    case 512: return launch_attention<512, 32>(a, qkv_w, heads, cluster, num_sms, plan, st);
+    case -48: return launch_attention<48, 24>(a, qkv_w, heads, cluster, num_sms, plan, st);
+    case -96: return launch_attention<96, 24>(a, qkv_w, heads, cluster, num_sms, plan, st);
+    case -192: return launch_attention<192, 24>(a, qkv_w, heads, cluster, num_sms, plan, st);
+    case -384: return launch_attention<384, 24>(a, qkv_w, heads, cluster, num_sms, plan, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -2203,7 +2339,7 @@ extern "C" int leod_block_mlp_cluster(int R, int C, int inner, int gated,
   if (R < 1 || smem == 0) return 1;
   const long tiles = (R + MLP_BM - 1) / MLP_BM;
   const long slots = static_cast<long>(num_sms) * ((228 * 1024) / (smem + 1024));
-  const int chunks = inner / (gated ? 32 : 64);
+  const int chunks = mlp_chunks(inner, gated);
   int best = 1;
   for (int cs = 2; cs <= 8; cs *= 2)
     if (mlp_cluster_ok(C, inner, gated, cs) && chunks % cs == 0 &&
@@ -2222,10 +2358,10 @@ extern "C" int leod_block_mlp(const void* x, const void* o, void* out,
                               const void* out_b, const void* ls2, int R,
                               int C, int inner, int gated, int act, float eps,
                               int cluster, void* stream) {
-  if (R < 1 || inner % (gated ? 32 : 64) || ln_w == nullptr ||
+  if (R < 1 || !mlp_inner_ok(inner) || ln_w == nullptr ||
       ln_b == nullptr || !mlp_cluster_ok(C, inner, gated, cluster))
     return cudaErrorInvalidValue;
-  MlpArgs a;
+  MlpArgs a = {};
   a.x = static_cast<const bf16*>(x);
   a.o = static_cast<const bf16*>(o);
   a.proj_b = static_cast<const bf16*>(proj_b);
@@ -2254,6 +2390,70 @@ extern "C" int leod_block_mlp(const void* x, const void* o, void* out,
     case 512: return launch_mlp<512>(a, proj_w, in_w, out_w, cluster, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The model axis's mode of block_mlp_kernel: from x and the
+// out-projection summed over the model group a (fp32 [R, C], no bias),
+// x1 = x + ls1 (a + proj_b) into x1 and this rank's fp32 partial MLP
+// output (its `inner` units, no bias) into part. C and the cluster as
+// leod_block_mlp's.
+extern "C" int leod_block_mlp_tp(const void* x, const void* a, void* x1,
+                                 void* part, const void* proj_b,
+                                 const void* ls1, const void* ln_w,
+                                 const void* ln_b, const void* in_w,
+                                 const void* in_b, const void* out_w, int R,
+                                 int C, int inner, int gated, int act,
+                                 float eps, int cluster, void* stream) {
+  if (R < 1 || !mlp_inner_ok(inner) || ln_w == nullptr ||
+      ln_b == nullptr || a == nullptr || part == nullptr ||
+      !mlp_cluster_ok(C, inner, gated, cluster))
+    return cudaErrorInvalidValue;
+  MlpArgs m = {};
+  m.x = static_cast<const bf16*>(x);
+  m.proj_b = static_cast<const bf16*>(proj_b);
+  m.ls1 = static_cast<const bf16*>(ls1);
+  m.ln_w = static_cast<const bf16*>(ln_w);
+  m.ln_b = static_cast<const bf16*>(ln_b);
+  m.in_b = static_cast<const bf16*>(in_b);
+  m.out = static_cast<bf16*>(x1);
+  m.R = R;
+  m.inner = inner;
+  m.gated = gated;
+  m.act = act;
+  m.eps = eps;
+  m.tp = 1;
+  m.a = static_cast<const float*>(a);
+  m.part = static_cast<float*>(part);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 32: return launch_mlp<32>(m, nullptr, in_w, out_w, cluster, st);
+    case 48: return launch_mlp<48>(m, nullptr, in_w, out_w, cluster, st);
+    case 64: return launch_mlp<64>(m, nullptr, in_w, out_w, cluster, st);
+    case 96: return launch_mlp<96>(m, nullptr, in_w, out_w, cluster, st);
+    case 128: return launch_mlp<128>(m, nullptr, in_w, out_w, cluster, st);
+    case 192: return launch_mlp<192>(m, nullptr, in_w, out_w, cluster, st);
+    case 256: return launch_mlp<256>(m, nullptr, in_w, out_w, cluster, st);
+    case 384: return launch_mlp<384>(m, nullptr, in_w, out_w, cluster, st);
+    case 512: return launch_mlp<512>(m, nullptr, in_w, out_w, cluster, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// out = x1 + ls2 (p + out_b) over R rows of C channels (a multiple of
+// 8): x1 and out bf16, p fp32, out_b and ls2 NULL where absent.
+extern "C" int leod_block_residual(const void* x1, const void* p,
+                                   const void* out_b, const void* ls2,
+                                   void* out, int R, int C, void* stream) {
+  if (R < 1 || C < 8 || C % 8) return cudaErrorInvalidValue;
+  const long n8 = static_cast<long>(R) * C / 8;
+  const int threads = 256;
+  const long blocks = (n8 + threads - 1) / threads;
+  block_residual_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096),
+                          threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x1), static_cast<const float*>(p),
+      static_cast<const bf16*>(out_b), static_cast<const bf16*>(ls2),
+      static_cast<bf16*>(out), n8, C);
+  return cudaGetLastError();
 }
 
 // C in {32, 48, 64, 96, 128, 192, 256, 384, 512}; x, h, w [4C, 2C], b

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import distributed as pdist
-from ..parallel import space
+from ..parallel import space, tensor
 from ..parallel.space import space_conv2d
 
 
@@ -95,20 +95,27 @@ def attention_core(x: torch.Tensor, qkv_weight: torch.Tensor,
                    qkv_bias: Optional[torch.Tensor],
                    dim_head: int) -> torch.Tensor:
     """Multi-head attention before the output projection on tokens
-    [N, T, C], the qkv projection packed head-major (`SelfAttention`)."""
-    n, t, c = x.shape
-    heads = c // dim_head
+    [N, T, C] -> [N, T, heads * dim_head], the qkv projection packed
+    head-major (`SelfAttention`). The heads are the weight's rows / (3 *
+    dim_head): all of them, or a model rank's shard of them."""
+    n, t, _ = x.shape
+    heads = qkv_weight.shape[0] // (3 * dim_head)
     qkv = F.linear(x, qkv_weight, qkv_bias).reshape(n, t, heads, 3 * dim_head)
     q, k, v = (u.transpose(1, 2) for u in qkv.split(dim_head, -1))
     attn = (q @ k.transpose(-1, -2)) * dim_head ** -0.5
     attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)
-    return (attn @ v).transpose(1, 2).reshape(n, t, c)
+    return (attn @ v).transpose(1, 2).reshape(n, t, heads * dim_head)
 
 
 class SelfAttention(nn.Module):
     """MHSA on token sequences [N, T, C]. The qkv projection is packed
     head-major: channel = head*3*dh + {q, k, v}*dh (layers.py:106-108),
-    not PyTorch's [q | k | v]."""
+    not PyTorch's [q | k | v]. Where `parallel.tensor.shard_params` kept
+    a model rank's heads (`model_shards` > 1), the forward runs inside
+    `model_shard`: those heads, then the row-parallel projection summed
+    over the model group."""
+
+    model_shards = 1
 
     def __init__(self, dim: int, dim_head: int = 32, use_bias: bool = True):
         super().__init__()
@@ -117,12 +124,16 @@ class SelfAttention(nn.Module):
         self.proj = nn.Linear(dim, dim, bias=use_bias)
 
     def core(self, x: torch.Tensor) -> torch.Tensor:
-        """Attention before the output projection: [N, T, C] -> [N, T, C]."""
+        """Attention before the output projection: [N, T, C] -> [N, T,
+        heads * dim_head] of this module's heads."""
         return attention_core(x, self.qkv.weight, self.qkv.bias,
                               self.dim_head)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj(self.core(x))
+        if self.model_shards == 1:
+            return self.proj(self.core(x))
+        return tensor.row_parallel(self.core(tensor.copy_to_model(x)),
+                                   self.proj.weight, self.proj.bias)
 
 
 def mlp_inner_dim(dim: int, expansion_ratio: int, gated: bool) -> int:
@@ -132,23 +143,36 @@ def mlp_inner_dim(dim: int, expansion_ratio: int, gated: bool) -> int:
     return dim * expansion_ratio
 
 
+def mlp_hidden(x: torch.Tensor, in_weight: torch.Tensor,
+               in_bias: Optional[torch.Tensor], act: str,
+               gated: bool) -> torch.Tensor:
+    """The FFN's activated inner units on [..., C]: act(x W + b), or
+    with the gate [value | gate] value * act(gate)."""
+    fn = get_act(act)
+    h = F.linear(x, in_weight, in_bias)
+    if gated:
+        h, gate = h.chunk(2, dim=-1)
+        return h * fn(gate)
+    return fn(h)
+
+
 def mlp_apply(x: torch.Tensor, in_weight: torch.Tensor,
               in_bias: Optional[torch.Tensor], out_weight: torch.Tensor,
               out_bias: Optional[torch.Tensor], act: str,
               gated: bool) -> torch.Tensor:
     """The FFN of `MLP` on [..., C], from its weights."""
-    fn = get_act(act)
-    h = F.linear(x, in_weight, in_bias)
-    if gated:
-        h, gate = h.chunk(2, dim=-1)
-        h = h * fn(gate)
-    else:
-        h = fn(h)
-    return F.linear(h, out_weight, out_bias)
+    return F.linear(mlp_hidden(x, in_weight, in_bias, act, gated),
+                    out_weight, out_bias)
 
 
 class MLP(nn.Module):
-    """Transformer FFN; optional GLU gate `half * act(half)`."""
+    """Transformer FFN; optional GLU gate `half * act(half)`. Where
+    `parallel.tensor.shard_params` kept a model rank's inner units
+    (`model_shards` > 1), the forward runs inside `model_shard`: those
+    units, then the row-parallel `proj_out` summed over the model
+    group."""
+
+    model_shards = 1
 
     def __init__(self, dim: int, expansion_ratio: int = 4, act: str = "gelu",
                  gated: bool = False, use_bias: bool = True):
@@ -160,15 +184,23 @@ class MLP(nn.Module):
         self.proj_out = nn.Linear(inner, dim, bias=use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return mlp_apply(x, self.proj_in.weight, self.proj_in.bias,
-                         self.proj_out.weight, self.proj_out.bias, self.act,
-                         self.gated)
+        if self.model_shards == 1:
+            return mlp_apply(x, self.proj_in.weight, self.proj_in.bias,
+                             self.proj_out.weight, self.proj_out.bias,
+                             self.act, self.gated)
+        h = mlp_hidden(tensor.copy_to_model(x), self.proj_in.weight,
+                       self.proj_in.bias, self.act, self.gated)
+        return tensor.row_parallel(h, self.proj_out.weight,
+                                   self.proj_out.bias)
 
 
 class PartitionAttention(nn.Module):
     """Pre-norm window/grid attention + FFN with LayerScale, in token
     form: the input is ALREADY partitioned [N, T, C] for this block's
-    partition type, and every op is per token or per window."""
+    partition type, and every op is per token or per window. A block
+    sharded over the model axis runs its rank's heads and inner units
+    inside `parallel.tensor.model_shard` (`SelfAttention`, `MLP`); the
+    residuals, norms and LayerScale see whole tokens on every rank."""
 
     def __init__(self, dim: int, partition_size: Tuple[int, int],
                  partition_type: str, skip_first_norm: bool = False,

@@ -43,17 +43,19 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ..parallel import space
+from ..parallel import space, tensor
 from ..models.layers import (PartitionAttention, _SplitGateConv,
                              attention_core, block_pair_tokens,
                              grid_partition, grid_reverse, mlp_apply,
-                             window_partition, window_reverse)
+                             mlp_hidden, window_partition, window_reverse)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
-    "leod_block_attention": [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P, _P],
+    "leod_block_attention": [_P] * 6 + [_I] * 9 + [_F, _I, _I, _P, _P],
     "leod_block_mlp": [_P] * 13 + [_I] * 5 + [_F, _I, _P],
+    "leod_block_mlp_tp": [_P] * 11 + [_I] * 5 + [_F, _I, _P],
     "leod_block_mlp_cluster": [_I] * 5,
+    "leod_block_residual": [_P] * 5 + [_I] * 2 + [_P],
     "leod_lstm_update": [_P] * 7 + [_I] * 5 + [_P, _P],
 }
 _ACTS = {"gelu": 0, "silu": 1, "relu": 2}
@@ -63,6 +65,15 @@ ATTN_SHAPES = frozenset([(32, 32), (64, 32), (128, 32), (256, 32), (512, 32),
                          (48, 24), (96, 24), (192, 24), (384, 24)])
 # the widths C `block_mlp`'s and `lstm_update`'s kernels are built for
 KERNEL_DIMS = tuple(sorted(c for c, _ in ATTN_SHAPES))
+# (C, heads) pairs `block_attention`'s kernel takes: every head of a
+# width, or a model rank's shard of them (`parallel/tensor.py`): at
+# heads of 32 a power of two below the width's heads (model degrees 2-16
+# of RVT-T and RVT-B), at heads of 24 half of them (RVT-S at degree 2)
+ATTN_HEADS = frozenset(
+    [(c, c // dh) for c, dh in ATTN_SHAPES]
+    + [(c, h) for c, dh in ATTN_SHAPES if dh == 32 for h in (1, 2, 4, 8)
+       if h < c // dh]
+    + [(c, c // dh // 2) for c, dh in ATTN_SHAPES if dh == 24])
 MAX_TOKENS = 80        # block_attention's largest partition ph * pw
 
 
@@ -118,6 +129,13 @@ def _norm1(blk: PartitionAttention):
                                                      blk.norm1.bias)
 
 
+def _mlp_tp_weights(blk: PartitionAttention) -> tuple:
+    """The weights `block_mlp_kernel`'s model-axis mode reads."""
+    mlp = blk.mlp
+    return (blk.attn.proj.bias, blk.ls1, blk.norm2.weight, blk.norm2.bias,
+            mlp.proj_in.weight, mlp.proj_in.bias, mlp.proj_out.weight)
+
+
 def _mlp_weights(blk: PartitionAttention) -> tuple:
     """The weights `block_mlp_kernel` reads, in the op's order."""
     attn, mlp = blk.attn, blk.mlp
@@ -153,11 +171,28 @@ def _lstm_fn(x, h_prev, c_prev, weight, bias
     return (o * torch.tanh(c)).to(x.dtype), c.to(c_prev.dtype)
 
 
+def _mlp_tp_fn(x, a, proj_b, ls1, norm_w, norm_b, in_w, in_b, out_w,
+               act: str, gated: bool, eps: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    y = (a if proj_b is None else a + proj_b.float()).to(x.dtype)
+    x = x + (y if ls1 is None else y * ls1)
+    h = mlp_hidden(F.layer_norm(x, (x.shape[-1],), norm_w, norm_b, eps),
+                   in_w, in_b, act, gated)
+    return x, F.linear(h.float(), out_w.float())
+
+
+def _residual_fn(x, p, out_b, ls2) -> torch.Tensor:
+    y = (p if out_b is None else p + out_b.float()).to(x.dtype)
+    return x + (y if ls2 is None else y * ls2)
+
+
 def block_attention_plain(x: torch.Tensor,
                           blk: PartitionAttention) -> torch.Tensor:
     """The half of a block that `block_attention_kernel` computes, on
     partitioned tokens [N, T, C]: LayerNorm 1 (unless skipped) and
-    attention up to, not including, the output projection."""
+    attention up to, not including, the output projection, of the
+    block's heads ([N, T, heads * dim_head]: all of them, or a model
+    rank's shard)."""
     return blk.attn.core(x if blk.skip_first_norm else blk.norm1(x))
 
 
@@ -170,6 +205,27 @@ def block_mlp_plain(x: torch.Tensor, o: torch.Tensor,
     `blk(x)`."""
     return _mlp_fn(x, o, *_mlp_weights(blk), blk.mlp.act, blk.mlp.gated,
                    blk.norm2.eps)
+
+
+def block_mlp_tp_plain(x: torch.Tensor, a: torch.Tensor,
+                       blk: PartitionAttention
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-token half of a block sharded over the model axis, after
+    the out-projection's partial sums were added over the model group:
+    from x [..., C] and that sum a (fp32, no bias), x1 = x + ls1 (a +
+    proj_b) (each step rounded to x's dtype), LayerNorm 2, this rank's
+    inner units and their activation, and the partial MLP output p =
+    h W_out[:, m]^T in fp32 without its bias. Returns (x1, p)."""
+    return _mlp_tp_fn(x, a, *_mlp_tp_weights(blk), blk.mlp.act,
+                      blk.mlp.gated, blk.norm2.eps)
+
+
+def block_residual_plain(x1: torch.Tensor, p: torch.Tensor,
+                         blk: PartitionAttention) -> torch.Tensor:
+    """The block's last residual from the MLP's output summed over the
+    model group p (fp32, no bias): x1 + ls2 (p + out_b), each step
+    rounded to x1's dtype."""
+    return _residual_fn(x1, p, blk.mlp.proj_out.bias, blk.ls2)
 
 
 def fused_block_pair_plain(x: torch.Tensor, window_block: PartitionAttention,
@@ -217,6 +273,14 @@ _LIB.define(
     "Tensor? in_bias, Tensor out_weight, Tensor? out_bias, Tensor? ls2, "
     "str act, bool gated, float eps, int cluster) -> Tensor")
 _LIB.define(
+    "block_mlp_tp(Tensor x, Tensor a, Tensor? proj_bias, Tensor? ls1, "
+    "Tensor norm_weight, Tensor norm_bias, Tensor in_weight, "
+    "Tensor? in_bias, Tensor out_weight, str act, bool gated, float eps, "
+    "int cluster) -> (Tensor, Tensor)")
+_LIB.define(
+    "block_residual(Tensor x1, Tensor p, Tensor? out_bias, Tensor? ls2) "
+    "-> Tensor")
+_LIB.define(
     "lstm_update(Tensor x, Tensor h_prev, Tensor c_prev, Tensor weight, "
     "Tensor bias, int cluster) -> (Tensor, Tensor)")
 
@@ -240,19 +304,24 @@ def _attention_cuda(x, norm_weight, norm_bias, qkv_weight, qkv_bias,
     _require_cuda("block_attention", x, qkv_weight, qkv_bias, norm_weight,
                   norm_bias)
     b, h, w, c = x.shape if x.dim() == 4 else (0,) * 4
-    if ((c, dim_head) not in ATTN_SHAPES or h % ph or w % pw
-            or ph * pw > MAX_TOKENS or b == 0):
+    heads = qkv_weight.shape[0] // (3 * dim_head)
+    if ((c, dim_head) not in ATTN_SHAPES or (c, heads) not in ATTN_HEADS
+            or tuple(qkv_weight.shape) != (3 * heads * dim_head, c)
+            or h % ph or w % pw or ph * pw > MAX_TOKENS or b == 0):
         raise ValueError(
             f"block_attention: x [B, H, W, C] with (C, dim_head) in "
-            f"{sorted(ATTN_SHAPES)}, H and W multiples of the partition, "
-            f"ph * pw <= {MAX_TOKENS}; got {tuple(x.shape)}, dim_head "
-            f"{dim_head}, partition {(ph, pw)}")
-    o = torch.empty_like(x)
+            f"{sorted(ATTN_SHAPES)}, qkv [3 heads dim_head, C] with (C, "
+            f"heads) in {sorted(ATTN_HEADS)}, H and W multiples of the "
+            f"partition, ph * pw <= {MAX_TOKENS}; got {tuple(x.shape)}, "
+            f"qkv {tuple(qkv_weight.shape)}, dim_head {dim_head}, "
+            f"partition {(ph, pw)}")
+    o = x.new_empty(b, h, w, heads * dim_head)
     plan = (ctypes.c_int * 2)()
     _build.check("leod_block_attention", _lib().leod_block_attention(
         x.data_ptr(), o.data_ptr(), _ptr(norm_weight), _ptr(norm_bias),
-        qkv_weight.data_ptr(), _ptr(qkv_bias), b, h, w, c, dim_head, ph, pw,
-        int(grid_kind), eps, cluster, _num_sms(x.device), plan, _stream(x)))
+        qkv_weight.data_ptr(), _ptr(qkv_bias), b, h, w, c, dim_head, heads,
+        ph, pw, int(grid_kind), eps, cluster, _num_sms(x.device), plan,
+        _stream(x)))
     block_attention.plan = (plan[0], plan[1])
     block_attention.launches += 1
     return o
@@ -294,6 +363,66 @@ def _mlp_cuda(x, o, proj_w, proj_b, ls1, norm_w, norm_b, in_w, in_b, out_w,
     return out
 
 
+def _mlp_tp_cpu(x, a, proj_b, ls1, norm_w, norm_b, in_w, in_b, out_w, act,
+                gated, eps, cluster):
+    return _mlp_tp_fn(x, a, proj_b, ls1, norm_w, norm_b, in_w, in_b, out_w,
+                      act, gated, eps)
+
+
+def _mlp_tp_cuda(x, a, proj_b, ls1, norm_w, norm_b, in_w, in_b, out_w, act,
+                 gated, eps, cluster):
+    if act not in _ACTS:
+        raise ValueError(f"the CUDA block takes act in {sorted(_ACTS)}")
+    _require_cuda("block_mlp_tp", x, proj_b, ls1, norm_w, norm_b, in_w,
+                  in_b, out_w)
+    c = x.shape[-1]
+    inner = out_w.shape[1]
+    if (a.shape != x.shape or a.dtype != torch.float32 or not a.is_cuda
+            or not a.is_contiguous() or c not in KERNEL_DIMS
+            or x.numel() == 0 or tuple(out_w.shape) != (c, inner)
+            or in_w.shape[0] != inner * (2 if gated else 1) or inner % 32):
+        raise ValueError(
+            f"block_mlp_tp: x [..., C] bf16 and a [..., C] fp32 of one shape, "
+            f"C in {KERNEL_DIMS}, this rank's inner units a multiple of 32; "
+            f"got {tuple(x.shape)}, {tuple(a.shape)} {a.dtype}, proj_out "
+            f"{tuple(out_w.shape)}")
+    lib = _lib()
+    rows = x.numel() // c
+    if not cluster:
+        cluster = lib.leod_block_mlp_cluster(rows, c, inner, int(gated),
+                                             _num_sms(x.device))
+    x1 = torch.empty_like(x)
+    p = torch.empty_like(a)
+    _build.check("leod_block_mlp_tp", lib.leod_block_mlp_tp(
+        x.data_ptr(), a.data_ptr(), x1.data_ptr(), p.data_ptr(),
+        _ptr(proj_b), _ptr(ls1), norm_w.data_ptr(), norm_b.data_ptr(),
+        in_w.data_ptr(), _ptr(in_b), out_w.data_ptr(), rows, c, inner,
+        int(gated), _ACTS[act], eps, cluster, _stream(x)))
+    block_mlp_tp.plan = cluster
+    block_mlp_tp.launches += 1
+    return x1, p
+
+
+def _residual_cpu(x1, p, out_b, ls2):
+    return _residual_fn(x1, p, out_b, ls2)
+
+
+def _residual_cuda(x1, p, out_b, ls2):
+    _require_cuda("block_residual", x1, out_b, ls2)
+    c = x1.shape[-1]
+    if (p.shape != x1.shape or p.dtype != torch.float32 or not p.is_cuda
+            or not p.is_contiguous() or c % 8 or x1.numel() == 0):
+        raise ValueError(f"block_residual: x1 [..., C] bf16 and p [..., C] "
+                         f"fp32 of one shape, C a multiple of 8; got "
+                         f"{tuple(x1.shape)}, {tuple(p.shape)} {p.dtype}")
+    out = torch.empty_like(x1)
+    _build.check("leod_block_residual", _lib().leod_block_residual(
+        x1.data_ptr(), p.data_ptr(), _ptr(out_b), _ptr(ls2), out.data_ptr(),
+        x1.numel() // c, c, _stream(x1)))
+    block_residual.launches += 1
+    return out
+
+
 def _lstm_cpu(x, h_prev, c_prev, weight, bias, cluster):
     return _lstm_fn(x, h_prev, c_prev, weight, bias)
 
@@ -329,19 +458,32 @@ def _lstm_cuda(x, h_prev, c_prev, weight, bias, cluster):
 for _name, _cpu, _cuda in (("block_attention", _attention_cpu,
                             _attention_cuda),
                            ("block_mlp", _mlp_cpu, _mlp_cuda),
+                           ("block_mlp_tp", _mlp_tp_cpu, _mlp_tp_cuda),
+                           ("block_residual", _residual_cpu, _residual_cuda),
                            ("lstm_update", _lstm_cpu, _lstm_cuda)):
     _LIB.impl(_name, _cpu, "CPU")
     _LIB.impl(_name, _cuda, "CUDA")
 
 
 @torch.library.register_fake("leod_tpu_torch::block_attention", lib=_LIB)
-def _attention_fake(x, *args):
-    return torch.empty_like(x)
+def _attention_fake(x, norm_weight, norm_bias, qkv_weight, qkv_bias,
+                    dim_head, *args):
+    return x.new_empty(x.shape[:-1] + (qkv_weight.shape[0] // 3,))
 
 
 @torch.library.register_fake("leod_tpu_torch::block_mlp", lib=_LIB)
 def _mlp_fake(x, *args):
     return torch.empty_like(x)
+
+
+@torch.library.register_fake("leod_tpu_torch::block_mlp_tp", lib=_LIB)
+def _mlp_tp_fake(x, a, *args):
+    return torch.empty_like(x), torch.empty_like(a)
+
+
+@torch.library.register_fake("leod_tpu_torch::block_residual", lib=_LIB)
+def _residual_fake(x1, *args):
+    return torch.empty_like(x1)
 
 
 @torch.library.register_fake("leod_tpu_torch::lstm_update", lib=_LIB)
@@ -362,8 +504,9 @@ def block_attention(x: torch.Tensor, blk: PartitionAttention,
     """The attention half of a block (`block_attention_plain`) on an NHWC
     map x [B, H, W, C]: the window (or, with `grid_kind`, grid)
     partition, LayerNorm 1 unless the block skips it, and attention up to
-    the output projection; returns o [B, H, W, C] at the tokens' NHWC
-    positions. `cluster` (1, 2, 4, 8 or 16) forces how many CTAs, one head
+    the output projection, of the block's heads (all of them, or a model
+    rank's shard); returns o [B, H, W, heads * dim_head] at the tokens'
+    NHWC positions. `cluster` (1, 2, 4, 8 or 16) forces how many CTAs, one head
     group each, share a group of windows (tests only; by default the
     kernel's plan picks). On the card, `block_attention.plan` is the last
     launch's (windows a CTA, CTAs a cluster)."""
@@ -395,6 +538,61 @@ def block_mlp(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
 
 block_mlp.launches = 0
 block_mlp.plan = None
+
+
+def block_mlp_tp(x: torch.Tensor, a: torch.Tensor, blk: PartitionAttention,
+                 act: str = "gelu", gated: bool = False, eps: float = 1e-5,
+                 *, cluster: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-token half of a block sharded over the model axis
+    (`block_mlp_tp_plain`) on token rows x [..., C] and the summed
+    out-projection a [..., C] (fp32): (x1, this rank's partial MLP output
+    p in fp32). On the card `block_mlp_kernel` in its model-axis mode;
+    `cluster` as `block_mlp`'s, `block_mlp_tp.plan` the last launch's."""
+    if blk.mlp.act != act or blk.mlp.gated != gated:
+        raise ValueError("block module config disagrees with the call's "
+                         "act/gated")
+    return _OPS.block_mlp_tp.default(x, a, *_mlp_tp_weights(blk), act, gated,
+                                     eps, cluster or 0)
+
+
+block_mlp_tp.launches = 0
+block_mlp_tp.plan = None
+
+
+def block_residual(x1: torch.Tensor, p: torch.Tensor,
+                   blk: PartitionAttention) -> torch.Tensor:
+    """The last residual of a block sharded over the model axis
+    (`block_residual_plain`) on x1 [..., C] and the MLP's output summed
+    over the model group p [..., C] (fp32); on the card
+    `block_residual_kernel`."""
+    return _OPS.block_residual.default(x1, p, blk.mlp.proj_out.bias,
+                                       blk.ls2)
+
+
+block_residual.launches = 0
+
+
+def _tp_half(blk: PartitionAttention, grid_kind: bool, act: str,
+             gated: bool, eps: float):
+    """A block half sharded over the model axis on an NHWC map: the
+    rank's heads (`block_attention`), the out-projection's partial
+    product summed over the model group, `block_mlp_tp`, the MLP's
+    partial output summed, `block_residual`."""
+    def run(y):
+        o = block_attention(y, blk, grid_kind, eps)
+        # The row-parallel out-projection's partial product o_m W[:, m]^T,
+        # whose sum crosses the model ranks before anything else reads
+        # it, stays a PyTorch product (fp32 products of the bf16
+        # operands): under the model axis the JAX package computes every
+        # product of a block through XLA, outside any Pallas kernel (its
+        # Pallas kernels are opt-in, `leod_tpu/models/detector.py:40-46`,
+        # and `_TP_RULES` act on the flax path).
+        a = tensor.reduce_from_model(torch.matmul(
+            o.float(), blk.attn.proj.weight.float().t()))
+        x1, p = block_mlp_tp(y, a, blk, act, gated, eps)
+        return block_residual(x1, tensor.reduce_from_model(p), blk)
+    return run
 
 
 def lstm_update(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
@@ -431,7 +629,10 @@ def fused_block_pair(x: torch.Tensor, window_params: PartitionAttention,
     x is a rank's rows: the window block runs on them, and the grid
     block between the grid exchange and its inverse, the kernels
     unchanged (or either on the whole map where the stage's local height
-    is not a multiple of the partition)."""
+    is not a multiple of the partition). Inside a model shard
+    (`parallel/tensor.py`) a block whose weights are sharded runs as
+    `_tp_half`: its rank's heads and inner units between the model
+    group's all-reduces."""
     _check_block(window_params, skip_first_norm, dim_head, act, gated)
     _check_block(grid_params, False, dim_head, act, gated)
     if tuple(partition_size) != window_params.partition_size:
@@ -442,6 +643,8 @@ def fused_block_pair(x: torch.Tensor, window_params: PartitionAttention,
                          f"{sorted(ATTN_SHAPES)} and act in {sorted(_ACTS)}; "
                          f"got ({x.shape[-1]}, {dim_head}), {act!r}")
     def half(blk, grid_kind):
+        if blk.attn.model_shards > 1:
+            return _tp_half(blk, grid_kind, act, gated, eps)
         return lambda y: block_mlp(y, block_attention(y, blk, grid_kind, eps),
                                    blk, act, gated, eps)
     ph = partition_size[0]
@@ -479,3 +682,5 @@ fused_stage.launches = 0
 
 WRAPPERS = (fused_block_pair, fused_stage, block_attention, block_mlp,
             lstm_update)
+# the model axis's variants: launched only by blocks sharded over it
+TP_WRAPPERS = (block_mlp_tp, block_residual)

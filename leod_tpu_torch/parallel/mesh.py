@@ -1,23 +1,24 @@
-"""The (data, space) mesh over the process group (port of the data and
-space axes of `leod_tpu/parallel/mesh.py`).
+"""The (data, space, model) mesh over the process group (port of
+`leod_tpu/parallel/mesh.py`).
 
 The reference's only parallelism is DDP over NCCL (reference:
 train.py:126-133; SURVEY.md section 2.6), and the JAX package's is a
 `jax.sharding.Mesh` whose `data` axis shards the batch (= stream slot)
-axis and the recurrent state table, with the parameters replicated, and
-whose optional `space` axis shards the image height of the activations
-and of the state table (`mesh.py:9-17`). The port's mesh lays the ranks
-of the default process group out as the JAX package lays its devices
-out, `devices.reshape(data, space)`: rank r = d * space + s holds global
-stream slots [d*B_local, (d+1)*B_local), their LSTM states, and rows
-[s*h/space, (s+1)*h/space) of every activation and state map; every rank
-holds the whole model, and `train/step.py` sums the ranks' gradients
-once a step. The halo exchanges and reshards that XLA inserts for the
-space axis are written out in `parallel/space.py`.
+axis and the recurrent state table, whose optional `space` axis shards
+the image height of the activations and of the state table, and whose
+optional `model` axis shards the transformer blocks' attention heads and
+MLP inner dimension (`mesh.py:9-26`). The port's mesh lays the ranks of
+the default process group out as the JAX package lays its devices out,
+`devices.reshape(data, space, model)`: rank r = (d * space + s) * model
++ m holds global stream slots [d*B_local, (d+1)*B_local), their LSTM
+states, rows [s*h/space, (s+1)*h/space) of every activation and state
+map, and model shard m of each tensor-parallel weight (every other
+weight whole); `train/step.py` sums the gradients over the ranks of one
+model index once a step. The halo exchanges and reshards that XLA
+inserts for the space axis are written out in `parallel/space.py`, the
+model axis's all-reduces in `parallel/tensor.py`.
 
-The JAX mesh's `model` axis (tensor parallelism over attention heads,
-`mesh.py:19-26, 135-173`) is not ported: `make_mesh` raises for it,
-naming its ROADMAP.md item.
+`mesh_layout` gives each group's rank lists without a process group.
 """
 from __future__ import annotations
 
@@ -34,17 +35,25 @@ from . import distributed as pdist
 
 @dataclass(frozen=True)
 class Mesh:
-    """`size` ranks along the data axis, `space` along the space axis.
-    `group` holds every rank (None for a mesh of one process without a
-    group); `data_group` the ranks of this rank's space index (one per
-    data shard: the loss normalizers' group), `space_group` the ranks of
-    this rank's data shard (the halo exchanges' group). With space 1 the
-    data group is `group` and there is no space group."""
+    """`size` ranks along the data axis, `space` along the space axis,
+    `model` along the model axis. `group` holds every rank (None for a
+    mesh of one process without a group); `data_group` the ranks of this
+    rank's (space, model) index, one a data shard (the loss normalizers'
+    group); `space_group` the ranks of this rank's (data, model) index
+    (the halo exchanges' group); `model_group` the ranks of this rank's
+    (data, space) index (the block halves' all-reduces); `replica_group`
+    the ranks of this rank's model index over data x space, which hold
+    the same shards (the gradient sum and the BN statistics). A degree
+    of 1 leaves its space or model group None; with space and model 1
+    the data and replica groups are `group`."""
     size: int
     group: Any = None
     space: int = 1
     data_group: Any = None
     space_group: Any = None
+    model: int = 1
+    model_group: Any = None
+    replica_group: Any = None
 
     @property
     def rank(self) -> int:
@@ -52,30 +61,49 @@ class Mesh:
 
     @property
     def world(self) -> int:
-        return self.size * self.space
+        return self.size * self.space * self.model
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.space
+        return self.rank // (self.space * self.model)
 
     @property
     def space_index(self) -> int:
-        return self.rank % self.space
+        return self.rank // self.model % self.space
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
+
+
+def mesh_layout(data: int, space: int = 1, model: int = 1) -> dict:
+    """The ranks of a (data, space, model) mesh, rank = (d * space + s) *
+    model + m as `devices.reshape(data, space, model)`: "grid"
+    [data][space][model], and each group kind's rank lists in the order
+    `make_mesh` creates them: "data" (one a (space, model) index),
+    "space" (one a (data, model)), "model" (one a (data, space)) and
+    "replica" (one a model index, over data x space)."""
+    def r(d, s, m):
+        return (d * space + s) * model + m
+    D, S, M = range(data), range(space), range(model)
+    return {
+        "grid": [[[r(d, s, m) for m in M] for s in S] for d in D],
+        "data": [[r(d, s, m) for d in D] for s in S for m in M],
+        "space": [[r(d, s, m) for s in S] for d in D for m in M],
+        "model": [[r(d, s, m) for m in M] for d in D for s in S],
+        "replica": [[r(d, s, m) for d in D for s in S] for m in M],
+    }
 
 
 def make_mesh(num_devices: Optional[int] = None, space: int = 1,
               model: int = 1) -> Mesh:
-    """The (data, space) mesh over every rank of the default process
-    group (one card a rank): data = world / space. `num_devices` must be
-    the world size: a mesh of fewer ranks would silently train at a
-    smaller parallel degree than asked (as
-    `leod_tpu/parallel/mesh.py:60-65` refuses). With space > 1 every
-    rank creates every data and space group, in one order. model > 1
-    raises: that axis is not ported."""
-    if model > 1:
-        raise NotImplementedError(
-            f"model={model}: the tensor-parallel (model) mesh axis is not "
-            f"ported yet (ROADMAP.md A.1, the model axis)")
+    """The (data, space, model) mesh over every rank of the default
+    process group (one card a rank): data = world / (space * model).
+    `num_devices` must be the world size: a mesh of fewer ranks would
+    silently train at a smaller parallel degree than asked (as
+    `leod_tpu/parallel/mesh.py:60-65` refuses). With space or model > 1
+    every rank creates every group of `mesh_layout`, in one order (the
+    space and model groups only where their degree is above 1)."""
     n = pdist.world_size()
     if num_devices is not None and num_devices != n:
         raise ValueError(
@@ -83,28 +111,32 @@ def make_mesh(num_devices: Optional[int] = None, space: int = 1,
             f"start one process a rank (torchrun --nproc_per_node "
             f"{num_devices}); training at another parallel degree would "
             f"misreport the recipe")
-    if space < 1 or n % space:
-        raise ValueError(f"space={space} does not divide the {n} ranks of "
-                         f"the process group")
+    if space < 1 or model < 1 or n % (space * model):
+        raise ValueError(f"space={space} x model={model} does not divide "
+                         f"the {n} ranks of the process group")
     world = dist.group.WORLD if dist.is_initialized() else None
-    if space == 1:
-        return Mesh(size=n, group=world, data_group=world)
-    data = n // space
+    if space == 1 and model == 1:
+        return Mesh(size=n, group=world, data_group=world,
+                    replica_group=world)
     me = pdist.rank()
     timeout = datetime.timedelta(seconds=pdist.group_timeout_s())
-    data_group = space_group = None
-    for s in range(space):
-        g = dist.new_group([d * space + s for d in range(data)],
-                           timeout=timeout)
-        if me % space == s:
-            data_group = g
-    for d in range(data):
-        g = dist.new_group([d * space + s for s in range(space)],
-                           timeout=timeout)
-        if me // space == d:
-            space_group = g
-    return Mesh(size=data, group=world, space=space, data_group=data_group,
-                space_group=space_group)
+    layout = mesh_layout(n // (space * model), space, model)
+    made, mine = {}, {}
+    for kind, degree in (("data", 0), ("space", space), ("model", model),
+                         ("replica", 0)):
+        if degree == 1:
+            continue
+        for ranks in layout[kind]:
+            key = tuple(ranks)
+            if key not in made:
+                made[key] = (world if len(ranks) == n else
+                             dist.new_group(ranks, timeout=timeout))
+            if me in ranks:
+                mine[kind] = made[key]
+    return Mesh(size=n // (space * model), group=world, space=space,
+                data_group=mine["data"], space_group=mine.get("space"),
+                model=model, model_group=mine.get("model"),
+                replica_group=mine["replica"])
 
 
 def data_axis_size(mesh: Optional[Mesh]) -> int:
@@ -123,7 +155,9 @@ def data_shard(mesh: Optional[Mesh]) -> tuple:
 
 def replicate(mesh: Optional[Mesh], tensors: Iterable[torch.Tensor]) -> None:
     """Make every rank's `tensors` rank 0's, in place: one broadcast of
-    a flat buffer per dtype and device."""
+    a flat buffer per dtype and device. On a model axis the tensors must
+    be whole (rank 0 holds model shard 0 of a sharded one): the trainer
+    replicates the full weights before it shards them."""
     if mesh is None or mesh.group is None or mesh.world <= 1:
         return
     buckets = {}

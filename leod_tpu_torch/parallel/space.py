@@ -26,7 +26,7 @@ thread never enter it) the layers consult it:
   box decode and the loss, which every rank of the group then computes
   alike;
 - the train-mode BN takes its statistics over every rank of the mesh
-  (`bn_group`).
+  that holds this rank's model shard (data x space, `bn_group`).
 
 Every collective is one all-reduce over the space group of a buffer
 that is zero but for each rank's own part (the route of
@@ -91,9 +91,10 @@ def active():
 
 def bn_group():
     """The group the train-mode BN takes its statistics over inside a
-    space shard: every rank of the mesh (data x space); else None."""
+    space shard: the ranks of this rank's model index over data x space
+    (every rank of the mesh without a model axis); else None."""
     mesh = active()
-    return mesh.group if mesh is not None else None
+    return mesh.replica_group if mesh is not None else None
 
 
 # ---------------------------------------------------------------------------

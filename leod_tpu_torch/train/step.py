@@ -17,6 +17,11 @@ step runs the module forwards under autograd (`_scan_backbone` over
 counterpart of the JAX package's flax/XLA train path: the hand-written
 kernels define no backward, as the Pallas kernels define no VJP. The
 eval step runs the kernels.
+
+On a mesh with a model axis (`parallel/tensor.py`) the steps run inside
+`model_shard`: each rank computes its model shard of the transformer
+blocks, and the gradients are summed over the ranks that hold the same
+shards (the replica group).
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from ..convert import jax_paths
 from ..models.backbone import BackboneStates, reset_states
 from ..models.detector import Detector
 from ..parallel import distributed as pdist
-from ..parallel import space
+from ..parallel import space, tensor
 from ..parallel.mesh import Mesh, height_slice
 from ..timing import lap
 from .optim import ClipAdamW
@@ -96,15 +101,16 @@ def check_remat(remat: str) -> None:
 
 
 def _in_shard(fn: Callable) -> Callable:
-    """`fn` re-entering the space shard active now, if any: a remat
-    recompute runs in the backward, on the autograd engine's thread, and
-    must issue the halo and exchange collectives as the forward did."""
-    mesh = space.active()
-    if mesh is None:
+    """`fn` re-entering the space and model shards active now, if any: a
+    remat recompute runs in the backward, on the autograd engine's
+    thread, and must issue the halo, exchange and model collectives as
+    the forward did."""
+    sp, mp = space.active(), tensor.active()
+    if sp is None and mp is None:
         return fn
 
     def run(*args):
-        with space.space_shard(mesh):
+        with space.space_shard(sp), tensor.model_shard(mp):
             return fn(*args)
     return run
 
@@ -166,17 +172,31 @@ def _scan_backbone(det: Detector, states0: BackboneStates, ev: torch.Tensor,
     return states, {s: torch.stack(f) for s, f in feats_seq.items()}
 
 
-def _global_norm(grads) -> torch.Tensor:
-    """optax.global_norm: the l2 norm of all the tensors together."""
-    return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()) for g in grads]))
+def _global_norm(grads, sharded=(), mesh: Optional[Mesh] = None
+                 ) -> torch.Tensor:
+    """optax.global_norm: the l2 norm of all the tensors together; the
+    squares of the `sharded` ones (flags beside `grads`) summed over the
+    model group of `mesh`, so that the norm is the whole parameters'."""
+    sq = torch.stack([torch.linalg.vector_norm(g.float()).square()
+                      for g in grads])
+    if any(sharded):
+        mask = torch.tensor(sharded, device=sq.device)
+        part = torch.where(mask, sq, torch.zeros_like(sq)).sum().reshape(1)
+        torch.distributed.all_reduce(part, group=mesh.model_group)
+        return (torch.where(mask, torch.zeros_like(sq), sq).sum()
+                + part[0]).sqrt()
+    return sq.sum().sqrt()
 
 
-def sum_gradients(grads, group) -> None:
-    """Every rank's gradients become the SUM of the ranks' (in place):
-    one all-reduce of one flat fp32 buffer."""
+def sum_gradients(grads, group, scale: float = 1.0) -> None:
+    """Every rank's gradients become the SUM of the ranks' (in place),
+    times `scale`: one all-reduce of one flat fp32 buffer."""
+    if not grads:
+        return
     flat = torch.cat([g.reshape(-1).float() for g in grads])
     torch.distributed.all_reduce(flat, group=group)
+    if scale != 1.0:
+        flat.mul_(scale)
     with torch.no_grad():
         torch._foreach_copy_(list(grads), [
             v.view_as(g) for v, g in zip(flat.split(
@@ -232,23 +252,42 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
     rank's gradient is its rows' share), before the gradient metrics,
     the clip and AdamW, so every rank takes the global batch's update;
     the loss terms in the metrics are the sums over the data group.
-    Where `timings` is given, the host ms of that reduction (ending in a
-    device synchronize) go under "allreduce_ms"."""
+    On a model axis the forward also runs under
+    `parallel.tensor.model_shard` (`det` holding its rank's shards,
+    `tensor.shard_params`), the gradients are summed over the replica
+    group (the ranks of this model index: a sharded tensor's gradient
+    differs between model ranks, a whole one's is the same on each once
+    `copy_to_model` summed it, so a sum over the model group would count
+    both k times; a whole tensor's gradient is then averaged over the
+    model group, which keeps its replicas bit-equal where kernels sum in
+    another order on each rank), and the gradient norms and gradflow are the whole
+    parameters' (a sharded tensor's squares and |grad| summed over the
+    model group). Where `timings` is given, the host ms of that
+    reduction (ending in a device synchronize) go under
+    "allreduce_ms"."""
     if not det.trainable:
         raise ValueError("make_train_step needs a Detector built with "
                          "trainable=True")
     check_remat(remat)
-    group = mesh.group if mesh is not None else None
+    group = mesh.replica_group if mesh is not None else None
     data_group = mesh.data_group if mesh is not None else None
-    groups = {mod: [p for p in getattr(det, mod).parameters()
-                    if p.requires_grad] for mod in ("backbone", "fpn", "head")}
+    shards = tensor.sharded_tensors(det)
+    k = mesh.model if mesh is not None else 1
+    named = [(n, p) for n, p in det.named_parameters() if p.requires_grad]
+    is_sharded = [n in shards for n, _ in named]
+    groups = {mod: ([p for n, p in named if n.startswith(mod + ".")],
+                    [n in shards for n, _ in named
+                     if n.startswith(mod + ".")])
+              for mod in ("backbone", "fpn", "head")}
     flow = []
     if gradflow:
         paths = jax_paths(det)
-        flow = [("gradflow/" + ".".join(paths[n][1]), p)
-                for n, p in det.named_parameters() if p.requires_grad]
-        flow_numel = torch.tensor([float(p.numel()) for _, p in flow],
-                                  device=det.device)
+        flow = [("gradflow/" + ".".join(paths[n][1]), p) for n, p in named]
+        # the whole parameter's size: k shards of a sharded one
+        flow_numel = torch.tensor([float(p.numel() * (k if n in shards
+                                                      else 1))
+                                   for n, p in named], device=det.device)
+        flow_sharded = torch.tensor(is_sharded, device=det.device)
 
     def train_step(state: TrainState, batch) -> tuple:
         dev = det.device
@@ -259,7 +298,8 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
         states = reset_states(state.states,
                               _as_tensor(batch["is_first"], dev))
         optimizer.zero_grad()
-        with pdist.global_batch(data_group), space.space_shard(mesh):
+        with pdist.global_batch(data_group), space.space_shard(mesh), \
+                tensor.model_shard(mesh):
             states, feats_seq = _scan_backbone(det, states, ev,
                                                prebatch_stage1, remat)
             feats = _gather_frames(feats_seq, frame_t)
@@ -274,22 +314,38 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
                 torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
             sum_gradients(grads, group)
+            if shards:
+                # a whole tensor's gradient is the same on every model
+                # rank up to the summation order of the kernels that
+                # made it (cuDNN's weight gradients, the loss's
+                # scatter-adds may use atomics): their mean over the
+                # model group leaves equal gradients as they are and
+                # keeps the replicas bit-equal
+                sum_gradients([g for g, sh in zip(grads, is_sharded)
+                               if not sh], mesh.model_group, 1.0 / k)
             lap(timings, "allreduce_ms", t0, dev)
             summed = [k for k in _SUMMED if k in metrics]
             tot = torch.stack([metrics[k] for k in summed])
             torch.distributed.all_reduce(tot, group=data_group)
             metrics.update(zip(summed, tot.unbind()))
         with torch.no_grad():
-            metrics["grad_norm"] = _global_norm(grads)
-            for mod, params in groups.items():
+            metrics["grad_norm"] = _global_norm(grads, is_sharded, mesh)
+            for mod, (params, sharded) in groups.items():
                 metrics[f"grad_norm/{mod}"] = _global_norm(
-                    [p.grad for p in params])
+                    [p.grad for p in params], sharded, mesh)
             if flow:
                 # sum |grad| of every tensor in a few multi-tensor
-                # launches, over its size: the mean |grad|
-                l1 = torch._foreach_norm([p.grad for _, p in flow], 1)
-                metrics.update(zip((k for k, _ in flow),
-                                   (torch.stack(l1) / flow_numel).unbind()))
+                # launches (a sharded one's over the model group), over
+                # its size: the mean |grad|
+                l1 = torch.stack(torch._foreach_norm(
+                    [p.grad for _, p in flow], 1))
+                if shards:
+                    part = torch.where(flow_sharded, l1,
+                                       torch.zeros_like(l1))
+                    torch.distributed.all_reduce(part, group=mesh.model_group)
+                    l1 = torch.where(flow_sharded, part, l1)
+                metrics.update(zip((name for name, _ in flow),
+                                   (l1 / flow_numel).unbind()))
             if with_preds:
                 out = out.detach()
                 metrics["preds"] = torch.cat(
@@ -315,7 +371,9 @@ def make_eval_step(det: Detector, plain: bool = False,
     step is held against on the card). On a `mesh` with a space axis the
     step runs under `parallel.space.space_shard`: it takes this rank's
     height slice of `ev` (dim 2), the states are its slice, and the
-    preds come back whole on every rank of the space group."""
+    preds come back whole on every rank of the space group. On a model
+    axis it runs under `parallel.tensor.model_shard`, `det` holding its
+    rank's shards."""
     dev = resolve_device(device)
     if det.device.type != dev.type:
         raise ValueError(f"detector is on {det.device}, step asked for {dev}")
@@ -327,7 +385,7 @@ def make_eval_step(det: Detector, plain: bool = False,
         frame_t = _as_tensor(batch["frame_t"], det.device).long()
         states = reset_states(states, _as_tensor(batch["is_first"],
                                                  det.device))
-        with space.space_shard(mesh):
+        with space.space_shard(mesh), tensor.model_shard(mesh):
             # only the FPN's stages are kept over time (not stage 1's map)
             feats_seq = {s: [] for s in stages}
             for t in range(ev.shape[0]):

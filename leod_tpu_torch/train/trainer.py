@@ -41,9 +41,19 @@ with the evaluators all-gathered (`run_streaming_eval`). On a space axis
 feed the same slots, each its height slice of every map (the step slices
 the window, `train/step.py`), and validate their shard together; the
 online SSOD teacher runs the shard's slots at full height on each rank.
+On a model axis (`make_mesh(model=k)`, rank r = (d*SP + s)*k + m) the k
+ranks of one (data, space) index feed the same rows, each holding model
+shard m of the transformer blocks (`parallel/tensor.py`): the whole
+weights are replicated from rank 0 and then sharded, the AdamW moments
+are made on the shards, a checkpoint holds whole tensors (gathered over
+the model group, so that one file serves every mesh and one process),
+and a restore or weight load shards them again. Online SSOD raises on a
+model axis (ROADMAP.md C.3: the JAX package's teacher takes a shard of
+each sharded weight there).
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import signal
@@ -64,6 +74,7 @@ from ..models.detector import Detector
 from ..models.layers import unfold_ev_hw, unfold_ev_width
 from ..ops.nms import postprocess
 from ..parallel import distributed as pdist
+from ..parallel import tensor
 from ..parallel.mesh import (Mesh, data_axis_size, data_shard, replicate,
                              shard_states)
 from ..timing import lap
@@ -150,7 +161,11 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
     feeds its evaluator before the all-gather, so no frame counts twice
     (with an explicit shard every rank feeds its own). B stays the slots
     of a shard, as the process shards take it. Without one (or with
-    space 1) each process evaluates its own shard.
+    space 1) each process evaluates its own shard. On a model axis the
+    ranks of a model group evaluate one shard together, each through
+    its model shard of the blocks (`det` sharded by
+    `parallel.tensor.shard_params`, or a whole `det`, sharded here in a
+    copy), and only model rank 0 feeds the evaluator.
 
     on_batch(batch_index, harvested, preds, dets, valid) is called after
     the NMS of every batch with labeled frames (dets and valid as numpy).
@@ -170,7 +185,11 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
     time_flip = time_flip or dst.reverse_event_order
     shard_index, num_shards, sync_metrics = pdist.eval_shard(
         shard_index, num_shards, data_shard(mesh))
-    feed = not sync_metrics or mesh is None or mesh.space_index == 0
+    feed = not sync_metrics or mesh is None or (
+        mesh.space_index == 0 and mesh.model_index == 0)
+    if mesh is not None and mesh.model > 1 and not tensor.is_sharded(det):
+        det = copy.deepcopy(det)
+        tensor.shard_params(det, mesh)
     B = min(B, len(seqs))
     loader = EvalStreamLoader(seqs, dst, B, time_flip=time_flip,
                               shard_index=shard_index, num_shards=num_shards)
@@ -360,12 +379,14 @@ class _Uploader:
 
 
 class Trainer:
-    """Training of `cfg` on one card, or data-parallel over the ranks of
-    `mesh` (`parallel.mesh.make_mesh()`: one process a card; the JAX
-    package's `Trainer(mesh=...)` with a data axis). The trainable model
-    (`self.det`, fp32 parameters computing in `dtype`) and the optimizer
-    are built by `init_state` (which `fit` calls when given no state),
-    and updated in place by every step and by a restore."""
+    """Training of `cfg` on one card, or over the ranks of `mesh`
+    (`parallel.mesh.make_mesh()`: one process a card; the JAX package's
+    `Trainer(mesh=...)` with its data, space and model axes). The
+    trainable model (`self.det`, fp32 parameters computing in `dtype`;
+    on a model axis this rank's shards, `self.shards` naming the blocks
+    sharded and those left whole) and the optimizer are built by
+    `init_state` (which `fit` calls when given no state), and updated in
+    place by every step and by a restore."""
 
     def __init__(self, cfg: ExperimentConfig, dtype=torch.bfloat16,
                  device="cuda", mesh: Optional[Mesh] = None):
@@ -392,6 +413,7 @@ class Trainer:
         self.det: Optional[Detector] = None
         self.ssod_batcher = None
         self.optimizer = self.schedule = None
+        self.shards: Dict[str, list] = {"sharded": [], "replicated": []}
 
     def close(self):
         """Release the metrics JSONL handle (idempotent)."""
@@ -407,19 +429,47 @@ class Trainer:
     def init_state(self, batch_size: int, seed: int = 0) -> TrainState:
         """A fresh model from `seed`, a fresh optimizer, and zero states
         for `batch_size` slots (under a mesh, this rank's rows of the
-        global slot table, and rank 0's weights on every rank)."""
+        global slot table, and rank 0's weights on every rank: whole,
+        then, on a model axis, cut to this rank's shards, on which the
+        optimizer is made)."""
         self.det = Detector(self.cfg.model, dtype=self.dtype,
                             device=self.device, seed=seed, trainable=True)
+        replicate(self.mesh, self.det.state_dict().values())
+        self.shards = tensor.shard_params(self.det, self.mesh)
         self.optimizer, self.schedule = make_optimizer(
             self.cfg.training, self.det.parameters())
-        self.replicate()
         return TrainState(states=shard_states(
             self.mesh, self.det.init_states(batch_size)), step=0)
 
+    def _model_axis(self) -> bool:
+        return self.mesh is not None and self.mesh.model > 1
+
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's parameters and BN statistics as whole tensors (on a
+        model axis gathered over the model group: every rank calls it)."""
+        sd = self.det.state_dict()
+        if self._model_axis():
+            sd = tensor.gather_state(self.det, self.mesh, sd)
+        return sd
+
+    def load_state(self, state: Dict[str, torch.Tensor]) -> None:
+        """Whole tensors (a checkpoint's, or a whole `Detector`'s state
+        dict) into this rank's model: its shards of them on a model
+        axis."""
+        if self._model_axis():
+            state = tensor.shard_state(self.det, self.mesh, state)
+        self.det.load_state_dict(state)
+
     def replicate(self) -> None:
         """Rank 0's parameters and BN statistics on every rank of the
-        mesh (no-op without one)."""
-        replicate(self.mesh, self.det.state_dict().values())
+        mesh (no-op without one); on a model axis rank 0's whole tensors,
+        gathered, broadcast and cut to each rank's shards again."""
+        if not self._model_axis():
+            replicate(self.mesh, self.det.state_dict().values())
+            return
+        whole = self.full_state_dict()
+        replicate(self.mesh, whole.values())
+        self.load_state(whole)
 
     def _ckpt_path(self, name: str) -> str:
         return os.path.join(self.run_dir, f"ckpt_{name}.pt")
@@ -429,11 +479,16 @@ class Trainer:
         the optimizer's moments and count, the step and the best-AP
         retention state. Written to a temporary file and renamed, so a
         checkpoint on disk is never half written. Under a mesh every rank
-        calls it: rank 0 writes, then all pass a barrier."""
+        calls it: rank 0 writes, then all pass a barrier; on a model axis
+        the parameters and the moments are first gathered whole, so that
+        the file is the one a single process writes."""
+        model = self.full_state_dict()
+        opt = self.optimizer.state_dict()
+        if self._model_axis():
+            opt = tensor.gather_optimizer(self.det, self.mesh, opt)
         if pdist.is_primary():
             path = self._ckpt_path(name)
-            payload = {"model": self.det.state_dict(),
-                       "optimizer": self.optimizer.state_dict(),
+            payload = {"model": model, "optimizer": opt,
                        "step": int(state.step),
                        "best_aps": list(self._best_aps)}
             torch.save(payload, path + ".tmp")
@@ -494,16 +549,20 @@ class Trainer:
 
     def _restore_local(self, path: str) -> int:
         """This rank's part of a restore: its model, optimizer and best-AP
-        state from `path`; returns the checkpoint's step."""
+        state from `path` (its shards of them on a model axis); returns
+        the checkpoint's step."""
         payload = self._load(path)
-        self.det.load_state_dict(payload["model"])
-        self.optimizer.load_state_dict(payload["optimizer"])
+        self.load_state(payload["model"])
+        opt = payload["optimizer"]
+        if self._model_axis():
+            opt = tensor.shard_optimizer(self.det, self.mesh, opt)
+        self.optimizer.load_state_dict(opt)
         self._best_aps = [float(v) for v in payload["best_aps"]]
         return int(payload["step"])
 
     def load_weights(self, path: str, state: TrainState) -> TrainState:
         """Weight-only resume (reference: modules/detection.py:583-594)."""
-        self.det.load_state_dict(load_variables(path, self.device))
+        self.load_state(load_variables(path, self.device))
         self.replicate()
         return state
 
@@ -570,10 +629,12 @@ class Trainer:
     # -- validation ----------------------------------------------------------
     def eval_detector(self) -> Detector:
         """The inference `Detector` (weights in the compute dtype, kernels
-        on the card) holding the trained weights and BN statistics."""
+        on the card) holding the trained weights and BN statistics (this
+        rank's shards of them on a model axis)."""
         if self._eval_det is None:
             self._eval_det = Detector(self.cfg.model, dtype=self.dtype,
                                       device=self.device)
+            tensor.shard_params(self._eval_det, self.mesh)
         self._eval_det.load_state_dict(self.det.state_dict())
         return self._eval_det
 
@@ -663,6 +724,11 @@ class Trainer:
         gradient all-reduce's ms a step under "allreduce_ms"."""
         cfg = self.cfg
         check_remat(cfg.training.remat)
+        if cfg.training.ssod_online.enabled and self._model_axis():
+            raise NotImplementedError(
+                "online SSOD on a mesh with a model axis: the JAX package's "
+                "teacher takes the first shard of each tensor-parallel "
+                "weight there and fails (ROADMAP.md C.3)")
         total = max_steps or cfg.training.max_steps
         loader, B = self.make_train_loader(seed, sequences)
         if state is None:

@@ -165,12 +165,9 @@ def test_cli_builds_the_jax_config(monkeypatch, cli, argv):
 
 
 def test_unported_flags_raise(tmp_path):
-    # the model mesh axis is not ported; a mesh of another size than the
-    # process group's (one process here) raises
-    for mesh in ("1x1x2", "2x2x2"):
-        with pytest.raises(NotImplementedError, match="A.1"):
-            ttrain.main(["--mesh", mesh, "--cpu"])
-    for mesh in ("2", "4x2", "1x2"):
+    # a mesh of another size than the process group's (one process here)
+    # raises, the model axis's (DPxSPxTP) as the others
+    for mesh in ("1x1x2", "2x2x2", "2", "4x2", "1x2"):
         with pytest.raises(ValueError, match="process group has 1"):
             ttrain.main(["--mesh", mesh, "--cpu"])
     os.makedirs(tmp_path / "ckpt_last")                 # an orbax directory

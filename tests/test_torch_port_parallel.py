@@ -694,7 +694,7 @@ def test_allgather_pack_roundtrip():
 @pytest.mark.parametrize("kwargs,error,match", [
     (dict(num_devices=2), ValueError, "process group has 1"),
     (dict(space=2), ValueError, "does not divide the 1 ranks"),
-    (dict(model=2), NotImplementedError, "A.1")])
+    (dict(model=2), ValueError, "does not divide the 1 ranks")])
 def test_make_mesh_refusals(kwargs, error, match):
     from leod_tpu_torch.parallel.mesh import make_mesh
     with pytest.raises(error, match=match):

@@ -1122,7 +1122,7 @@ def test_cli_train_takes_space_meshes(run12, run22):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--mesh", "1x1x2"], NotImplementedError, "A.1"),
+    (["--mesh", "1x1x2"], ValueError, "process group has 1"),
     (["--mesh", "1x2"], ValueError, "process group has 1"),
     (["--mesh", "2x2"], ValueError, "process group has 1")])
 def test_cli_train_mesh_refusals_in_one_process(argv, error, match):
