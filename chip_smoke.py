@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-1. Build: every CUDA source under leod_tpu_torch/csrc/ is compiled with
-   nvcc for sm_90a, one nvcc per source, all started together, and the
-   C++ host library (leod_tpu_torch/native/host_ops.cpp) with g++ beside
-   them; a build that fails fails the run.
+1. Build: the op library (`ops/_build.py`): the kernels' CUDA sources
+   under leod_tpu_torch/csrc/ compiled with nvcc for sm_90a and the ops'
+   C++ (`csrc/torch_ops.cpp`, `TORCH_LIBRARY`) with g++ against torch's
+   headers, one compiler per source, all started together, then linked
+   into one library; the C++ host library
+   (leod_tpu_torch/native/host_ops.cpp) with g++ beside them; each
+   step's seconds; a build that fails fails the run.
 
 Phases 2-4 run for two paths in turn, each a seeded model at full width
 and depth: RVT-B Gen1 (`experiment_preset("gen1", "base")`: stages
@@ -225,6 +228,15 @@ switched off for the fp32 products of the plain ConvLSTM update.
    package's export round trip), valid exactly, and each artifact step
    launching the live step's `block_attention`, `block_mlp`,
    `lstm_update` and `nms_mask` count; export s, load s, the `.pt2`'s MB.
+   Then the same artifact in a process with torch and nothing else:
+   `python -I artifact.py` copied alone into an empty temp directory
+   (its working directory and TMPDIR; the artifact copied beside it), no
+   `nvcc` directory on its PATH, no CUDA_HOME, so neither the package
+   nor its `_build/` nor a compiler is in reach: the same steps and
+   flags from zero states; its states, dets and valid must equal the
+   in-process artifact's bit for bit and each step's launches, as the
+   carried library counts them, the live step's; load s, step ms, the
+   artifact's and the library's MB, the op library's build seconds.
    (d) `cli.serve.make_server` over the artifact on an ephemeral port of
    127.0.0.1: 16 client streams of (a)'s frames over the 8 slots from a
    thread each (6 streams x 3 requests, then all 16 x 2, so that slots
@@ -428,6 +440,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -946,8 +959,12 @@ def phase_build() -> str:
             report = [ln.strip() for ln in f if "spill" in ln
                       or ("ptxas info" in ln and ("Used" in ln
                                                   or "Compiling entry" in ln))]
-        emit({"build": os.path.relpath(p, REPO), "ptxas": report})
-    emit({"build_seconds": round(dt, 3)})
+        emit({"build": os.path.relpath(p, REPO), "ptxas": report,
+              "mb": os.path.getsize(p) / 1e6})
+    # the op library's steps (nvcc a source, g++ of torch_ops.cpp, the
+    # link; empty where the library was on disk already)
+    emit({"build_seconds": round(dt, 3),
+          "op_library_steps_s": dict(_build.last_build), "card": card()})
     return probe_lib
 
 
@@ -2994,10 +3011,12 @@ def phase_deploy(tta_evaluate_ms):
     _zero(wrappers)
     st = zero_states_like(exported, device=dev)
     worst = 0.0
+    got = []
     for t, (reset, active) in enumerate(flags):
         before = _count(wrappers)
         st, d, v = step_fn(st, batch_at(t), reset, active)
         torch.cuda.synchronize()
+        got.append((st, d, v))
         delta = {k: _count(wrappers)[k] - before[k] for k in per_step}
         if delta != per_step:
             fail(f"artifact step {t} launched {delta}; the live step "
@@ -3026,6 +3045,14 @@ def phase_deploy(tta_evaluate_ms):
         "launches_a_step": per_step}
     emit({"deploy_export": report["export"]})
     del want, live, live_det
+
+    # (c2) the same artifact with torch alone: no package, no toolkit
+    inputs = {"ev": [batch_at(t).cpu() for t in range(DEPLOY_STEPS)],
+              "reset": [r.cpu() for r, _ in flags],
+              "active": [a.cpu() for _, a in flags]}
+    report["standalone"] = deploy_standalone(art, inputs, got, per_step)
+    emit({"deploy_standalone": report["standalone"]})
+    del got, inputs
 
     # (d) the HTTP server over the artifact: 16 client streams, 8 slots
     record = []
@@ -3433,6 +3460,80 @@ def drive_gen4():
                                 for k, r in remat["policies"].items()}
     report["phase_s"] = time.perf_counter() - t_phase
     return report, out
+
+
+def deploy_standalone(art: str, inputs, got, per_step) -> dict:
+    """Run the artifact `art` through `artifact.py` alone in a fresh
+    `python -I` process (see phase 9c) on `inputs`; hold its every step
+    to `got` (the in-process artifact's (states, dets, valid)) bit for
+    bit and its launches to `per_step`."""
+    import torch
+    from leod_tpu_torch.ops import _build
+    lone = tempfile.mkdtemp(prefix="leod_artifact_")
+    try:
+        shutil.copy(os.path.join(REPO, "leod_tpu_torch", "artifact.py"),
+                    lone)
+        shutil.copy(art, os.path.join(lone, "model.pt2"))
+        torch.save(inputs, os.path.join(lone, "in.pt"))
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("PYTHON")
+               and k not in ("CUDA_HOME", "CUDA_PATH")}
+        env["PATH"] = os.pathsep.join(
+            p for p in env.get("PATH", "").split(os.pathsep)
+            if p and not os.path.exists(os.path.join(p, "nvcc")))
+        env["TMPDIR"] = lone
+        if shutil.which("nvcc", path=env["PATH"]):
+            fail("deploy standalone: nvcc is still on the PATH")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-I", "artifact.py", "model.pt2", "--inputs",
+             "in.pt", "--out", "out.pt", "--device", "cuda"],
+            cwd=lone, env=env, capture_output=True, text=True, timeout=600)
+        wall_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            fail(f"deploy standalone: artifact.py exited {res.returncode}:\n"
+                 f"{res.stderr[-4000:]}")
+        out = torch.load(os.path.join(lone, "out.pt"))
+        lib = out["op_library"]
+        if not lib["path"].startswith(lone) or out["modules"]:
+            fail(f"deploy standalone: ops from {lib['path']}, modules "
+                 f"{out['modules']}")
+        if lib["build"] != _build.build_key():
+            fail(f"deploy standalone: build {lib['build']}, the package's "
+                 f"is {_build.build_key()}")
+        for t, (st, d, v) in enumerate(got):
+            pairs = [(out["dets"][t], d), (out["valid"][t], v)] + [
+                (a, b) for sa, sb in zip(out["states"][t], st)
+                for a, b in zip(sa, sb)]
+            for a, b in pairs:
+                if a.dtype != b.dtype or not torch.equal(a, b.cpu()):
+                    fail(f"deploy standalone step {t}: an output differs "
+                         f"from the in-process artifact's")
+            launched = {k: out["launches"][t][k] for k in per_step}
+            if launched != per_step or any(
+                    n for k, n in out["launches"][t].items()
+                    if k not in per_step):
+                fail(f"deploy standalone step {t} launched "
+                     f"{out['launches'][t]}; the live step launches "
+                     f"{per_step}")
+        with open(art + ".json") as f:
+            lib_mb = json.load(f)["op_library"]["bytes"] / 1e6
+        return {"steps": len(got), "load_s": out["load_s"],
+                "load_ops_s": out["load_ops_s"],
+                "load_program_s": out["load_program_s"],
+                "module_s": out["module_s"],
+                "step_ms": out["step_ms"],
+                "step_ms_median_after_first": statistics.median(
+                    out["step_ms"][1:]),
+                "process_wall_s": wall_s,
+                "artifact_mb": os.path.getsize(art) / 1e6,
+                "library_mb": lib_mb, "variant": lib["variant"],
+                "build": lib["build"],
+                "op_library_build_s": dict(_build.last_build),
+                "bit_equal": True, "launches_a_step": per_step,
+                "card": card()}
+    finally:
+        shutil.rmtree(lone, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5309,14 +5410,70 @@ def kernel_entries(rows, nms_row, suffix: str, step_batch: int = B):
             for kname, replaces, source, shape_rows, peak in entries]
 
 
+def op_call_timing(det, mc, nc) -> dict:
+    """Each op's host time a call, at RVT-B's stage-4 shapes at B = 8
+    (the NMS at K = 1000 an image): "op_call_us" through
+    `torch.ops.leod_tpu_torch.<op>`, and "direct_us" for the CUDA
+    implementation it reaches, called past the op: the Python launch
+    function where the package defines the op in Python (`_<op>_cuda`),
+    else the op's CUDA kernel by a redispatch to the CUDA key. The two
+    "direct" times measure different layers (the Python one, the
+    dispatcher): only "op_call_us" compares two trees."""
+    import torch
+    blk = det.backbone.stage4.block0_grid
+    gates = det.backbone.stage4.lstm.gates
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x, o, h = (torch.randn(B, 8, 10, 512, device="cuda",
+                           generator=g).bfloat16() for _ in range(3))
+    a, c = (torch.randn(B, 8, 10, 512, device="cuda", generator=g)
+            for _ in range(2))
+    xy = torch.rand(B, 1000, 2, device="cuda", generator=g) * 300
+    boxes = torch.cat([xy, xy + 40], -1)
+    valid = torch.ones(B, 1000, dtype=torch.bool, device="cuda")
+    ids = torch.zeros(B, 1000, device="cuda")
+    args = {
+        "block_attention": (x, *mc._norm1(blk), blk.attn.qkv.weight,
+                            blk.attn.qkv.bias, 32, 8, 10, True, 1e-5, 0),
+        "block_mlp": (x, o, *mc._mlp_weights(blk), "gelu", False, 1e-5, 0),
+        "block_mlp_tp": (x, a, *mc._mlp_tp_weights(blk), "gelu", False,
+                         1e-5, 0),
+        "block_residual": (x, a, blk.mlp.proj_out.bias, blk.ls2),
+        "lstm_update": (x, h, c, gates.weight, gates.bias, 0),
+        "nms_mask": (boxes, 0.45, valid, ids)}
+    python_impl = {"block_attention": "_attention_cuda",
+                   "block_mlp": "_mlp_cuda", "block_mlp_tp": "_mlp_tp_cuda",
+                   "block_residual": "_residual_cuda",
+                   "lstm_update": "_lstm_cuda", "nms_mask": "_nms_cuda"}
+    cuda_key = torch._C.DispatchKeySet(torch._C.DispatchKey.CUDA)
+    out = {"op_call_us": {}, "direct_us": {}}
+    for name, op_args in args.items():
+        op = getattr(torch.ops.leod_tpu_torch, name, None)
+        if op is None:
+            continue
+        op = op.default
+        impl = getattr(nc if name == "nms_mask" else mc, python_impl[name],
+                       None)
+        direct = ((lambda impl=impl, op_args=op_args: impl(*op_args))
+                  if impl is not None else
+                  (lambda op=op, op_args=op_args: op.redispatch(cuda_key,
+                                                                *op_args)))
+        out["op_call_us"][name] = enqueue_us(
+            lambda op=op, op_args=op_args: op(*op_args), reps=200)
+        out["direct_us"][name] = enqueue_us(direct, reps=200)
+        out["direct_is_python"] = impl is not None
+    torch.cuda.synchronize()
+    out["card"] = card()
+    return out
+
+
 def serve_timing(root: str) -> None:
     """`--serve-timing ROOT`: the live serve step of RVT-B Gen1 (seed 0,
     LayerScale from seed 0, conf 0) of the package under ROOT, by host
     clock at B = 1 and B = 8 (median of SERVE_TIMING_REPS, each ending in
     a synchronize) and its enqueue time (the host's share alone); where
-    the package has the custom ops, one op call's host time against the
-    launch it wraps, called directly. One JSON line; compare two trees
-    in one call, in the order A, B, B, A."""
+    the package has the custom ops, each op call's host time against the
+    launch it wraps, called directly (`op_call_timing`). One JSON line;
+    compare two trees in one call, in the order A, B, B, A."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import numpy as np
@@ -5327,7 +5484,7 @@ def serve_timing(root: str) -> None:
              f"{root}")
     from leod_tpu_torch.config import experiment_preset
     from leod_tpu_torch.models.detector import Detector
-    from leod_tpu_torch.ops import _build, maxvit_cuda
+    from leod_tpu_torch.ops import _build, maxvit_cuda, nms_cuda
     from leod_tpu_torch.serve import make_serve_step, serve_input_shape
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5338,8 +5495,7 @@ def serve_timing(root: str) -> None:
     perturb_layerscale(det, seed=0)
     step = make_serve_step(det, conf_threshold=0.0)
     rng = np.random.default_rng(0)
-    out = {"root": os.path.relpath(root, REPO),
-           "ops": hasattr(torch.ops.leod_tpu_torch, "block_attention")}
+    out = {"root": os.path.relpath(root, REPO)}
     for bsz in (1, B):
         st = det.init_states(bsz)
         ev = torch.from_numpy(np.stack(frames(
@@ -5349,15 +5505,10 @@ def serve_timing(root: str) -> None:
                                          reps=SERVE_TIMING_REPS)
         out[f"enqueue_ms_b{bsz}"] = enqueue_us(
             lambda: step(st, ev, on, on), reps=SERVE_TIMING_REPS) / 1e3
+    # the steps registered the ops of a package that has them
+    out["ops"] = hasattr(torch.ops.leod_tpu_torch, "block_attention")
     if out["ops"]:
-        blk = det.backbone.stage4.block0_grid
-        x = torch.randn(B, 8, 10, 512, device="cuda").bfloat16()
-        args = (x, *maxvit_cuda._norm1(blk), blk.attn.qkv.weight,
-                blk.attn.qkv.bias, 32, 8, 10, True, 1e-5, 0)
-        op = torch.ops.leod_tpu_torch.block_attention.default
-        out["op_call_us"] = enqueue_us(lambda: op(*args), reps=200)
-        out["direct_launch_us"] = enqueue_us(
-            lambda: maxvit_cuda._attention_cuda(*args), reps=200)
+        out.update(op_call_timing(det, maxvit_cuda, nms_cuda))
     emit({"serve_timing": out})
 
 

@@ -14,7 +14,9 @@ checkpoint), wraps it in the micro-batching `ServingEngine`
 "frame_shape" (`<artifact>.json`: raw [H, W, C] with --raw-layout,
 otherwise the prefolded [H/4, W/4, 16C]). Streams keep their LSTM state
 across requests; a stream id unseen since its slot was evicted starts
-fresh. Runs on the card unless `--cpu`.
+fresh. Runs on the card unless `--cpu`. An artifact carries the native
+op library its program calls, which is loaded and run with it: serve
+only artifacts trusted as executables are.
 
     python -m leod_tpu_torch.cli.export --synthetic --size tiny --cpu --fp32 --out /tmp/m.pt2
     python -m leod_tpu_torch.cli.serve --artifact /tmp/m.pt2 --cpu --port 8000

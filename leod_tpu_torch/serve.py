@@ -7,10 +7,16 @@ artifact, and a stateful streaming engine (port of
   mask freezes the state of idle stream slots.
 - `export_serve_step` / `save_artifact` / `load_artifact`: the step as a
   `torch.export` program with the weights inside, written as `<out>.pt2`
-  with a `<out>.pt2.json` sidecar. A serving process loads and runs it
-  without the model code or a checkpoint; it needs only the op library
-  (`leod_tpu_torch.ops`, which registers the kernels as custom ops, so
-  the loaded graph launches the same kernels on the card).
+  with a `<out>.pt2.json` sidecar. The artifact carries the op library
+  its graph calls (the kernels as custom ops, built from `csrc/`), so a
+  serving process deserializes and runs it WITHOUT this package, the
+  model code, a checkpoint or the CUDA toolkit: `artifact.py`, which
+  imports only torch, loads it (as a lone file too: `python -I
+  artifact.py`), and the loaded graph launches the kernels it was
+  exported with, whatever edits the sources see later. Loading an
+  artifact loads that native library and runs its initialisers, so an
+  artifact is trusted as an executable is; a caller pins the library it
+  expects with `sha256=` (`artifact.load_ops`).
 - `ServingEngine`: a thread-safe micro-batching engine mapping client
   stream ids onto the B state-table slots (LRU eviction -> state reset),
   coalescing concurrent requests into one device step.
@@ -20,8 +26,6 @@ artifact, and a stateful streaming engine (port of
 from __future__ import annotations
 
 import collections
-import json
-import os
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -29,12 +33,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.utils import _pytree as pytree
 
-from . import resolve_device
+from . import artifact, resolve_device
 from .config import ExperimentConfig, stem_fold_hw
 from .models.backbone import reset_states
 from .models.detector import Detector
+from .ops import _build
 from .ops.nms import postprocess
 
 # lowering targets an artifact may name, and the device type each means
@@ -149,6 +153,8 @@ def export_serve_step(det: Detector, cfg: ExperimentConfig,
     # passed twice for one input
     reset, active = (torch.zeros(batch_size, dtype=torch.bool,
                                  device=det.device) for _ in range(2))
+    # the ops registered before tracing, so the trace holds only the step
+    _build.load()
     # traced with gradients off, so the program holds no grad-mode region
     with torch.no_grad():
         exported = torch.export.export(_ServeModule(det, conf_threshold),
@@ -178,58 +184,43 @@ def artifact_meta(cfg: ExperimentConfig, batch_size: int, fold: bool,
     }
 
 
-def _traced_device(exported: torch.export.ExportedProgram) -> torch.device:
-    return next(iter(exported.state_dict.values())).device
-
-
 def save_artifact(exported: torch.export.ExportedProgram, path: str,
-                  meta: Dict[str, Any]) -> None:
+                  meta: Dict[str, Any]) -> Dict[str, Any]:
     """Write `<path>` (`torch.export.save` of `export_serve_step`'s
-    program, its platforms inside) and `<path>.json` (`meta` and the
-    platforms)."""
-    platforms = list(exported.platforms)
-    torch.export.save(exported, path,
-                      extra_files={"platforms": json.dumps(platforms)})
-    with open(path + ".json", "w") as f:
-        json.dump({**meta, "platforms": platforms}, f, indent=2)
+    program, its platforms and the op library it calls inside) and
+    `<path>.json` (`meta`, the platforms and the library's record);
+    `artifact.save_artifact`. Returns the library's record."""
+    return artifact.save_artifact(exported, path, meta)
 
 
-def load_artifact_exported(path: str) -> Tuple[torch.export.ExportedProgram,
-                                               Dict[str, Any]]:
-    """Load an artifact -> (ExportedProgram, meta), the program's
-    `.platforms` read from it. The single owner of the on-disk convention
-    (`torch.export.save` + '<path>.json' sidecar)."""
-    extra = {"platforms": ""}
-    exported = torch.export.load(path, extra_files=extra)
-    exported.platforms = tuple(json.loads(extra["platforms"]))
-    meta: Dict[str, Any] = {}
-    if os.path.exists(path + ".json"):
-        with open(path + ".json") as f:
-            meta = json.load(f)
-    return exported, meta
+def load_artifact_exported(path: str, sha256: Optional[str] = None
+                           ) -> Tuple[torch.export.ExportedProgram,
+                                      Dict[str, Any]]:
+    """Load an artifact -> (ExportedProgram, meta), its ops registered
+    first (`artifact.load_exported`; an artifact without a library takes
+    this package's) and the program's `.platforms` read from it. The
+    artifact's library is native code that runs when it loads: trust the
+    artifact as an executable, or pin the library's `sha256`."""
+    return artifact.load_exported(path, ops_loader=_build.load,
+                                  sha256=sha256)
 
 
-def load_artifact(path: str, device="cuda") -> Tuple[Callable,
-                                                     Dict[str, Any]]:
+def load_artifact(path: str, device="cuda", sha256: Optional[str] = None
+                  ) -> Tuple[Callable, Dict[str, Any]]:
     """Load an artifact -> (step_fn, meta). step_fn(states, ev, reset,
     active) runs the program on `device` (the card unless the caller
     asks for the CPU), which must be one of its platforms; the program
-    is moved there if it was traced elsewhere."""
-    exported, meta = load_artifact_exported(path)
+    is moved there if it was traced elsewhere. `sha256` as
+    `load_artifact_exported`'s."""
+    exported, meta = load_artifact_exported(path, sha256)
     return program_module(exported, device), meta
 
 
 def program_module(exported: torch.export.ExportedProgram,
                    device) -> nn.Module:
-    """The runnable module of a loaded program on `device`."""
-    dev = resolve_device(device)
-    if dev.type not in exported.platforms:
-        raise ValueError(f"the artifact was exported for "
-                         f"{list(exported.platforms)}, not {dev.type}")
-    if _traced_device(exported).type != dev.type:
-        from torch.export.passes import move_to_device_pass
-        exported = move_to_device_pass(exported, dev)
-    return exported.module()
+    """The runnable module of a loaded program on `device`
+    (`artifact.program_module`)."""
+    return artifact.program_module(exported, resolve_device(device))
 
 
 def zero_states_like(exported: Optional[torch.export.ExportedProgram] = None,
@@ -240,20 +231,13 @@ def zero_states_like(exported: Optional[torch.export.ExportedProgram] = None,
     or from a live Detector."""
     if det is not None:
         return det.init_states(batch_size)
-    dev = resolve_device(device)
-    return pytree.tree_map(
-        lambda v: torch.zeros(v.shape, dtype=v.dtype, device=dev),
-        program_inputs(exported)[0])
+    return artifact.zero_states(exported, resolve_device(device))
 
 
 def program_inputs(exported: torch.export.ExportedProgram) -> tuple:
     """The program's (states, ev, reset, active) as the shapes and dtypes
     its placeholders carry (fake tensors)."""
-    user = set(exported.graph_signature.user_inputs)
-    vals = [n.meta["val"] for n in exported.graph.nodes
-            if n.op == "placeholder" and n.name in user]
-    args, _ = pytree.tree_unflatten(vals, exported.call_spec.in_spec)
-    return args
+    return artifact.program_inputs(exported)
 
 
 # ---------------------------------------------------------------------------

@@ -32,8 +32,9 @@ and training: an fp32 train step on the card against the same step on
 the CPU (loss 1e-4, each module's grad norm 1e-3, relative), a bf16
 step that keeps fp32 parameters and moves them, and `Trainer.fit`,
 whose validation launches every kernel while its steps launch none.
-Deployment: each `leod_tpu_torch::` custom op bit-equal to the launch it
-wraps and under `torch.library.opcheck`, the serving step exported (on
+Deployment: each of the six `leod_tpu_torch::` custom ops (defined in
+C++, `csrc/torch_ops.cpp`) dispatched to its CUDA implementation and
+counted, and under `torch.library.opcheck`, the serving step exported (on
 the card, and on the CPU for both platforms), loaded on the card and run
 against the live step, and the event voxelizer on the card equal to the
 CPU's.
@@ -70,7 +71,12 @@ pytestmark = pytest.mark.gpu
 REL_TOL = 2.0 ** -5
 FP32_C_TOL = 2.0 ** -18
 H, W = 16, 20
-DIM_HEAD = dict(maxvit_cuda.ATTN_SHAPES)   # C -> the head width it takes
+# C -> the head width the kernels take it in: the stage widths of RVT-T
+# and RVT-B in heads of 32, of RVT-S in heads of 24 (the library's own
+# list is `kAttnShapes` in csrc/torch_ops.cpp)
+DIM_HEAD = {32: 32, 64: 32, 128: 32, 256: 32, 512: 32,
+            48: 24, 96: 24, 192: 24, 384: 24}
+KERNEL_DIMS = tuple(sorted(DIM_HEAD))
 # the RVT-B and RVT-S Gen1 stage shapes: (C, (H, W)) at strides 4-32
 STAGES_B = [(64, (64, 80)), (128, (32, 40)), (256, (16, 20)), (512, (8, 10))]
 STAGES_S = [(48, (64, 80)), (96, (32, 40)), (192, (16, 20)), (384, (8, 10))]
@@ -385,7 +391,7 @@ def _mlp_cases():
     tiles allow it: each CTA needs a hidden chunk (64 units; 32 of each
     half in the GLU) and 8 projection columns a warpgroup."""
     cases = []
-    for dim in maxvit_cuda.KERNEL_DIMS:
+    for dim in KERNEL_DIMS:
         nwg = 2 if dim > 256 else 1            # the kernel's warpgroups
         for rows in (80, 640, 1000):
             for act, gated in (("gelu", False), ("silu", False),
@@ -424,7 +430,7 @@ def _attention_cases():
     window/grid x LN1 skipped or not x B x every cluster size the width
     takes (a head group a CTA)."""
     cases = []
-    for dim in maxvit_cuda.KERNEL_DIMS:
+    for dim in KERNEL_DIMS:
         for ps in ((2, 4), (4, 5), (6, 10), (8, 10)):
             for grid_kind in (False, True):
                 for skip in (False, True):
@@ -488,7 +494,7 @@ def _lstm_cases():
     them with a ragged last 128-row tile) x c in bf16 or fp32 x every
     cluster size the width takes (at most its K chunks, 2C / K-block)."""
     cases = []
-    for dim in maxvit_cuda.KERNEL_DIMS:
+    for dim in KERNEL_DIMS:
         chunks = 2 * dim // _kblock(dim)
         for b in (1, 2):
             for hw in ((16, 20), (24, 20)):
@@ -947,7 +953,9 @@ def test_fit_validates_through_every_kernel(cuda, tmp_path):
 def _op_inputs(dev):
     """Each custom op's arguments at RVT-B Gen1's first stage shape
     (B = 1, 64 x 80 x 64, 8 x 10 partitions) and the NMS at one image of
-    K = 1000, with the CUDA implementation each op's dispatch reaches."""
+    K = 1000, with the op's CUDA implementation (`csrc/torch_ops.cpp`)
+    called directly: a redispatch to the CUDA key, past the dispatcher's
+    choice of kernel."""
     wb, _ = _pair(64, (8, 10), False, "gelu", dev, first=False)
     gates = _randomized(_SplitGateConv(64), 3, dev)
     g = torch.Generator().manual_seed(5)
@@ -955,16 +963,25 @@ def _op_inputs(dev):
                for _ in range(3))
     c = torch.randn(1, 64, 80, 64, generator=g).to(dev)
     boxes, valid, ids = _nms_inputs(1000, 1, dev, seed=2)
-    return {
-        "block_attention": (maxvit_cuda._attention_cuda, (
+    args = {
+        "block_attention": (
             x, *maxvit_cuda._norm1(wb), wb.attn.qkv.weight,
-            wb.attn.qkv.bias, 32, 8, 10, True, 1e-5, 0)),
-        "block_mlp": (maxvit_cuda._mlp_cuda, (
-            x, o, *maxvit_cuda._mlp_weights(wb), "gelu", False, 1e-5, 0)),
-        "lstm_update": (maxvit_cuda._lstm_cuda, (
-            x, h, c, gates.weight, gates.bias, 0)),
-        "nms_mask": (nms_cuda._nms_cuda, (boxes, 0.45, valid, ids)),
+            wb.attn.qkv.bias, 32, 8, 10, True, 1e-5, 0),
+        "block_mlp": (
+            x, o, *maxvit_cuda._mlp_weights(wb), "gelu", False, 1e-5, 0),
+        "lstm_update": (x, h, c, gates.weight, gates.bias, 0),
+        "nms_mask": (boxes, 0.45, valid, ids),
+        "block_mlp_tp": (x, c, *maxvit_cuda._mlp_tp_weights(wb), "gelu",
+                         False, 1e-5, 0),
+        "block_residual": (x, c, wb.mlp.proj_out.bias, wb.ls2),
     }
+    maxvit_cuda.block_attention.launches     # the library loaded
+    cuda_key = torch._C.DispatchKeySet(torch._C.DispatchKey.CUDA)
+
+    def direct(name):
+        op = getattr(torch.ops.leod_tpu_torch, name).default
+        return lambda *a: op.redispatch(cuda_key, *a)
+    return {name: (direct(name), a) for name, a in args.items()}
 
 
 def _nms_inputs(k, b, dev, seed):
@@ -977,17 +994,24 @@ def _nms_inputs(k, b, dev, seed):
     return boxes, valid, ids
 
 
-OP_NAMES = ("block_attention", "block_mlp", "lstm_update", "nms_mask")
+OP_NAMES = ("block_attention", "block_mlp", "lstm_update", "nms_mask",
+            "block_mlp_tp", "block_residual")
 OP_WRAPPER = {"block_attention": maxvit_cuda.block_attention,
               "block_mlp": maxvit_cuda.block_mlp,
               "lstm_update": maxvit_cuda.lstm_update,
-              "nms_mask": nms_cuda.nms_mask}
+              "nms_mask": nms_cuda.nms_mask,
+              "block_mlp_tp": maxvit_cuda.block_mlp_tp,
+              "block_residual": maxvit_cuda.block_residual}
 
 
 @pytest.mark.parametrize("op", OP_NAMES)
 def test_custom_op_is_its_direct_launch(cuda, op):
-    """`torch.ops.leod_tpu_torch.<op>` on CUDA tensors is bit-equal to
-    the launch it wraps, called directly, and counts one launch."""
+    """A dispatch-and-count check: `torch.ops.leod_tpu_torch.<op>` on
+    CUDA tensors reaches the op's CUDA implementation (bit-equal to a
+    redispatch to the CUDA key, which calls the same C++ function, so
+    only a wrong choice of kernel by the dispatcher fails it), and the
+    library counts one launch for it. The kernels' agreement with their
+    plain versions is the other tests' work."""
     impl, args = _op_inputs(cuda)[op]
     want = impl(*args)
     before = OP_WRAPPER[op].launches
@@ -1067,7 +1091,8 @@ def test_exported_artifact_runs_the_kernels(cuda, tmp_path, traced_on):
         torch.cuda.synchronize()
         assert {n: w.launches - before[n] for n, w in OP_WRAPPER.items()} \
             == {"block_attention": n_blocks, "block_mlp": n_blocks,
-                "lstm_update": 4, "nms_mask": 1}
+                "lstm_update": 4, "nms_mask": 1, "block_mlp_tp": 0,
+                "block_residual": 0}
         assert torch.equal(v_b, v_a)
         torch.testing.assert_close(d_b, d_a, rtol=1e-5, atol=1e-6)
         for (ha, ca), (hb, cb) in zip(st_a, st_b):

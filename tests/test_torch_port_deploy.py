@@ -39,7 +39,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B = 2
 ROUNDTRIP = dict(rtol=1e-5, atol=1e-6)     # tests/test_serve.py:126-129
 JAX_TOL = dict(rtol=1e-4, atol=1e-4)
-OPS = ("block_attention", "block_mlp", "lstm_update", "nms_mask")
+OPS = ("block_attention", "block_mlp", "block_mlp_tp", "block_residual",
+       "lstm_update", "nms_mask")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -175,16 +176,18 @@ def test_meta_states_and_platforms(exported, tmp_path):
 
 @pytest.mark.parametrize("op", OPS)
 def test_custom_op_opcheck(op):
-    """`torch.library.opcheck` of each op on CPU tensors: schema, fake
-    implementation, and that the CPU implementation counts no launch."""
+    """`torch.library.opcheck` of each of the six ops (defined in C++) on
+    CPU tensors: schema, Meta implementation, and that the CPU
+    implementation counts no launch."""
     rng = np.random.default_rng(1)
 
     def t(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
 
     c = 32
-    before = {w.__name__: w.launches
-              for w in maxvit_cuda.WRAPPERS + nms_cuda.WRAPPERS}
+    wrappers = (maxvit_cuda.WRAPPERS + maxvit_cuda.TP_WRAPPERS
+                + nms_cuda.WRAPPERS)
+    before = {w.__name__: w.launches for w in wrappers}
     args = {
         "block_attention": (t(2, 4, 6, c), t(c), t(c), t(3 * c, c), t(3 * c),
                             32, 2, 3, True, 1e-5, 0),
@@ -196,11 +199,15 @@ def test_custom_op_opcheck(op):
         "nms_mask": (torch.sort(t(2, 16, 4).abs() * 10, -1).values, 0.45,
                      torch.from_numpy(rng.uniform(size=(2, 16)) < 0.8),
                      torch.from_numpy(rng.integers(0, 2, (2, 16))).float()),
+        # the model axis's two ops: x bf16-shaped rows and a, p in fp32
+        "block_mlp_tp": (t(2, 4, 6, c), t(2, 4, 6, c), t(c), t(c), t(c),
+                         t(c), t(4 * c, c), t(4 * c), t(c, 4 * c), "gelu",
+                         False, 1e-5, 0),
+        "block_residual": (t(2, 4, 6, c), t(2, 4, 6, c), t(c), t(c)),
     }[op]
     torch.library.opcheck(getattr(torch.ops.leod_tpu_torch, op).default,
                           args)
-    after = {w.__name__: w.launches
-             for w in maxvit_cuda.WRAPPERS + nms_cuda.WRAPPERS}
+    after = {w.__name__: w.launches for w in wrappers}
     assert after == before
 
 
