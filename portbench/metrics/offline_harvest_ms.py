@@ -1,0 +1,6 @@
+"""Mean host ms a batch of `run_streaming_eval`'s "harvest_ms" timing in
+the traced window."""
+
+
+def read(run):
+    return run.values.get("harvest_ms")
