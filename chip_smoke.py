@@ -402,7 +402,7 @@ switched off for the fp32 products of the plain ConvLSTM update.
    four ranks' losses and whole tensors are equal, each carries half
    the height of the state table, and the step is within phase 11's
    step-1 bars of one process's. Reports each rank's step ms, the model
-   all-reduces' calls, bytes and host ms (`tensor.STATS`), a rank's peak
+   all-reduces' calls, bytes and host ms ("collective.model" spans), a rank's peak
    GiB beside one process's (activations stay whole under the model
    axis), and the phase's seconds, beside the card's name and power
    limit.
@@ -4376,6 +4376,22 @@ def drive_dp():
 # Space phase (12)
 # ---------------------------------------------------------------------------
 
+def collective_stats(kinds) -> dict:
+    """{kind: {"calls", "bytes", "ms"}} of the port's "collective.<kind>"
+    spans and "collective.<kind>.bytes" counters since the last
+    `timing.reset()` (host ms inside the all-reduces, on a card with
+    their wait for the queued work)."""
+    from leod_tpu_torch import timing
+    rec = timing.recorded()
+    out = {}
+    for k in kinds:
+        spans = [s for s in rec["spans"] if s.name == "collective." + k]
+        out[k] = {"calls": len(spans),
+                  "bytes": rec["counters"].get(f"collective.{k}.bytes", 0),
+                  "ms": sum(s.ms for s in spans)}
+    return out
+
+
 def sp_rank(rank: int, port: int, out: str) -> None:
     """One rank of phase 12(b)-(d) (`--sp-rank`): joins the gloo group of
     SP_WORLD ranks on the one card as the space axis of a (1, SP_WORLD)
@@ -4389,6 +4405,7 @@ def sp_rank(rank: int, port: int, out: str) -> None:
     import torch
     from leod_tpu_torch.cli import train as cli_train
     from leod_tpu_torch.cli._common import load_detector, open_split, ratio_of
+    from leod_tpu_torch import timing
     from leod_tpu_torch.config import experiment_preset, stem_fold_hw
     from leod_tpu_torch.data.loader import harvest_frames
     from leod_tpu_torch.models.detector import Detector
@@ -4416,13 +4433,20 @@ def sp_rank(rank: int, port: int, out: str) -> None:
         """The block halves by route and the space collectives by kind
         since the last reset."""
         return {"routes": dict(space.COUNTS),
-                "collectives": {k: dict(v) for k, v in space.STATS.items()}}
+                "collectives": collective_stats(space.KINDS)}
+
+    def reset_counts():
+        space.reset_counts()
+        timing.reset()
+
+    # the collectives' spans and counters are recorded all through
+    timing.begin()
 
     # (b) training through the CLI, then the first step of a bf16 fit
     save = os.path.join(out, "runs")
     spy = StepSpy()
     _zero(wrappers)
-    space.reset_counts()
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with spy:
@@ -4476,7 +4500,7 @@ def sp_rank(rank: int, port: int, out: str) -> None:
         step = make_train_step(det, opt, remat=pol, mesh=mesh)
         state = TrainState(states=shard_states(mesh, det.init_states(bt)),
                            step=0)
-        space.reset_counts()
+        reset_counts()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4500,7 +4524,7 @@ def sp_rank(rank: int, port: int, out: str) -> None:
                         ckpt=os.path.join(save, "sp", "ckpt_last.pt"))
     store = {"frames": {}, "batches": []}
     _zero(wrappers)
-    space.reset_counts()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     metrics = run_streaming_eval(
@@ -5000,9 +5024,9 @@ def tp_rank(rank: int, port: int, out: str) -> None:
     import torch
     from leod_tpu_torch.cli import train as cli_train
     from leod_tpu_torch.cli._common import load_detector, open_split, ratio_of
+    from leod_tpu_torch import timing
     from leod_tpu_torch.config import experiment_preset
     from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
-    from leod_tpu_torch.parallel import tensor
     from leod_tpu_torch.parallel.mesh import make_mesh
     from leod_tpu_torch.train.trainer import Trainer, run_streaming_eval
 
@@ -5017,12 +5041,14 @@ def tp_rank(rank: int, port: int, out: str) -> None:
     frames = dp_frames(root, cfg)
     report = {"rank": rank, "device": torch.cuda.current_device(),
               "start_s": time.perf_counter() - t0}
+    # the collectives' spans and counters are recorded all through
+    timing.begin()
 
     # (b) training through the CLI, then the first step of a bf16 fit
     save = os.path.join(out, "runs")
     spy = StepSpy(checksum=_checksum_whole)
     _zero(wrappers)
-    tensor.reset_counts()
+    timing.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with spy:
@@ -5034,7 +5060,7 @@ def tp_rank(rank: int, port: int, out: str) -> None:
         "steps": spy.steps, "launches": _count(wrappers),
         "allreduce_ms": spy.timings.get("allreduce_ms", []),
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "model_collectives": dict(tensor.STATS)}
+        "model_collectives": collective_stats(["model"])["model"]}
     del spy, final
     torch.cuda.empty_cache()
     mesh = make_mesh(TP_WORLD, model=TP_WORLD)
@@ -5056,7 +5082,7 @@ def tp_rank(rank: int, port: int, out: str) -> None:
                         ckpt=os.path.join(save, "tp", "ckpt_last.pt"))
     store = {"frames": {}, "batches": []}
     _zero(wrappers)
-    tensor.reset_counts()
+    timing.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     metrics = run_streaming_eval(
@@ -5067,7 +5093,7 @@ def tp_rank(rank: int, port: int, out: str) -> None:
     report["eval"] = {
         "val_s": time.perf_counter() - t0, "metrics": metrics,
         "frames": len(store["frames"]), "launches": _count(wrappers),
-        "model_collectives": dict(tensor.STATS)}
+        "model_collectives": collective_stats(["model"])["model"]}
     report["eval"]["nms"] = _nms_exact(store["batches"], cfg,
                                        f"model rank {rank}'s eval")
     torch.save(store["frames"], os.path.join(out, f"tp_eval{rank}.pt"))
@@ -5084,8 +5110,9 @@ def tp3_rank(rank: int, port: int, out: str) -> None:
     from dataclasses import replace
     import torch
     from leod_tpu_torch.cli import train as cli_train
+    from leod_tpu_torch import timing
     from leod_tpu_torch.config import experiment_preset
-    from leod_tpu_torch.parallel import space, tensor
+    from leod_tpu_torch.parallel import space
 
     t0 = time.perf_counter()
     join_ranks(rank, port, TP3D_WORLD)
@@ -5097,17 +5124,17 @@ def tp3_rank(rank: int, port: int, out: str) -> None:
     argv = dp_argv(root, os.path.join(out, "runs3"), "tp3", False)
     argv[argv.index("--steps") + 1] = str(TP3D_STEPS)
     spy = StepSpy(checksum=_checksum_whole)
-    tensor.reset_counts()
     space.reset_counts()
+    timing.reset()
     torch.cuda.reset_peak_memory_stats()
-    with spy:
+    with spy, timing.recording():
         final = cli_train.main(argv + ["--mesh", "1x2x2"], frames=frames)
     report["train"] = {
         "step": final.step, "steps": spy.steps,
         "state_shape": list(final.states[0][0].shape),
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "model_collectives": dict(tensor.STATS),
-        "space_collectives": {k: dict(v) for k, v in space.STATS.items()}}
+        "model_collectives": collective_stats(["model"])["model"],
+        "space_collectives": collective_stats(space.KINDS)}
     with open(os.path.join(out, f"tp3{rank}.json"), "w") as f:
         json.dump(report, f)
     torch.distributed.destroy_process_group()

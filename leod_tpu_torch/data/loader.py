@@ -28,6 +28,7 @@ from typing import Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 
+from .. import timing
 from ..config import DatasetConfig
 from ..models.layers import fold_ev_hw
 from .augment import SpatialAugmentor, SSODAugmentor
@@ -128,10 +129,14 @@ class _TrainSlot:
                 win = WindowedSequence(seq, self.window, range_indices=rng_idx,
                                        time_flip=tflip)
                 for i in range(len(win)):
+                    sample = win[i]
                     if not self.ssod:
-                        yield self.augmentor.apply(win[i])
+                        with timing.span("load.augment"):
+                            out = self.augmentor.apply(sample)
+                        yield out
                         continue
-                    weak, strong = self.augmentor(win[i])
+                    with timing.span("load.augment"):
+                        weak, strong = self.augmentor(sample)
                     yield {"weak": weak, "strong": strong,
                            "weak_params": replace(self.augmentor.weak.params),
                            "strong_applied": replace(
@@ -230,7 +235,8 @@ class RandomTrainLoader:
                 s = self.datasets[di].__getitem__(int(li), time_flip=tflip)
             except ValueError:
                 continue    # rand-another on label-less windows
-            out = self.augmentor.apply(s)
+            with timing.span("load.augment"):
+                out = self.augmentor.apply(s)
             if any(l is not None for l in out["labels"]):
                 return out
         raise RuntimeError("could not sample a labeled random-access window")
@@ -327,6 +333,11 @@ class EvalStreamLoader:
 
 def collate(samples: List[dict]) -> dict:
     """Stack B window samples into one time-major batch dict."""
+    with timing.span("load.collate"):
+        return _collate(samples)
+
+
+def _collate(samples: List[dict]) -> dict:
     L = samples[0]["ev_repr"].shape[0]
     ev = np.stack([s["ev_repr"] for s in samples], axis=1)   # [L, B, C, H, W]
     labels = [[s["labels"][t] for s in samples] for t in range(L)]
@@ -399,10 +410,21 @@ def harvest_frames(batch: dict, frames_per_slot: int, max_gt: int,
     additionally folds the H axis ([L, B, H/f, W/f, f*f*C]) so the stem
     runs as a 2x2 stride-1 conv; it overrides fold_w.
     """
+    with timing.span("harvest.fold"):
+        ev = _fold(batch["ev"], pad_hw, fold_w, fold_hw)
+    with timing.span("harvest.labels"):
+        out = _pair_labels(batch, frames_per_slot, max_gt, use_label_every,
+                           ignore_label, ignore_image)
+    return {"ev": ev, **out}
+
+
+def _fold(ev: np.ndarray, pad_hw: Tuple[int, int], fold_w: int,
+          fold_hw: Optional[Tuple[int, int]]) -> np.ndarray:
+    """ev [L, B, C, H, W] transposed to NHWC, padded to `pad_hw` and
+    folded for the stem (`harvest_frames`)."""
     fold_h = 1
     if fold_hw is not None:
         fold_h, fold_w = fold_hw
-    ev = batch["ev"]                                    # [L, B, C, H, W]
     L, B = ev.shape[:2]
     h, w = ev.shape[-2:]
     ev = np.transpose(ev, (0, 1, 3, 4, 2))              # -> [L, B, H, W, C]
@@ -417,7 +439,15 @@ def harvest_frames(batch: dict, frames_per_slot: int, max_gt: int,
         assert pad_hw[1] % fold_w == 0, (pad_hw, fold_w)
         ev = ev.reshape(L, B, pad_hw[0], pad_hw[1] // fold_w,
                         fold_w * ev.shape[-1])
+    return ev
 
+
+def _pair_labels(batch: dict, frames_per_slot: int, max_gt: int,
+                 use_label_every: int, ignore_label: int,
+                 ignore_image: bool) -> dict:
+    """The per-slot budget of labeled timesteps and their padded labels
+    (`harvest_frames`), all but the frames."""
+    L, B = batch["ev"].shape[:2]
     M = frames_per_slot
     t_idx = np.zeros((B, M), np.int32)
     mask = np.zeros((B, M), bool)
@@ -445,7 +475,7 @@ def harvest_frames(batch: dict, frames_per_slot: int, max_gt: int,
             counts[b] = n + 1
     labels = np.stack([pad_yolox_batch(row, max_gt) for row in boxes])
     return {
-        "ev": ev, "is_first": batch["is_first"],
+        "is_first": batch["is_first"],
         "frame_t": t_idx, "frame_mask": mask,
         "labels": labels, "num_frames": int(counts.sum()),
         "dropped_frames": dropped,
@@ -462,7 +492,10 @@ class Prefetcher:
     """Background-thread prefetch wrapper around any batch iterator.
     Exceptions raised inside the prefetch thread are re-raised in the
     consumer (a silently-truncated epoch must never look like a clean
-    end-of-iteration)."""
+    end-of-iteration). Traced (`timing`) as the thread's "prefetch.put"
+    spans (the wait for room in the queue) and the counters
+    "prefetch.gets" and "prefetch.empty_gets" (gets that found the queue
+    empty: the consumer waited on the thread)."""
 
     def __init__(self, it, depth: int = 2):
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -470,7 +503,8 @@ class Prefetcher:
         self._done = object()
         self._error: Optional[BaseException] = None
         self._stop = False
-        self._thread = threading.Thread(target=self._fill, daemon=True)
+        self._thread = threading.Thread(target=self._fill, daemon=True,
+                                        name="prefetch")
         self._thread.start()
 
     def _fill(self):
@@ -478,7 +512,8 @@ class Prefetcher:
             for x in self._it:
                 if self._stop:
                     break
-                self._q.put(x)
+                with timing.span("prefetch.put"):
+                    self._q.put(x)
                 if self._stop:
                     break
         except BaseException as e:                    # noqa: BLE001
@@ -488,6 +523,10 @@ class Prefetcher:
 
     def __iter__(self):
         while True:
+            if timing.tracing():
+                timing.count("prefetch.gets")
+                if self._q.empty():
+                    timing.count("prefetch.empty_gets")
             x = self._q.get()
             if x is self._done:
                 if self._error is not None:

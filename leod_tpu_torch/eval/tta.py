@@ -17,7 +17,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from .. import resolve_device
+from .. import resolve_device, timing
 from ..config import ExperimentConfig, PostprocessConfig, stem_fold_hw
 from ..data.labels import Boxes
 from ..data.loader import (EvalStreamLoader, Prefetcher, harvest_frames,
@@ -26,7 +26,6 @@ from ..data.sequence import EventSequence
 from ..models.detector import Detector
 from ..ops.nms import batched_nms_numpy, postprocess
 from ..parallel import distributed as pdist
-from ..timing import lap
 from ..train.step import make_eval_step
 from .prophesee import PropheseeEvaluator, boxes_to_prophesee
 
@@ -74,6 +73,36 @@ class _SeqResult:
             self.gts[ev_idx] = gt
 
 
+def _bridge(results: Dict[str, _SeqResult], batch: dict, hb: dict,
+            dets: np.ndarray, valid: np.ndarray, B_eff: int,
+            time_flip: bool, dst) -> None:
+    """Each harvested labeled frame's kept detections into its
+    sequence's record, at its repr index (h-flipped rows beside the
+    normal view's)."""
+    Mslot = hb["frame_t"].shape[1]
+    for brow in range(len(hb["boxes"])):
+        b = brow % B_eff
+        is_h = brow >= B_eff
+        path = batch["paths"][b]
+        if not path:
+            continue
+        rec = results.setdefault(path, _SeqResult(dst.loading_hw[1]))
+        for m in range(Mslot):
+            gt = hb["boxes"][brow][m]
+            if gt is None:
+                continue
+            t = int(hb["frame_t"][brow, m])
+            ev_i = int(batch["ev_idx"][b, t])
+            if ev_i < 0:
+                continue
+            row = brow * Mslot + m
+            d = dets[row][valid[row]]
+            rec.add(ev_i, gt if not is_h else None, d,
+                    is_hflip=is_h, is_tflip=time_flip,
+                    tflip_offset=dst.tflip_offset)
+
+
+@timing.traced
 def run_tta_eval(det: Detector, cfg: ExperimentConfig,
                  split: str = "test", hflip: bool = True, tflip: bool = True,
                  batch_size: Optional[int] = None,
@@ -108,7 +137,8 @@ def run_tta_eval(det: Detector, cfg: ExperimentConfig,
     harvested, preds, dets, valid) is called after every NMS (dets and
     valid as numpy). `timings`, where given, collects host ms a batch
     under "harvest_ms", "step_ms" (ending in a device synchronize),
-    "postprocess_ms" and "bridge_ms", and "evaluate_ms" once."""
+    "postprocess_ms" and "bridge_ms", and "evaluate_ms" once, and turns
+    the port's tracer on while it runs (`timing`)."""
     dev = resolve_device(device)
     if det.device.type != dev.type:
         raise ValueError(f"detector is on {det.device}, eval asked for {dev}")
@@ -146,22 +176,23 @@ def run_tta_eval(det: Detector, cfg: ExperimentConfig,
         try:
             with Prefetcher(iter(loader)) as prefetcher:
                 for bi, batch in enumerate(prefetcher):
-                    t0 = time.perf_counter()
-                    dev_in = hflip_batch(batch) if hflip else batch
-                    while True:
-                        hb = harvest_frames(dev_in, M, cfg.model.head.max_gt,
-                                            cfg.model.backbone.in_res_hw,
-                                            fold_hw=stem_fold_hw(cfg.model))
-                        if not hb["dropped_frames"]:
-                            break
-                        # eval must never drop labeled frames (same
-                        # auto-regrow as run_streaming_eval)
-                        M = int(hb["max_slot_frames"])
-                        print(f"tta harvest budget grown to {M}/slot",
-                              flush=True)
-                    t0 = lap(timings, "harvest_ms", t0)
-                    states, preds = eval_step(states, hb)
-                    t0 = lap(timings, "step_ms", t0, det.device)
+                    with timing.lap(timings, "harvest_ms", batch=bi):
+                        dev_in = hflip_batch(batch) if hflip else batch
+                        while True:
+                            hb = harvest_frames(
+                                dev_in, M, cfg.model.head.max_gt,
+                                cfg.model.backbone.in_res_hw,
+                                fold_hw=stem_fold_hw(cfg.model))
+                            if not hb["dropped_frames"]:
+                                break
+                            # eval must never drop labeled frames (same
+                            # auto-regrow as run_streaming_eval)
+                            M = int(hb["max_slot_frames"])
+                            print(f"tta harvest budget grown to {M}/slot",
+                                  flush=True)
+                    with timing.lap(timings, "step_ms", det.device,
+                                    batch=bi):
+                        states, preds = eval_step(states, hb)
                     if not time_flip:
                         # end-of-stream bookkeeping must run even for
                         # steps with ZERO harvested frames: a sequence
@@ -175,38 +206,18 @@ def run_tta_eval(det: Detector, cfg: ExperimentConfig,
                                     dst.loading_hw[1])).ended = True
                     if hb["num_frames"] == 0:
                         continue
-                    dets, valid = postprocess(
-                        preds, num_classes=n_cls,
-                        conf_threshold=pp.confidence_threshold,
-                        nms_threshold=pp.nms_threshold,
-                        pre_topk=pp.pre_nms_topk, max_dets=pp.max_dets,
-                        plain=plain)
-                    dets = dets.cpu().numpy()
-                    valid = valid.cpu().numpy()
-                    t0 = lap(timings, "postprocess_ms", t0)
-                    Mslot = hb["frame_t"].shape[1]
-                    for brow in range(len(hb["boxes"])):
-                        b = brow % B_eff
-                        is_h = brow >= B_eff
-                        path = batch["paths"][b]
-                        if not path:
-                            continue
-                        rec = results.setdefault(
-                            path, _SeqResult(dst.loading_hw[1]))
-                        for m in range(Mslot):
-                            gt = hb["boxes"][brow][m]
-                            if gt is None:
-                                continue
-                            t = int(hb["frame_t"][brow, m])
-                            ev_i = int(batch["ev_idx"][b, t])
-                            if ev_i < 0:
-                                continue
-                            row = brow * Mslot + m
-                            d = dets[row][valid[row]]
-                            rec.add(ev_i, gt if not is_h else None, d,
-                                    is_hflip=is_h, is_tflip=time_flip,
-                                    tflip_offset=dst.tflip_offset)
-                    lap(timings, "bridge_ms", t0)
+                    with timing.lap(timings, "postprocess_ms", batch=bi):
+                        dets, valid = postprocess(
+                            preds, num_classes=n_cls,
+                            conf_threshold=pp.confidence_threshold,
+                            nms_threshold=pp.nms_threshold,
+                            pre_topk=pp.pre_nms_topk, max_dets=pp.max_dets,
+                            plain=plain)
+                        dets = dets.cpu().numpy()
+                        valid = valid.cpu().numpy()
+                    with timing.lap(timings, "bridge_ms", batch=bi):
+                        _bridge(results, batch, hb, dets, valid, B_eff,
+                                time_flip, dst)
                     if on_batch is not None:
                         on_batch(pass_index, bi, hb, preds, dets, valid)
         finally:

@@ -46,27 +46,23 @@ from __future__ import annotations
 import contextlib
 import functools
 import threading
-import time
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from .. import timing
+
 _active = threading.local()
 
 KINDS = ("halo", "exchange", "gather", "head")
-# collectives by kind: calls, bytes moved into the all-reduce, and the
-# host ms inside it (on a card, with its wait for the queued work)
-STATS = {k: {"calls": 0, "bytes": 0, "ms": 0.0} for k in KINDS}
 # block halves by route: local window, exchanged grid, gather path
 COUNTS = {"window_local": 0, "grid_exchange": 0, "window_gather": 0,
           "grid_gather": 0}
 
 
 def reset_counts() -> None:
-    for st in STATS.values():
-        st.update(calls=0, bytes=0, ms=0.0)
     for k in COUNTS:
         COUNTS[k] = 0
 
@@ -103,19 +99,21 @@ def bn_group():
 
 def _all_reduce(buf: torch.Tensor, group, kind: str, exact: bool) -> None:
     """SUM `buf` (contiguous) over `group` in place; `exact`: add its
-    bytes as integers (each element has one non-zero contributor)."""
-    t0 = time.perf_counter()
-    if exact:
-        flat = buf.view(-1)
-        nbytes = flat.numel() * flat.element_size()
-        flat = flat.view(torch.int32 if nbytes % 4 == 0 else torch.uint8)
-        dist.all_reduce(flat, group=group)
-    else:
-        dist.all_reduce(buf, group=group)
-    st = STATS[kind]
-    st["calls"] += 1
-    st["bytes"] += buf.numel() * buf.element_size()
-    st["ms"] += (time.perf_counter() - t0) * 1e3
+    bytes as integers (each element has one non-zero contributor).
+    Traced as the span "collective.<kind>" (host time, on a card with
+    its wait for the queued work) and the counter
+    "collective.<kind>.bytes"."""
+    with timing.span("collective." + kind):
+        if exact:
+            flat = buf.view(-1)
+            nbytes = flat.numel() * flat.element_size()
+            flat = flat.view(torch.int32 if nbytes % 4 == 0 else torch.uint8)
+            dist.all_reduce(flat, group=group)
+        else:
+            dist.all_reduce(buf, group=group)
+    if timing.tracing():
+        timing.count(f"collective.{kind}.bytes",
+                     buf.numel() * buf.element_size())
 
 
 def _own(full: torch.Tensor, dim: int, mesh) -> torch.Tensor:

@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import contextlib
 import threading
-import time
 from typing import Dict, Tuple
 
 import torch
@@ -48,11 +47,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-_active = threading.local()
+from .. import timing
 
-# the model axis's all-reduces: calls, bytes moved into them, and the
-# host ms inside them (on a card, with the wait for the queued work)
-STATS = {"calls": 0, "bytes": 0, "ms": 0.0}
+_active = threading.local()
 
 # `_TP_RULES` on the port's parameters: (path in a block, the dim of the
 # torch tensor that is sharded). A flax kernel [in, out] is the torch
@@ -64,10 +61,6 @@ TP_RULES = (("attn.qkv.weight", 0), ("attn.qkv.bias", 0),
 
 # the AdamW state of a parameter that has its shape
 _MOMENTS = ("exp_avg", "exp_avg_sq", "max_exp_avg_sq")
-
-
-def reset_counts() -> None:
-    STATS.update(calls=0, bytes=0, ms=0.0)
 
 
 @contextlib.contextmanager
@@ -105,18 +98,20 @@ def _mesh():
 def _all_reduce(buf: torch.Tensor, group, exact: bool = False) -> None:
     """SUM `buf` (contiguous) over `group` in place; `exact`: add its
     bytes as integers (each element has one non-zero contributor, so
-    the sum is that element in any dtype)."""
-    t0 = time.perf_counter()
-    if exact:
-        flat = buf.view(-1)
-        nbytes = flat.numel() * flat.element_size()
-        dist.all_reduce(flat.view(torch.int32 if nbytes % 4 == 0
-                                  else torch.uint8), group=group)
-    else:
-        dist.all_reduce(buf, group=group)
-    STATS["calls"] += 1
-    STATS["bytes"] += buf.numel() * buf.element_size()
-    STATS["ms"] += (time.perf_counter() - t0) * 1e3
+    the sum is that element in any dtype). Traced as the span
+    "collective.model" (host time, on a card with the wait for the
+    queued work) and the counter "collective.model.bytes"."""
+    with timing.span("collective.model"):
+        if exact:
+            flat = buf.view(-1)
+            nbytes = flat.numel() * flat.element_size()
+            dist.all_reduce(flat.view(torch.int32 if nbytes % 4 == 0
+                                      else torch.uint8), group=group)
+        else:
+            dist.all_reduce(buf, group=group)
+    if timing.tracing():
+        timing.count("collective.model.bytes",
+                     buf.numel() * buf.element_size())
 
 
 def _sum(x: torch.Tensor, mesh) -> torch.Tensor:

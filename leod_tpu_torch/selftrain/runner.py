@@ -20,7 +20,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .. import resolve_device
+from .. import resolve_device, timing
 from ..config import ExperimentConfig, stem_fold_hw
 from ..data.loader import (EvalStreamLoader, Prefetcher, harvest_frames,
                            hflip_batch, open_split_sequences)
@@ -28,7 +28,6 @@ from ..data.sequence import EventSequence, list_sequence_dirs
 from ..eval.prophesee import PropheseeEvaluator, boxes_to_prophesee
 from ..models.detector import Detector
 from ..ops.nms import postprocess
-from ..timing import lap
 from ..train.step import make_eval_step
 from .filters import evaluate_pseudo_labels, pred_to_label
 from .pseudo_labeler import PseudoLabelConfig, SequenceRecorder
@@ -87,7 +86,8 @@ class PseudoLabelRunner:
         valid as numpy). `timings`, where given, collects host ms a
         batch under "harvest_ms", "step_ms" (ending in a device
         synchronize), "postprocess_ms" and "consume_ms", and seconds
-        under "pass_s" and "save_s"."""
+        under "pass_s" and "save_s", and turns the port's tracer on
+        while the passes run (`timing`)."""
         self.dev = resolve_device(device)
         if det.device.type != self.dev.type:
             raise ValueError(f"detector is on {det.device}, the runner "
@@ -139,25 +139,26 @@ class PseudoLabelRunner:
                 # closed on exceptions too: no reader thread outlives the
                 # pass
                 for bi, batch in enumerate(prefetcher):
-                    t0 = time.perf_counter()
-                    lens.reset(batch["is_first"])
-                    hb = harvest_all_frames(
-                        hflip_batch(batch) if hflip else batch, cfg)
-                    t0 = lap(self.timings, "harvest_ms", t0)
-                    states, preds = eval_step(states, hb)
-                    t0 = lap(self.timings, "step_ms", t0, self.det.device)
-                    dets, valid = postprocess(
-                        preds, num_classes=n_cls,
-                        conf_threshold=pp.confidence_threshold,
-                        nms_threshold=pp.nms_threshold,
-                        pre_topk=pp.pre_nms_topk, max_dets=pp.max_dets,
-                        plain=self.plain)
-                    dets = dets.cpu().numpy()
-                    valid = valid.cpu().numpy()
-                    t0 = lap(self.timings, "postprocess_ms", t0)
-                    self._consume(batch, dets, valid, L, B, hflip, time_flip,
-                                  hw, lens.lens.copy())
-                    lap(self.timings, "consume_ms", t0)
+                    with timing.lap(self.timings, "harvest_ms", batch=bi):
+                        lens.reset(batch["is_first"])
+                        hb = harvest_all_frames(
+                            hflip_batch(batch) if hflip else batch, cfg)
+                    with timing.lap(self.timings, "step_ms",
+                                    self.det.device, batch=bi):
+                        states, preds = eval_step(states, hb)
+                    with timing.lap(self.timings, "postprocess_ms",
+                                    batch=bi):
+                        dets, valid = postprocess(
+                            preds, num_classes=n_cls,
+                            conf_threshold=pp.confidence_threshold,
+                            nms_threshold=pp.nms_threshold,
+                            pre_topk=pp.pre_nms_topk, max_dets=pp.max_dets,
+                            plain=self.plain)
+                        dets = dets.cpu().numpy()
+                        valid = valid.cpu().numpy()
+                    with timing.lap(self.timings, "consume_ms", batch=bi):
+                        self._consume(batch, dets, valid, L, B, hflip,
+                                      time_flip, hw, lens.lens.copy())
                     lens.add(L)
                     if self.on_batch is not None:
                         self.on_batch(pass_index, bi, hb, preds, dets, valid)
@@ -246,12 +247,13 @@ class PseudoLabelRunner:
                 f"{sorted(stale)[:5]}")
         os.makedirs(train_dir, exist_ok=True)
         passes = [False] + ([True] if self.pl.tta_tflip else [])
-        for i, time_flip in enumerate(passes):
-            t0 = time.perf_counter()
-            self._run_pass(time_flip, i)
-            if self.timings is not None:
-                self.timings.setdefault("pass_s", []).append(
-                    time.perf_counter() - t0)
+        with timing.recording(self.timings is not None):
+            for i, time_flip in enumerate(passes):
+                t0 = time.perf_counter()
+                self._run_pass(time_flip, i)
+                if self.timings is not None:
+                    self.timings.setdefault("pass_s", []).append(
+                        time.perf_counter() - t0)
         # quality metrics vs withheld GT
         metrics: Dict[str, float] = {}
         if self._gt_pairs[0]:

@@ -26,7 +26,6 @@ shards (the replica group).
 from __future__ import annotations
 
 import functools
-import time
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -34,14 +33,13 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from .. import resolve_device
+from .. import resolve_device, timing
 from ..convert import jax_paths
 from ..models.backbone import BackboneStates, reset_states
 from ..models.detector import Detector
 from ..parallel import distributed as pdist
 from ..parallel import space, tensor
 from ..parallel.mesh import Mesh, height_slice
-from ..timing import lap
 from .optim import ClipAdamW
 
 
@@ -76,8 +74,12 @@ def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
+    """x on `device`; a host array's bytes, or a host tensor's that is not
+    pinned, count as "h2d.pageable_bytes" (on a card, a pageable copy)."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
+    if timing.tracing() and x.device.type == "cpu" and not x.is_pinned():
+        timing.count("h2d.pageable_bytes", x.numel() * x.element_size())
     return x.to(device)
 
 
@@ -291,39 +293,47 @@ def make_train_step(det: Detector, optimizer: ClipAdamW,
 
     def train_step(state: TrainState, batch) -> tuple:
         dev = det.device
-        ev = _as_tensor(height_slice(mesh, batch["ev"], 2), dev)
-        frame_t = _as_tensor(batch["frame_t"], dev).long()
-        frame_mask = _as_tensor(batch["frame_mask"], dev)
-        labels = _as_tensor(batch["labels"], dev)
-        states = reset_states(state.states,
-                              _as_tensor(batch["is_first"], dev))
-        optimizer.zero_grad()
         with pdist.global_batch(data_group), space.space_shard(mesh), \
                 tensor.model_shard(mesh):
-            states, feats_seq = _scan_backbone(det, states, ev,
-                                               prebatch_stage1, remat)
-            feats = _gather_frames(feats_seq, frame_t)
-            out, _ = det.forward_detect(feats, train=True)
-            losses = det.loss(out, labels.reshape((-1,) + labels.shape[2:]),
-                              frame_mask.reshape(-1))
-        losses["loss"].backward()
+            with timing.span("step.forward"):
+                ev = _as_tensor(height_slice(mesh, batch["ev"], 2), dev)
+                frame_t = _as_tensor(batch["frame_t"], dev).long()
+                frame_mask = _as_tensor(batch["frame_mask"], dev)
+                labels = _as_tensor(batch["labels"], dev)
+                states = reset_states(state.states,
+                                      _as_tensor(batch["is_first"], dev))
+                optimizer.zero_grad()
+                states, feats_seq = _scan_backbone(det, states, ev,
+                                                   prebatch_stage1, remat)
+                feats = _gather_frames(feats_seq, frame_t)
+                out, _ = det.forward_detect(feats, train=True)
+            with timing.span("step.loss"):
+                losses = det.loss(out, labels.reshape(
+                    (-1,) + labels.shape[2:]), frame_mask.reshape(-1))
+        with timing.span("step.backward"):
+            losses["loss"].backward()
+        with timing.span("step.optimizer"):
+            return _update(state, states, out, losses)
+
+    def _update(state: TrainState, states, out, losses) -> tuple:
+        """The gradients' reductions and norms, the clip and AdamW."""
+        dev = det.device
         grads = optimizer.grads()
         metrics = {k: v.detach() for k, v in losses.items()}
         if group is not None:
             if timings is not None and dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            sum_gradients(grads, group)
-            if shards:
-                # a whole tensor's gradient is the same on every model
-                # rank up to the summation order of the kernels that
-                # made it (cuDNN's weight gradients, the loss's
-                # scatter-adds may use atomics): their mean over the
-                # model group leaves equal gradients as they are and
-                # keeps the replicas bit-equal
-                sum_gradients([g for g, sh in zip(grads, is_sharded)
-                               if not sh], mesh.model_group, 1.0 / k)
-            lap(timings, "allreduce_ms", t0, dev)
+            with timing.lap(timings, "allreduce_ms", dev):
+                sum_gradients(grads, group)
+                if shards:
+                    # a whole tensor's gradient is the same on every
+                    # model rank up to the summation order of the
+                    # kernels that made it (cuDNN's weight gradients,
+                    # the loss's scatter-adds may use atomics): their
+                    # mean over the model group leaves equal gradients
+                    # as they are and keeps the replicas bit-equal
+                    sum_gradients([g for g, sh in zip(grads, is_sharded)
+                                   if not sh], mesh.model_group, 1.0 / k)
             summed = [k for k in _SUMMED if k in metrics]
             tot = torch.stack([metrics[k] for k in summed])
             torch.distributed.all_reduce(tot, group=data_group)
@@ -381,10 +391,11 @@ def make_eval_step(det: Detector, plain: bool = False,
 
     @torch.no_grad()
     def eval_step(states: BackboneStates, batch) -> tuple:
-        ev = _as_tensor(height_slice(mesh, batch["ev"], 2), det.device)
-        frame_t = _as_tensor(batch["frame_t"], det.device).long()
-        states = reset_states(states, _as_tensor(batch["is_first"],
-                                                 det.device))
+        with timing.span("step.upload"):
+            ev = _as_tensor(height_slice(mesh, batch["ev"], 2), det.device)
+            frame_t = _as_tensor(batch["frame_t"], det.device).long()
+            is_first = _as_tensor(batch["is_first"], det.device)
+        states = reset_states(states, is_first)
         with space.space_shard(mesh), tensor.model_shard(mesh):
             # only the FPN's stages are kept over time (not stage 1's map)
             feats_seq = {s: [] for s in stages}

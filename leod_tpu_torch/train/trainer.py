@@ -54,6 +54,7 @@ each sharded weight there).
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import os
 import signal
@@ -63,7 +64,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, timing
 from ..config import ExperimentConfig, stem_fold_hw
 from ..data.loader import (EvalStreamLoader, MixedTrainLoader, Prefetcher,
                            RandomTrainLoader, StreamTrainLoader,
@@ -77,7 +78,6 @@ from ..parallel import distributed as pdist
 from ..parallel import tensor
 from ..parallel.mesh import (Mesh, data_axis_size, data_shard, replicate,
                              shard_states)
-from ..timing import lap
 from ..utils.viz import save_pred_vs_gt_panel
 from .optim import make_optimizer
 from .step import (TrainState, check_remat, make_eval_step,
@@ -121,6 +121,7 @@ def default_frames_per_slot(seq_len: int, use_label_every: int = 1) -> int:
     return budget
 
 
+@timing.traced
 def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
                        split: str = "val", batch_size: Optional[int] = None,
                        frames_per_slot: Optional[int] = None,
@@ -171,7 +172,9 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
     the NMS of every batch with labeled frames (dets and valid as numpy).
     `timings`, where given, collects host ms a batch under "harvest_ms",
     "step_ms" (ending in a device synchronize), "postprocess_ms" and
-    "bridge_ms", and "evaluate_ms" once."""
+    "bridge_ms", and "evaluate_ms" once, and turns the port's tracer on
+    while the loop runs (`timing`): each of those a span under the batch
+    index, over the harvest's and the step's own spans."""
     dev = resolve_device(device)
     if det.device.type != dev.type:
         raise ValueError(f"detector is on {det.device}, eval asked for {dev}")
@@ -208,45 +211,48 @@ def run_streaming_eval(det: Detector, cfg: ExperimentConfig,
         for bi, batch in enumerate(prefetcher):
             if max_batches is not None and bi >= max_batches:
                 break
-            t0 = time.perf_counter()
-            while True:
-                hb = harvest_frames(batch, M, cfg.model.head.max_gt,
-                                    cfg.model.backbone.in_res_hw,
-                                    fold_hw=stem_fold_hw(cfg.model))
-                if not hb["dropped_frames"]:
-                    break
-                # dropped eval frames would silently bias mAP (the
-                # reference harvests ragged and can never drop,
-                # modules/utils/detection.py:27-58): regrow the static
-                # budget to this batch's demand and re-harvest
-                M = int(hb["max_slot_frames"])
-                print(f"eval harvest budget grown to {M}/slot", flush=True)
-            t0 = lap(timings, "harvest_ms", t0)
-            states, preds = eval_step(states, hb)
-            t0 = lap(timings, "step_ms", t0, det.device)
+            with timing.lap(timings, "harvest_ms", batch=bi):
+                while True:
+                    hb = harvest_frames(batch, M, cfg.model.head.max_gt,
+                                        cfg.model.backbone.in_res_hw,
+                                        fold_hw=stem_fold_hw(cfg.model))
+                    if not hb["dropped_frames"]:
+                        break
+                    # dropped eval frames would silently bias mAP
+                    # (the reference harvests ragged and can never
+                    # drop, modules/utils/detection.py:27-58): regrow
+                    # the static budget to this batch's demand and
+                    # re-harvest
+                    M = int(hb["max_slot_frames"])
+                    print(f"eval harvest budget grown to {M}/slot",
+                          flush=True)
+            with timing.lap(timings, "step_ms", det.device, batch=bi):
+                states, preds = eval_step(states, hb)
             if hb["num_frames"] == 0:
                 continue
-            dets, valid = postprocess(preds, num_classes=n_cls,
-                                      conf_threshold=conf,
-                                      nms_threshold=pp.nms_threshold,
-                                      pre_topk=pp.pre_nms_topk,
-                                      max_dets=pp.max_dets, plain=plain)
-            dets = dets.cpu().numpy()
-            valid = valid.cpu().numpy()
-            t0 = lap(timings, "postprocess_ms", t0)
-            # rows are (b, m) flattened with b outer
-            Mslot = hb["frame_t"].shape[1]
-            for b in range(len(hb["boxes"]) if feed else 0):
-                for m in range(Mslot):
-                    lab = hb["boxes"][b][m]
-                    if lab is None:
-                        continue
-                    row = b * Mslot + m
-                    d = dets[row][valid[row]]
-                    gt, dt = boxes_to_prophesee(lab, d if len(d) else None)
-                    evaluator.add_labels([gt])
-                    evaluator.add_predictions([dt])
-            lap(timings, "bridge_ms", t0)
+            with timing.lap(timings, "postprocess_ms", batch=bi):
+                dets, valid = postprocess(preds, num_classes=n_cls,
+                                          conf_threshold=conf,
+                                          nms_threshold=pp.nms_threshold,
+                                          pre_topk=pp.pre_nms_topk,
+                                          max_dets=pp.max_dets,
+                                          plain=plain)
+                dets = dets.cpu().numpy()
+                valid = valid.cpu().numpy()
+            with timing.lap(timings, "bridge_ms", batch=bi):
+                # rows are (b, m) flattened with b outer
+                Mslot = hb["frame_t"].shape[1]
+                for b in range(len(hb["boxes"]) if feed else 0):
+                    for m in range(Mslot):
+                        lab = hb["boxes"][b][m]
+                        if lab is None:
+                            continue
+                        row = b * Mslot + m
+                        d = dets[row][valid[row]]
+                        gt, dt = boxes_to_prophesee(
+                            lab, d if len(d) else None)
+                        evaluator.add_labels([gt])
+                        evaluator.add_predictions([dt])
             if on_batch is not None:
                 on_batch(bi, hb, preds, dets, valid)
     finally:
@@ -329,17 +335,28 @@ _DEVICE_KEYS = ("ev", "is_first", "frame_t", "frame_mask", "labels")
 
 
 def _start_profile(device: torch.device):
+    """A torch profiler of every thread (where the installed torch takes
+    `profile_all_threads`; else of the threads it starts in), with
+    tracing on until `_stop_profile`, so that the prefetch thread's
+    "leod." spans show beside the kernels."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=acts)
+    try:
+        config = torch.profiler._ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        config = None
+    prof = torch.profiler.profile(activities=acts,
+                                  experimental_config=config)
     prof.__enter__()
+    timing.begin()
     return prof
 
 
 def _stop_profile(prof, run_dir: str) -> None:
     """End the trace and write it to <run_dir>/profile/trace.json."""
     prof.__exit__(None, None, None)
+    timing.end()
     out = os.path.join(run_dir, "profile")
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, "trace.json"))
@@ -365,6 +382,9 @@ class _Uploader:
             dev = {k: v.pin_memory().to(self.device, non_blocking=True)
                    for k, v in host.items()}
             done = self.stream.record_event()
+        if timing.tracing():
+            timing.count("h2d.pinned_bytes", sum(
+                v.numel() * v.element_size() for v in host.values()))
         return dev, done
 
     def ready(self, dev: Dict[str, torch.Tensor], done) -> None:
@@ -685,6 +705,7 @@ class Trainer:
             print(f"viz panel -> {path}", flush=True)
 
     # -- loop ---------------------------------------------------------------
+    @timing.traced
     def fit(self, max_steps: Optional[int] = None, seed: int = 0,
             eval_split: str = "val", state: Optional[TrainState] = None,
             log_every: int = 50, profile_steps: int = 0, *,
@@ -694,14 +715,19 @@ class Trainer:
         """Train to `max_steps` (default `training.max_steps`) from
         `state` (default: `init_state`). profile_steps > 0 traces that
         many steps, from step 5, with `torch.profiler` into
-        <run_dir>/profile (a Chrome trace). `sequences` / `val_sequences`
+        <run_dir>/profile (a Chrome trace of every thread, with the
+        port's spans on while it runs). `sequences` / `val_sequences`
         replace the train / `eval_split` directories. `timings`, where
         given, collects host ms a step under "step_ms" (the step, ending
         in a device synchronize) and "wait_ms" (waiting for the
         prefetch thread), and seconds a validation under "val_s"; under
         online SSOD also "teacher_update_ms" (the EMA update and the
         refresh of the teacher's inference weights, ending in a device
-        synchronize).
+        synchronize); and the port's tracer is on while fit runs
+        (`timing`): each of those is a span, over the step's phases
+        (`make_train_step`), and the prefetch thread records its
+        "load", "harvest" and "upload" spans under the number of the
+        step that consumes the batch.
 
         With `training.ssod_online.enabled`, an EMA teacher
         (`selftrain/online.py`, `self.ssod_batcher`) pseudo-labels the
@@ -776,20 +802,30 @@ class Trainer:
         profiler = None
 
         def device_batches():
-            """Harvest and the host-to-device copy, in the prefetch
-            thread, so that they overlap the steps."""
-            for i, batch in enumerate(loader):
-                hb = harvest_frames(batch, M, cfg.model.head.max_gt,
-                                    cfg.model.backbone.in_res_hw,
-                                    use_label_every=cfg.model.use_label_every,
-                                    ignore_label=cfg.model.head.ignore_label,
-                                    ignore_image=cfg.model.ignore_image,
-                                    fold_hw=stem_fold_hw(cfg.model))
-                dev, done = upload(hb)
+            """Reads, harvest and the host-to-device copy, in the prefetch
+            thread, so that they overlap the steps; each traced under
+            the number of the step that consumes its batch."""
+            batches = iter(loader)
+            for i in itertools.count():
+                # batch i is consumed by step (step0 + i + 1)
+                n = step0 + i + 1
+                with timing.span("load", batch=n):
+                    batch = next(batches, None)
+                if batch is None:
+                    return
+                with timing.span("harvest", batch=n):
+                    hb = harvest_frames(
+                        batch, M, cfg.model.head.max_gt,
+                        cfg.model.backbone.in_res_hw,
+                        use_label_every=cfg.model.use_label_every,
+                        ignore_label=cfg.model.head.ignore_label,
+                        ignore_image=cfg.model.ignore_image,
+                        fold_hw=stem_fold_hw(cfg.model))
+                with timing.span("upload", batch=n):
+                    dev, done = upload(hb)
                 meta = {"frames": batch["ev"].shape[0] * batch["ev"].shape[1],
                         "dropped_frames": hb["dropped_frames"]}
-                # batch i is consumed by step (step0 + i + 1)
-                if viz_every and (step0 + i + 1) % viz_every == 0:
+                if viz_every and n % viz_every == 0:
                     meta["viz"] = self._viz_payload(hb)
                 yield dev, done, meta
 
@@ -798,21 +834,24 @@ class Trainer:
         try:
             it = iter(prefetcher)
             while step < total:
-                tw = time.perf_counter()
-                item = next(it, None)
+                with timing.lap(timings, "wait_ms", batch=step + 1):
+                    item = next(it, None)
+                    if item is not None:
+                        dev, done, meta = item
+                        upload.ready(dev, done)
+                        if profile_steps and step == 5 and \
+                                pdist.is_primary():
+                            profiler = _start_profile(self.device)
                 if item is None:
                     break
-                dev, done, meta = item
-                upload.ready(dev, done)
-                if profile_steps and step == 5 and pdist.is_primary():
-                    profiler = _start_profile(self.device)
-                ts = lap(timings, "wait_ms", tw)
-                state, metrics = train_step(state, dev)
-                ts = lap(timings, "step_ms", ts, self.device)
+                with timing.lap(timings, "step_ms", self.device,
+                                batch=step + 1):
+                    state, metrics = train_step(state, dev)
                 step += 1
                 if ssod_batcher is not None:
-                    ssod_batcher.update_teacher(self.det, step)
-                    lap(timings, "teacher_update_ms", ts, self.device)
+                    with timing.lap(timings, "teacher_update_ms",
+                                    self.device, batch=step):
+                        ssod_batcher.update_teacher(self.det, step)
                 preds = metrics.pop("preds", None)
                 if meta.get("viz") is not None and preds is not None:
                     self._write_viz_panel(step, meta["viz"], preds)

@@ -37,7 +37,8 @@ C++, `csrc/torch_ops.cpp`) dispatched to its CUDA implementation and
 counted, and under `torch.library.opcheck`, the serving step exported (on
 the card, and on the CPU for both platforms), loaded on the card and run
 against the live step, and the event voxelizer on the card equal to the
-CPU's.
+CPU's. Tracing: an eval step's span, placed on the profiler's timeline,
+holds the host's launch of each of its kernels.
 
 These tests need an NVIDIA Hopper card and `nvcc`; without a card they
 skip. They import no JAX. Run them on the card with
@@ -1052,6 +1053,41 @@ def _tiny_det(dev, seed=0):
                 for p in (m.ls1, m.ls2):
                     p.copy_(torch.rand(p.shape, generator=g) * 0.4 + 0.1)
     return cfg, det
+
+
+def test_step_span_holds_its_kernel_launches(cuda):
+    """The eval step's span, placed on the profiler's timeline through
+    `profiling_start_time_ns` (the tracer's clock), holds the host's
+    launch of every kernel the step made, to within 200 us: the RVT-T
+    eval step at B = 2, L = 3, once warm."""
+    from leod_tpu_torch import timing
+    from leod_tpu_torch.serve import serve_input_shape
+    from leod_tpu_torch.train.step import make_eval_step
+
+    cfg, det = _tiny_det(cuda)
+    step = make_eval_step(det, device=cuda)
+    rng = np.random.default_rng(3)
+    shape = (3,) + serve_input_shape(cfg, 2)
+    batch = {"ev": np.minimum(rng.poisson(0.3, shape), 255).astype(np.uint8),
+             "is_first": np.ones(2, bool),
+             "frame_t": rng.integers(0, 3, (2, 2)).astype(np.int32)}
+    states = det.init_states(2)
+    states, _ = step(states, batch)
+    torch.cuda.synchronize()
+    timing.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with timing.recording(), torch.profiler.profile(activities=acts) as prof:
+        with timing.span("step"):
+            states, _ = step(states, batch)
+        torch.cuda.synchronize()
+    (sp,) = [s for s in timing.recorded()["spans"] if s.name == "step"]
+    t0 = prof.profiler.profiling_start_time_ns
+    launches = [(t0 + e.time_range.start * 1e3, t0 + e.time_range.end * 1e3)
+                for e in prof.events() if "LaunchKernel" in e.name]
+    assert len(launches) >= 3 * 4 * 2     # two kernels a stage and step
+    assert min(a for a, _ in launches) >= sp.start_ns - 200e3
+    assert max(b for _, b in launches) <= sp.end_ns + 200e3
 
 
 @pytest.mark.parametrize("traced_on", ["cuda", "cpu"])

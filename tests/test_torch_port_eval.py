@@ -25,6 +25,7 @@ from leod_tpu.models.detector import Detector as JDetector
 from leod_tpu.train.step import make_eval_step as j_make_eval_step
 from leod_tpu.train import trainer as jt
 
+from leod_tpu_torch import timing
 from leod_tpu_torch.config import experiment_preset, stem_fold_hw
 from leod_tpu_torch.convert import load_jax_variables
 from leod_tpu_torch.data import loader as tl
@@ -295,8 +296,34 @@ def test_run_streaming_eval_matches_jax(tiny, case):
     jcfg, tcfg, jdet, v, tdet = tiny
     kw = {"batch_size": 2, "conf_threshold": 0.001, **case}
     t_ev, j_ev = PropheseeEvaluator("gen1", False), JEvaluator("gen1", False)
-    got = tt.run_streaming_eval(tdet, tcfg, evaluator=t_ev, device="cpu",
-                                **kw)
+    fed = []      # each step's inputs
+    make = tt.make_eval_step
+
+    def spied(*a, **k):
+        step = make(*a, **k)
+
+        def run(states, batch):
+            fed.append(batch)
+            return step(states, batch)
+        return run
+    timings = {}
+    timing.reset()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tt, "make_eval_step", spied)
+        got = tt.run_streaming_eval(tdet, tcfg, evaluator=t_ev,
+                                    device="cpu", timings=timings, **kw)
+    # the tracer was on: the step's host-to-device bytes are its inputs',
+    # one "step.upload" a batch under the batch's "step_ms"
+    assert set(timings) == {"harvest_ms", "step_ms", "postprocess_ms",
+                            "bridge_ms", "evaluate_ms"}
+    rec = timing.recorded()
+    assert rec["counters"]["h2d.pageable_bytes"] == sum(
+        b[k].nbytes for b in fed for k in ("ev", "frame_t", "is_first"))
+    laps = {s.index: s for s in rec["spans"] if s.name == "step_ms"}
+    ups = [s for s in rec["spans"] if s.name == "step.upload"]
+    assert len(ups) == len(laps) == len(fed) == len(timings["step_ms"])
+    assert sorted(laps[s.parent].batch for s in ups) == list(range(len(fed)))
+    assert all(s.batch == laps[s.parent].batch for s in ups)
     want = jt.run_streaming_eval(jdet, v, jcfg, evaluator=j_ev,
                                  shard_index=0, num_shards=1, **kw)
     n = len(j_ev.labels)

@@ -24,6 +24,7 @@ from leod_tpu.data import loader as jl
 from leod_tpu.data.synthetic import generate_dataset as j_generate_dataset
 from leod_tpu.train.trainer import Trainer as JTrainer
 
+from leod_tpu_torch import timing
 from leod_tpu_torch.config import experiment_preset, stem_fold_hw
 from leod_tpu_torch.convert import _leaves, _target, load_jax_variables
 from leod_tpu_torch.data import augment as taug
@@ -234,9 +235,33 @@ def test_fit_logs_validates_checkpoints_and_resumes(root, tmp_path):
     cfg = _cfg(experiment_preset, root, tmp_path, val_check_interval=1)
     trainer = Trainer(cfg, dtype=torch.float32, device="cpu")
     timings = {}
+    timing.reset()
     state = trainer.fit(max_steps=2, log_every=1, timings=timings)
     assert state.step == 2
+    assert set(timings) == {"wait_ms", "step_ms", "val_s"}
     assert len(timings["step_ms"]) == 2 and len(timings["val_s"]) == 2
+    # with `timings` the tracer was on: each step's four phases under its
+    # "step_ms" span, and its batch's load, harvest and upload in the
+    # prefetch thread under the step's number
+    assert not timing.tracing()
+    spans = timing.recorded()["spans"]
+    by_index = {s.index: s for s in spans}
+    for n in (1, 2):
+        mine = {}
+        for s in spans:
+            if s.batch == n:
+                mine.setdefault(s.name, []).append(s)
+        lap = by_index[mine["step.forward"][0].parent]
+        assert lap.name == "step_ms" and lap.batch == n
+        for name in ("step.forward", "step.loss", "step.backward",
+                     "step.optimizer"):
+            (sp,) = mine[name]
+            assert sp.parent == lap.index and sp.thread == lap.thread
+        for name in ("load", "harvest", "upload"):
+            (sp,) = mine[name]
+            assert sp.thread == "prefetch" and sp.parent == -1
+        assert mine["load.collate"][0].parent == mine["load"][0].index
+        assert mine["harvest.fold"][0].parent == mine["harvest"][0].index
     recs = _records(trainer)
     steps = [r for r in recs if "loss" in r]
     vals = [r for r in recs if "val/AP" in r]
