@@ -428,7 +428,15 @@ a directory without the package.
     python3 chip_smoke.py --serve-timing ROOT
 
 times only the live RVT-B serve step of the package under ROOT (see
-`serve_timing`), for an A/B of two trees in one call.
+`serve_timing`), for an A/B of two trees in one call, and
+
+    python3 chip_smoke.py --mlp-timing ROOT
+
+only `block_mlp` at the RVT-B Gen1 stage shapes at B = 16, 8 and 1,
+the Gen4 ones at B = 12 and the RVT-S Gen1 ones at B = 8 and 1 (see
+`mlp_timing`), likewise; the first path's
+kernel phase gives the same at the Gen1 B = 16 and 8 shapes
+("block_mlp_device").
 """
 from __future__ import annotations
 
@@ -531,6 +539,10 @@ DEPLOY_HTTP_ATOL = 1e-4
 MERGE_FRAMES, MERGE_ROWS = 80, 4 * 300
 # `--serve-timing`: host-clock runs of the live serve step a batch size
 SERVE_TIMING_REPS = 50
+# `block_mlp`'s profiled device time a launch: launches a window, and the
+# Gen1 batches (16: LEOD's test batch, the eval cell's)
+MLP_PROFILE_CALLS = 20
+MLP_GEN1_BATCHES = (16, B)
 # the Gen4 phase (10), RVT-B Gen4 at full width and depth: the kernels at
 # the eval and train batch GEN4_BATCH, each half of a block and the
 # ConvLSTM update also at the serving batches; GEN4_SEQS train and as
@@ -5383,6 +5395,9 @@ def drive_path(tag: str, size: str, first: bool, probe_lib: str):
     emit({"kernel_phase": {"config": name, **rows, "nms_mask": [nms_row]}})
     checked = dict(rows)
     if first:
+        rows_dev = mlp_device_rows(det, MLP_GEN1_BATCHES)
+        emit({"block_mlp_device": {"config": name, "rows": rows_dev}})
+        checked["block_mlp_device"] = rows_dev
         var = phase_variants(det, probe_lib)
         emit({"variants": {"config": name, **var}})
         checked.update((k, var[k]) for k in ("lstm_update_clusters",
@@ -5493,6 +5508,32 @@ def op_call_timing(det, mc, nc) -> dict:
     return out
 
 
+def timing_detector(root: str, data: str, size: str = "base"):
+    """(preset, detector) of `data` at `size` (seed 0, LayerScale from
+    seed 0) from the package under ROOT, its op library built and TF32
+    off: the model of the timing modes, which compare two trees in one
+    call."""
+    root = os.path.abspath(root)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import torch
+    import leod_tpu_torch
+    if not os.path.abspath(leod_tpu_torch.__file__).startswith(root):
+        fail(f"imported {leod_tpu_torch.__file__}, not the package under "
+             f"{root}")
+    from leod_tpu_torch.config import experiment_preset
+    from leod_tpu_torch.models.detector import Detector
+    from leod_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    cfg = experiment_preset(data, size)
+    det = Detector(cfg.model, device="cuda", seed=0)
+    perturb_layerscale(det, seed=0)
+    return cfg, det
+
+
 def serve_timing(root: str) -> None:
     """`--serve-timing ROOT`: the live serve step of RVT-B Gen1 (seed 0,
     LayerScale from seed 0, conf 0) of the package under ROOT, by host
@@ -5501,25 +5542,12 @@ def serve_timing(root: str) -> None:
     the package has the custom ops, each op call's host time against the
     launch it wraps, called directly (`op_call_timing`). One JSON line;
     compare two trees in one call, in the order A, B, B, A."""
-    root = os.path.abspath(root)
-    sys.path.insert(0, root)
     import numpy as np
     import torch
-    import leod_tpu_torch
-    if not os.path.abspath(leod_tpu_torch.__file__).startswith(root):
-        fail(f"imported {leod_tpu_torch.__file__}, not the package under "
-             f"{root}")
-    from leod_tpu_torch.config import experiment_preset
-    from leod_tpu_torch.models.detector import Detector
-    from leod_tpu_torch.ops import _build, maxvit_cuda, nms_cuda
+    cfg, det = timing_detector(root, "gen1")
+    from leod_tpu_torch.ops import maxvit_cuda, nms_cuda
     from leod_tpu_torch.serve import make_serve_step, serve_input_shape
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    _build.build_all()
-    cfg = experiment_preset("gen1", "base")
-    det = Detector(cfg.model, device="cuda", seed=0)
-    perturb_layerscale(det, seed=0)
     step = make_serve_step(det, conf_threshold=0.0)
     rng = np.random.default_rng(0)
     out = {"root": os.path.relpath(root, REPO)}
@@ -5539,6 +5567,74 @@ def serve_timing(root: str) -> None:
     emit({"serve_timing": out})
 
 
+def mlp_device_rows(det, batches, calls: int = MLP_PROFILE_CALLS):
+    """`block_mlp` at the model's stage rows for each of `batches` slots,
+    on seeded x and o, by its own plan: the profiled device us a launch
+    of `block_mlp_kernel<C>` (the mean of `calls` launches in one
+    window), its bound (`mlp_work`, as `portbench/work.py` counts it, at
+    the bf16 tensor-core rate or the card's bytes, the larger) and its
+    share of that roofline, the launch's plan, the error against the
+    plain version (KERNEL_TOL) and whether a second launch gave the same
+    bits."""
+    import torch
+    from leod_tpu_torch.ops import maxvit_cuda as mc
+
+    bb = det.cfg.backbone
+    h_in, w_in = bb.in_res_hw
+    g = torch.Generator(device="cuda").manual_seed(4)
+    out = []
+    for k, (dim, stride) in enumerate(zip(bb.stage_dims, bb.stage_strides)):
+        wb = getattr(det.backbone, f"stage{k + 1}").pairs()[0][0]
+        for bsz in batches:
+            n_tok = bsz * (h_in // stride) * (w_in // stride)
+            x, o = (torch.randn((n_tok, dim), device="cuda", generator=g
+                                ).to(torch.bfloat16) for _ in range(2))
+
+            def call(x=x, o=o):
+                return mc.block_mlp(x, o, wb, bb.mlp_act, bb.mlp_gated,
+                                    bb.norm_eps)
+
+            first = call()
+            err, tol, ok = compare_all(first, mc.block_mlp_plain(x, o, wb),
+                                       KERNEL_TOL)
+            same = bool(torch.equal(first, call()))
+            dev_events, tries = profile_calls(
+                call, calls, f"block_mlp at C = {dim}, B = {bsz}")
+            us = [e.time_range.elapsed_us() for e in dev_events
+                  if re.search(r"\bblock_mlp_kernel\b", e.name)]
+            bms, by = bound(*mlp_work(wb, n_tok), PEAK_BF16)
+            dev_us = sum(us) / len(us)
+            plan = mc.block_mlp.plan
+            out.append({"dim": dim, "batch": bsz, "shape": [n_tok, dim],
+                        "device_us": dev_us, "bound_us": bms * 1e3,
+                        "bound_by": by, "roofline": bms * 1e3 / dev_us,
+                        "launches": len(us), "profile_tries": tries,
+                        "plan": list(plan) if isinstance(plan, (list, tuple))
+                        else plan,
+                        "max_abs_err": err, "tol": tol, "ok": ok and same,
+                        "rerun_equal": same})
+    return out
+
+
+def mlp_timing(root: str) -> None:
+    """`--mlp-timing ROOT`: `mlp_device_rows` of the package under ROOT,
+    RVT-B Gen1 (seed 0, LayerScale from seed 0) at B = 16, 8 and 1,
+    RVT-B Gen4 at B = 12 and RVT-S Gen1 at B = 8 and 1. One JSON line;
+    compare two trees in one call, in the order A, B, B, A."""
+    out = {"root": os.path.relpath(root, REPO)}
+    for key, data, size, batches in (
+            ("gen1", "gen1", "base", MLP_GEN1_BATCHES + (1,)),
+            ("gen4", "gen4", "base", (GEN4_BATCH,)),
+            ("gen1_small", "gen1", "small", (B, 1))):
+        _, det = timing_detector(root, data, size)
+        out[key] = mlp_device_rows(det, batches)
+        del det
+    emit({"mlp_timing": out})
+    if not all(r["ok"] for key, rows in out.items() if key != "root"
+               for r in rows):
+        fail("block_mlp disagrees with its plain version or with itself")
+
+
 def main() -> int:
     try:
         import torch
@@ -5551,6 +5647,9 @@ def main() -> int:
              "repository root")
     if sys.argv[1:2] == ["--serve-timing"] and len(sys.argv) == 3:
         serve_timing(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--mlp-timing"] and len(sys.argv) == 3:
+        mlp_timing(sys.argv[2])
         return 0
     sys.path.insert(0, REPO)
     if sys.argv[1:2] == ["--dp-rank"] and len(sys.argv) == 5:

@@ -17,14 +17,16 @@
 //       3-4, or any stage at small B), the head groups of a window group
 //       are a cluster that shares the LayerNorm over distributed shared
 //       memory (section below).
-//   block_mlp_kernel  per-token, 64 rows of B*H*W per CTA (wgmma's M):
+//   block_mlp_kernel  per-token on 64-row tiles of B*H*W (wgmma's M):
 //       the output projection, LayerScale, residual, LayerNorm 2, and the
 //       MLP with the hidden dim walked in 64-wide chunks whose activations
 //       stay in shared memory, on wgmma with every weight tile streamed
-//       by TMA through a ring of shared-memory stages (section below).
-//       Where B*H*W gives too few row tiles to fill the card (stages 3-4,
+//       by TMA through a ring of shared-memory stages; persistent CTAs of
+//       a producer warpgroup and two consumer warpgroups, which take a
+//       tile each (C <= 64) or split one tile's columns (section below).
+//       Where B*H*W gives too few tiles to fill the card (stages 3-4,
 //       or any stage at small B), a thread-block cluster of up to 8 CTAs
-//       shares a row tile: each projects C / size of the columns and
+//       shares a unit of tiles: each projects C / size of the columns and
 //       runs a share of the hidden chunks, and their fp32 partial sums
 //       are added over distributed shared memory.
 //   block_residual_kernel  the model axis's last residual (below).
@@ -108,52 +110,135 @@ __device__ __forceinline__ float activate(float v, int act) {
 // Per-token half of a block: proj, LayerScale, residual, LN2, MLP
 // ---------------------------------------------------------------------------
 //
-// One CTA owns 64 token rows (wgmma's M) and runs three chained products
-// on them, all with A and B in shared memory:
-//   GEMM0  o [64, C] x proj^T          -> y = x + ls1 (proj + b), stored
+// Three chained products a 64-row tile of tokens (wgmma's M), with A and
+// B in shared memory:
+//   GEMM0  o [64, C] x proj^T          -> y = x + ls1 (proj + b)
 //   GEMM1  z [64, C] x proj_in^T chunk -> act(. + b), bf16, into an H tile
 //   GEMM2  H [64, 64] x proj_out^T     -> the [64, C] fp32 accumulator
 // with z = LN2(y) written over the o rows. The hidden activations never
-// reach device memory (flash attention's P.V pattern). Consumer
-// warpgroups (one, or two at C = 512, each owning C / NWG output
-// columns) issue wgmma.mma_async; one producer warp streams every weight
-// tile through a ring of NS stages per warpgroup with TMA (128-, 64- or
-// 32-byte swizzle, matching the wgmma descriptors), full/empty mbarriers.
+// reach device memory (flash attention's P.V pattern).
 //
-// Shared memory at C = 512: the A tile (64 KB), 2 warpgroups x 2 stages
-// of 32 KB, two 8 KB H tiles; the fp32 partial of a cluster's reduction
-// (130 KB) reuses A and the ring once the last product is done. The y
-// rows go through `out` (L2) rather than a 64 KB shared tile, which
-// would leave one ring stage per warpgroup.
+// What bounds it on the H100, at LEOD's Gen1 B = 16 (R C^2 is the same
+// at every stage): 18 C^2 flops a token against 6 C bytes of bf16 rows
+// in and out, so C = 64 is bound by bytes (9.4 us) and C = 128-512 by
+// tensor-core operations (6.1 us). The roofline leaves out the exact
+// GELU on the SIMT units (tanhf: about 21 instructions an element, 4 C
+// elements a row, most of the SIMT work at C = 64-128) and the weights,
+// which every unit streams from L2 (18 C^2 bytes a tile). Measured, a
+// launch is bound by latency: each warpgroup's chain of wgmma and
+// mbarrier waits and dependent SIMT work a hidden chunk, with 8
+// consumer warps an SM (PERF.md, section 6).
+//
+// The schedule: persistent and warp-specialised. A producer warpgroup
+// (one thread issues every TMA load; setmaxnreg hands its registers to
+// the consumers, 232 a thread) and two consumer warpgroups, one CTA an
+// SM. The grid is one wave; each CTA, or each cluster, walks units
+// blockIdx.y, + gridDim.y, ...
+//   C <= 64 (PAIR): a unit is two row tiles, one a warpgroup. Each
+//     warpgroup runs its own tile's chain, unsynchronised with the other,
+//     and both read every weight tile the producer streams, which halves
+//     the weight bytes a row costs.
+//   C >= 96: a [64, C] accumulator would crowd a warpgroup's registers,
+//     so a unit is one tile whose columns the two split (GEMM1's hidden
+//     units, GEMM2's output columns; two H tiles between them, a named
+//     barrier a chunk). One-tile units also spread a stage's rows more
+//     evenly over the card (C = 128 at B = 16: 320 tiles on 132 CTAs).
+// One ring of NS stages (full/empty mbarriers) holds a chunk's proj_in
+// rows or proj_out columns, or the projection's K-blocks. The next
+// unit's o rows come by TMA into A once a warpgroup's last GEMM1 is done
+// with it, its x rows a unit ahead into an x tile. Chunk j's GEMM1 is
+// issued with chunk j - 1's GEMM2, which runs beside chunk j's bias,
+// activation and H-tile stores (C <= 256); at C = 384-512, where the
+// registers do not hold both, chunk j's GEMM2 is issued as soon as its H
+// tile is written and runs beside the wait for chunk j + 1's weights.
+//
+// y stays on chip at C <= 256: it replaces x in the x tile, where LN2
+// takes its row statistics (a quad's shuffles; across two warpgroups
+// through 1 KB of shared memory) and the epilogue its residual, and
+// `out` is written once. At C = 384-512 no x tile fits beside the ring:
+// y is written to `out` once and read back in the epilogue. Where units
+// are fewer than the card's slots, a cluster of CS CTAs (2, 4 or 8; the
+// launch's cluster dimension x) shares each unit: CTA r projects
+// columns [r C / CS, (r + 1) C / CS) and takes a share of the hidden
+// chunks; the y slices meet in `out` (L2) for LN2, and the fp32 partial
+// sums are added over distributed shared memory in rank order, with no
+// atomics, so launches agree bit for bit.
+//
+// Shared memory at C = 256: the A tile (32 KB), the x tile (32 KB), two H
+// tiles (16 KB) and four 32 KB ring stages; a cluster's fp32 partials
+// (65 KB) reuse them once the unit's last product is done.
 
-constexpr int MLP_BM = 64;         // token rows per CTA (wgmma's M)
+constexpr int MLP_BM = 64;         // token rows a tile (wgmma's M)
 constexpr int MLP_HBUF = 8192;     // bytes of one H tile (64 x 64 bf16)
 
 template <int C>
 struct MlpShape {
-  static constexpr int NWG = C > 256 ? 2 : 1;   // consumer warpgroups
-  static constexpr int NW = C / NWG;            // output columns of each
-  static constexpr int KB = kblock(C);          // K-block of a C-deep operand
+  // C <= 64: each consumer warpgroup runs its own row tile; above, a
+  // [64, C] accumulator would crowd a warpgroup's registers, and the two
+  // split one tile's columns (and a unit of one tile spreads fewer rows'
+  // tiles over the card more evenly)
+  static constexpr bool PAIR = C <= 64;
+  static constexpr int TPC = PAIR ? 2 : 1;        // row tiles a unit
+  static constexpr int NW = PAIR ? C : C / 2;     // output columns a warpgroup
+  static constexpr int PB = PAIR ? 1 : 2;         // weight boxes a stage row block
+  // GEMM1's product columns a warpgroup, a chunk
+  static constexpr int HN = PAIR ? 64 : 32;
+  // GEMM2 of chunk j - 1 runs beside chunk j's activation where the
+  // registers hold both (a warpgroup's accumulator of 64 at most); wider,
+  // chunk j's GEMM2 is issued as soon as its H tile is written and runs
+  // beside the wait for chunk j + 1's weights
+  static constexpr bool OVERLAP = NW <= 128;
+  static constexpr int KB = kblock(C);            // K-block of a C-deep operand
   static constexpr int NKB = C / KB;
-  static constexpr int SW = KB * 2;             // its swizzle (= row) bytes
-  static constexpr int NS = C > 256 ? 2 : 4;    // ring stages per warpgroup
-  static constexpr int STAGE = NW * 128;        // bytes of one stage
-  static constexpr int THREADS = NWG * 128 + 32;
-  static constexpr int MINB = C >= 192 ? 1 : (C >= 96 ? 2 : 3);
-  static constexpr int RING = 128 * C;          // offset of the ring (after A)
-  static constexpr int HOFF = RING + NWG * NS * STAGE;
-  static constexpr int BOFF = HOFF + 2 * MLP_HBUF;
-  static constexpr int SMEM = BOFF + 2 * NWG * NS * 8 + 1024;  // + alignment
+  static constexpr int SW = KB * 2;               // its swizzle (= row) bytes
+  static constexpr int NCT = 256;                 // two consumer warpgroups
+  static constexpr int THREADS = NCT + 128;       // + the producer warpgroup
+  static constexpr int TILE = 128 * C;            // a [64, C] bf16 tile
+  // a ring stage: a chunk's proj_in rows, its proj_out columns, or
+  // K-blocks of the projection
+  static constexpr int STAGE = 128 * C;
+  static constexpr int HBYTES = TPC * 2 * MLP_HBUF;  // two H tiles a group
+  // where they fit beside four ring stages, x tiles (two a unit tile in
+  // PAIR mode, whose CTAs walk many units; else one): a unit's x rows
+  // come by TMA ahead of it, y replaces them in place and stays there
+  // until the epilogue; else x is read from device memory and y goes to
+  // `out` (C = 384, 512)
+  static constexpr int XB = PAIR ? 2 : 1;
+  static constexpr bool XS = (1 + XB) * TPC * TILE + HBYTES + 4 * STAGE + 3072 <=
+                             static_cast<int>(kMaxSmem);
+  static constexpr int XOFF = TPC * TILE;
+  static constexpr int HOFF = XOFF + (XS ? XB * TPC * TILE : 0);
+  static constexpr int RING = HOFF + HBYTES;
+  static constexpr int NSF = (static_cast<int>(kMaxSmem) - 3072 - RING) / STAGE;
+  static constexpr int NS = NSF < 8 ? NSF : 8;    // ring stages
+  static constexpr int LDP = C + 4;               // fp32 row stride of a partial
+  static constexpr int PART = TPC * MLP_BM * LDP * 4;
+  static constexpr int BODY = RING + NS * STAGE > PART ? RING + NS * STAGE : PART;
+  // mbarriers: full, empty (NS each), afull, aempty (TPC each), xfull,
+  // xempty (XB TPC each); then LN2's row sums of the two warpgroups (two
+  // exchanges)
+  static constexpr int BOFF = BODY;
+  static constexpr int ROFF = BOFF + (2 * NS + 2 * TPC + 2 * XB * TPC) * 8;
+  static constexpr int SMEM = ROFF + 4 * MLP_BM * 4 + 1024;   // + alignment
+  static_assert(NS >= 2 && SMEM <= static_cast<int>(kMaxSmem), "MLP smem");
 };
 
+// Weight boxes a K-block of a cluster's projection weight (ccols rows a
+// CTA): one a warpgroup (pb, 2 where the warpgroups split a tile's
+// columns) where each box's rows are a multiple of 8, else one, which
+// warpgroup 0 alone projects (mlp_project_cs)
+__host__ __device__ constexpr int mlp_proj_boxes(int ccols, int pb) {
+  return ccols / pb % 8 == 0 ? pb : 1;
+}
+
 struct MlpArgs {
-  const bf16 *x, *o, *proj_b, *ls1, *ln_w, *ln_b, *in_b, *out_b, *ls2;
-  bf16* out;      // holds the y rows until the last step overwrites them
-  int R, inner, gated, act;
+  const bf16 *x, *proj_b, *ls1, *ln_w, *ln_b, *in_b, *out_b, *ls2;
+  bf16* out;      // a cluster keeps the y rows here until its epilogue
+  int R, inner, gated, act, units;
   float eps;
   // the model axis's mode (tp = 1): the out-projection summed over the
-  // model group `a` (fp32, no bias) replaces o and GEMM0, `out` keeps
-  // the y rows (x1), and the fp32 partial MLP output, without its bias,
+  // model group `a` (fp32, no bias) replaces o and GEMM0, `out` gets the
+  // y rows (x1), and the fp32 partial MLP output, without its bias,
   // goes to `part`
   int tp;
   const float* a;
@@ -483,118 +568,315 @@ __device__ __forceinline__ float2 ld_peer2(const float* p, uint32_t rank) {
   return v;
 }
 
-// Producer: one thread walks the CTA's weight tiles in the consumers'
-// order, for each warpgroup its own ring stage: the projection's
-// K-blocks for this CTA's columns (kpt K-blocks a stage), then per hidden
-// chunk j the proj_in rows (GEMM1) and the proj_out columns (GEMM2).
-// `first`: issue the projection's tiles, else the MLP's.
+// mbar_wait for block_mlp_kernel: the same wait, its trap counted in
+// tries (2^28, many seconds) rather than cycles, which keeps a 64-bit
+// clock out of the registers of every wait in its loops
+__device__ __forceinline__ void mlp_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0, tries = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (!done && ++tries > (1u << 28)) __trap();
+  }
+}
+
+// named barrier `id` over `threads` threads (each warp reconverges first)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  __syncwarp();
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+// Loads and stores stay on their side of it. Every few column groups of
+// an unrolled loop over a thread's accumulator layout, it keeps the
+// compiler from hoisting every group's loads (or interleaving every
+// group's activations) at once beside the accumulators, which spilled.
+__device__ __forceinline__ void group_fence() { asm volatile("" ::: "memory"); }
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+// elements i, i + 1 (i even) of an optional bf16 vector, zeros where absent
+__device__ __forceinline__ float2 opt2(const bf16* p, int i) {
+  return p ? unpack_bf16(*reinterpret_cast<const uint32_t*>(p + i))
+           : make_float2(0.f, 0.f);
+}
+
+// GEMM1 of a chunk: HN product columns from proj_in stage row ua, z
+// from A, into h; in the GLU HN / 2 from row ua and HN / 2 of the gate
+// half from row ub
 template <int C>
-__device__ void mlp_produce(const CUtensorMap* m_proj, const CUtensorMap* m_in,
-                            const CUtensorMap* m_out, unsigned char* ring,
-                            uint64_t* full, uint64_t* empty, int inner,
-                            int gated, int col0, int n0, int j0, int j1,
-                            bool first, int& stage, uint32_t& phase) {
+__device__ __forceinline__ void mlp_gemm1(float* h, const unsigned char* A,
+                                          uint32_t b1, int ua, int ub,
+                                          int gated) {
   using S = MlpShape<C>;
-  const int hc = gated ? 32 : 64;       // hidden units per chunk
-  const int hr = hc / S::NWG;           // of them, per warpgroup
-  const int kpt = kblocks_per_stage(S::STAGE, n0, S::SW, S::NKB);
-  const int tiles = first ? S::NKB / kpt : 2 * (j1 - j0);
-  for (int t = 0; t < tiles; ++t) {
-    for (int w = 0; w < S::NWG; ++w) {
-      const int slot = w * S::NS + stage;
-      unsigned char* dst = ring + slot * S::STAGE;
-      mbar_wait(&empty[slot], phase ^ 1);
-      if (first) {
-        mbar_expect_tx(&full[slot], kpt * n0 * S::SW);
-        for (int k = 0; k < kpt; ++k)
-          tma_load_2d(dst + k * n0 * S::SW, m_proj, &full[slot],
-                      (t * kpt + k) * S::KB, col0 + w * n0);
-        continue;
-      }
-      const int j = j0 + t / 2;
-      if (t % 2 == 0) {
-        mbar_expect_tx(&full[slot], hr * C * 2 * (gated ? 2 : 1));
-        for (int kb = 0; kb < S::NKB; ++kb) {
-          tma_load_2d(dst + kb * hr * S::SW, m_in, &full[slot], kb * S::KB,
-                      j * hc + w * hr);
-          if (gated)
-            tma_load_2d(dst + (S::NKB + kb) * hr * S::SW, m_in, &full[slot],
-                        kb * S::KB, inner + j * hc + w * hr);
-        }
-      } else {
-        mbar_expect_tx(&full[slot], S::NW * hc * 2);
-        tma_load_2d(dst, m_out, &full[slot], j * hc, w * S::NW);
-      }
+  if (!gated) {
+#pragma unroll
+    for (int kb = 0; kb < S::NKB; ++kb) {
+      const uint32_t a = smem_u32(A + kb * MLP_BM * S::SW);
+      const uint32_t b = b1 + (kb * 64 + ua) * S::SW;
+#pragma unroll
+      for (int k = 0; k < S::KB / 16; ++k)
+        wgmma_ss<S::HN>(h, gmma_desc(a + 32 * k, S::SW),
+                        gmma_desc(b + 32 * k, S::SW), kb + k > 0);
     }
-    if (++stage == S::NS) {
-      stage = 0;
-      phase ^= 1;
+    return;
+  }
+#pragma unroll
+  for (int kb = 0; kb < S::NKB; ++kb) {
+    const uint32_t a = smem_u32(A + kb * MLP_BM * S::SW);
+    const uint32_t b = b1 + kb * 64 * S::SW;
+#pragma unroll
+    for (int k = 0; k < S::KB / 16; ++k) {
+      wgmma_ss<S::HN / 2>(h, gmma_desc(a + 32 * k, S::SW),
+                          gmma_desc(b + ua * S::SW + 32 * k, S::SW), kb + k > 0);
+      wgmma_ss<S::HN / 2>(h + S::HN / 4, gmma_desc(a + 32 * k, S::SW),
+                          gmma_desc(b + ub * S::SW + 32 * k, S::SW), kb + k > 0);
     }
   }
 }
 
-// The projection of this CTA's columns col0.. (N0 per warpgroup) and
-// y = x + ls1 * (proj + b), each step rounded as in the plain path, into
-// `out` (read back by every CTA of the cluster for LayerNorm 2).
+// GEMM2's k16 steps [k0, k1) of one chunk: acc (+)= H x the chunk's
+// proj_out columns at b2 (rows of hsw bytes, both); `add` false starts
+// the sum
+template <int C>
+__device__ __forceinline__ void mlp_gemm2(float* acc, const unsigned char* H,
+                                          uint32_t b2, int hsw, int k0,
+                                          int k1, bool add) {
+  using S = MlpShape<C>;
+  const uint32_t ha = smem_u32(H);
+  for (int k = k0; k < k1; ++k)
+    wgmma_ss<S::NW>(acc, gmma_desc(ha + 32 * k, hsw),
+                    gmma_desc(b2 + 32 * k, hsw), add || k > k0);
+}
+
+// bias and activation of one pass's products, bf16 into H tile `H`
+// (64 hidden units of chunk j a row, 32 in the GLU) from unit u0
+template <int C>
+__device__ __forceinline__ void mlp_activate(const MlpArgs& p, const float* h,
+                                             unsigned char* H, int j, int u0,
+                                             int wr, int q2) {
+  using S = MlpShape<C>;
+  if (!p.gated) {
+#pragma unroll
+    for (int i = 0; i < S::HN / 8; ++i) {
+      const int cl = u0 + 8 * i + q2;
+      const int u = j * 64 + cl;
+      // an inner dim of 32 mod 64 ends in a half chunk: TMA filled its
+      // missing weight rows with zeros, and act(0 + 0) = 0 adds nothing
+      const float2 b = u < p.inner ? opt2(p.in_b, u) : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(H + swz(wr + 8 * hh, cl * 2, 128)) =
+            pack_bf16(activate(h[4 * i + 2 * hh] + b.x, p.act),
+                      activate(h[4 * i + 2 * hh + 1] + b.y, p.act));
+      if (i % 2) group_fence();
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < S::HN / 16; ++i) {
+      const int cl = u0 + 8 * i + q2;
+      const float2 a = opt2(p.in_b, j * 32 + cl);
+      const float2 g = opt2(p.in_b, p.inner + j * 32 + cl);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int e = 4 * i + 2 * hh;
+        *reinterpret_cast<uint32_t*>(H + swz(wr + 8 * hh, cl * 2, 64)) =
+            pack_bf16((h[e] + a.x) * activate(h[S::HN / 4 + e] + g.x, p.act),
+                      (h[e + 1] + a.y) * activate(h[S::HN / 4 + e + 1] + g.y, p.act));
+      }
+      if (i % 2) group_fence();
+    }
+  }
+}
+
+// Chunk j of the MLP for one warpgroup: its GEMM1 into registers, then
+// bias, activation and the H tile. PREV (OVERLAP): chunk j - 1's GEMM2
+// is issued after the GEMM1 and runs beside the activation; else, where
+// `s_prev` >= 0, it was issued after chunk j - 1 and ends with the GEMM1.
+// Either way its proj_out stage is then freed. `first`: chunk j - 1 is
+// the first whose GEMM2 this warpgroup issues (it starts the sum).
+// `aempty`, where not NULL: the unit's last GEMM1 is done with A, so the
+// next unit's o rows may come.
+template <int C, bool PREV>
+__device__ __forceinline__ void mlp_chunk(
+    const MlpArgs& p, float* acc, float* hreg, const unsigned char* A,
+    const unsigned char* ring, uint64_t* full, uint64_t* empty, int s_in,
+    uint32_t par_in, int s_prev, uint32_t par_prev, const unsigned char* hprev,
+    unsigned char* hj, int j, int w, int wr, int q2, int hsw, bool first,
+    uint64_t* aempty) {
+  using S = MlpShape<C>;
+  mlp_wait(&full[s_in], par_in);
+  // the chunk's first hidden unit of this warpgroup, and its product rows
+  const int u0 = S::PAIR ? 0 : w * (p.gated ? S::HN / 2 : S::HN);
+  const int ub = p.gated ? 32 + u0 : u0 + S::HN / 2;
+  wgmma_fence();
+  mlp_gemm1<C>(hreg, A, smem_u32(ring + s_in * S::STAGE), u0, ub, p.gated);
+  wgmma_commit();
+  if constexpr (PREV) {
+    mlp_wait(&full[s_prev], par_prev);
+    mlp_gemm2<C>(acc, hprev,
+                 smem_u32(ring + s_prev * S::STAGE) + (S::PAIR ? 0 : w * S::NW * hsw),
+                 hsw, 0, hsw / 32, !first);
+    wgmma_commit();
+    wgmma_wait1();   // this chunk's GEMM1
+  } else {
+    wgmma_wait0();
+  }
+  fence_regs<S::HN / 2>(hreg);
+  mbar_arrive(&empty[s_in]);
+  if (aempty != nullptr) mbar_arrive(aempty);
+  if (!PREV && s_prev >= 0) mbar_arrive(&empty[s_prev]);
+  mlp_activate<C>(p, hreg, hj, j, u0, wr, q2);
+  if constexpr (PREV) {
+    wgmma_wait0();
+    mbar_arrive(&empty[s_prev]);
+  }
+}
+
+// Issues chunk j's GEMM2 (its H tile at h, its proj_out stage s) once
+// the stage has come; `first` starts the sum
+template <int C>
+__device__ __forceinline__ void mlp_issue_gemm2(float* acc, const unsigned char* h,
+                                                const unsigned char* ring,
+                                                uint64_t* full, int s,
+                                                uint32_t par, int w, int hsw,
+                                                bool first) {
+  using S = MlpShape<C>;
+  mlp_wait(&full[s], par);
+  wgmma_fence();
+  mlp_gemm2<C>(acc, h, smem_u32(ring + s * S::STAGE) + (S::PAIR ? 0 : w * S::NW * hsw),
+               hsw, 0, hsw / 32, !first);
+  wgmma_commit();
+}
+
+// A row's sums over its C columns from each thread's share (rows wr and
+// wr + 8): a quad holds a warpgroup's columns of a row; above C = 256
+// the two warpgroups add theirs through `red` (64 floats each), in one
+// order for both, so both take the same statistics
+template <int C>
+__device__ __forceinline__ void mlp_row_sums(float (&s)[2], float* red, int w,
+                                             int wr, int q2) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    s[hh] += __shfl_xor_sync(0xffffffffu, s[hh], 1);
+    s[hh] += __shfl_xor_sync(0xffffffffu, s[hh], 2);
+  }
+  if constexpr (!MlpShape<C>::PAIR) {
+    if (q2 == 0)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) red[w * MLP_BM + wr + 8 * hh] = s[hh];
+    consumer_sync(MlpShape<C>::NCT);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      s[hh] = red[wr + 8 * hh] + red[MLP_BM + wr + 8 * hh];
+  }
+}
+
+// A cluster's projection: N0 columns from c0 of the warpgroup's tile
+// (row0..), kpt K-blocks a ring stage, and y = x + ls1 * (proj + b),
+// each step rounded as in the plain path, into `out` (where every CTA
+// of the cluster reads the whole rows for LayerNorm 2)
 template <int C, int N0>
 __device__ __forceinline__ void mlp_project(const MlpArgs& p,
-                                            unsigned char* smem,
+                                            const unsigned char* A,
+                                            const unsigned char* ring,
                                             uint64_t* full, uint64_t* empty,
-                                            int w, int col0, int row0, int wr,
+                                            int boff, int c0, int row0,
+                                            int ccols, int kpt, int wr,
                                             int q2, int& stage,
                                             uint32_t& phase) {
   using S = MlpShape<C>;
-  constexpr int KPT = kblocks_per_stage(S::STAGE, N0, S::SW, S::NKB);
   float acc[N0 / 2];
-#pragma unroll
-  for (int i = 0; i < N0 / 2; ++i) acc[i] = 0.f;
-  for (int t = 0; t < S::NKB / KPT; ++t) {
-    const int slot = w * S::NS + stage;
-    mbar_wait(&full[slot], phase);
-    const uint32_t b = smem_u32(smem + S::RING + slot * S::STAGE);
-    wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < KPT; ++k) {
-      const uint32_t a = smem_u32(smem + (t * KPT + k) * 64 * S::SW);
-#pragma unroll
-      for (int kk = 0; kk < S::KB / 16; ++kk)
-        wgmma_ss<N0>(acc, gmma_desc(a + 32 * kk, S::SW),
-                     gmma_desc(b + k * N0 * S::SW + 32 * kk, S::SW), 1);
-    }
-    wgmma_commit();
-    wgmma_wait0();
-    fence_regs<N0 / 2>(acc);
-    mbar_arrive(&empty[slot]);
+  int prev = -1;
+  for (int t = 0; t < S::NKB / kpt; ++t) {
+    const int s = stage;
+    mlp_wait(&full[s], phase);
     if (++stage == S::NS) {
       stage = 0;
       phase ^= 1;
     }
+    const uint32_t b = smem_u32(ring + s * S::STAGE) + boff;
+    wgmma_fence();
+    for (int k = 0; k < kpt; ++k) {
+      const uint32_t a = smem_u32(A + (t * kpt + k) * MLP_BM * S::SW);
+#pragma unroll
+      for (int kk = 0; kk < S::KB / 16; ++kk)
+        wgmma_ss<N0>(acc, gmma_desc(a + 32 * kk, S::SW),
+                     gmma_desc(b + k * ccols * S::SW + 32 * kk, S::SW),
+                     t + k + kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait1();
+    if (prev >= 0) mbar_arrive(&empty[prev]);
+    prev = s;
   }
+  wgmma_wait0();
+  fence_regs<N0 / 2>(acc);
+  mbar_arrive(&empty[prev]);
 #pragma unroll
   for (int i = 0; i < N0 / 8; ++i) {
-    const int col = col0 + w * N0 + 8 * i + q2;
-    const float b0 = opt(p.proj_b, col), b1 = opt(p.proj_b, col + 1);
+    const int col = c0 + 8 * i + q2;
+    const float2 b = opt2(p.proj_b, col), l = opt2(p.ls1, col);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + wr + 8 * h;
-      if (row >= p.R) continue;
-      float v0 = round_bf16(acc[4 * i + 2 * h] + b0);
-      float v1 = round_bf16(acc[4 * i + 2 * h + 1] + b1);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + wr + 8 * hh;
+      float v0 = round_bf16(acc[4 * i + 2 * hh] + b.x);
+      float v1 = round_bf16(acc[4 * i + 2 * hh + 1] + b.y);
       if (p.ls1) {
-        v0 = round_bf16(v0 * f32(p.ls1[col]));
-        v1 = round_bf16(v1 * f32(p.ls1[col + 1]));
+        v0 = round_bf16(v0 * l.x);
+        v1 = round_bf16(v1 * l.y);
       }
+      if (row >= p.R) continue;
       const size_t idx = static_cast<size_t>(row) * C + col;
-      const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(p.x + idx);
-      *reinterpret_cast<__nv_bfloat162*>(p.out + idx) =
-          __floats2bfloat162_rn(f32(xv.x) + v0, f32(xv.y) + v1);
+      const float2 xv = unpack_bf16(*reinterpret_cast<const uint32_t*>(p.x + idx));
+      *reinterpret_cast<uint32_t*>(p.out + idx) = pack_bf16(xv.x + v0, xv.y + v1);
     }
   }
 }
 
-// y = x + ls1 * (a + b) for this CTA's columns col0.. (ccols of them)
-// from the out-projection summed over the model group a (fp32), rounded
-// as the plain path rounds, into `out` (the model axis's mode).
+// A cluster of CS CTAs' projection (C / CS columns a CTA): each
+// warpgroup's share, where that is a multiple of 8 (wgmma's N step);
+// else (C = 96 over 4 CTAs, 192 over 8) warpgroup 0 projects all the
+// CTA's columns, from one weight box a K-block (mlp_proj_boxes), and
+// warpgroup 1 only passes the ring's stages on
+template <int C, int CS>
+__device__ __forceinline__ void mlp_project_cs(
+    const MlpArgs& p, const unsigned char* A, const unsigned char* ring,
+    uint64_t* full, uint64_t* empty, int boff, int c0, int row0, int ccols,
+    int kpt, int w, int wr, int q2, int& stage, uint32_t& phase) {
+  using S = MlpShape<C>;
+  constexpr int N2 = S::NW / CS;
+  if constexpr (N2 % 8 == 0) {
+    mlp_project<C, N2>(p, A, ring, full, empty, boff, c0, row0, ccols, kpt,
+                       wr, q2, stage, phase);
+  } else if constexpr (!S::PAIR && N2 % 4 == 0) {
+    if (w == 0) {
+      mlp_project<C, 2 * N2>(p, A, ring, full, empty, 0, c0, row0, ccols,
+                             kpt, wr, q2, stage, phase);
+      return;
+    }
+    for (int t = 0; t < S::NKB / kpt; ++t) {
+      mlp_wait(&full[stage], phase);
+      mbar_arrive(&empty[stage]);
+      if (++stage == S::NS) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// y = x + ls1 * (a + b) for the columns col0.. (ccols of them) of the
+// tile at row0, from the out-projection summed over the model group a
+// (fp32), rounded as the plain path rounds, into `out` (a cluster in
+// the model axis's mode)
 template <int C>
 __device__ __forceinline__ void mlp_residual_tp(const MlpArgs& p, int row0,
                                                 int col0, int ccols, int tid,
@@ -605,409 +887,562 @@ __device__ __forceinline__ void mlp_residual_tp(const MlpArgs& p, int row0,
     if (row >= p.R) continue;
     const size_t idx = static_cast<size_t>(row) * C + col;
     const float2 av = *reinterpret_cast<const float2*>(p.a + idx);
-    float v0 = round_bf16(av.x + opt(p.proj_b, col));
-    float v1 = round_bf16(av.y + opt(p.proj_b, col + 1));
+    const float2 b = opt2(p.proj_b, col), l = opt2(p.ls1, col);
+    float v0 = round_bf16(av.x + b.x);
+    float v1 = round_bf16(av.y + b.y);
     if (p.ls1) {
-      v0 = round_bf16(v0 * f32(p.ls1[col]));
-      v1 = round_bf16(v1 * f32(p.ls1[col + 1]));
+      v0 = round_bf16(v0 * l.x);
+      v1 = round_bf16(v1 * l.y);
     }
-    const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(p.x + idx);
-    *reinterpret_cast<__nv_bfloat162*>(p.out + idx) =
-        __floats2bfloat162_rn(f32(xv.x) + v0, f32(xv.y) + v1);
+    const float2 xv = unpack_bf16(*reinterpret_cast<const uint32_t*>(p.x + idx));
+    *reinterpret_cast<uint32_t*>(p.out + idx) = pack_bf16(xv.x + v0, xv.y + v1);
   }
 }
 
-// A cluster of CS CTAs (2, 4 or 8; the launch's cluster dimension x)
-// shares a row tile (a CTA launched alone has the tile to itself): CTA r
-// projects columns [r C/CS, (r+1) C/CS) and writes their y rows; after
-// a cluster barrier every CTA runs LN2 on the whole rows and the MLP
-// over its share of the hidden chunks; each keeps
-// its fp32 [64, C] partial in its own shared memory, and CTA r sums the
-// peers' partials of its columns over distributed shared memory in rank
-// order (so runs agree bit for bit) and writes them out.
-//
+// A cluster's LayerNorm 2 of the tile's whole y rows, read from `out`,
+// into A (swizzled, zero past R): fp32 statistics in two passes, a warp
+// a row, each warp's loads of LG rows in flight together
+template <int C>
+__device__ __forceinline__ void mlp_ln2_from_out(const MlpArgs& p,
+                                                 unsigned char* A, int row0,
+                                                 int warp, int nwarps) {
+  using S = MlpShape<C>;
+  constexpr int NCH = (C / 8 + 31) / 32;   // 16-byte chunks per lane
+  constexpr int LG = 4;                    // rows a warp loads at once
+  const int lane = threadIdx.x % 32;
+  for (int r0 = warp * LG; r0 < MLP_BM; r0 += nwarps * LG) {
+    uint4 raw[LG][NCH];
+#pragma unroll
+    for (int g = 0; g < LG; ++g)
+#pragma unroll
+      for (int u = 0; u < NCH; ++u) {
+        const int row = row0 + r0 + g, c8 = lane + 32 * u;
+        raw[g][u] = make_uint4(0u, 0u, 0u, 0u);
+        if (row < p.R && c8 < C / 8)
+          raw[g][u] = __ldcg(reinterpret_cast<const uint4*>(
+                                 p.out + static_cast<size_t>(row) * C) + c8);
+      }
+#pragma unroll
+    for (int g = 0; g < LG; ++g) {
+      const int r = r0 + g;
+      float s = 0.f;
+#pragma unroll
+      for (int u = 0; u < NCH; ++u) {
+        const bf16* e = reinterpret_cast<const bf16*>(&raw[g][u]);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) s += f32(e[k]);
+      }
+      const float mean = warp_sum(s) / C;
+      float ss = 0.f;
+#pragma unroll
+      for (int u = 0; u < NCH; ++u) {
+        if (lane + 32 * u >= C / 8) continue;
+        const bf16* e = reinterpret_cast<const bf16*>(&raw[g][u]);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float d = f32(e[k]) - mean;
+          ss += d * d;
+        }
+      }
+      const float inv = 1.f / sqrtf(warp_sum(ss) / C + p.eps);
+#pragma unroll
+      for (int u = 0; u < NCH; ++u) {
+        const int c8 = lane + 32 * u;
+        if (c8 >= C / 8) continue;
+        uint4 z = make_uint4(0u, 0u, 0u, 0u);
+        if (row0 + r < p.R) {
+          const bf16* e = reinterpret_cast<const bf16*>(&raw[g][u]);
+          bf16* ze = reinterpret_cast<bf16*>(&z);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const int c = c8 * 8 + k;
+            ze[k] = __float2bfloat16((f32(e[k]) - mean) * inv *
+                                     f32(p.ln_w[c]) + f32(p.ln_b[c]));
+          }
+        }
+        const int kb = c8 / (S::KB / 8), b = (c8 % (S::KB / 8)) * 16;
+        *reinterpret_cast<uint4*>(A + kb * MLP_BM * S::SW + swz(r, b, S::SW)) = z;
+      }
+    }
+  }
+}
+
 // The model axis's mode (p.tp, a block sharded over the model group,
 // parallel/tensor.py): the out-projection's sum crosses the ranks before
 // the residual, so o and GEMM0 give way to y = x + ls1 * (a + b) from
-// the summed projection a; LN2 is unchanged, the hidden chunks are this
-// rank's inner units (its rows of proj_in, of both halves where gated,
-// and its columns of proj_out: `inner` is the rank's), and the epilogue
-// writes the fp32 partial sum, without bias, LayerScale or residual,
-// to `part`; `out` keeps y (x1). The last residual waits for the
+// the summed projection a, written to `out` (x1); LN2 is unchanged, the
+// hidden chunks are this rank's inner units (its rows of proj_in, of
+// both halves where gated, and its columns of proj_out: `inner` is the
+// rank's), and the epilogue writes the fp32 partial sum, without bias,
+// LayerScale or residual, to `part`. The last residual waits for the
 // partials' sum over the ranks (block_residual_kernel).
 template <int C>
-__global__ void __launch_bounds__(MlpShape<C>::THREADS, MlpShape<C>::MINB)
-    block_mlp_kernel(const __grid_constant__ CUtensorMap m_proj,
+__global__ void __launch_bounds__(MlpShape<C>::THREADS, 1)
+    block_mlp_kernel(const __grid_constant__ CUtensorMap m_o,
+                     const __grid_constant__ CUtensorMap m_x,
+                     const __grid_constant__ CUtensorMap m_proj,
                      const __grid_constant__ CUtensorMap m_in,
                      const __grid_constant__ CUtensorMap m_out,
                      const MlpArgs p) {
   using S = MlpShape<C>;
-  constexpr int HN = 64 / S::NWG;   // GEMM1 columns per warpgroup
-  constexpr int HG = HN / 2;        // gated: of each half
-  constexpr int NCT = S::NWG * 128; // consumer threads
-  constexpr int LDP = C + 4;        // fp32 row stride of the partial
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* ring = smem + S::RING;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BOFF);
-  uint64_t* empty = full + S::NWG * S::NS;
+  uint64_t* empty = full + S::NS;
+  uint64_t* afull = empty + S::NS;      // a unit's o rows in A tile ts
+  uint64_t* aempty = afull + S::TPC;
+  uint64_t* xfull = aempty + S::TPC;    // its x rows in x tile (n % XB, ts)
+  uint64_t* xempty = xfull + S::XB * S::TPC;
 
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.y * MLP_BM;
-  const int hc = p.gated ? 32 : 64;
+  const int hc = p.gated ? 32 : 64;     // hidden units a chunk
+  const int hsw = hc * 2;               // an H row's bytes (its swizzle)
   // an ungated inner dim of 32 mod 64 (a model rank's shard: RVT-S
-  // stage 1's 96 units) ends in a half chunk: TMA fills the weight rows
-  // and columns past `inner` with zeros, the bias reads stop there, so
-  // its missing units are act(0) = 0 and add nothing
+  // stage 1's 96 units) ends in a half chunk
   const int nchunks = (p.inner + hc - 1) / hc;
   const int cs = static_cast<int>(cluster_size());
   const int rank = static_cast<int>(cluster_rank());
   const int j0 = rank * nchunks / cs, j1 = (rank + 1) * nchunks / cs;
   const int ccols = C / cs, col0 = rank * ccols;   // this CTA's columns
+  const int pb = mlp_proj_boxes(ccols, S::PB);
+  const int n0 = ccols / pb;                       // of them, a box's
+  const int kpt = kblocks_per_stage(S::STAGE, ccols, S::SW, S::NKB);
+  // x rows come by TMA into x tiles where they fit, for a CTA alone on
+  // its tiles and outside the model axis's mode; else they are read
+  // where y is made
+  const bool xs = S::XS && cs == 1 && !p.tp;
 
   if (tid == 0) {
-    for (int i = 0; i < S::NWG * S::NS; ++i) {
+    for (int i = 0; i < S::NS; ++i) {
       mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 128);
+      mbar_init(&empty[i], S::NCT);
+    }
+    for (int i = 0; i < S::TPC; ++i) {
+      mbar_init(&afull[i], 1);
+      mbar_init(&aempty[i], S::NCT / S::TPC);
+    }
+    for (int i = 0; i < S::XB * S::TPC; ++i) {
+      mbar_init(&xfull[i], 1);
+      mbar_init(&xempty[i], S::NCT / S::TPC);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (tid >= NCT) {
-    // producer warp: it takes part in the three cluster barriers, and
-    // arrives at the first before it streams the MLP's tiles, which the
-    // consumers free only after that barrier
+  if (tid >= S::NCT) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    // producer: a unit's x tiles (xs), o tiles, the projection's K-blocks
+    // of this CTA's columns (kpt a stage), then per hidden chunk j its
+    // proj_in rows (GEMM1) and its proj_out columns (GEMM2), in the
+    // consumers' order. In a cluster every thread of the warpgroup also
+    // takes part in the unit's three cluster barriers, and the next unit
+    // waits for the last: the partials overwrite A and the ring.
+    const bool issuer = tid == S::NCT;
+    if (!issuer && cs == 1) return;
     int stage = 0;
     uint32_t phase = 0;
-    auto produce = [&](bool first) {
-      if (tid == NCT)
-        mlp_produce<C>(&m_proj, &m_in, &m_out, ring, full, empty, p.inner,
-                       p.gated, col0, ccols / S::NWG, j0, j1, first, stage,
-                       phase);
+    auto take = [&]() {
+      const int s = stage;
+      mlp_wait(&empty[s], phase ^ 1);
+      if (++stage == S::NS) {
+        stage = 0;
+        phase ^= 1;
+      }
+      return s;
     };
-    if (!p.tp) produce(true);
-    if (cs == 1) {
-      produce(false);
-      return;
+    int n = 0;
+    for (int g = blockIdx.y; g < p.units; g += gridDim.y, ++n) {
+      if (issuer && !p.tp) {
+        for (int ts = 0; xs && ts < S::TPC; ++ts) {
+          const int xb = (n % S::XB) * S::TPC + ts;
+          mlp_wait(&xempty[xb], ((n / S::XB) & 1) ^ 1);
+          mbar_expect_tx(&xfull[xb], S::TILE);
+          for (int kb = 0; kb < S::NKB; ++kb)
+            tma_load_2d(smem + S::XOFF + xb * S::TILE + kb * MLP_BM * S::SW, &m_x,
+                        &xfull[xb], kb * S::KB, (g * S::TPC + ts) * MLP_BM);
+        }
+        for (int ts = 0; ts < S::TPC; ++ts) {
+          mlp_wait(&aempty[ts], (n & 1) ^ 1);
+          mbar_expect_tx(&afull[ts], S::TILE);
+          for (int kb = 0; kb < S::NKB; ++kb)
+            tma_load_2d(smem + ts * S::TILE + kb * MLP_BM * S::SW, &m_o,
+                        &afull[ts], kb * S::KB, (g * S::TPC + ts) * MLP_BM);
+        }
+        for (int t = 0; t < S::NKB / kpt; ++t) {
+          const int s = take();
+          unsigned char* dst = ring + s * S::STAGE;
+          mbar_expect_tx(&full[s], kpt * ccols * S::SW);
+          for (int k = 0; k < kpt; ++k)
+            for (int h = 0; h < pb; ++h)
+              tma_load_2d(dst + (k * ccols + h * n0) * S::SW, &m_proj, &full[s],
+                          (t * kpt + k) * S::KB, col0 + h * n0);
+        }
+      }
+      if (cs > 1) {
+        __syncwarp();
+        cluster_arrive();
+      }
+      if (issuer) {
+        for (int j = j0; j < j1; ++j) {
+          int s = take();
+          unsigned char* dst = ring + s * S::STAGE;
+          mbar_expect_tx(&full[s], S::STAGE);
+          for (int kb = 0; kb < S::NKB; ++kb) {
+            if (!p.gated) {
+              tma_load_2d(dst + kb * 64 * S::SW, &m_in, &full[s], kb * S::KB, j * 64);
+            } else {
+              tma_load_2d(dst + kb * 64 * S::SW, &m_in, &full[s], kb * S::KB, j * 32);
+              tma_load_2d(dst + (kb * 64 + 32) * S::SW, &m_in, &full[s],
+                          kb * S::KB, p.inner + j * 32);
+            }
+          }
+          s = take();
+          dst = ring + s * S::STAGE;
+          mbar_expect_tx(&full[s], C * hsw);
+          for (int h = 0; h < S::PB; ++h)
+            tma_load_2d(dst + h * S::NW * hsw, &m_out, &full[s], j * hc, h * S::NW);
+        }
+      }
+      if (cs > 1) {
+        __syncwarp();
+        cluster_wait();
+        cluster_arrive();
+        cluster_wait();
+        cluster_arrive();
+        cluster_wait();
+      }
     }
-    __syncwarp();
-    cluster_arrive();
-    produce(false);
-    __syncwarp();
-    cluster_wait();
-    cluster_arrive();
-    cluster_wait();
-    cluster_arrive();
-    cluster_wait();
     return;
   }
 
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
   const int w = tid / 128, t = tid % 128;
   const int wr = (t / 32) * 16 + (t % 32) / 4;  // the thread's rows wr, wr + 8
   const int q2 = (t % 4) * 2;                   // its column pair in each 8
+  const int ts = S::PAIR ? w : 0;               // its warpgroup's tile of a unit
+  // the threads that share its A and H tiles, and their named barrier
+  const int gid = S::PAIR ? 2 + w : 1;
+  const int gn = S::PAIR ? 128 : S::NCT;
+  const int gt = S::PAIR ? t : tid;
+  unsigned char* A = smem + ts * S::TILE;
+  unsigned char* H0 = smem + S::HOFF + (S::PAIR ? w * 2 * MLP_HBUF : 0);
+  float* red = reinterpret_cast<float*>(smem + S::ROFF);
+  const int cb = S::PAIR ? 0 : w * S::NW;       // its first output column
+  const int c0 = col0 + (S::PAIR ? 0 : w * n0); // and a cluster's projection's
   int stage = 0;
   uint32_t phase = 0;
-
-  // 1. attention output rows into A, swizzled (zero past R); none in
-  // the model axis's mode, whose A is LN2's alone
-  if (!p.tp) {
-#pragma unroll
-    for (int it = 0; it < MLP_BM * C / 8 / NCT; ++it) {
-      const int i = tid + it * NCT;
-      const int r = i / (C / 8), c8 = i % (C / 8);
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < p.R)
-        v = reinterpret_cast<const uint4*>(p.o + static_cast<size_t>(row0 + r) * C)[c8];
-      const int kb = c8 / (S::KB / 8), b = (c8 % (S::KB / 8)) * 16;
-      *reinterpret_cast<uint4*>(smem + kb * 64 * S::SW + swz(r, b, S::SW)) = v;
+  auto claim = [&](uint32_t& par) {
+    const int s = stage;
+    par = phase;
+    if (++stage == S::NS) {
+      stage = 0;
+      phase ^= 1;
     }
-    fence_async_smem();
-    consumer_sync(NCT);
-  }
+    return s;
+  };
 
-  // 2. projection and residual for this CTA's columns, y rows to `out`
-  // (a cluster size is taken only where each CTA's share of a warpgroup's
-  // columns is a multiple of 8, wgmma's N step: mlp_cluster_ok)
-  if (p.tp) {
-    mlp_residual_tp<C>(p, row0, col0, ccols, tid, NCT);
-  } else if (cs == 1) {
-    mlp_project<C, S::NW>(p, smem, full, empty, w, col0, row0, wr, q2, stage, phase);
-  } else if (cs == 2) {
-    if constexpr (S::NW % 16 == 0)
-      mlp_project<C, S::NW / 2>(p, smem, full, empty, w, col0, row0, wr, q2, stage, phase);
-  } else if (cs == 4) {
-    if constexpr (S::NW % 32 == 0)
-      mlp_project<C, S::NW / 4>(p, smem, full, empty, w, col0, row0, wr, q2, stage, phase);
-  } else {
-    if constexpr (S::NW % 64 == 0)
-      mlp_project<C, S::NW / 8>(p, smem, full, empty, w, col0, row0, wr, q2, stage, phase);
-  }
-  if (cs == 1) {
-    consumer_sync(NCT);
-  } else {
-    cluster_arrive();
-    cluster_wait();
-  }
+  int n = 0;
+  for (int g = blockIdx.y; g < p.units; g += gridDim.y, ++n) {
+    const int row0 = (g * S::TPC + ts) * MLP_BM;
+    // this unit's x tile (XS): y replaces x in it, until the epilogue
+    const int xb = (n % S::XB) * S::TPC + ts;
+    unsigned char* X = smem + S::XOFF + xb * S::TILE;
+    uint64_t* xf = &xfull[xb];
+    uint64_t* xe = &xempty[xb];
+    const uint32_t xpar = (n / S::XB) & 1;
+    float acc[S::NW / 2];
 
-  // 3. z = LayerNorm 2 of the whole y rows, over the o rows in A (zero
-  // past R); fp32 statistics in two passes, one warp a row, each warp's
-  // loads of LG rows in flight together
-  {
-    constexpr int NCH = (C / 8 + 31) / 32;   // 16-byte chunks per lane
-    constexpr int LG = 4;                    // rows a warp loads at once
-    const int warp = tid / 32, lane = tid % 32;
-    for (int r0 = warp * LG; r0 < MLP_BM; r0 += NCT / 32 * LG) {
-      uint4 raw[LG][NCH];
+    if (cs == 1 && !p.tp) {
+      // 1. x in the accumulator's layout where no x tile holds it (rows
+      // past R read row R - 1, not stored)
+      uint32_t yv[S::XS ? 1 : S::NW / 4];
+      if constexpr (!S::XS) {
 #pragma unroll
-      for (int g = 0; g < LG; ++g)
+        for (int i = 0; i < S::NW / 8; ++i)
 #pragma unroll
-        for (int u = 0; u < NCH; ++u) {
-          const int row = row0 + r0 + g, c8 = lane + 32 * u;
-          raw[g][u] = make_uint4(0u, 0u, 0u, 0u);
-          if (row < p.R && c8 < C / 8)
-            raw[g][u] = __ldcg(reinterpret_cast<const uint4*>(
-                                   p.out + static_cast<size_t>(row) * C) + c8);
-        }
-#pragma unroll
-      for (int g = 0; g < LG; ++g) {
-        const int r = r0 + g;
-        float s = 0.f;
-#pragma unroll
-        for (int u = 0; u < NCH; ++u) {
-          const bf16* e = reinterpret_cast<const bf16*>(&raw[g][u]);
-#pragma unroll
-          for (int k = 0; k < 8; ++k) s += f32(e[k]);
-        }
-        const float mean = warp_sum(s) / C;
-        float ss = 0.f;
-#pragma unroll
-        for (int u = 0; u < NCH; ++u) {
-          if (lane + 32 * u >= C / 8) continue;
-          const bf16* e = reinterpret_cast<const bf16*>(&raw[g][u]);
-#pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            const float d = f32(e[k]) - mean;
-            ss += d * d;
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = min(row0 + wr + 8 * hh, p.R - 1);
+            yv[2 * i + hh] = *reinterpret_cast<const uint32_t*>(
+                p.x + static_cast<size_t>(row) * C + cb + 8 * i + q2);
           }
-        }
-        const float inv = 1.f / sqrtf(warp_sum(ss) / C + p.eps);
-#pragma unroll
-        for (int u = 0; u < NCH; ++u) {
-          const int c8 = lane + 32 * u;
-          if (c8 >= C / 8) continue;
-          uint4 z = make_uint4(0u, 0u, 0u, 0u);
-          if (row0 + r < p.R) {
-            const bf16* e = reinterpret_cast<const bf16*>(&raw[g][u]);
-            bf16* ze = reinterpret_cast<bf16*>(&z);
-#pragma unroll
-            for (int k = 0; k < 8; ++k) {
-              const int c = c8 * 8 + k;
-              ze[k] = __float2bfloat16((f32(e[k]) - mean) * inv *
-                                       f32(p.ln_w[c]) + f32(p.ln_b[c]));
-            }
-          }
-          const int kb = c8 / (S::KB / 8), b = (c8 % (S::KB / 8)) * 16;
-          *reinterpret_cast<uint4*>(smem + kb * 64 * S::SW + swz(r, b, S::SW)) = z;
-        }
       }
-    }
-  }
-  fence_async_smem();
-  consumer_sync(NCT);
-
-  // 4. MLP over this CTA's hidden chunks: GEMM1 into registers, bias and
-  // activation, bf16 into the H tile (two, alternating), GEMM2 into acc
-  float acc[S::NW / 2];
+      // 2. GEMM0 over the o rows in A (TMA, zero past R)
+      constexpr int KPT = kblocks_per_stage(S::STAGE, C, S::SW, S::NKB);
+      mlp_wait(&afull[ts], n & 1);
 #pragma unroll
-  for (int i = 0; i < S::NW / 2; ++i) acc[i] = 0.f;
-  float hreg[HN / 2];
-  const int hsw = p.gated ? 64 : 128;   // H tile rows: hc bf16
-  int pend = -1;                         // ring slot GEMM2 may still read
-  for (int j = j0; j < j1; ++j) {
-    unsigned char* H = smem + S::HOFF + ((j - j0) & 1) * MLP_HBUF;
-    const int slot1 = w * S::NS + stage;
-    mbar_wait(&full[slot1], phase);
-    const uint32_t b1 = smem_u32(ring + slot1 * S::STAGE);
-    wgmma_fence();
-    if (!p.gated) {
+      for (int i = 0; i < S::NW / 2; ++i) acc[i] = 0.f;
+      int prev = -1;
+      for (int kt = 0; kt < S::NKB / KPT; ++kt) {
+        uint32_t par;
+        const int s = claim(par);
+        mlp_wait(&full[s], par);
+        const uint32_t b = smem_u32(ring + s * S::STAGE) + (S::PAIR ? 0 : w * S::NW * S::SW);
+        wgmma_fence();
 #pragma unroll
-      for (int kb = 0; kb < S::NKB; ++kb) {
-        const uint32_t a = smem_u32(smem + kb * 64 * S::SW);
+        for (int k = 0; k < KPT; ++k) {
+          const uint32_t a = smem_u32(A + (kt * KPT + k) * MLP_BM * S::SW);
 #pragma unroll
-        for (int k = 0; k < S::KB / 16; ++k)
-          wgmma_ss<HN>(hreg, gmma_desc(a + 32 * k, S::SW),
-                       gmma_desc(b1 + kb * HN * S::SW + 32 * k, S::SW),
-                       kb + k > 0);
+          for (int kk = 0; kk < S::KB / 16; ++kk)
+            wgmma_ss<S::NW>(acc, gmma_desc(a + 32 * kk, S::SW),
+                            gmma_desc(b + k * C * S::SW + 32 * kk, S::SW), 1);
+        }
+        wgmma_commit();
+        wgmma_wait1();
+        if (prev >= 0) mbar_arrive(&empty[prev]);
+        prev = s;
+      }
+      wgmma_wait0();
+      fence_regs<S::NW / 2>(acc);
+      mbar_arrive(&empty[prev]);
+      // 3. y = x + ls1 * (proj + b), each step rounded as in the plain
+      // path: over x in its tile (XS), else into `out`; and its row sums
+      if constexpr (S::XS) mlp_wait(xf, xpar);
+      float s[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < S::NW / 8; ++i) {
+        const int col = cb + 8 * i + q2;
+        const float2 b = opt2(p.proj_b, col), l = opt2(p.ls1, col);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float v0 = round_bf16(acc[4 * i + 2 * hh] + b.x);
+          float v1 = round_bf16(acc[4 * i + 2 * hh + 1] + b.y);
+          if (p.ls1) {
+            v0 = round_bf16(v0 * l.x);
+            v1 = round_bf16(v1 * l.y);
+          }
+          uint32_t* xy = reinterpret_cast<uint32_t*>(
+              X + col / S::KB * MLP_BM * S::SW + swz(wr + 8 * hh, col % S::KB * 2, S::SW));
+          const float2 xv = unpack_bf16(S::XS ? *xy : yv[2 * i + hh]);
+          const uint32_t y = pack_bf16(xv.x + v0, xv.y + v1);
+          const float2 yf = unpack_bf16(y);
+          s[hh] += yf.x + yf.y;
+          if constexpr (S::XS) {
+            *xy = y;
+          } else {
+            yv[2 * i + hh] = y;
+            const int row = row0 + wr + 8 * hh;
+            if (row < p.R)
+              *reinterpret_cast<uint32_t*>(p.out + static_cast<size_t>(row) * C + col) = y;
+          }
+        }
+        if (i % 4 == 3) group_fence();
+      }
+      // 4. z = LayerNorm 2 of y, fp32 statistics in two passes, over the
+      // o rows in A (above C = 128 the first exchange of row sums is also
+      // where both warpgroups are done with A)
+      auto y_at = [&](int i, int hh) {
+        if constexpr (S::XS) {
+          const int col = cb + 8 * i + q2;
+          return unpack_bf16(*reinterpret_cast<const uint32_t*>(
+              X + col / S::KB * MLP_BM * S::SW + swz(wr + 8 * hh, col % S::KB * 2, S::SW)));
+        } else {
+          return unpack_bf16(yv[2 * i + hh]);
+        }
+      };
+      float mean[2], inv[2];
+      mlp_row_sums<C>(s, red, w, wr, q2);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mean[hh] = s[hh] / C;
+        s[hh] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < S::NW / 8; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 v = y_at(i, hh);
+          const float d0 = v.x - mean[hh], d1 = v.y - mean[hh];
+          s[hh] += d0 * d0 + d1 * d1;
+        }
+      mlp_row_sums<C>(s, red + 2 * MLP_BM, w, wr, q2);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) inv[hh] = 1.f / sqrtf(s[hh] / C + p.eps);
+#pragma unroll
+      for (int i = 0; i < S::NW / 8; ++i) {
+        const int col = cb + 8 * i + q2;
+        const float2 lw = opt2(p.ln_w, col), lb = opt2(p.ln_b, col);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 v = y_at(i, hh);
+          *reinterpret_cast<uint32_t*>(A + col / S::KB * MLP_BM * S::SW +
+                                       swz(wr + 8 * hh, col % S::KB * 2, S::SW)) =
+              pack_bf16((v.x - mean[hh]) * inv[hh] * lw.x + lb.x,
+                        (v.y - mean[hh]) * inv[hh] * lw.y + lb.y);
+        }
+        if (i % 4 == 3) group_fence();
       }
     } else {
-#pragma unroll
-      for (int kb = 0; kb < S::NKB; ++kb) {
-        const uint32_t a = smem_u32(smem + kb * 64 * S::SW);
-#pragma unroll
-        for (int k = 0; k < S::KB / 16; ++k) {
-          wgmma_ss<HG>(hreg, gmma_desc(a + 32 * k, S::SW),
-                       gmma_desc(b1 + kb * HG * S::SW + 32 * k, S::SW),
-                       kb + k > 0);
-          wgmma_ss<HG>(hreg + HG / 2, gmma_desc(a + 32 * k, S::SW),
-                       gmma_desc(b1 + (S::NKB + kb) * HG * S::SW + 32 * k, S::SW),
-                       kb + k > 0);
-        }
+      // 1-4 in a cluster, or in the model axis's mode: this CTA's
+      // columns of y into `out` (a cluster size is taken only where they
+      // are a multiple of 8, wgmma's N step: mlp_cluster_ok; both
+      // warpgroups' shares, or warpgroup 0's: mlp_project_cs), a barrier,
+      // then LN2 of the whole rows from there
+      if (p.tp) {
+        mlp_residual_tp<C>(p, row0, col0, ccols, gt, gn);
+      } else {
+        mlp_wait(&afull[ts], n & 1);
+        const int boff = S::PAIR ? 0 : w * n0 * S::SW;
+        if (cs == 2)
+          mlp_project_cs<C, 2>(p, A, ring, full, empty, boff, c0, row0, ccols,
+                               kpt, w, wr, q2, stage, phase);
+        else if (cs == 4)
+          mlp_project_cs<C, 4>(p, A, ring, full, empty, boff, c0, row0, ccols,
+                               kpt, w, wr, q2, stage, phase);
+        else if (cs == 8)
+          mlp_project_cs<C, 8>(p, A, ring, full, empty, boff, c0, row0, ccols,
+                               kpt, w, wr, q2, stage, phase);
       }
+      if (cs > 1) {
+        cluster_arrive();
+        cluster_wait();
+      } else {
+        named_sync(gid, gn);
+      }
+      mlp_ln2_from_out<C>(p, A, row0, gt / 32, gn / 32);
     }
-    wgmma_commit();
-    wgmma_wait0();      // this chunk's GEMM1 and the last chunk's GEMM2
-    fence_regs<HN / 2>(hreg);
+    fence_async_smem();
+    named_sync(gid, gn);
+
+    // 5. MLP over this CTA's hidden chunks (mlp_chunk), H tiles in turn,
+    // the fp32 sum in acc; the first chunk issues no GEMM2
+    float hreg[S::HN / 2];
+#pragma unroll
+    for (int i = 0; i < S::NW / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < S::HN / 2; ++i) hreg[i] = 0.f;
+    uint64_t* ae = cs == 1 && !p.tp ? &aempty[ts] : nullptr;
+    uint32_t par_in, par_out;
+    int s_in = claim(par_in);
+    int s_out = claim(par_out);
+    mlp_chunk<C, false>(p, acc, hreg, A, ring, full, empty, s_in, par_in, -1, 0,
+                        nullptr, H0, j0, w, wr, q2, hsw, true,
+                        j0 + 1 == j1 ? ae : nullptr);
+    fence_async_smem();
+    named_sync(gid, gn);
+    if constexpr (!S::OVERLAP)
+      mlp_issue_gemm2<C>(acc, H0, ring, full, s_out, par_out, w, hsw, true);
+    for (int j = j0 + 1; j < j1; ++j) {
+      const int s_prev = s_out;
+      const uint32_t par_prev = par_out;
+      s_in = claim(par_in);
+      s_out = claim(par_out);
+      unsigned char* hj = H0 + ((j - j0) & 1) * MLP_HBUF;
+      mlp_chunk<C, S::OVERLAP>(p, acc, hreg, A, ring, full, empty, s_in, par_in,
+                               s_prev, par_prev, H0 + ((j - 1 - j0) & 1) * MLP_HBUF,
+                               hj, j, w, wr, q2, hsw, j == j0 + 1,
+                               j + 1 == j1 ? ae : nullptr);
+      fence_async_smem();
+      named_sync(gid, gn);
+      if constexpr (!S::OVERLAP)
+        mlp_issue_gemm2<C>(acc, hj, ring, full, s_out, par_out, w, hsw, false);
+    }
+    // the last chunk's GEMM2 (issued already where not OVERLAP)
+    if constexpr (S::OVERLAP)
+      mlp_issue_gemm2<C>(acc, H0 + ((j1 - 1 - j0) & 1) * MLP_HBUF, ring, full,
+                         s_out, par_out, w, hsw, j1 - j0 == 1);
+    wgmma_wait0();
     fence_regs<S::NW / 2>(acc);
-    mbar_arrive(&empty[slot1]);
-    if (pend >= 0) mbar_arrive(&empty[pend]);
-    if (++stage == S::NS) {
-      stage = 0;
-      phase ^= 1;
-    }
+    mbar_arrive(&empty[s_out]);
 
-    if (!p.gated) {
+    if (cs == 1) {
+      // 6. alone on the tile, from the registers: the model axis's fp32
+      // partial, else out = y + ls2 * (mlp + b), y from its x tile (XS)
+      // or from `out`
 #pragma unroll
-      for (int i = 0; i < HN / 8; ++i) {
-        const int cl = w * HN + 8 * i + q2;
-        const int u = j * 64 + cl;
-        const float b0 = u < p.inner ? opt(p.in_b, u) : 0.f;
-        const float b1v = u + 1 < p.inner ? opt(p.in_b, u + 1) : 0.f;
+      for (int i = 0; i < S::NW / 8; ++i) {
+        const int col = cb + 8 * i + q2;
+        const float2 b = opt2(p.out_b, col), l = opt2(p.ls2, col);
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<__nv_bfloat162*>(H + swz(wr + 8 * h, cl * 2, 128)) =
-              __floats2bfloat162_rn(activate(hreg[4 * i + 2 * h] + b0, p.act),
-                                    activate(hreg[4 * i + 2 * h + 1] + b1v, p.act));
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < HG / 8; ++i) {
-        const int cl = w * HG + 8 * i + q2;
-        const float a0 = opt(p.in_b, j * 32 + cl), a1 = opt(p.in_b, j * 32 + cl + 1);
-        const float g0 = opt(p.in_b, p.inner + j * 32 + cl);
-        const float g1 = opt(p.in_b, p.inner + j * 32 + cl + 1);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int e = 4 * i + 2 * h;
-          *reinterpret_cast<__nv_bfloat162*>(H + swz(wr + 8 * h, cl * 2, 64)) =
-              __floats2bfloat162_rn(
-                  (hreg[e] + a0) * activate(hreg[HG / 2 + e] + g0, p.act),
-                  (hreg[e + 1] + a1) * activate(hreg[HG / 2 + e + 1] + g1, p.act));
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = row0 + wr + 8 * hh;
+          const size_t idx = static_cast<size_t>(row) * C + col;
+          const float a0 = acc[4 * i + 2 * hh], a1 = acc[4 * i + 2 * hh + 1];
+          if (p.tp) {
+            if (row < p.R)
+              *reinterpret_cast<float2*>(p.part + idx) = make_float2(a0, a1);
+            continue;
+          }
+          float m0 = round_bf16(a0 + b.x);
+          float m1 = round_bf16(a1 + b.y);
+          if (p.ls2) {
+            m0 = round_bf16(m0 * l.x);
+            m1 = round_bf16(m1 * l.y);
+          }
+          const uint32_t yr = S::XS
+              ? *reinterpret_cast<const uint32_t*>(
+                    X + col / S::KB * MLP_BM * S::SW + swz(wr + 8 * hh, col % S::KB * 2, S::SW))
+              : *reinterpret_cast<const uint32_t*>(
+                    p.out + static_cast<size_t>(min(row, p.R - 1)) * C + col);
+          const float2 yy = unpack_bf16(yr);
+          if (row < p.R)
+            *reinterpret_cast<uint32_t*>(p.out + idx) = pack_bf16(yy.x + m0, yy.y + m1);
         }
+        if (i % 4 == 3) group_fence();
       }
-    }
-    fence_async_smem();
-    consumer_sync(NCT);
-
-    const int slot2 = w * S::NS + stage;
-    mbar_wait(&full[slot2], phase);
-    const uint32_t b2 = smem_u32(ring + slot2 * S::STAGE), ha = smem_u32(H);
-    wgmma_fence();
-    for (int k = 0; k < hc / 16; ++k)
-      wgmma_ss<S::NW>(acc, gmma_desc(ha + 32 * k, hsw),
-                      gmma_desc(b2 + 32 * k, hsw), 1);
-    wgmma_commit();
-    pend = slot2;
-    if (++stage == S::NS) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-  wgmma_wait0();
-  fence_regs<S::NW / 2>(acc);
-  if (pend >= 0) mbar_arrive(&empty[pend]);
-
-  if (cs == 1 && p.tp) {
-    // alone on its tile, the model axis's mode: the fp32 partial
-#pragma unroll
-    for (int i = 0; i < S::NW / 8; ++i) {
-      const int col = w * S::NW + 8 * i + q2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + wr + 8 * h;
-        if (row >= p.R) continue;
-        *reinterpret_cast<float2*>(p.part + static_cast<size_t>(row) * C + col) =
-            make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
-      }
-    }
-    return;
-  }
-  if (cs == 1) {
-    // alone on its tile: out = y + ls2 * (mlp + b) from the registers
-#pragma unroll
-    for (int i = 0; i < S::NW / 8; ++i) {
-      const int col = w * S::NW + 8 * i + q2;
-      const float b0 = opt(p.out_b, col), b1 = opt(p.out_b, col + 1);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + wr + 8 * h;
-        if (row >= p.R) continue;
-        const size_t idx = static_cast<size_t>(row) * C + col;
-        float m0 = round_bf16(acc[4 * i + 2 * h] + b0);
-        float m1 = round_bf16(acc[4 * i + 2 * h + 1] + b1);
-        if (p.ls2) {
-          m0 = round_bf16(m0 * f32(p.ls2[col]));
-          m1 = round_bf16(m1 * f32(p.ls2[col + 1]));
-        }
-        const __nv_bfloat162 yv = *reinterpret_cast<const __nv_bfloat162*>(p.out + idx);
-        *reinterpret_cast<__nv_bfloat162*>(p.out + idx) =
-            __floats2bfloat162_rn(f32(yv.x) + m0, f32(yv.y) + m1);
-      }
-    }
-    return;
-  }
-  // every wgmma of both warpgroups is done with A and the ring, which the
-  // partial now overwrites
-  consumer_sync(NCT);
-
-  // 5. this CTA's fp32 partial [64, C] into its own shared memory
-  float* part = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < S::NW / 8; ++i) {
-    const int col = w * S::NW + 8 * i + q2;
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float2*>(part + (wr + 8 * h) * LDP + col) =
-          make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
-  }
-  cluster_arrive();
-  cluster_wait();
-
-  // 6. out = y + ls2 * (sum of the cluster's partials + b) for this CTA's
-  // columns, the partials added in rank order
-  for (int i = tid; i < MLP_BM * ccols / 4; i += NCT) {
-    const int r = i / (ccols / 4), col = col0 + (i % (ccols / 4)) * 4;
-    const int row = row0 + r;
-    if (row >= p.R) continue;
-    float4 sum = ld_peer(part + r * LDP + col, 0);
-    for (int q = 1; q < cs; ++q) {
-      const float4 v = ld_peer(part + r * LDP + col, q);
-      sum.x += v.x;
-      sum.y += v.y;
-      sum.z += v.z;
-      sum.w += v.w;
-    }
-    const size_t idx = static_cast<size_t>(row) * C + col;
-    if (p.tp) {
-      *reinterpret_cast<float4*>(p.part + idx) = sum;
+      if (S::XS && !p.tp) mbar_arrive(xe);
       continue;
     }
-    const float m[4] = {sum.x, sum.y, sum.z, sum.w};
-    const uint2 yraw = *reinterpret_cast<const uint2*>(p.out + idx);
-    const bf16* y = reinterpret_cast<const bf16*>(&yraw);
-    uint2 oraw;
-    bf16* o = reinterpret_cast<bf16*>(&oraw);
+
+    // 6. a cluster: every wgmma of both warpgroups is done with A and the
+    // ring, which the fp32 partials [64, C] of the unit's tiles now
+    // overwrite; CTA r sums its columns' partials over distributed shared
+    // memory in rank order (every load of a group in flight at once)
+    consumer_sync(S::NCT);
+    float* part = reinterpret_cast<float*>(smem);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float v = round_bf16(m[k] + opt(p.out_b, col + k));
-      if (p.ls2) v = round_bf16(v * f32(p.ls2[col + k]));
-      o[k] = __float2bfloat16(f32(y[k]) + v);
+    for (int i = 0; i < S::NW / 8; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(part + (ts * MLP_BM + wr + 8 * hh) * S::LDP + cb + 8 * i + q2) =
+            make_float2(acc[4 * i + 2 * hh], acc[4 * i + 2 * hh + 1]);
+    cluster_arrive();
+    cluster_wait();
+    for (int tt = 0; tt < S::TPC; ++tt) {
+      const int rbase = (g * S::TPC + tt) * MLP_BM;
+      for (int i = tid; i < MLP_BM * ccols / 4; i += S::NCT) {
+        const int r = i / (ccols / 4), col = col0 + (i % (ccols / 4)) * 4;
+        const int row = rbase + r;
+        if (row >= p.R) continue;
+        const float* src = part + (tt * MLP_BM + r) * S::LDP + col;
+        float4 v[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          if (q < cs) v[q] = ld_peer(src, q);
+        float4 sum = v[0];
+#pragma unroll
+        for (int q = 1; q < 8; ++q)
+          if (q < cs) {
+            sum.x += v[q].x;
+            sum.y += v[q].y;
+            sum.z += v[q].z;
+            sum.w += v[q].w;
+          }
+        const size_t idx = static_cast<size_t>(row) * C + col;
+        if (p.tp) {
+          *reinterpret_cast<float4*>(p.part + idx) = sum;
+          continue;
+        }
+        const float m[4] = {sum.x, sum.y, sum.z, sum.w};
+        const uint2 yraw = *reinterpret_cast<const uint2*>(p.out + idx);
+        const bf16* y = reinterpret_cast<const bf16*>(&yraw);
+        uint2 oraw;
+        bf16* o = reinterpret_cast<bf16*>(&oraw);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float v = round_bf16(m[k] + opt(p.out_b, col + k));
+          if (p.ls2) v = round_bf16(v * f32(p.ls2[col + k]));
+          o[k] = __float2bfloat16(f32(y[k]) + v);
+        }
+        *reinterpret_cast<uint2*>(p.out + idx) = oraw;
+      }
     }
-    *reinterpret_cast<uint2*>(p.out + idx) = oraw;
+    // peers may still read this CTA's partials; then A is free for the
+    // next unit's o rows
+    cluster_arrive();
+    cluster_wait();
+    if (!p.tp) mbar_arrive(&aempty[ts]);
   }
-  // peers may still read this CTA's partial
-  cluster_arrive();
-  cluster_wait();
 }
 
 // ---------------------------------------------------------------------------
@@ -1114,10 +1549,6 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 // `bytes` of this CTA's shared memory at `src` to the same offset in the
 // shared memory of the cluster's CTA `rank`, by the bulk-copy engine; the
@@ -2059,24 +2490,6 @@ cudaError_t launch(void (*kernel)(K...), dim3 grid, int threads, int smem,
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t launch_mlp(const MlpArgs& a, const void* proj_w, const void* in_w,
-                       const void* out_w, int cluster, cudaStream_t st) {
-  using S = MlpShape<C>;
-  const int hc = a.gated ? 32 : 64;
-  CUtensorMap m_proj = {}, m_in, m_out;
-  // the model axis's mode reads no projection weight
-  if ((!a.tp && !weight_map(&m_proj, proj_w, C, C, S::NW / cluster, S::KB)) ||
-      !weight_map(&m_in, in_w, a.gated ? 2 * a.inner : a.inner, C,
-                  hc / S::NWG, S::KB) ||
-      !weight_map(&m_out, out_w, C, a.inner, S::NW, hc))
-    return cudaErrorInvalidValue;
-  // alone on its tile (cluster 1), a CTA takes the path with no cluster
-  // barrier and writes its epilogue straight from the registers
-  return launch(block_mlp_kernel<C>, dim3(cluster, (a.R + MLP_BM - 1) / MLP_BM),
-                S::THREADS, S::SMEM, cluster, st, m_proj, m_in, m_out, a);
-}
-
 // CTAs of `kernel` (threads, smem bytes) the current card runs at once
 // in clusters of cs (0 if it cannot run such clusters), by the occupancy
 // calculator, kept per (kernel, card, cs): the answer does not change on
@@ -2174,21 +2587,6 @@ cudaError_t launch_attention(AttnArgs a, const void* qkv_w, int heads,
                 S::SMEM, cs, st, m_qkv, a);
 }
 
-int mlp_smem_bytes(int C) {
-  switch (C) {
-    case 32: return MlpShape<32>::SMEM;
-    case 48: return MlpShape<48>::SMEM;
-    case 64: return MlpShape<64>::SMEM;
-    case 96: return MlpShape<96>::SMEM;
-    case 128: return MlpShape<128>::SMEM;
-    case 192: return MlpShape<192>::SMEM;
-    case 256: return MlpShape<256>::SMEM;
-    case 384: return MlpShape<384>::SMEM;
-    case 512: return MlpShape<512>::SMEM;
-    default: return 0;
-  }
-}
-
 // Hidden chunks of block_mlp_kernel: 64 units (32 of each half gated);
 // an ungated inner dim may end in a half chunk (inner % 32 == 0 either
 // way: `mlp_inner_ok`)
@@ -2199,11 +2597,65 @@ int mlp_chunks(int inner, int gated) {
 bool mlp_inner_ok(int inner) { return inner > 0 && inner % 32 == 0; }
 
 // The cluster sizes a width takes: each CTA projects a multiple of 8
-// columns a warpgroup (wgmma's N step) and owns at least one hidden chunk.
+// columns (wgmma's N step; mlp_proj_boxes) and owns at least one hidden
+// chunk.
 bool mlp_cluster_ok(int C, int inner, int gated, int cluster) {
-  const int nwg = C > 256 ? 2 : 1;
   return (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) &&
-         C % (nwg * 8 * cluster) == 0 && cluster <= mlp_chunks(inner, gated);
+         C % (8 * cluster) == 0 && cluster <= mlp_chunks(inner, gated);
+}
+
+// Plans and launches block_mlp_kernel<C> over a.R rows. Units of TPC row
+// tiles (two at C <= 64, one above); cs CTAs (a cluster splitting the
+// hidden chunks) a unit: the largest cs of 2, 4, 8 that the width takes,
+// that divides the chunks evenly (3 at C = 48 give no cluster, 6 at 96
+// two CTAs) and whose units the card runs in one wave (num_sms x the
+// CTAs an SM holds, by the occupancy calculator); else cs = 1 and one
+// wave of persistent CTAs walks the units. Splitting a grid that
+// already fills the card costs more than it gains: every CTA of a
+// cluster pays the unit's o load, LN2 over the whole rows and the
+// cluster's barriers. `cluster` > 0 fixes cs. The plan goes to
+// plan[0..3] (cs, row tiles, tiles split over a cluster, CTAs) where
+// plan is not NULL.
+template <int C>
+cudaError_t launch_mlp(MlpArgs a, const void* o, const void* proj_w,
+                       const void* in_w, const void* out_w, int cluster,
+                       int num_sms, int* plan, cudaStream_t st) {
+  using S = MlpShape<C>;
+  auto kernel = block_mlp_kernel<C>;
+  const int hc = a.gated ? 32 : 64;
+  const int chunks = mlp_chunks(a.inner, a.gated);
+  const long tiles = (a.R + MLP_BM - 1) / MLP_BM;
+  const long units = (tiles + S::TPC - 1) / S::TPC;
+  int cs = cluster > 0 ? cluster : 1;
+  for (int n = 2; cluster == 0 && n <= 8; n *= 2)
+    if (mlp_cluster_ok(C, a.inner, a.gated, n) && chunks % n == 0 &&
+        units * n <= cluster_slots(kernel, S::THREADS, S::SMEM, n, num_sms))
+      cs = n;
+  const long slots = cluster_slots(kernel, S::THREADS, S::SMEM, cs, num_sms);
+  const long clusters = slots / cs < units ? slots / cs : units;
+  if (clusters < 1 || clusters > 65535 || units > (1l << 30))
+    return cudaErrorInvalidValue;
+  a.units = static_cast<int>(units);
+  if (plan != nullptr) {
+    plan[0] = cs;
+    plan[1] = static_cast<int>(tiles);
+    plan[2] = cs > 1 ? static_cast<int>(tiles) : 0;
+    plan[3] = static_cast<int>(clusters * cs);
+  }
+  const int ccols = C / cs;
+  CUtensorMap m_o = {}, m_x = {}, m_proj = {}, m_in, m_out;
+  // the model axis's mode reads neither o nor the projection's weight,
+  // and reads x where it makes y
+  if (!a.tp && (!encode_map(&m_o, o, a.R, C, MLP_BM, S::KB) ||
+                (S::XS && !encode_map(&m_x, a.x, a.R, C, MLP_BM, S::KB)) ||
+                !weight_map(&m_proj, proj_w, C, C,
+                            ccols / mlp_proj_boxes(ccols, S::PB), S::KB)))
+    return cudaErrorInvalidValue;
+  if (!weight_map(&m_in, in_w, a.gated ? 2 * a.inner : a.inner, C, hc, S::KB) ||
+      !weight_map(&m_out, out_w, C, a.inner, S::NW, hc))
+    return cudaErrorInvalidValue;
+  return launch(kernel, dim3(cs, static_cast<unsigned>(clusters)), S::THREADS,
+                S::SMEM, cs, st, m_o, m_x, m_proj, m_in, m_out, a);
 }
 
 // Plans and launches lstm_update_kernel<C, CT> over a.R rows: tiles of
@@ -2325,31 +2777,10 @@ extern "C" int leod_block_attention(const void* x, void* o, const void* ln_w,
   }
 }
 
-// How many CTAs (a cluster) share a row tile: the largest size among
-// 1, 2, 4, 8 that the width takes, that divides the hidden chunks evenly
-// (3 at C = 48 give no cluster, 6 at 96 two CTAs) and that keeps the
-// grid within one wave (num_sms x the CTAs an SM holds by shared
-// memory). Splitting a
-// grid that already fills the card costs more than it gains: every CTA
-// pays its o load, LN2 over the whole rows and the cluster's barriers
-// (stage 1 at B = 8 ran 2.2x slower split 4 ways than alone, H100).
-extern "C" int leod_block_mlp_cluster(int R, int C, int inner, int gated,
-                                      int num_sms) {
-  const int smem = mlp_smem_bytes(C);
-  if (R < 1 || smem == 0) return 1;
-  const long tiles = (R + MLP_BM - 1) / MLP_BM;
-  const long slots = static_cast<long>(num_sms) * ((228 * 1024) / (smem + 1024));
-  const int chunks = mlp_chunks(inner, gated);
-  int best = 1;
-  for (int cs = 2; cs <= 8; cs *= 2)
-    if (mlp_cluster_ok(C, inner, gated, cs) && chunks % cs == 0 &&
-        tiles * cs <= slots)
-      best = cs;
-  return best;
-}
-
-// C in {32, 48, 64, 96, 128, 192, 256, 384, 512}; `cluster` CTAs share
-// each 64-row tile
+// C in {32, 48, 64, 96, 128, 192, 256, 384, 512}. `cluster` > 0 fixes
+// how many CTAs share each unit of row tiles (1, 2, 4 or 8); 0 lets the
+// plan choose. `plan` (NULL or four ints) receives the cluster size, the
+// row tiles, the tiles a cluster split and the CTAs the launch took.
 extern "C" int leod_block_mlp(const void* x, const void* o, void* out,
                               const void* proj_w, const void* proj_b,
                               const void* ls1, const void* ln_w,
@@ -2357,13 +2788,14 @@ extern "C" int leod_block_mlp(const void* x, const void* o, void* out,
                               const void* in_b, const void* out_w,
                               const void* out_b, const void* ls2, int R,
                               int C, int inner, int gated, int act, float eps,
-                              int cluster, void* stream) {
+                              int cluster, int num_sms, int* plan,
+                              void* stream) {
   if (R < 1 || !mlp_inner_ok(inner) || ln_w == nullptr ||
-      ln_b == nullptr || !mlp_cluster_ok(C, inner, gated, cluster))
+      ln_b == nullptr ||
+      (cluster != 0 && !mlp_cluster_ok(C, inner, gated, cluster)))
     return cudaErrorInvalidValue;
   MlpArgs a = {};
   a.x = static_cast<const bf16*>(x);
-  a.o = static_cast<const bf16*>(o);
   a.proj_b = static_cast<const bf16*>(proj_b);
   a.ls1 = static_cast<const bf16*>(ls1);
   a.ln_w = static_cast<const bf16*>(ln_w);
@@ -2379,15 +2811,15 @@ extern "C" int leod_block_mlp(const void* x, const void* o, void* out,
   a.eps = eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 32: return launch_mlp<32>(a, proj_w, in_w, out_w, cluster, st);
-    case 48: return launch_mlp<48>(a, proj_w, in_w, out_w, cluster, st);
-    case 64: return launch_mlp<64>(a, proj_w, in_w, out_w, cluster, st);
-    case 96: return launch_mlp<96>(a, proj_w, in_w, out_w, cluster, st);
-    case 128: return launch_mlp<128>(a, proj_w, in_w, out_w, cluster, st);
-    case 192: return launch_mlp<192>(a, proj_w, in_w, out_w, cluster, st);
-    case 256: return launch_mlp<256>(a, proj_w, in_w, out_w, cluster, st);
-    case 384: return launch_mlp<384>(a, proj_w, in_w, out_w, cluster, st);
-    case 512: return launch_mlp<512>(a, proj_w, in_w, out_w, cluster, st);
+    case 32: return launch_mlp<32>(a, o, proj_w, in_w, out_w, cluster, num_sms, plan, st);
+    case 48: return launch_mlp<48>(a, o, proj_w, in_w, out_w, cluster, num_sms, plan, st);
+    case 64: return launch_mlp<64>(a, o, proj_w, in_w, out_w, cluster, num_sms, plan, st);
+    case 96: return launch_mlp<96>(a, o, proj_w, in_w, out_w, cluster, num_sms, plan, st);
+    case 128: return launch_mlp<128>(a, o, proj_w, in_w, out_w, cluster, num_sms, plan, st);
+    case 192: return launch_mlp<192>(a, o, proj_w, in_w, out_w, cluster, num_sms, plan, st);
+    case 256: return launch_mlp<256>(a, o, proj_w, in_w, out_w, cluster, num_sms, plan, st);
+    case 384: return launch_mlp<384>(a, o, proj_w, in_w, out_w, cluster, num_sms, plan, st);
+    case 512: return launch_mlp<512>(a, o, proj_w, in_w, out_w, cluster, num_sms, plan, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -2395,18 +2827,19 @@ extern "C" int leod_block_mlp(const void* x, const void* o, void* out,
 // The model axis's mode of block_mlp_kernel: from x and the
 // out-projection summed over the model group a (fp32 [R, C], no bias),
 // x1 = x + ls1 (a + proj_b) into x1 and this rank's fp32 partial MLP
-// output (its `inner` units, no bias) into part. C and the cluster as
-// leod_block_mlp's.
+// output (its `inner` units, no bias) into part. C, `cluster` and
+// `plan` as leod_block_mlp's.
 extern "C" int leod_block_mlp_tp(const void* x, const void* a, void* x1,
                                  void* part, const void* proj_b,
                                  const void* ls1, const void* ln_w,
                                  const void* ln_b, const void* in_w,
                                  const void* in_b, const void* out_w, int R,
                                  int C, int inner, int gated, int act,
-                                 float eps, int cluster, void* stream) {
+                                 float eps, int cluster, int num_sms,
+                                 int* plan, void* stream) {
   if (R < 1 || !mlp_inner_ok(inner) || ln_w == nullptr ||
       ln_b == nullptr || a == nullptr || part == nullptr ||
-      !mlp_cluster_ok(C, inner, gated, cluster))
+      (cluster != 0 && !mlp_cluster_ok(C, inner, gated, cluster)))
     return cudaErrorInvalidValue;
   MlpArgs m = {};
   m.x = static_cast<const bf16*>(x);
@@ -2426,15 +2859,15 @@ extern "C" int leod_block_mlp_tp(const void* x, const void* a, void* x1,
   m.part = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 32: return launch_mlp<32>(m, nullptr, in_w, out_w, cluster, st);
-    case 48: return launch_mlp<48>(m, nullptr, in_w, out_w, cluster, st);
-    case 64: return launch_mlp<64>(m, nullptr, in_w, out_w, cluster, st);
-    case 96: return launch_mlp<96>(m, nullptr, in_w, out_w, cluster, st);
-    case 128: return launch_mlp<128>(m, nullptr, in_w, out_w, cluster, st);
-    case 192: return launch_mlp<192>(m, nullptr, in_w, out_w, cluster, st);
-    case 256: return launch_mlp<256>(m, nullptr, in_w, out_w, cluster, st);
-    case 384: return launch_mlp<384>(m, nullptr, in_w, out_w, cluster, st);
-    case 512: return launch_mlp<512>(m, nullptr, in_w, out_w, cluster, st);
+    case 32: return launch_mlp<32>(m, nullptr, nullptr, in_w, out_w, cluster, num_sms, plan, st);
+    case 48: return launch_mlp<48>(m, nullptr, nullptr, in_w, out_w, cluster, num_sms, plan, st);
+    case 64: return launch_mlp<64>(m, nullptr, nullptr, in_w, out_w, cluster, num_sms, plan, st);
+    case 96: return launch_mlp<96>(m, nullptr, nullptr, in_w, out_w, cluster, num_sms, plan, st);
+    case 128: return launch_mlp<128>(m, nullptr, nullptr, in_w, out_w, cluster, num_sms, plan, st);
+    case 192: return launch_mlp<192>(m, nullptr, nullptr, in_w, out_w, cluster, num_sms, plan, st);
+    case 256: return launch_mlp<256>(m, nullptr, nullptr, in_w, out_w, cluster, num_sms, plan, st);
+    case 384: return launch_mlp<384>(m, nullptr, nullptr, in_w, out_w, cluster, num_sms, plan, st);
+    case 512: return launch_mlp<512>(m, nullptr, nullptr, in_w, out_w, cluster, num_sms, plan, st);
     default: return cudaErrorInvalidValue;
   }
 }

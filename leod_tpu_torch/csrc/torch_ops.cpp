@@ -45,18 +45,19 @@ int leod_block_attention(const void* x, void* o, const void* ln_w,
                          int dim_head, int heads, int ph, int pw,
                          int grid_kind, float eps, int cluster, int num_sms,
                          int* plan, void* stream);
-int leod_block_mlp_cluster(int R, int C, int inner, int gated, int num_sms);
 int leod_block_mlp(const void* x, const void* o, void* out,
                    const void* proj_w, const void* proj_b, const void* ls1,
                    const void* ln_w, const void* ln_b, const void* in_w,
                    const void* in_b, const void* out_w, const void* out_b,
                    const void* ls2, int R, int C, int inner, int gated,
-                   int act, float eps, int cluster, void* stream);
+                   int act, float eps, int cluster, int num_sms, int* plan,
+                   void* stream);
 int leod_block_mlp_tp(const void* x, const void* a, void* x1, void* part,
                       const void* proj_b, const void* ls1, const void* ln_w,
                       const void* ln_b, const void* in_w, const void* in_b,
                       const void* out_w, int R, int C, int inner, int gated,
-                      int act, float eps, int cluster, void* stream);
+                      int act, float eps, int cluster, int num_sms, int* plan,
+                      void* stream);
 int leod_block_residual(const void* x1, const void* p, const void* out_b,
                         const void* ls2, void* out, int R, int C,
                         void* stream);
@@ -591,19 +592,19 @@ Tensor mlp_cuda(const Tensor& x, const Tensor& o, const Tensor& proj_w,
                     kernel_dims_str(), "; got ", shape_str(x), ", ",
                     shape_str(o));
   const int64_t rows = x.numel() / c, inner = out_w.size(1);
-  if (!cluster)
-    // too few row tiles to fill the card: a cluster of CTAs shares each
-    // tile's projection columns and hidden chunks
-    cluster = leod_block_mlp_cluster(rows, c, inner, gated, num_sms(x));
   Tensor out = at::empty_like(x);
+  // the plan: the cluster size, the row tiles, the tiles a cluster split
+  // (too few to fill the card: a cluster of CTAs shares each unit's
+  // projection columns and hidden chunks), the CTAs
+  int plan[4] = {0, 0, 0, 0};
   check("leod_block_mlp",
         leod_block_mlp(x.data_ptr(), o.data_ptr(), out.data_ptr(),
                        proj_w.data_ptr(), ptr(proj_b), ptr(ls1),
                        norm_w.data_ptr(), norm_b.data_ptr(), in_w.data_ptr(),
                        ptr(in_b), out_w.data_ptr(), ptr(out_b), ptr(ls2),
                        rows, c, inner, gated, act_id, eps, cluster,
-                       stream(x)));
-  record(kMlp, {cluster});
+                       num_sms(x), plan, stream(x)));
+  record(kMlp, {plan[0], plan[1], plan[2], plan[3]});
   return out;
 }
 
@@ -626,17 +627,17 @@ std::tuple<Tensor, Tensor> mlp_tp_cuda(
       shape_str(x), ", ", shape_str(a), " ", dtype_str(a), ", proj_out ",
       shape_str(out_w));
   const int64_t rows = x.numel() / c;
-  if (!cluster)
-    cluster = leod_block_mlp_cluster(rows, c, inner, gated, num_sms(x));
   Tensor x1 = at::empty_like(x);
   Tensor p = at::empty_like(a);
+  int plan[4] = {0, 0, 0, 0};   // as block_mlp's
   check("leod_block_mlp_tp",
         leod_block_mlp_tp(x.data_ptr(), a.data_ptr(), x1.data_ptr(),
                           p.data_ptr(), ptr(proj_b), ptr(ls1),
                           norm_w.data_ptr(), norm_b.data_ptr(),
                           in_w.data_ptr(), ptr(in_b), out_w.data_ptr(), rows,
-                          c, inner, gated, act_id, eps, cluster, stream(x)));
-  record(kMlpTp, {cluster});
+                          c, inner, gated, act_id, eps, cluster, num_sms(x),
+                          plan, stream(x)));
+  record(kMlpTp, {plan[0], plan[1], plan[2], plan[3]});
   return {x1, p};
 }
 

@@ -7,16 +7,20 @@ plain PyTorch version (the token-layout path of the modules,
 `leod_tpu/models/backbone.py:89-107`); on a CUDA tensor it launches the
 kernels or raises. Each wrapper counts the calls in which it launched
 kernels in `.launches`; `block_attention.plan`, `block_mlp.plan` and
-`lstm_update.plan` keep how its last launch dealt out the work.
+`lstm_update.plan` keep how its last launch dealt out the work. While
+tracing records (`timing.py`), `block_mlp` also counts its plan
+(`block_mlp.tiles`, `.split_tiles`, `.ctas`, and by width).
 
 On the card, a block is two launches: `block_attention` (LN1 once per
 token, q|k|v on wgmma fed by TMA, attention in registers, a CTA per
 group of windows and heads; where windows are few, the head groups of a
 window group are a cluster sharing LN1; plain version
 `block_attention_plain`) and `block_mlp` (projection, LayerScale,
-residual, LN2, MLP, LayerScale, residual, per token, on wgmma fed by TMA;
-where few tokens leave the card empty, a cluster of CTAs shares each
-row tile's hidden dim; plain version `block_mlp_plain`). `fused_stage` runs its pairs so
+residual, LN2, MLP, LayerScale, residual, per token, on wgmma fed by TMA:
+one wave of persistent CTAs, two warpgroups a CTA, which take a row tile
+each or split one tile's columns; where few tokens leave the card empty,
+a cluster of CTAs shares each unit's hidden dim; plain version
+`block_mlp_plain`). `fused_stage` runs its pairs so
 and then the ConvLSTM update `lstm_update` (the gate product on wgmma fed
 by TMA, the gates in registers; where rows are few and K long, a cluster
 of CTAs splits K; plain version `lstm_update_plain`). The kernels take bf16
@@ -47,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .. import timing
 from ..parallel import space, tensor
 from ..models.layers import (PartitionAttention, _SplitGateConv,
                              block_pair_tokens, mlp_apply, mlp_hidden)
@@ -221,14 +226,25 @@ def block_mlp(x: torch.Tensor, o: torch.Tensor, blk: PartitionAttention,
               cluster: Optional[int] = None) -> torch.Tensor:
     """The per-token half of a block (`block_mlp_plain`) on token rows
     x, o [..., C]. On the card C is one of `kKernelDims`; `cluster` (1, 2, 4
-    or 8) forces how many CTAs share a 64-row tile (tests only; by
-    default the kernel's heuristic picks); `block_mlp.plan` is the last
-    launch's."""
+    or 8) forces how many CTAs share a unit of row tiles, splitting its
+    hidden chunks (tests only; by default the kernel's plan picks);
+    `block_mlp.plan` is the last launch's (CTAs a cluster, 64-row tiles,
+    tiles a cluster split, CTAs). While tracing records, a launch adds
+    its plan's tiles, split tiles and CTAs to the counters
+    `block_mlp.tiles`, `block_mlp.split_tiles` and `block_mlp.ctas`, and
+    to the same names for its width (`block_mlp.tiles.c64`, ...)."""
     if blk.mlp.act != act or blk.mlp.gated != gated:
         raise ValueError("block module config disagrees with the call's "
                          "act/gated")
-    return _build.op("block_mlp")(x, o, *_mlp_weights(blk), act, gated, eps,
-                            cluster or 0)
+    out = _build.op("block_mlp")(x, o, *_mlp_weights(blk), act, gated, eps,
+                                 cluster or 0)
+    if timing.tracing() and _counts(x):
+        _, tiles, split, ctas = block_mlp.plan
+        for name, n in (("tiles", tiles), ("split_tiles", split),
+                        ("ctas", ctas)):
+            timing.count(f"block_mlp.{name}", n)
+            timing.count(f"block_mlp.{name}.c{x.shape[-1]}", n)
+    return out
 
 
 @_build.counted("block_mlp_tp")
@@ -240,7 +256,8 @@ def block_mlp_tp(x: torch.Tensor, a: torch.Tensor, blk: PartitionAttention,
     (`block_mlp_tp_plain`) on token rows x [..., C] and the summed
     out-projection a [..., C] (fp32): (x1, this rank's partial MLP output
     p in fp32). On the card `block_mlp_kernel` in its model-axis mode;
-    `cluster` as `block_mlp`'s, `block_mlp_tp.plan` the last launch's."""
+    `cluster` and `block_mlp_tp.plan` (the last launch's) as
+    `block_mlp`'s."""
     if blk.mlp.act != act or blk.mlp.gated != gated:
         raise ValueError("block module config disagrees with the call's "
                          "act/gated")

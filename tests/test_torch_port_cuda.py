@@ -8,8 +8,10 @@ window and grid, with and without LN1, at B = 1 and 2 and with its
 heads split over clusters of 1 to 16 CTAs, launched back to back at
 the stage shapes at B = 1 and 8 by its own plan, the MLP with
 and without its hidden dim split over CTAs, the per-token half
-`block_mlp` alone at every width its tiles take, row counts with a
-ragged last 64-row tile, and clusters of 1 to 8 CTAs sharing a tile,
+`block_mlp` and its model-axis mode `block_mlp_tp` alone at every
+width its tiles take, from one row to the RVT-B Gen1 stage rows at
+B = 16, with a ragged last 64-row tile, by the plan and with clusters
+of 1 to 8 CTAs sharing a unit, each launch again bit for bit,
 the GLU MLP and SiLU, an
 fp32 and a bf16 cell state, the ConvLSTM update `lstm_update` alone at
 every width, with a ragged last 128-row tile, at B = 1 and 2, with K
@@ -80,6 +82,8 @@ DIM_HEAD = {32: 32, 64: 32, 128: 32, 256: 32, 512: 32,
 KERNEL_DIMS = tuple(sorted(DIM_HEAD))
 # the RVT-B and RVT-S Gen1 stage shapes: (C, (H, W)) at strides 4-32
 STAGES_B = [(64, (64, 80)), (128, (32, 40)), (256, (16, 20)), (512, (8, 10))]
+# their token rows at LEOD's Gen1 test batch, B = 16
+GEN1_B16_ROWS = {dim: 16 * h * w for dim, (h, w) in STAGES_B}
 STAGES_S = [(48, (64, 80)), (96, (32, 40)), (192, (16, 20)), (384, (8, 10))]
 # RVT-B Gen4's (input 384 x 640), in its 6 x 10 partition (T = 60)
 STAGES_GEN4 = [(64, (96, 160)), (128, (48, 80)), (256, (24, 40)),
@@ -388,27 +392,40 @@ def test_nms_sweep_chains_match_plain(cuda, k, b, case):
 
 
 def _mlp_cases():
-    """C x R x MLP kind x cluster size (CTAs per row tile), where the
-    tiles allow it: each CTA needs a hidden chunk (64 units; 32 of each
-    half in the GLU) and 8 projection columns a warpgroup."""
+    """C x R x MLP kind x cluster size (CTAs a unit of row tiles, splitting
+    its hidden chunks; None: the kernel's plan) x the model axis's mode:
+    R of one row, under one 64-row tile, a tile and a quarter (the serve
+    step's stage 4 at B = 1), ten tiles and a ragged last one at every
+    width, and the RVT-B Gen1 stage rows at B = 16 (LEOD's test batch) at
+    theirs. A forced cluster needs a hidden chunk a CTA (64 units; 32 of
+    each half in the GLU) and 8 projection columns a CTA."""
     cases = []
+    kinds = (("gelu", False), ("silu", False), ("gelu", True))
     for dim in KERNEL_DIMS:
-        nwg = 2 if dim > 256 else 1            # the kernel's warpgroups
-        for rows in (80, 640, 1000):
-            for act, gated in (("gelu", False), ("silu", False),
-                               ("gelu", True)):
-                chunks = (PartitionAttention(dim, (4, 5), "window",
-                                             dim_head=DIM_HEAD[dim],
-                                             mlp_gated=gated)
-                          .mlp.proj_out.in_features // (32 if gated else 64))
-                for cluster in (1, 2, 4, 8):
-                    if cluster <= chunks and dim % (nwg * 8 * cluster) == 0:
-                        cases.append((dim, rows, act, gated, cluster))
+        rows_kinds = [(rows, kind) for rows in (1, 63, 80, 640, 1000)
+                      for kind in kinds]
+        if dim in GEN1_B16_ROWS:
+            rows_kinds.append((GEN1_B16_ROWS[dim], ("gelu", False)))
+        for rows, (act, gated) in rows_kinds:
+            chunks = (PartitionAttention(dim, (4, 5), "window",
+                                         dim_head=DIM_HEAD[dim],
+                                         mlp_gated=gated)
+                      .mlp.proj_out.in_features // (32 if gated else 64))
+            for cluster in (None, 1, 2, 4, 8):
+                if cluster is None or (cluster <= chunks and
+                                       dim % (8 * cluster) == 0):
+                    for tp in (False, True):
+                        cases.append((dim, rows, act, gated, cluster, tp))
     return cases
 
 
-@pytest.mark.parametrize("dim,rows,act,gated,cluster", _mlp_cases())
-def test_block_mlp_kernel_matches_plain(cuda, dim, rows, act, gated, cluster):
+@pytest.mark.parametrize("dim,rows,act,gated,cluster,tp", _mlp_cases())
+def test_block_mlp_kernel_matches_plain(cuda, dim, rows, act, gated, cluster,
+                                        tp):
+    """`block_mlp` (or, with `tp`, `block_mlp_tp`: x1 and the fp32
+    partial from an fp32 out-projection sum a) against its plain version,
+    one launch, the plan's cluster size and tiles, and a second launch
+    equal bit for bit (a cluster adds its partial sums in rank order)."""
     blk = _randomized(PartitionAttention(dim, (4, 5), "window",
                                          dim_head=DIM_HEAD[dim],
                                          mlp_gated=gated, mlp_act=act),
@@ -416,14 +433,26 @@ def test_block_mlp_kernel_matches_plain(cuda, dim, rows, act, gated, cluster):
     g = torch.Generator(device=cuda).manual_seed(rows)
     x, o = (torch.randn(rows, dim, device=cuda, generator=g
                         ).to(torch.bfloat16) for _ in range(2))
-    before = maxvit_cuda.block_mlp.launches
-    got = maxvit_cuda.block_mlp(x, o, blk, act, gated, cluster=cluster)
+    if tp:
+        wrapper, args = maxvit_cuda.block_mlp_tp, (x, o.float(), blk)
+        want = maxvit_cuda.block_mlp_tp_plain(*args)
+    else:
+        wrapper, args = maxvit_cuda.block_mlp, (x, o, blk)
+        want = (maxvit_cuda.block_mlp_plain(*args),)
+    before = wrapper.launches
+    got = wrapper(*args, act, gated, cluster=cluster)
     torch.cuda.synchronize()
-    assert maxvit_cuda.block_mlp.launches == before + 1
-    _close(got, maxvit_cuda.block_mlp_plain(x, o, blk))
-    # the cluster adds its partial sums in rank order: runs agree exactly
-    assert torch.equal(got, maxvit_cuda.block_mlp(x, o, blk, act, gated,
-                                                  cluster=cluster))
+    assert wrapper.launches == before + 1
+    cs, tiles, split, ctas = wrapper.plan
+    assert tiles == (rows + 63) // 64 and split == (tiles if cs > 1 else 0)
+    assert cluster is None or cs == cluster
+    assert ctas % cs == 0
+    got = got if tp else (got,)
+    for k, w in zip(got, want):
+        _close(k, w)
+    again = wrapper(*args, act, gated, cluster=cluster)
+    again = again if tp else (again,)
+    assert all(torch.equal(k, a) for k, a in zip(got, again))
 
 
 def _attention_cases():
@@ -559,7 +588,7 @@ def test_lstm_update_back_to_back_launches_agree(cuda, dim, hw, b):
 @pytest.mark.parametrize("dim,hw", STAGES_GEN4)
 def test_block_mlp_at_the_gen4_stage_shapes(cuda, dim, hw, b):
     """The per-token half at RVT-B Gen4's rows (up to 184,320 at stage 1
-    for B = 12), by its own plan."""
+    for B = 12), by its own plan, and again bit for bit."""
     blk = _randomized(PartitionAttention(dim, PARTITION_GEN4, "window",
                                          dim_head=DIM_HEAD[dim]), dim + b,
                       cuda)
@@ -571,6 +600,7 @@ def test_block_mlp_at_the_gen4_stage_shapes(cuda, dim, hw, b):
     torch.cuda.synchronize()
     assert maxvit_cuda.block_mlp.launches == before + 1
     _close(got, maxvit_cuda.block_mlp_plain(x, o, blk))
+    assert torch.equal(got, maxvit_cuda.block_mlp(x, o, blk, "gelu", False))
 
 
 @pytest.mark.parametrize("b", [1, 12])

@@ -2,8 +2,9 @@
 records nothing and enters no profiler range; on, spans carry their
 parents, threads and batch ids (a prefetch thread's too), counters add,
 the full buffer counts what it drops, `lap` times with tracing off and
-is the parent of the spans inside it, and a span under a profiler is
-marked and lies on the profiler's clock."""
+is the parent of the spans inside it, a span under a profiler is
+marked and lies on the profiler's clock, and `block_mlp` counts its
+launch's plan only while tracing records and only on the card."""
 import threading
 import time
 
@@ -12,6 +13,8 @@ import torch
 
 from leod_tpu_torch import timing
 from leod_tpu_torch.data.loader import Prefetcher
+from leod_tpu_torch.models.layers import PartitionAttention
+from leod_tpu_torch.ops import _build, maxvit_cuda
 
 
 @pytest.fixture(autouse=True)
@@ -130,3 +133,45 @@ def test_a_span_under_the_profiler_is_marked_and_on_its_clock():
         assert s.profiled
         assert abs(s.start_ns - (t0 + e.time_range.start * 1e3)) < 2e6
 
+
+
+def _mlp_block():
+    return PartitionAttention(32, (2, 2), "window", dim_head=16).eval()
+
+
+def test_block_mlp_counts_its_plan_while_recording(monkeypatch):
+    """On the card (here the op and the library's `last_plan` stubbed,
+    and the tensor taken for a card's), each `block_mlp` launch adds its
+    plan's 64-row tiles, tiles a cluster split and CTAs to the counters,
+    in all and for its width, only while tracing records."""
+    plans = iter([[2, 80, 80, 160], [1, 1280, 0, 132]])
+    ops = {"block_mlp": lambda x, o, *rest: x + o,
+           "last_plan": lambda op: next(plans)}
+    monkeypatch.setattr(_build, "op", ops.__getitem__)
+    monkeypatch.setattr(maxvit_cuda, "_counts", lambda x: True)
+    blk = _mlp_block()
+    x = torch.randn(5, 32)
+    maxvit_cuda.block_mlp(x, x, blk)
+    assert timing.recorded()["counters"] == {}
+    with timing.recording():
+        maxvit_cuda.block_mlp(x, x, blk)
+        maxvit_cuda.block_mlp(x, x, blk)
+    want = {"tiles": 1360, "split_tiles": 80, "ctas": 292}
+    assert timing.recorded()["counters"] == {
+        **{f"block_mlp.{k}": v for k, v in want.items()},
+        **{f"block_mlp.{k}.c32": v for k, v in want.items()}}
+
+
+def test_block_mlp_on_the_cpu_counts_nothing():
+    """On a CPU tensor the op runs its plain version: no launch, and no
+    counter even while tracing records."""
+    blk = _mlp_block()
+    g = torch.Generator().manual_seed(0)
+    x, o = torch.randn(2, 4, 6, 32, generator=g), torch.randn(2, 4, 6, 32,
+                                                              generator=g)
+    before = maxvit_cuda.block_mlp.launches
+    with torch.no_grad(), timing.recording():
+        got = maxvit_cuda.block_mlp(x, o, blk)
+    assert torch.equal(got, maxvit_cuda.block_mlp_plain(x, o, blk))
+    assert maxvit_cuda.block_mlp.launches == before
+    assert timing.recorded()["counters"] == {}
